@@ -1,0 +1,160 @@
+"""Inference engine: loads a model bundle once and serves region
+invocations (counterpart of ``repro/core/engine.py``; the Torch-C++ role
+in the paper's runtime).
+
+A pure-MLP bundle (only ``dense``/``act``/``flatten`` layers) on a CUDA
+device is served by the hand-written ``fused_mlp`` kernel, its weights
+packed once at load; the analogue of the JAX engine's Pallas route on
+TPU.  Everything else, and every bundle on the CPU, runs the torch
+``Sequential``.  A bundle with ``dropout`` layers is not pure, in both
+packages.  A pure bundle whose shapes the kernel cannot take (too wide
+for shared memory, too many layers) is routed to ``Sequential`` at load
+and counted in ``SPEC.unsupported``.
+
+Bundles rewritten on disk are not served stale: :meth:`get` reloads a
+bundle whose ``(mtime_ns, size)`` fingerprint changed since load, and
+:meth:`invalidate`/:meth:`reload` force it.
+
+This slice serves the f32 tier only.  The int8 tier waits for the port
+of ``quant/``; residency accounting, fault injection, the tracer and
+sharded serving wait for their own parts of the port.
+"""
+from __future__ import annotations
+
+import os
+import threading
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.fused_mlp import ops as fused_ops
+from repro_torch.nn.serialize import load_model
+from repro_torch.serve.batcher import bucket_for
+
+
+def bundle_norm(spec, net, device):
+    """The bundle's ``(x_mu, x_sd, y_mu, y_sd)`` normalization tensors on
+    ``device``, or None when it was trained unnormalized."""
+    extra = spec.get("extra") or {}
+    if "x_mu" not in extra:
+        return None
+    ish = tuple(spec["in_shape"][1:])
+    osh = tuple(net.out_shape()[1:])
+    return tuple(torch.from_numpy(np.asarray(extra[k], np.float32)
+                                  .reshape(s)).to(device)
+                 for k, s in (("x_mu", ish), ("x_sd", ish),
+                              ("y_mu", osh), ("y_sd", osh)))
+
+
+def _bundle_mtime(path: str) -> tuple:
+    """(mtime_ns, size) fingerprint of the bundle files."""
+    newest, total = 0, 0
+    for name in ("spec.json", "params.npz"):
+        f = os.path.join(path, name)
+        if os.path.exists(f):
+            stat = os.stat(f)
+            newest = max(newest, stat.st_mtime_ns)
+            total += stat.st_size
+    return (newest, total)
+
+
+class InferenceEngine:
+    _cache: dict = {}
+    # guards _cache and in-place reloads: concurrent get() calls on a stale
+    # bundle produce exactly one reload, and no reader sees a half-loaded
+    # engine.  Reentrant: reload() under get() takes it again.
+    _cache_lock = threading.RLock()
+
+    def __init__(self, model_path, device=None):
+        self.path = str(model_path)
+        self.device = resolve_device(device)
+        self._load()
+
+    def _load(self):
+        self.net, self.params, self.spec = load_model(self.path, self.device)
+        self._mtime = _bundle_mtime(self.path)
+        self.norm = bundle_norm(self.spec, self.net, self.device)
+        self.route, self._packed = self._route()
+
+    def _is_pure_mlp(self):
+        kinds = [layer["kind"] for layer in self.spec["layers"]]
+        return all(k in ("dense", "act", "flatten") for k in kinds)
+
+    def _route(self):
+        """``("fused_mlp", packed)`` for a pure-MLP bundle on CUDA whose
+        shapes the kernel takes, else ``("sequential", None)``."""
+        if self.device.type != "cuda" or not self._is_pure_mlp():
+            return "sequential", None
+        packed = fused_ops.pack_from_spec(self.spec, self.params, self.device)
+        rows = torch.empty((0,) + tuple(self.spec["in_shape"][1:]),
+                           device="meta")
+        rows = fused_ops.mlp_stack_from_spec(self.spec, None, rows)[0]
+        if not fused_ops.SPEC.supports(fused_ops.inspect_call(rows, packed)):
+            fused_ops.SPEC.unsupported += 1
+            return "sequential", None
+        return "fused_mlp", packed
+
+    @classmethod
+    def get(cls, model_path, device=None) -> "InferenceEngine":
+        """Process-wide cache keyed by ``(path, device)``: a bundle is
+        loaded once per device, and reloaded in place when its on-disk
+        fingerprint changes (any change, rollbacks included)."""
+        dev = resolve_device(device)
+        key = (str(model_path), str(dev))
+        with cls._cache_lock:
+            eng = cls._cache.get(key)
+            if eng is None:
+                eng = cls._cache[key] = cls(key[0], dev)
+            elif _bundle_mtime(key[0]) != eng._mtime:
+                eng.reload()
+        return eng
+
+    @classmethod
+    def invalidate(cls, model_path=None):
+        """Drop cached engine(s) so the next get() reloads from disk."""
+        with cls._cache_lock:
+            if model_path is None:
+                cls._cache.clear()
+            else:
+                for key in [k for k in cls._cache if k[0] == str(model_path)]:
+                    del cls._cache[key]
+
+    def reload(self):
+        """Re-read the bundle from disk (and re-pack the kernel's weights)."""
+        with self._cache_lock:
+            self._load()
+
+    @torch.no_grad()
+    def __call__(self, x):
+        """Surrogate rows ``[B, *in_shape[1:]]`` -> outputs, on the
+        engine's device, normalized as the bundle says."""
+        x = x.to(self.device)
+        if self.norm is not None:
+            x = (x - self.norm[0]) / self.norm[1]
+        if self.route == "fused_mlp":
+            y = fused_ops.fused_mlp_from_spec(self.spec, None, x,
+                                              packed=self._packed)
+        else:
+            y = self.net(x)
+        if self.norm is not None:
+            y = y * self.norm[3] + self.norm[2]
+        return y
+
+    def apply_batched(self, x, *, min_bucket: int = 8,
+                      prepadded: bool = False):
+        """Serve a batch padded up to its power-of-two bucket, sliced back
+        to the caller's rows.  On the ``fused_mlp`` route the padding is
+        invisible to the bit: the kernel never splits a row's sums, so
+        rows equal an unpadded :meth:`__call__`'s.  ``prepadded=True``
+        says ``x`` is already bucket-shaped."""
+        n = int(x.shape[0])
+        if not prepadded:
+            b = bucket_for(n, min_bucket)
+            if b != n:
+                x = torch.cat([x, x.new_zeros((b - n,) + tuple(x.shape[1:]))])
+        y = self(x)
+        return y if n == int(y.shape[0]) else y[:n]
+
+    def infer_shape(self, in_shape):
+        return self.net.out_shape()

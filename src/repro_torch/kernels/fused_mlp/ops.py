@@ -1,0 +1,116 @@
+"""Registry declaration and spec adapters for the fused-MLP kernel
+(counterpart of ``repro/kernels/fused_mlp/ops.py``).
+
+``fused_mlp_sharded`` waits for the port of ``dist/``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import registry
+from repro_torch.kernels.fused_mlp.fused_mlp import (BLOCK_ROWS, MAX_LAYERS,
+                                                     PackedMLP, fits_smem,
+                                                     fused_mlp, pack_mlp)
+from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
+
+DEFAULT_BLOCK_ROWS = 16
+
+
+def inspect_call(x, packed: PackedMLP) -> dict:
+    """The kernel problem of one call, from shapes alone (``x`` may be a
+    meta tensor: the engine routes a bundle before it sees rows)."""
+    return {"widths": packed.widths, "acts": packed.acts,
+            "batch": int(x.shape[0]), "ndim": x.ndim,
+            "dtype": str(x.dtype).removeprefix("torch.")}
+
+
+def _run(problem, arrays, params):
+    x, packed = arrays
+    return fused_mlp(x, packed, block_rows=params["block_rows"])
+
+
+def _ref(problem, arrays):
+    x, packed = arrays
+    return fused_mlp_ref(x, packed.weights, packed.biases, packed.acts)
+
+
+def _fits(problem, params):
+    return fits_smem(problem["widths"], params["block_rows"])
+
+
+def _supports(problem):
+    """f32 rows [B, F0], at most MAX_LAYERS layers, and one row's two
+    activation buffers fit a block's shared memory."""
+    return (problem["dtype"] == "float32" and problem["ndim"] == 2
+            and len(problem["acts"]) <= MAX_LAYERS
+            and fits_smem(problem["widths"], 1))
+
+
+# Tolerance of the kernel against the plain version on the card: both sum
+# in f32, the kernel in ascending k with fmaf, cuBLAS in its own blocked
+# order.  Each layer's sum of K <= 1024 terms then differs by a few
+# sqrt(K) * 2^-24 relative, which at the minibude widths and O(1)
+# activations stays under 1e-5; 1e-4 leaves room for seven layers.
+SPEC = registry.register(registry.KernelSpec(
+    name="fused_mlp",
+    params=(registry.TunableParam("block_rows", DEFAULT_BLOCK_ROWS,
+                                  BLOCK_ROWS),),
+    kernel=fused_mlp, run_call=_run, ref_call=_ref, fits=_fits,
+    supports=_supports, tol=(1e-4, 1e-4)))
+
+
+def fused_mlp_op(x, packed: PackedMLP, *, block_rows=None):
+    """Run a packed stack on ``x``: the plain version on the CPU, the
+    kernel on the card."""
+    return registry.dispatch(SPEC, inspect_call(x, packed), (x, packed),
+                             x.device, overrides={"block_rows": block_rows})
+
+
+def mlp_stack_from_spec(spec, params, x):
+    """Walk a pure-dense Sequential bundle spec into the fused kernel's
+    call shape: ``(x, weights, biases, acts)``.
+
+    An ``act`` after a dense sets that layer's activation; a dense
+    followed directly by another dense, or last, gets ``identity``; a
+    missing bias is zeros.  ``params=None`` walks acts/flatten only.
+    """
+    weights, biases, acts = [], [], []
+    pending_w = None
+    plist = params if params is not None else [None] * len(spec["layers"])
+    for layer_spec, p in zip(spec["layers"], plist):
+        if layer_spec["kind"] == "dense":
+            if pending_w is not None:
+                acts.append("identity")
+            if p is not None:
+                weights.append(p["w"])
+                biases.append(p["b"] if "b" in p else torch.zeros(
+                    (p["w"].shape[1],), dtype=p["w"].dtype,
+                    device=p["w"].device))
+            pending_w = True
+        elif layer_spec["kind"] == "act":
+            acts.append(layer_spec["name"])
+            pending_w = None
+        elif layer_spec["kind"] == "flatten":
+            x = x.reshape(x.shape[0], -1)
+    if pending_w is not None:
+        acts.append("identity")
+    return x, weights, biases, acts
+
+
+def pack_from_spec(spec, params, device=None) -> PackedMLP:
+    """Pack a pure-dense bundle's layers once (the engine does this at
+    load)."""
+    _, weights, biases, acts = mlp_stack_from_spec(
+        spec, params, torch.zeros((1, 1)))
+    return pack_mlp(weights, biases, acts, device=device)
+
+
+def fused_mlp_from_spec(spec, params, x, *, packed: PackedMLP | None = None):
+    """Adapter: run a pure-dense Sequential bundle through the kernel;
+    ``packed`` reuses a stack packed by :func:`pack_from_spec` (then
+    ``params`` may be None)."""
+    x, weights, biases, acts = mlp_stack_from_spec(spec, params, x)
+    if packed is None:
+        packed = pack_mlp(weights, biases, acts, device=x.device)
+    return fused_mlp_op(x, packed)
+

@@ -18,6 +18,10 @@ def pytest_configure(config):
         "markers",
         "slow: spawns real multi-process jax pods (the multihost CI lane "
         "runs these; deselect with -m 'not slow' for quick iteration)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card and nvcc (launches a hand-written kernel "
+        "of repro_torch); skips itself where there is none")
 
 
 try:  # offline image has no hypothesis wheel; shim keeps the suite runnable

@@ -1,0 +1,53 @@
+"""The port stands alone: repro_torch and chip_smoke.py import neither
+JAX nor the JAX package."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)"
+    r"|from\s+repro(\.|\s)(?!_torch))", re.M)
+
+
+def test_port_imports_with_jax_and_repro_blocked():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import chip_smoke\n"
+        "assert 'repro_torch.core.engine' in names, names\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                   timeout=120, cwd=str(ROOT))
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_repro_import_statement(path):
+    assert not _FORBIDDEN.findall(path.read_text()), path
+
+
+def test_scan_catches_forbidden_imports():
+    for bad in ("import jax", "from jax import numpy", "import repro.core",
+                "from repro.nn import layers", "    from repro import x"):
+        assert _FORBIDDEN.search(bad), bad
+    for good in ("import repro_torch", "from repro_torch.nn import MLP",
+                 "import jaxlib_free_module"):
+        assert not _FORBIDDEN.search(good), good
