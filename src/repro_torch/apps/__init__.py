@@ -1,1 +1,1 @@
-"""Scientific mini-apps of the port (only minibude so far)."""
+"""Scientific mini-apps of the port: minibude, bonds and binomial so far."""

@@ -2,22 +2,33 @@
 invocations (counterpart of ``repro/core/engine.py``; the Torch-C++ role
 in the paper's runtime).
 
-A pure-MLP bundle (only ``dense``/``act``/``flatten`` layers) on a CUDA
-device is served by the hand-written ``fused_mlp`` kernel, its weights
-packed once at load; the analogue of the JAX engine's Pallas route on
-TPU.  Everything else, and every bundle on the CPU, runs the torch
-``Sequential``.  A bundle with ``dropout`` layers is not pure, in both
-packages.  A pure bundle whose shapes the kernel cannot take (too wide
-for shared memory, too many layers) is routed to ``Sequential`` at load
-and counted in ``SPEC.unsupported``.
+On the f32 tier, a pure-MLP bundle (only ``dense``/``act``/``flatten``
+layers) on a CUDA device is served by the hand-written ``fused_mlp``
+kernel, its weights packed once at load; the analogue of the JAX
+engine's Pallas route on TPU.  Everything else, and every f32 bundle on
+the CPU, runs the torch ``Sequential``.  A bundle with ``dropout``
+layers is not pure, in both packages.  A pure bundle whose shapes the
+kernel cannot take (too wide for shared memory, too many layers) is
+routed to ``Sequential`` at load and counted in ``SPEC.unsupported``.
 
 Bundles rewritten on disk are not served stale: :meth:`get` reloads a
 bundle whose ``(mtime_ns, size)`` fingerprint changed since load, and
 :meth:`invalidate`/:meth:`reload` force it.
 
-This slice serves the f32 tier only.  The int8 tier waits for the port
-of ``quant/``; residency accounting, fault injection, the tracer and
-sharded serving wait for their own parts of the port.
+Precision tier (resolved once per load, as in the reference): a
+pure-MLP bundle whose accuracy gate passed for its current fingerprint
+(:mod:`repro_torch.quant.gate`) is served by the int8 tier, its weights
+quantized with the verdict's ``scale_mult`` and packed once at load;
+``route`` is then ``"fused_mlp_int8"``, the hand-written CUDA kernel on
+the card and its plain version on the CPU.  ``REPRO_QUANT`` picks the
+mode: ``auto`` (default) serves int8 only on a CUDA device, ``force`` or
+``1`` on any device, ``never``/``0``/``off`` pins f32.  Outside
+``never`` a failed, stale or missing verdict serves f32, even under
+``force``.  A failed int8 launch raises: it never falls back to the f32
+kernel or to the plain version.
+
+Residency accounting, fault injection, the tracer and sharded serving
+wait for their own parts of the port.
 """
 from __future__ import annotations
 
@@ -28,9 +39,24 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import registry
+from repro_torch.kernels.fused_mlp import int8 as int8_ops
 from repro_torch.kernels.fused_mlp import ops as fused_ops
 from repro_torch.nn.serialize import load_model
+from repro_torch.obs import metrics as _m
+from repro_torch.quant import gate as quant_gate
+from repro_torch.quant.quantize import quantize_params
 from repro_torch.serve.batcher import bucket_for
+
+_ELIGIBLE = _m.counter("repro_quant_eligible_total",
+                       "bundle loads that resolved to the int8 tier",
+                       ("bundle",))
+_SERVED = _m.counter("repro_quant_served_rows_total",
+                     "rows served by the gated int8 tier", ("bundle",))
+_VERDICT_ERRORS = _m.counter(
+    "repro_quant_verdict_read_errors_total",
+    "gate verdicts that could not be read at bundle load (served f32)",
+    ("bundle",))
 
 
 def bundle_norm(spec, net, device):
@@ -75,11 +101,23 @@ class InferenceEngine:
         self.net, self.params, self.spec = load_model(self.path, self.device)
         self._mtime = _bundle_mtime(self.path)
         self.norm = bundle_norm(self.spec, self.net, self.device)
-        self.route, self._packed = self._route()
+        # the tier is a load-time property: the gate verdict is bound to
+        # the bundle fingerprint, so any reload resolves it again
+        self.tier = self._resolve_tier()
+        if self.tier == "int8":
+            self.route, self._packed = self._quantize_residency()
+        else:
+            self.route, self._packed = self._route()
 
     def _is_pure_mlp(self):
         kinds = [layer["kind"] for layer in self.spec["layers"]]
         return all(k in ("dense", "act", "flatten") for k in kinds)
+
+    def _meta_rows(self):
+        """A zero-row meta tensor shaped as the kernel sees the rows."""
+        rows = torch.empty((0,) + tuple(self.spec["in_shape"][1:]),
+                           device="meta")
+        return fused_ops.mlp_stack_from_spec(self.spec, None, rows)[0]
 
     def _route(self):
         """``("fused_mlp", packed)`` for a pure-MLP bundle on CUDA whose
@@ -87,13 +125,52 @@ class InferenceEngine:
         if self.device.type != "cuda" or not self._is_pure_mlp():
             return "sequential", None
         packed = fused_ops.pack_from_spec(self.spec, self.params, self.device)
-        rows = torch.empty((0,) + tuple(self.spec["in_shape"][1:]),
-                           device="meta")
-        rows = fused_ops.mlp_stack_from_spec(self.spec, None, rows)[0]
-        if not fused_ops.SPEC.supports(fused_ops.inspect_call(rows, packed)):
+        if not fused_ops.SPEC.supports(
+                fused_ops.inspect_call(self._meta_rows(), packed)):
             fused_ops.SPEC.unsupported += 1
             return "sequential", None
         return "fused_mlp", packed
+
+    def _resolve_tier(self) -> str:
+        """Which precision tier this engine serves, resolved once per load
+        (``REPRO_QUANT`` modes as in the module docstring).
+
+        A verdict file that cannot be read (``OSError``) or holds a
+        malformed record (``ValueError``) serves f32 and is counted in
+        ``repro_quant_verdict_read_errors_total``; anything else raises.
+        """
+        mode = os.environ.get("REPRO_QUANT", "auto").strip().lower()
+        if mode in ("never", "0", "off") or not self._is_pure_mlp():
+            return "f32"
+        if mode not in ("force", "1") and self.device.type != "cuda":
+            return "f32"
+        try:
+            gated = quant_gate.gate_passed(self.path)
+        except (OSError, ValueError):
+            _VERDICT_ERRORS.inc(1, bundle=self.path)
+            return "f32"
+        _, weights, _, acts = fused_ops.mlp_stack_from_spec(
+            self.spec, self.params, self._meta_rows())
+        widths = (int(weights[0].shape[0]),) + tuple(int(w.shape[1])
+                                                     for w in weights)
+        problem = {"widths": widths, "acts": tuple(acts), "batch": 0,
+                   "ndim": 2, "dtype": "float32"}
+        return registry.select_tier_spec(fused_ops.SPEC, problem,
+                                         gated=gated)[1]
+
+    def _quantize_residency(self):
+        """Quantize the dense stack once at load (per-output-channel int8
+        weights + f32 scales) with the ``scale_mult`` the gate verdict
+        blessed, and pack it for the kernel: serving runs the numbers the
+        gate measured.  Returns ``("fused_mlp_int8", packed)``."""
+        rec = quant_gate.verdict(self.path) or {}
+        _, weights, biases, acts = fused_ops.mlp_stack_from_spec(
+            self.spec, self.params, self._meta_rows())
+        qlayers = quantize_params(weights, biases,
+                                  scale_mult=float(rec.get("scale_mult", 1.0)),
+                                  device=self.device)
+        _ELIGIBLE.inc(1, bundle=self.path)
+        return "fused_mlp_int8", int8_ops.pack_int8_mlp(qlayers, acts)
 
     @classmethod
     def get(cls, model_path, device=None) -> "InferenceEngine":
@@ -125,14 +202,22 @@ class InferenceEngine:
         with self._cache_lock:
             self._load()
 
-    @torch.no_grad()
     def __call__(self, x):
         """Surrogate rows ``[B, *in_shape[1:]]`` -> outputs, on the
         engine's device, normalized as the bundle says."""
+        return self._serve(x, int(x.shape[0]))
+
+    @torch.no_grad()
+    def _serve(self, x, rows: int):
+        """Serve ``x``, of which the first ``rows`` are the caller's (the
+        rest bucket padding, not counted as served)."""
         x = x.to(self.device)
         if self.norm is not None:
             x = (x - self.norm[0]) / self.norm[1]
-        if self.route == "fused_mlp":
+        if self.route == "fused_mlp_int8":
+            y = int8_ops.fused_mlp_int8_from_spec(self.spec, self._packed, x)
+            _SERVED.inc(rows, bundle=self.path)
+        elif self.route == "fused_mlp":
             y = fused_ops.fused_mlp_from_spec(self.spec, None, x,
                                               packed=self._packed)
         else:
@@ -146,14 +231,15 @@ class InferenceEngine:
         """Serve a batch padded up to its power-of-two bucket, sliced back
         to the caller's rows.  On the ``fused_mlp`` route the padding is
         invisible to the bit: the kernel never splits a row's sums, so
-        rows equal an unpadded :meth:`__call__`'s.  ``prepadded=True``
-        says ``x`` is already bucket-shaped."""
+        rows equal an unpadded :meth:`__call__`'s, and so on the
+        ``fused_mlp_int8`` route, where a row's sums are exact integers.
+        ``prepadded=True`` says ``x`` is already bucket-shaped."""
         n = int(x.shape[0])
         if not prepadded:
             b = bucket_for(n, min_bucket)
             if b != n:
                 x = torch.cat([x, x.new_zeros((b - n,) + tuple(x.shape[1:]))])
-        y = self(x)
+        y = self._serve(x, n)
         return y if n == int(y.shape[0]) else y[:n]
 
     def infer_shape(self, in_shape):

@@ -1,0 +1,261 @@
+"""Hand-written CUDA kernel for the int8 fused MLP (the quantized serving
+tier), its wrapper, packing and registry declaration (counterpart of
+``repro/kernels/fused_mlp/int8.py``).
+
+Replaces ``src/repro/kernels/fused_mlp/int8.py::fused_mlp_int8`` (the
+Pallas TPU kernel).  The kernel, ``csrc/fused_mlp_int8.cu``, takes
+weights quantized statically per output channel
+(:func:`repro_torch.quant.quantize.quantize_params`, once at bundle
+load), quantizes each activation row dynamically inside the kernel
+(absmax/127, round half to even), accumulates int8 x int8 -> int32 with
+``__dp4a`` and fuses the rank-1 dequant into the bias + activation
+epilogue.  Activations stay in shared memory between layers.
+
+What bounds it on an H100: int8 operations at serving batches.  The
+design maps threads to the live output columns and packs the weights as
+int32 words of four consecutive k per column, so one coalesced 32-bit
+load feeds one ``__dp4a`` per row of the block.
+
+The plain version is :func:`repro_torch.quant.quantize.quant_mlp_ref`;
+:func:`fused_mlp_int8` counts its launches in ``fused_mlp_int8.launches``.
+``fused_mlp_int8_sharded`` waits for the port of ``dist/``.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build, registry
+from repro_torch.kernels.fused_mlp.fused_mlp import ACT_CODES
+from repro_torch.kernels.fused_mlp.ops import mlp_stack_from_spec
+from repro_torch.kernels.registry import SMEM_PER_BLOCK, round_up
+from repro_torch.quant.quantize import quant_mlp_ref
+
+MAX_LAYERS = 16            # LayerTable capacity in csrc/fused_mlp_int8.cu
+K_PAD = 16                 # K zero-padding of the packed weights (K_PAD)
+BLOCK_ROWS = (1, 2, 4, 8, 16, 32)   # the template instances the source builds
+DEFAULT_BLOCK_ROWS = 16
+SOURCE = "src/repro_torch/kernels/fused_mlp/csrc/fused_mlp_int8.cu"
+REPLACES = "src/repro/kernels/fused_mlp/int8.py:108"
+
+#: Tolerance of the kernel against its plain version, the reference's
+#: ``TOL``: both quantize, accumulate and dequantize identically (integer
+#: sums are exact; the epilogue is the same three f32 roundings), so a
+#: relu/identity net agrees bit for bit.  Where an activation (gelu, tanh,
+#: silu, sigmoid) differs by an ulp between the kernel and PyTorch, a value
+#: that sits on an int8 rounding boundary can requantize one step apart in
+#: the next layer; one step moves that lane by absmax/127, so the tolerance
+#: is one step of a unit-scale activation (2/127 ~ 1.6e-2), not f32 eps.
+TOL = (2e-2, 2e-2)
+
+
+def smem_bytes(widths: Sequence[int], block_rows: int) -> int:
+    """Dynamic shared memory of one block: the f32 rows
+    ``[block_rows, round_up(max width, 4)]``, their int8 copy
+    ``[block_rows, round_up(max width, K_PAD)]`` and the row scales (as
+    ``smem_bytes`` in the source computes it)."""
+    w = max(widths)
+    return (block_rows * round_up(w, 4) * 4 + block_rows * round_up(w, K_PAD)
+            + round_up(block_rows * 4, 16))
+
+
+def fits_smem(widths: Sequence[int], block_rows: int) -> bool:
+    return smem_bytes(widths, block_rows) <= SMEM_PER_BLOCK
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedInt8MLP:
+    """A quantized dense stack packed once for the kernel.
+
+    ``qweights`` holds every layer's weights as int32 words, layer ``l``
+    at ``qweights[q_off:q_off + K_pad/4 * out]`` as ``[K_pad/4, out]``
+    row-major, word ``(g, n)`` holding ``wq[4g:4g+4, n]`` (byte ``j`` =
+    ``wq[4g+j, n]``; K zero-padded to a multiple of ``K_PAD``).
+    ``fparams`` holds the f32 ``ws`` then ``b`` of each layer; ``table``
+    holds ``(in, out, act code, q_off, s_off, b_off)`` per layer as int64,
+    the layout the C entry point reads.  ``qlayers`` keeps the unpacked
+    ``(wq int8 [in, out], ws, b)`` for the plain version.
+    """
+    qweights: torch.Tensor
+    fparams: torch.Tensor
+    qlayers: Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor], ...]
+    widths: Tuple[int, ...]
+    acts: Tuple[str, ...]
+    table: np.ndarray
+
+
+def pack_words(wq: torch.Tensor) -> torch.Tensor:
+    """int8 ``[K, N]`` -> int32 words ``[round_up(K, K_PAD) / 4, N]``,
+    four consecutive k of one column per word, K zero-padded."""
+    k, n = int(wq.shape[0]), int(wq.shape[1])
+    kp = round_up(k, K_PAD)
+    padded = torch.zeros((kp, n), dtype=torch.int8, device=wq.device)
+    padded[:k] = wq
+    return (padded.view(kp // 4, 4, n).permute(0, 2, 1).reshape(-1)
+            .view(torch.int32).view(kp // 4, n))
+
+
+def pack_int8_mlp(qlayers, acts, device=None) -> PackedInt8MLP:
+    """Pack ``qlayers`` (``[(wq int8 [in, out], ws [out], b [out]), ...]``,
+    as :func:`repro_torch.quant.quantize.quantize_params` returns them)
+    and per-layer ``acts`` on ``device`` (default: the layers' device)."""
+    qlayers = list(qlayers)
+    if len(qlayers) != len(acts) or not qlayers:
+        raise ValueError("need one act per quantized layer, at least one "
+                         "layer")
+    dev = (torch.device(device) if device is not None
+           else torch.as_tensor(qlayers[0][0]).device)
+    widths = [int(qlayers[0][0].shape[0])]
+    table, words, fparts, layers = [], [], [], []
+    q_off = f_off = 0
+    for (wq, ws, b), a in zip(qlayers, acts):
+        wq = torch.as_tensor(wq).to(dev)
+        ws = torch.as_tensor(ws).to(device=dev, dtype=torch.float32)
+        b = torch.as_tensor(b).to(device=dev, dtype=torch.float32)
+        if wq.dtype != torch.int8 or wq.ndim != 2 or \
+                wq.shape[0] != widths[-1] or \
+                tuple(ws.shape) != (wq.shape[1],) or \
+                tuple(b.shape) != (wq.shape[1],):
+            raise ValueError(f"layer {wq.dtype} {tuple(wq.shape)} / "
+                             f"{tuple(ws.shape)} / {tuple(b.shape)} does not "
+                             f"chain from width {widths[-1]} as int8")
+        if a not in ACT_CODES:
+            raise ValueError(f"unknown activation {a!r}")
+        k, n = int(wq.shape[0]), int(wq.shape[1])
+        w = pack_words(wq)
+        table.append((k, n, ACT_CODES[a], q_off, f_off, f_off + n))
+        words.append(w.reshape(-1))
+        fparts += [ws, b]
+        layers.append(wq)
+        q_off += w.numel()
+        f_off += 2 * n
+        widths.append(n)
+    fparams = torch.cat(fparts)
+    table = np.asarray(table, np.int64).reshape(-1, 6)
+    views = tuple((wq, fparams[int(e[4]):int(e[4]) + int(e[1])],
+                   fparams[int(e[5]):int(e[5]) + int(e[1])])
+                  for wq, e in zip(layers, table))
+    return PackedInt8MLP(torch.cat(words), fparams, views, tuple(widths),
+                         tuple(acts), table)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("fused_mlp_int8")
+    lib.fused_mlp_int8.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_int, ctypes.c_void_p,
+                                   ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p]
+    lib.fused_mlp_int8.restype = ctypes.c_int
+    for name in ("fused_mlp_int8_max_layers", "fused_mlp_int8_k_pad"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    if (lib.fused_mlp_int8_max_layers(), lib.fused_mlp_int8_k_pad()) != \
+            (MAX_LAYERS, K_PAD):
+        raise RuntimeError("csrc/fused_mlp_int8.cu and int8.py disagree on "
+                           "MAX_LAYERS or K_PAD")
+    return lib
+
+
+def fused_mlp_int8(x: torch.Tensor, packed: PackedInt8MLP, *,
+                   block_rows: int) -> torch.Tensor:
+    """Launch the kernel on ``x`` ([B, widths[0]] f32, on the card that
+    holds ``packed``); returns [B, widths[-1]] f32."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_int8 kernel needs a CUDA tensor, got "
+                         f"{x.device}")
+    if packed.qweights.device != x.device:
+        raise ValueError(f"weights on {packed.qweights.device}, rows on "
+                         f"{x.device}")
+    if x.dtype != torch.float32 or x.ndim != 2 or \
+            x.shape[1] != packed.widths[0]:
+        raise ValueError(f"x must be f32 [B, {packed.widths[0]}], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if len(packed.acts) > MAX_LAYERS:
+        raise ValueError(f"{len(packed.acts)} layers, the kernel holds at "
+                         f"most {MAX_LAYERS}")
+    if block_rows not in BLOCK_ROWS or not fits_smem(packed.widths,
+                                                     block_rows):
+        raise ValueError(f"block_rows={block_rows} does not fit widths "
+                         f"{packed.widths}")
+    x = x.contiguous()
+    out = torch.empty((x.shape[0], packed.widths[-1]), device=x.device,
+                      dtype=torch.float32)
+    if x.shape[0] == 0:
+        return out
+    lib = _lib()
+    table = np.ascontiguousarray(packed.table)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fused_mlp_int8(x.data_ptr(), out.data_ptr(),
+                                 packed.qweights.data_ptr(),
+                                 packed.fparams.data_ptr(), int(x.shape[0]),
+                                 table.ctypes.data, len(packed.acts),
+                                 int(block_rows), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_int8 launch failed: cudaError {err}")
+    fused_mlp_int8.launches += 1
+    return out
+
+
+fused_mlp_int8.launches = 0
+
+
+# ----------------------------------------------------------- KernelSpec ----
+def inspect_call(x, packed: PackedInt8MLP) -> dict:
+    """The kernel problem of one call, from shapes alone (``x`` may be a
+    meta tensor)."""
+    return {"widths": packed.widths, "acts": packed.acts,
+            "batch": int(x.shape[0]), "ndim": x.ndim,
+            "dtype": str(x.dtype).removeprefix("torch.")}
+
+
+def _run(problem, arrays, params):
+    x, packed = arrays
+    return fused_mlp_int8(x, packed, block_rows=params["block_rows"])
+
+
+def _ref(problem, arrays):
+    x, packed = arrays
+    return quant_mlp_ref(x, packed.qlayers, packed.acts)
+
+
+def _fits(problem, params):
+    return fits_smem(problem["widths"], params["block_rows"])
+
+
+def _supports(problem):
+    """f32 rows [B, F0], at most MAX_LAYERS layers, and one row's buffers
+    fit a block's shared memory."""
+    return (problem["dtype"] == "float32" and problem["ndim"] == 2
+            and len(problem["acts"]) <= MAX_LAYERS
+            and fits_smem(problem["widths"], 1))
+
+
+SPEC = registry.register(registry.KernelSpec(
+    name="fused_mlp_int8",
+    params=(registry.TunableParam("block_rows", DEFAULT_BLOCK_ROWS,
+                                  BLOCK_ROWS),),
+    kernel=fused_mlp_int8, run_call=_run, ref_call=_ref, fits=_fits,
+    supports=_supports, tol=TOL, tier="int8"))
+
+
+# ------------------------------------------------------------------ ops ----
+def fused_mlp_int8_op(x, packed: PackedInt8MLP, *, block_rows=None):
+    """Run a packed int8 stack on ``x``: the plain version on the CPU, the
+    kernel on the card."""
+    return registry.dispatch(SPEC, inspect_call(x, packed), (x, packed),
+                             x.device, overrides={"block_rows": block_rows})
+
+
+def fused_mlp_int8_from_spec(spec, packed: PackedInt8MLP, x):
+    """Adapter: run a pure-dense bundle through the int8 kernel with the
+    stack the engine quantized and packed once at load."""
+    x = mlp_stack_from_spec(spec, None, x)[0]
+    return fused_mlp_int8_op(x, packed)

@@ -12,7 +12,11 @@ Dispatch is decided by where the data lies:
 take is routed by the caller (the inference engine) to the torch
 ``Sequential``, decided from shapes before any launch and counted in
 ``KernelSpec.unsupported``.  Tunable parameters resolve explicit >
-defaults; the tune cache waits for the port of ``tune/``.
+defaults; tuned winners wait for the port of the tuner.
+
+Each spec names its precision ``tier`` (``"f32"``, or ``"int8"`` for a
+quantized variant registered as ``<base>_int8``), and
+:func:`select_tier_spec` picks the tier one dispatch site serves.
 
 The TPU VMEM model becomes a Hopper shared-memory model: a block may use
 at most 227 KB (232,448 bytes) of dynamic shared memory, and anything
@@ -49,7 +53,11 @@ class KernelSpec:
     * ``run_call(problem, arrays, params)`` calls ``kernel``;
     * ``ref_call(problem, arrays)`` is the plain PyTorch version;
     * ``fits(problem, params)`` is the shared-memory model;
-    * ``supports(problem)`` says whether the kernel takes the shape at all.
+    * ``supports(problem)`` says whether the kernel takes the shape at all;
+    * ``tier`` is the precision tier, ``"f32"`` or ``"int8"``.  An int8
+      variant is held against its own int8-simulating plain version;
+      accuracy against f32 is the quant gate's concern
+      (:mod:`repro_torch.quant.gate`).
     """
     name: str
     params: Tuple[TunableParam, ...]
@@ -59,6 +67,7 @@ class KernelSpec:
     fits: Callable
     supports: Callable
     tol: Tuple[float, float]
+    tier: str = "f32"
     plain_calls: int = 0
     unsupported: int = 0
 
@@ -73,7 +82,8 @@ class KernelSpec:
 
 
 _SPECS: Dict[str, KernelSpec] = {}
-_BUILTIN_OPS = ("repro_torch.kernels.fused_mlp.ops",)
+_BUILTIN_OPS = ("repro_torch.kernels.fused_mlp.ops",
+                "repro_torch.kernels.fused_mlp.int8")
 
 
 def register(spec: KernelSpec) -> KernelSpec:
@@ -115,6 +125,39 @@ def resolve_params(spec: KernelSpec, problem: dict,
         else:
             raise ValueError(f"{spec.name}: no {p.name} fits {problem}")
     return params
+
+
+def quantized_variant(spec: KernelSpec) -> Optional[KernelSpec]:
+    """The registered int8 twin of a base spec (``<name>_int8``), or None
+    when the kernel has no quantized variant."""
+    all_specs()
+    return _SPECS.get(spec.name + "_int8")
+
+
+def select_tier_spec(spec: KernelSpec, problem: Optional[dict] = None, *,
+                     gated: bool, explicit: Optional[str] = None
+                     ) -> Tuple[KernelSpec, str]:
+    """Precision-tier resolution for one dispatch site, in the
+    reference's order: explicit > quantized-if-gated > base.
+
+    * ``explicit="f32"`` pins the base spec; ``explicit="int8"`` serves
+      the variant whenever it exists and supports the problem, bypassing
+      the gate (direct testing only);
+    * otherwise the int8 variant serves only when the bundle's accuracy
+      gate passed (``gated=True``) and the variant's ``supports``
+      accepts the problem;
+    * anything else falls through to the base spec.
+
+    Returns ``(spec_to_dispatch, tier)``.
+    """
+    if explicit == "f32":
+        return spec, spec.tier
+    q = quantized_variant(spec)
+    if q is None or (explicit != "int8" and not gated):
+        return spec, spec.tier
+    if problem is not None and not q.supports(problem):
+        return spec, spec.tier
+    return q, q.tier
 
 
 def dispatch(spec: KernelSpec, problem: dict, arrays: tuple, device, *,

@@ -90,3 +90,23 @@ def params_from_jax(spec: dict, params) -> list:
             layer[k] = torch.from_numpy(a.copy())
         out.append(layer)
     return out
+
+
+def qlayers_from_jax(qlayers, acts, device=None):
+    """The port's packed int8 stack from the JAX ``quantize_params``
+    output given as numpy arrays (``[(wq int8 [in, out], ws f32 [out],
+    b f32 [out]), ...]``), on ``device`` (None means CUDA): a
+    :class:`repro_torch.kernels.fused_mlp.int8.PackedInt8MLP`.  The
+    values are taken as they are, so both packages run the same
+    quantized layers."""
+    from repro_torch.kernels.fused_mlp.int8 import pack_int8_mlp
+    dev = resolve_device(device)
+    layers = []
+    for i, (wq, ws, b) in enumerate(qlayers):
+        wq = np.asarray(wq)
+        if wq.dtype != np.int8:
+            raise ValueError(f"layer {i}: wq is {wq.dtype}, expected int8")
+        layers.append(tuple(torch.from_numpy(np.array(a)).to(dev) for a in
+                            (wq, np.asarray(ws, np.float32),
+                             np.asarray(b, np.float32))))
+    return pack_int8_mlp(layers, acts)

@@ -173,4 +173,4 @@ def test_build_raises_without_nvcc(monkeypatch):
     monkeypatch.setattr(_build.os, "access", lambda path, mode: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
-    assert set(_build.sources()) == {"fused_mlp"}
+    assert set(_build.sources()) == {"fused_mlp", "fused_mlp_int8"}

@@ -1,6 +1,7 @@
-"""The port's first slice end to end against the JAX package: the
-minibude surrogate loop (collect -> bundle -> infer / predicated) at a
-small size, on the CPU."""
+"""The port's slices end to end against the JAX package, at a small size
+on the CPU: the minibude surrogate loop (collect -> bundle -> infer /
+predicated) and its gated int8 tier (calibration rows -> gate -> int8
+engine -> infer)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -97,3 +98,81 @@ def test_qoi_error_matches_jax():
     assert tmb.qoi_error(torch.from_numpy(ref), torch.from_numpy(approx)) == \
         pytest.approx(jmb.qoi_error(ref, approx))
     assert tmb.surrogate_space() == jmb.surrogate_space()
+
+
+@pytest.fixture
+def quant_env(tmp_path, monkeypatch):
+    """Both packages' gate namespaces under tmp_path, empty budget
+    registries, no cached engines, and ``REPRO_QUANT=force`` (the CPU
+    serves the int8 tier only when forced)."""
+    import repro.tune.cache as jcache
+    import repro_torch.tune.cache as tcache
+    from repro.core.engine import InferenceEngine as JaxEngine
+    from repro.quant.budgets import clear_budgets as jax_clear
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.quant.budgets import clear_budgets
+    monkeypatch.setattr(jcache, "_default", {"quant_gate": jcache.TuneCache(
+        "quant_gate", path=tmp_path / "jax_gate.json")})
+    monkeypatch.setattr(tcache, "_default", {"quant_gate": tcache.TuneCache(
+        "quant_gate", path=tmp_path / "torch_gate.json")})
+    monkeypatch.setenv("REPRO_QUANT", "force")
+    for clear in (jax_clear, clear_budgets, JaxEngine.invalidate,
+                  InferenceEngine.invalidate):
+        clear()
+    yield
+    for clear in (jax_clear, clear_budgets, JaxEngine.invalidate,
+                  InferenceEngine.invalidate):
+        clear()
+
+
+def test_int8_slice_matches_jax(collected, tmp_path, quant_env,
+                                monkeypatch):
+    """collect -> calibration rows -> gate -> engine tier int8 -> infer,
+    held against the JAX engine serving the same bundle, gated by the
+    JAX gate, under REPRO_QUANT=force."""
+    from repro.quant.budgets import set_rmse_budget as jax_budget
+    from repro.quant.calibrate import calibration_rows as jax_rows
+    from repro.quant.gate import gate_bundle as jax_gate
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.kernels.fused_mlp.int8 import TOL
+    from repro_torch.nn import MLP, save_model
+    from repro_torch.quant.budgets import set_rmse_budget
+    from repro_torch.quant.calibrate import calibration_rows
+    from repro_torch.quant.gate import gate_bundle
+    tmp, jd, td = collected
+    rows = calibration_rows(str(tmp / "tdb"), "minibude")
+    np.testing.assert_array_equal(rows, jax_rows(str(tmp / "jdb"),
+                                                 "minibude"))
+    X, Y = td["inputs"], td["outputs"]
+    stats = {"x_mu": X.mean(0).tolist(), "x_sd": (X.std(0) + 1e-6).tolist(),
+             "y_mu": Y.mean(0).tolist(), "y_sd": (Y.std(0) + 1e-6).tolist()}
+    mp = save_model(tmp_path / "bundle", MLP((1, 6), [32, 16], 1).init(1),
+                    extra=stats)
+    # the rule of tests/test_quant.py: 5% of the f32 output RMS, here in
+    # the physical units the gate measures
+    y32 = tmb.make_region(len(rows), "infer", model=mp, device="cpu")(
+        poses=torch.from_numpy(rows))["out"]
+    budget = 0.05 * float(torch.sqrt(torch.mean(y32 ** 2)))
+    set_rmse_budget(mp, budget)
+    jax_budget(mp, budget)
+    rec, jrec = gate_bundle(mp, rows, device="cpu"), jax_gate(mp, rows)
+    assert rec["exact"] and jrec["exact"]
+    assert rec["rmse"] == pytest.approx(jrec["rmse"], rel=1e-3)
+
+    got = tmb.make_region(N, "infer", model=mp, device="cpu")(
+        poses=tmb.make_inputs(N, device="cpu"))["out"]
+    eng = InferenceEngine.get(mp, "cpu")
+    assert (eng.tier, eng.route) == ("int8", "fused_mlp_int8")
+    want = jmb.make_region(N, "infer", model=mp)(
+        poses=jmb.make_inputs(N))["out"]
+    from repro.core.engine import InferenceEngine as JaxEngine
+    assert JaxEngine.get(mp).tier == "int8"
+    # the int8 tolerance of the kernel, scaled by the engine's y_sd
+    rtol, atol = TOL
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol,
+                               atol=atol * stats["y_sd"][0])
+    monkeypatch.setenv("REPRO_QUANT", "never")
+    InferenceEngine.invalidate(mp)
+    y_f32 = tmb.make_region(N, "infer", model=mp, device="cpu")(
+        poses=tmb.make_inputs(N, device="cpu"))["out"]
+    assert float(torch.sqrt(torch.mean((got - y_f32) ** 2))) <= budget
