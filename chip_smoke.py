@@ -39,13 +39,36 @@ source, all started together), and prints one JSON line per phase:
    a per-layer library chain (``torch.addmm`` + activation for fused_mlp;
    row quantization + ``torch._int_mm`` + dequant for fused_mlp_int8) at
    batches 256 and 65,536, beside the least time the card could take;
-7. the ``kernels`` line, the ``nvidia-smi`` line and, last,
+   then the tune path's kernels at their largest shapes (stencil_gather
+   on a 4096x4096 grid, flash_attention on the llama3.2-3b 4,096-token
+   causal prefill, flash_attention_int8 on its decode window of 32
+   queries against 8,192 cached tokens), at the untuned tiles and at the
+   winner of a sweep of that shape, beside the plain version and a
+   library call (``torch.take``, ``scaled_dot_product_attention``);
+7. ``tune``/``tune_phase`` -- the deploy-time tuning path into a
+   temporary cache directory: ``run_tune`` over the minibude bundle's
+   buckets (64, 256, 1024) and every registered kernel's problems, one
+   line per record (all must be ``exact``), a second
+   ``autotune_registered`` that must launch nothing, and the engine
+   serving the bundle at bucket 256 with the tuned ``block_rows``
+   (provenance ``tuned``), rows equal to the default config's bit for
+   bit;
+8. the ``kernels`` line, the ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
+Before the slices, the ``kernel`` lines also hold stencil_gather (bit
+for bit: every candidate tile of its default problem in f32 and bf16, a
+grid no tile divides, 4096x4096), flash_attention (its tolerance: both
+default problems, non-causal, GQA groups 1 and 3, ``kv_valid_len`` 0 and
+150, ``q_offset``, bf16 inputs, the llama3.2-3b prefill) and
+flash_attention_int8 (its default problem and the decode window) against
+their plain versions.
+
 Launch counts are set to 0 just before each main path (the f32 slice's
-region calls, each int8 slice's infer region) and read just after.  Any
-failure raises, so the script exits non-zero and prints no result.  The
-bundle weights are random: nothing here measures surrogate accuracy.
+region calls, each int8 slice's infer region, the ``run_tune`` call) and
+read just after.  Any failure raises, so the script exits non-zero and
+prints no result.  The bundle weights are random: nothing here measures
+surrogate accuracy.
 """
 import functools
 import importlib
@@ -72,6 +95,20 @@ INT8_SLICES = (("minibude", "poses", BUDE_HIDDEN),
                ("bonds", "bonds", (512, 512)),
                ("binomial", "opts", (512, 512)))
 GATE_BUDGET_REL = 0.05   # x the f32 output RMS (tests/test_quant.py:58-65)
+# the tune path's kernels at their largest shapes: the stencil gather of
+# the spec's default problem on a 4096x4096 grid, and the attention of
+# the repo's llama3.2-3b config (src/repro/configs/archs.py:39-44: 24
+# heads, 8 kv heads, head dim 128) as a 4096-token causal prefill and as
+# a decode window of 32 queries against an 8,192-token cache
+STENCIL_OFFSETS = ((0, 1), (2, 0), (1, 1), (0, 0), (1, 2))
+STENCIL_BIG = 4096
+LLAMA = {"h": 24, "kv": 8, "hd": 128}
+PREFILL = dict(b=1, sq=4096, skv=4096, causal=True, q_offset=0, **LLAMA)
+DECODE = dict(b=4, sq=32, skv=8192, causal=True, q_offset=8160, **LLAMA)
+# bf16 outputs are the f32 results rounded once: two that agree to f32
+# tolerance can round one bf16 ulp apart, 2**-7 of the value at most
+BF16_RTOL = 2 ** -7
+TUNE_BUCKETS = (64, 256, 1024)
 PEAK_F32_FLOPS = 67e12   # H100 SXM f32 outside the tensor cores
 PEAK_INT8_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12
@@ -554,6 +591,347 @@ def time_int8(packed, dev, smi):
     return timings
 
 
+def attention_inputs(shape, dev, seed, dtype=None):
+    """Seeded q [B, Sq, H, hd] and k, v [B, Skv, KV, hd] on the card."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    dtype = dtype or torch.float32
+
+    def t(*dims):
+        return torch.randn(dims, generator=g).to(device=dev, dtype=dtype)
+    return (t(shape["b"], shape["sq"], shape["h"], shape["hd"]),
+            t(shape["b"], shape["skv"], shape["kv"], shape["hd"]),
+            t(shape["b"], shape["skv"], shape["kv"], shape["hd"]))
+
+
+def check_stencil(dev):
+    """stencil_gather against its plain version, bit for bit: the spec's
+    default problem with every candidate tile, in f32 and bf16, a grid
+    no tile divides, and the 4096x4096 grid."""
+    import torch
+    from repro_torch.kernels.stencil_gather import ops
+    from repro_torch.kernels.stencil_gather.ref import stencil_gather_ref
+    from repro_torch.kernels.stencil_gather.stencil_gather import (
+        stencil_gather)
+
+    g = torch.Generator().manual_seed(11)
+    default = ops.SPEC.default_problems[0]
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((default["h"], default["w"]), generator=g).to(
+            dev, dtype)
+        for params in ops.SPEC.candidates(default):
+            cases.append((f"default {str(dtype)[6:]} {params['block_h']}x"
+                          f"{params['block_w']}", x, default["offsets"],
+                          default["out_h"], default["out_w"],
+                          default["origin"], params))
+    ragged = torch.randn((1003, 781), generator=g).to(dev)
+    cases.append(("ragged 1003x781", ragged, STENCIL_OFFSETS, 999, 777,
+                  (1, 1), ops.SPEC.defaults()))
+    big = torch.randn((STENCIL_BIG, STENCIL_BIG), generator=g).to(dev)
+    cases.append((f"{STENCIL_BIG}x{STENCIL_BIG}", big, STENCIL_OFFSETS,
+                  STENCIL_BIG - 4, STENCIL_BIG - 4, (1, 1),
+                  ops.SPEC.defaults()))
+    results = {}
+    for label, x, offs, oh, ow, origin, params in cases:
+        got = stencil_gather(x, offs, oh, ow, origin=origin, **params)
+        want = stencil_gather_ref(x, offs, oh, ow, origin=origin)
+        torch.cuda.synchronize()
+        results[label] = bool(torch.equal(got, want))
+    if not all(results.values()):
+        raise AssertionError(f"stencil_gather differs from its plain "
+                             f"version: {results}")
+    emit("kernel", kernel="stencil_gather", bit_exact=results, max_abs_err=0.0)
+    return 0.0
+
+
+def check_flash(dev):
+    """flash_attention (through its op) against its plain version at the
+    spec's tolerance (bf16 outputs one bf16 ulp): both default problems,
+    non-causal, GQA groups 1 and 3, kv_valid_len including 0, bf16
+    inputs and the llama3.2-3b prefill."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    rtol, atol = ops.TOL
+    d0, d1 = ops.SPEC.default_problems
+    small = dict(b=2, sq=200, skv=333, h=8, kv=2, hd=64)
+    cases = [
+        ("default prefill", d0, {}, None),
+        ("default decode", d1, {}, None),
+        ("non-causal", small, {"causal": False}, None),
+        ("group 1", dict(small, h=4, kv=4), {}, None),
+        ("group 3, hd 96", dict(small, h=6, kv=2, hd=96), {}, None),
+        ("kv_valid_len 0", small, {"kv_valid_len": 0}, None),
+        ("kv_valid_len 0, non-causal", small,
+         {"kv_valid_len": 0, "causal": False}, None),
+        ("kv_valid_len 150", small, {"kv_valid_len": 150}, None),
+        ("q_offset 133", dict(small, sq=200), {"q_offset": 133}, None),
+        ("bf16", d0, {}, torch.bfloat16),
+        ("llama3.2-3b prefill 4096", PREFILL, {}, None),
+    ]
+    errs = {}
+    for i, (label, shape, kw, dtype) in enumerate(cases):
+        kw = dict({"causal": shape.get("causal", True),
+                   "q_offset": shape.get("q_offset", 0)}, **kw)
+        q, k, v = attention_inputs(shape, dev, seed=20 + i, dtype=dtype)
+        got = ops.flash_attention_op(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        r = BF16_RTOL if dtype is torch.bfloat16 else rtol
+        max_abs, worst = compare(got.float(), want.float(), r, atol)
+        if not (worst <= 1.0 and torch.isfinite(got).all()
+                and got.dtype == q.dtype):
+            raise AssertionError(f"flash_attention {label}: max abs error "
+                                 f"{max_abs}, {worst}x the tolerance")
+        errs[label] = max_abs
+    emit("kernel", kernel="flash_attention", max_abs_err=errs, rtol=rtol,
+         atol=atol, bf16_rtol=BF16_RTOL)
+    return errs["llama3.2-3b prefill 4096"]
+
+
+def check_flash8(dev):
+    """flash_attention_int8 (through its op) against its plain version
+    at the spec's tolerance: its default problem and the llama3.2-3b
+    decode window, with the count of elements that differ at all."""
+    import torch
+    from repro_torch.kernels.flash_attention import int8
+    from repro_torch.quant.quantize import quantize_kv
+
+    rtol, atol = int8.TOL
+    errs, differ = {}, {}
+    for i, (label, shape) in enumerate(
+            (("default decode", int8.SPEC.default_problems[0]),
+             ("llama3.2-3b decode window", DECODE))):
+        q, k, v = attention_inputs(shape, dev, seed=40 + i)
+        arrays = (q,) + quantize_kv(k, v)
+        kw = {"causal": shape["causal"], "q_offset": shape["q_offset"]}
+        got = int8.flash_attention_int8_op(*arrays, **kw)
+        want = int8.flash_attention_int8_ref(*arrays, **kw)
+        torch.cuda.synchronize()
+        max_abs, worst = compare(got, want, rtol, atol)
+        if not (worst <= 1.0 and torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention_int8 {label}: max abs "
+                                 f"error {max_abs}, {worst}x the tolerance")
+        errs[label], differ[label] = max_abs, int((got != want).sum())
+    emit("kernel", kernel="flash_attention_int8", max_abs_err=errs,
+         elements_differing=differ, elements=got.numel(), rtol=rtol,
+         atol=atol)
+    return errs["llama3.2-3b decode window"]
+
+
+def stencil_cell(dev):
+    """The stencil gather of the spec's five offsets over a 4096x4096
+    grid; bound by bytes (the grid read once, F times its size written)."""
+    import torch
+    from repro_torch.kernels.stencil_gather import ops
+    from repro_torch.kernels.stencil_gather.ref import stencil_gather_ref
+
+    n, m, f = STENCIL_BIG, STENCIL_BIG - 4, len(STENCIL_OFFSETS)
+    x = torch.randn((n, n), generator=torch.Generator().manual_seed(5)).to(
+        dev)
+    offs = torch.tensor([(1 + dy) * n + 1 + dx for dy, dx in STENCIL_OFFSETS],
+                        device=dev)
+    index = (torch.arange(m, device=dev)[:, None, None] * n
+             + torch.arange(m, device=dev)[None, :, None] + offs)
+    nbytes = 4 * (n * n + m * m * f)
+    return dict(
+        spec=ops.SPEC, arrays=(x,), iters=20,
+        problem=ops.inspect_call(x, offsets=STENCIL_OFFSETS, out_h=m,
+                                 out_w=m, origin=(1, 1)),
+        plain=lambda: stencil_gather_ref(x, STENCIL_OFFSETS, m, m,
+                                         origin=(1, 1)),
+        library=lambda: torch.take(x, index),
+        library_call="torch.take with a precomputed [out_h, out_w, F] index",
+        bound_ms=nbytes / PEAK_HBM_BYTES * 1e3, bound_by="bytes",
+        bytes=nbytes)
+
+
+def prefill_cell(dev):
+    """The llama3.2-3b causal prefill of 4,096 tokens; bound by f32
+    operations (4 * hd per visible query-key pair)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    q, k, v = attention_inputs(PREFILL, dev, seed=6)
+    group = PREFILL["h"] // PREFILL["kv"]
+    # [B, H, S, hd], K/V repeated per group, all outside the timed call
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+    s = PREFILL["sq"]
+    flops = 4 * PREFILL["hd"] * s * (s + 1) // 2 * PREFILL["b"] * PREFILL["h"]
+    nbytes = 4 * 2 * (q.numel() + k.numel())
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return dict(
+        spec=ops.SPEC, arrays=(q, k, v), iters=5,
+        problem=ops.inspect_call(q, k, v),
+        plain=lambda: flash_attention_ref(q, k, v),
+        library=lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True),
+        library_call="torch.nn.functional.scaled_dot_product_attention, "
+                     "f32, is_causal, K/V repeated per group beforehand",
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        flops=flops, bytes=nbytes)
+
+
+def decode_cell(dev):
+    """The llama3.2-3b decode window over an int8 cache; the int8 score
+    multiply-adds at the int8 peak and the f32 ``p @ v`` at the f32 peak
+    (the larger), or the bytes (K and V as int8), whichever is larger."""
+    from repro_torch.kernels.flash_attention import int8
+    from repro_torch.quant.quantize import quantize_kv
+
+    q, k, v = attention_inputs(DECODE, dev, seed=7)
+    arrays = (q,) + quantize_kv(k, v)
+    kw = {"causal": True, "q_offset": DECODE["q_offset"]}
+    pairs = sum(min(DECODE["skv"], DECODE["q_offset"] + i + 1)
+                for i in range(DECODE["sq"])) * DECODE["b"] * DECODE["h"]
+    ops = 2 * DECODE["hd"] * pairs
+    nbytes = (4 * 2 * q.numel() + 2 * k.numel()
+              + 4 * (arrays[2].numel() + arrays[4].numel()))
+    t_ops = max(ops / PEAK_INT8_OPS, ops / PEAK_F32_FLOPS)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return dict(
+        spec=int8.SPEC, arrays=arrays, iters=20,
+        problem=int8.inspect_call(*arrays, **kw),
+        plain=lambda: int8.flash_attention_int8_ref(*arrays, **kw),
+        library=None, library_call=None,
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        int8_ops=ops, f32_ops=ops, bytes=nbytes)
+
+
+def time_new_kernels(dev, smi, tmp):
+    """CUDA-event times of the tune path's three kernels at their largest
+    shapes, at the untuned tiles dispatch resolves and at the winner of a
+    sweep of that shape (into a throwaway cache), beside the plain
+    version, one library call where one computes the same function, and
+    the least time the card could take."""
+    from repro_torch.kernels import registry
+    from repro_torch.tune import TuneCache, sweep
+
+    timings = {}
+    for cell in (stencil_cell(dev), prefill_cell(dev), decode_cell(dev)):
+        spec, problem, arrays = (cell.pop(k) for k in ("spec", "problem",
+                                                        "arrays"))
+        plain, library, iters = (cell.pop(k) for k in ("plain", "library",
+                                                        "iters"))
+        default = registry.resolve_params(spec, problem)
+        rec = sweep(spec, problem, cache=TuneCache(
+            spec.name, tmp / f"{spec.name}.json"))
+        if not rec["exact"]:
+            raise AssertionError(f"{spec.name}: no tile validated at the "
+                                 f"timed shape")
+
+        def kernel(params):
+            return lambda: spec.run_call(problem, arrays, params)
+
+        ms = {"ms": cuda_ms(kernel(default), iters),
+              "tuned_ms": cuda_ms(kernel(rec["params"]), iters),
+              "plain_ms": cuda_ms(plain, max(iters // 4, 3)),
+              "library_ms": cuda_ms(library, iters) if library else None}
+        timings[spec.name] = dict(
+            cell, **ms, problem={k: v for k, v in problem.items()
+                                 if k != "offsets"},
+            params=default, tuned_params=rec["params"],
+            tuned_candidates=len(rec["swept"]),
+            share_of_bound=cell["bound_ms"] / ms["ms"],
+            tuned_share_of_bound=cell["bound_ms"] / ms["tuned_ms"])
+        emit("timing", kernel=spec.name, nvidia_smi=smi, **timings[spec.name])
+    return timings
+
+
+def run_tune_phase(bundle, dev, work):
+    """The deploy-time tuning path through the port's entry points, into
+    a temporary cache directory: ``run_tune`` for the minibude bundle's
+    serving buckets and every registered kernel's problems, then
+    ``autotune_registered`` again (all cache hits, no launch).  Then the
+    engine serving that bundle at bucket 256 must run the tuned
+    ``block_rows`` (counted under provenance ``tuned``) and equal the
+    default config's rows bit for bit.  Returns the launch counts of the
+    ``run_tune`` call."""
+    import torch
+    import repro_torch.tune.cache as tcache
+    from repro_torch.apps import minibude
+    from repro_torch.core import InferenceEngine
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.fused_mlp import ops
+    from repro_torch.kernels.fused_mlp.fused_mlp import fused_mlp
+    from repro_torch.launch.dryrun import run_tune
+    from repro_torch.obs import metrics
+    from repro_torch.tune import autotune_registered
+
+    # every default cache is made anew under the temporary directory
+    tcache.ART = work / "tune_torch"
+    tcache._default.clear()
+    registry.reset_counts()
+    t0 = time.perf_counter()
+    run_tune(bundle=str(bundle), buckets=TUNE_BUCKETS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {s.name: s.launches for s in registry.all_specs()}
+    registry.reset_counts()
+    again = autotune_registered()
+    relaunched = {s.name: s.launches for s in registry.all_specs()}
+
+    records = []
+    for path in sorted(tcache.ART.glob("*.json")):
+        data = json.loads(path.read_text())
+        for key, rec in sorted(data["entries"].items()):
+            records.append(rec)
+            emit("tune", kernel=data["kernel"], key=key,
+                 winner=rec["params"], us=rec["us"],
+                 default_us=rec["default_us"], speedup_x=rec["speedup_x"],
+                 exact=rec["exact"], swept=len(rec["swept"]),
+                 valid=sum(1 for e in rec["swept"] if e["exact"]))
+
+    eng = InferenceEngine.get(bundle, dev)
+    x = minibude.make_inputs(256, seed=9, device=dev)
+    with torch.no_grad():
+        xn = (x - eng.norm[0]) / eng.norm[1]
+    params, provenance = registry.resolve_params_info(
+        ops.SPEC, ops.inspect_call(xn, eng._packed))
+    dispatches = metrics.counter(
+        "repro_kernel_dispatch_total",
+        "kernel dispatches by resolved-params provenance and precision tier",
+        ("kernel", "provenance", "tier"))
+    before = dispatches.value(kernel="fused_mlp", provenance="tuned",
+                              tier="f32")
+    y = eng.apply_batched(x)
+    served_tuned = dispatches.value(kernel="fused_mlp", provenance="tuned",
+                                    tier="f32") - before
+    default = registry.fitting_defaults(ops.SPEC,
+                                        ops.inspect_call(xn, eng._packed))
+    with torch.no_grad():
+        y_default = (fused_mlp(xn, eng._packed, **default) * eng.norm[3]
+                     + eng.norm[2])
+    torch.cuda.synchronize()
+    checks = {
+        "every_record_exact": bool(records) and all(r["exact"]
+                                                    for r in records),
+        "records": len(records) == len(TUNE_BUCKETS) + sum(
+            len(s.default_problems) for s in registry.all_specs()),
+        "every_kernel_launched": all(n > 0 for n in launches.values()),
+        "second_pass_all_cached": relaunched == {k: 0 for k in relaunched}
+        and len(again) == len(records) - len(TUNE_BUCKETS),
+        "engine_route_fused_mlp": eng.route == "fused_mlp",
+        "engine_provenance_tuned": provenance == "tuned",
+        "engine_dispatch_counted_tuned": served_tuned == 1,
+        "engine_rows_equal_default_config": bool(torch.equal(y, y_default)),
+    }
+    emit("tune_phase", seconds=seconds, launches=launches,
+         engine_block_rows=params, default_block_rows=default,
+         provenance=provenance, cache_dir=str(tcache.ART.relative_to(ROOT)),
+         **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"tune phase checks failed: {checks}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -567,6 +945,11 @@ def main():
     from repro_torch.kernels.fused_mlp import int8
     from repro_torch.kernels.fused_mlp.fused_mlp import REPLACES, SOURCE
     from repro_torch.kernels.fused_mlp.ops import SPEC
+    from repro_torch.kernels.flash_attention import flash_attention as flash
+    from repro_torch.kernels.flash_attention import int8 as flash8
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.stencil_gather import ops as stencil_ops
+    from repro_torch.kernels.stencil_gather import stencil_gather as stencil
 
     t_start = time.perf_counter()
     dev = resolve_device(None)
@@ -591,6 +974,9 @@ def main():
     check_kernel("activations", ACT_WIDTHS, ACT_ACTS, dev)
     bude8, errs8 = check_kernel_int8("minibude", BUDE_WIDTHS, BUDE_ACTS, dev)
     check_kernel_int8("activations", ACT_WIDTHS, ACT_ACTS, dev)
+    errs_new = {"stencil_gather": check_stencil(dev),
+                "flash_attention": check_flash(dev),
+                "flash_attention_int8": check_flash8(dev)}
 
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -598,10 +984,24 @@ def main():
     launches = run_slice(dev, work)
     int8_launches = sum(run_int8_slice(app, key, hidden, dev, work)
                         for app, key, hidden in INT8_SLICES)
-    shutil.rmtree(work)
 
     timings = time_kernel(bude, BUDE_ACTS, dev, smi)[INFER_POSES]
     timings8 = time_int8(bude8, dev, smi)[INFER_POSES]
+    timings_new = time_new_kernels(dev, smi, work / "timing_sweeps")
+    tune_launches = run_tune_phase(work / "bundle", dev, work)
+    shutil.rmtree(work)
+    new_rows = []
+    for spec, mod in ((stencil_ops.SPEC, stencil), (flash_ops.SPEC, flash),
+                      (flash8.SPEC, flash8)):
+        name, t = spec.name, timings_new[spec.name]
+        rtol, atol = spec.tol or (0.0, 0.0)  # None: bit-exact
+        new_rows.append({
+            "name": name, "route": "cuda", "source": mod.SOURCE,
+            "replaces": mod.REPLACES, "launches": tune_launches[name],
+            "max_abs_err": errs_new[name], "rtol": rtol, "atol": atol,
+            "shape": t["problem"], "ms": t["ms"], "tuned_ms": t["tuned_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": [{
         "name": "fused_mlp", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": launches["fused_mlp"],
@@ -620,7 +1020,7 @@ def main():
         "plain_ms": timings8["plain_ms"],
         "bound_ms": timings8["bound_ms"],
         "bound_by": timings8["bound_by"],
-        "library_ms": timings8["library_ms"]}]}), flush=True)
+        "library_ms": timings8["library_ms"]}] + new_rows}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

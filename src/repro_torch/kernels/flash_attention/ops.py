@@ -1,0 +1,127 @@
+"""Registry declaration and op of flash attention (counterpart of
+``repro/kernels/flash_attention/ops.py``).
+
+Tunables: ``block_q`` (query rows per block) and ``block_kv`` (the K/V
+chunk).  Validation is to a tolerance, not bit-exact: the online-softmax
+rescaling order changes with the chunking, and the kernel scales q before
+the dot where the oracle divides the scores, so candidates must match the
+naive-softmax plain version to f32 tolerance.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import registry
+from repro_torch.kernels.flash_attention.flash_attention import (
+    check_shapes, fits, flash_attention)
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+BLOCK_LADDER = (16, 32, 64, 128, 256)
+DEFAULT_BLOCK = 128
+#: (rtol, atol) against the plain version on the card, the reference's
+#: tolerance: both compute in f32, apart only by the order of the
+#: softmax's sums and where the 1/sqrt(hd) scale is applied.
+TOL = (2e-5, 2e-5)
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def inspect_call(q, k, v, *, causal=True, q_offset=0,
+                 kv_valid_len=None) -> dict:
+    B, Sq, H, hd = q.shape
+    return {"b": int(B), "sq": int(Sq), "skv": int(k.shape[1]),
+            "h": int(H), "kv": int(k.shape[2]), "hd": int(hd),
+            "causal": bool(causal), "q_offset": int(q_offset),
+            "kv_valid_len": None if kv_valid_len is None
+            else int(kv_valid_len),
+            "dtype": str(q.dtype).removeprefix("torch.")}
+
+
+def _run(problem, arrays, params):
+    q, k, v = arrays
+    return flash_attention(q, k, v, causal=problem["causal"],
+                           q_offset=problem["q_offset"],
+                           kv_valid_len=problem.get("kv_valid_len"),
+                           block_q=params["block_q"],
+                           block_kv=params["block_kv"])
+
+
+def _ref(problem, arrays):
+    q, k, v = arrays
+    return flash_attention_ref(q, k, v, causal=problem["causal"],
+                               q_offset=problem["q_offset"],
+                               kv_valid_len=problem.get("kv_valid_len"))
+
+
+def _make(problem, generator, device):
+    def t(*shape):
+        return torch.randn(shape, generator=generator).to(
+            device=device, dtype=_DTYPES[problem["dtype"]])
+    p = problem
+    return (t(p["b"], p["sq"], p["h"], p["hd"]),
+            t(p["b"], p["skv"], p["kv"], p["hd"]),
+            t(p["b"], p["skv"], p["kv"], p["hd"]))
+
+
+def cache_key(problem, backend):
+    """The reference's key (q_offset and kv_valid_len leave the tile
+    choice correctness-neutral and are not in it)."""
+    p = problem
+    shape = (f"b{p['b']}-sq{p['sq']}-skv{p['skv']}-h{p['h']}-kv{p['kv']}-"
+             f"hd{p['hd']}-c{int(p['causal'])}")
+    return f"{shape}|{p['dtype']}|{backend}"
+
+
+def _fits(problem, params):
+    """The port's design, not the Pallas one (which keeps a head's whole
+    K/V resident): the q tile, one K and one V chunk, the p tile and the
+    per-row m, l and correction in shared memory, plus the register
+    accumulators (:func:`~repro_torch.kernels.flash_attention.
+    flash_attention.fits`)."""
+    return fits(problem["hd"], params["block_q"], params["block_kv"])
+
+
+def _supports(problem):
+    return (problem["dtype"] in _DTYPES and problem["h"] % problem["kv"] == 0
+            and fits(problem["hd"], BLOCK_LADDER[0], BLOCK_LADDER[0]))
+
+
+def candidates(spec, problem, fits_fn):
+    """The reference's ladder clip: no tile past the rounded-up extent."""
+    clip = {"block_q": registry.round_up(problem["sq"], 16),
+            "block_kv": registry.round_up(problem["skv"], 16)}
+    return registry.ladder_candidates(spec.params, clip,
+                                      fits=lambda c: fits_fn(problem, c))
+
+
+def block_params():
+    return (registry.TunableParam("block_q", DEFAULT_BLOCK, BLOCK_LADDER),
+            registry.TunableParam("block_kv", DEFAULT_BLOCK, BLOCK_LADDER))
+
+
+SPEC = registry.register(registry.KernelSpec(
+    name="flash_attention", params=block_params(),
+    kernel=flash_attention, run_call=_run, ref_call=_ref, make_call=_make,
+    cache_key=cache_key,
+    candidates=lambda problem: candidates(SPEC, problem, _fits),
+    fits=_fits, supports=_supports, tol=TOL,
+    default_problems=(
+        # the reference's: prefill-shaped, square causal, GQA group of 4
+        {"b": 1, "sq": 256, "skv": 256, "h": 8, "kv": 2, "hd": 64,
+         "causal": True, "q_offset": 0, "dtype": "float32"},
+        # decode-window-shaped: short q against a long kv
+        {"b": 4, "sq": 32, "skv": 512, "h": 8, "kv": 2, "hd": 64,
+         "causal": True, "q_offset": 480, "dtype": "float32"},
+    )))
+
+
+def flash_attention_op(q, k, v, *, causal=True, q_offset=0,
+                       kv_valid_len=None, block_q=None, block_kv=None):
+    """Attention of q ``[B, Sq, H, hd]`` over k, v ``[B, Skv, KV, hd]``:
+    the plain version on the CPU, the kernel on the card with its tiles
+    resolved explicit > tuned > default."""
+    check_shapes(q, k, v)
+    problem = inspect_call(q, k, v, causal=causal, q_offset=q_offset,
+                           kv_valid_len=kv_valid_len)
+    return registry.dispatch(SPEC, problem, (q, k, v), q.device,
+                             overrides={"block_q": block_q,
+                                        "block_kv": block_kv})

@@ -32,9 +32,12 @@ import torch
 
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.fused_mlp.fused_mlp import ACT_CODES
-from repro_torch.kernels.fused_mlp.ops import mlp_stack_from_spec
+from repro_torch.kernels.fused_mlp.ops import (DEFAULT_PROBLEMS,
+                                               mlp_cache_key, mlp_cache_keys,
+                                               mlp_stack_from_spec,
+                                               sweep_weights)
 from repro_torch.kernels.registry import SMEM_PER_BLOCK, round_up
-from repro_torch.quant.quantize import quant_mlp_ref
+from repro_torch.quant.quantize import quant_mlp_ref, quantize_params
 
 MAX_LAYERS = 16            # LayerTable capacity in csrc/fused_mlp_int8.cu
 K_PAD = 16                 # K zero-padding of the packed weights (K_PAD)
@@ -226,8 +229,25 @@ def _ref(problem, arrays):
     return quant_mlp_ref(x, packed.qlayers, packed.acts)
 
 
+def _make(problem, generator, device):
+    """Sweep inputs: the f32 sweep's weights
+    (:func:`~repro_torch.kernels.fused_mlp.ops.sweep_weights`), quantized
+    per output channel on ``device``, and unit-normal rows."""
+    widths = problem["widths"]
+    ws, bs = sweep_weights(widths, generator)
+    x = torch.randn((problem["batch"], widths[0]), generator=generator)
+    return (x.to(device), pack_int8_mlp(
+        quantize_params(ws, bs, device=device), problem["acts"]))
+
+
 def _fits(problem, params):
     return fits_smem(problem["widths"], params["block_rows"])
+
+
+def _cands(problem):
+    return registry.ladder_candidates(
+        SPEC.params, {"block_rows": problem["batch"]},
+        fits=lambda c: _fits(problem, c))
 
 
 def _supports(problem):
@@ -242,14 +262,18 @@ SPEC = registry.register(registry.KernelSpec(
     name="fused_mlp_int8",
     params=(registry.TunableParam("block_rows", DEFAULT_BLOCK_ROWS,
                                   BLOCK_ROWS),),
-    kernel=fused_mlp_int8, run_call=_run, ref_call=_ref, fits=_fits,
-    supports=_supports, tol=TOL, tier="int8"))
+    kernel=fused_mlp_int8, run_call=_run, ref_call=_ref, make_call=_make,
+    cache_key=mlp_cache_key, cache_keys=mlp_cache_keys, candidates=_cands,
+    fits=_fits, supports=_supports, tol=TOL, tier="int8",
+    # the reference's representative problems (int8.py:201-206)
+    default_problems=DEFAULT_PROBLEMS))
 
 
 # ------------------------------------------------------------------ ops ----
 def fused_mlp_int8_op(x, packed: PackedInt8MLP, *, block_rows=None):
     """Run a packed int8 stack on ``x``: the plain version on the CPU, the
-    kernel on the card."""
+    kernel on the card with ``block_rows`` resolved explicit > tuned >
+    default."""
     return registry.dispatch(SPEC, inspect_call(x, packed), (x, packed),
                              x.device, overrides={"block_rows": block_rows})
 

@@ -12,8 +12,17 @@ from repro_torch.kernels.fused_mlp.fused_mlp import (BLOCK_ROWS, MAX_LAYERS,
                                                      PackedMLP, fits_smem,
                                                      fused_mlp, pack_mlp)
 from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
+from repro_torch.serve.batcher import bucket_size
+from repro_torch.tune.cache import shape_key
 
 DEFAULT_BLOCK_ROWS = 16
+#: the reference's representative problems (``fused_mlp/ops.py:113-118``)
+DEFAULT_PROBLEMS = (
+    {"widths": (5, 128, 128, 1), "acts": ("relu", "relu", "identity"),
+     "batch": 256, "ndim": 2, "dtype": "float32"},
+    {"widths": (16, 256, 256, 4), "acts": ("relu", "relu", "identity"),
+     "batch": 512, "ndim": 2, "dtype": "float32"},
+)
 
 
 def inspect_call(x, packed: PackedMLP) -> dict:
@@ -34,8 +43,57 @@ def _ref(problem, arrays):
     return fused_mlp_ref(x, packed.weights, packed.biases, packed.acts)
 
 
+def sweep_weights(widths, generator):
+    """He-normal weights (std ``sqrt(2 / fan_in)``) and biases of std 0.1
+    for a sweep, drawn on the CPU from ``generator``.  They keep every
+    layer's activations at unit scale, the regime the kernels'
+    tolerances are stated for; the reference's fixed std of 0.3 grows a
+    1,024-wide relu stack about 7x per layer, until the plain version's
+    own f32 rounding exceeds the tolerance."""
+    ws = [torch.randn((a, b), generator=generator) * (2.0 / a) ** 0.5
+          for a, b in zip(widths[:-1], widths[1:])]
+    bs = [torch.randn((b,), generator=generator) * 0.1 for b in widths[1:]]
+    return ws, bs
+
+
+def _make(problem, generator, device):
+    """Sweep inputs: :func:`sweep_weights` and unit-normal rows."""
+    widths = problem["widths"]
+    ws, bs = sweep_weights(widths, generator)
+    x = torch.randn((problem["batch"], widths[0]), generator=generator)
+    return (x.to(device), pack_mlp(ws, bs, problem["acts"], device=device))
+
+
+def mlp_cache_key(problem, backend):
+    return shape_key(problem["widths"], problem["dtype"], backend,
+                     problem["batch"])
+
+
+def mlp_cache_keys(problem, backend):
+    """Exact batch first (serve-path dispatches arrive bucket-shaped),
+    then the power-of-two bucket covering calls of any other size."""
+    b = problem["batch"]
+    return [shape_key(problem["widths"], problem["dtype"], backend, bb)
+            for bb in dict.fromkeys((b, bucket_size(b)))]
+
+
 def _fits(problem, params):
     return fits_smem(problem["widths"], params["block_rows"])
+
+
+def candidate_tiles(widths, bucket):
+    """``block_rows`` worth sweeping for one bucket: the default first
+    (ties keep it), then the rest of the ladder up to the bucket, each
+    checked against shared memory.  The single source of the fused MLP's
+    candidates: the spec and the tuner both consume it."""
+    tiles = [DEFAULT_BLOCK_ROWS] + [t for t in BLOCK_ROWS if t <= bucket
+                                    and t != DEFAULT_BLOCK_ROWS]
+    return [t for t in tiles if fits_smem(widths, t)]
+
+
+def _cands(problem):
+    return [{"block_rows": t}
+            for t in candidate_tiles(problem["widths"], problem["batch"])]
 
 
 def _supports(problem):
@@ -55,13 +113,16 @@ SPEC = registry.register(registry.KernelSpec(
     name="fused_mlp",
     params=(registry.TunableParam("block_rows", DEFAULT_BLOCK_ROWS,
                                   BLOCK_ROWS),),
-    kernel=fused_mlp, run_call=_run, ref_call=_ref, fits=_fits,
-    supports=_supports, tol=(1e-4, 1e-4)))
+    kernel=fused_mlp, run_call=_run, ref_call=_ref, make_call=_make,
+    cache_key=mlp_cache_key, cache_keys=mlp_cache_keys, candidates=_cands,
+    fits=_fits, supports=_supports, tol=(1e-4, 1e-4),
+    default_problems=DEFAULT_PROBLEMS))
 
 
 def fused_mlp_op(x, packed: PackedMLP, *, block_rows=None):
     """Run a packed stack on ``x``: the plain version on the CPU, the
-    kernel on the card."""
+    kernel on the card with ``block_rows`` resolved explicit > tuned >
+    default."""
     return registry.dispatch(SPEC, inspect_call(x, packed), (x, packed),
                              x.device, overrides={"block_rows": block_rows})
 

@@ -1,6 +1,5 @@
 """Kernel registry: one declaration per hand-written kernel, one dispatcher
-(counterpart of ``repro/kernels/registry.py``, trimmed to what the port's
-kernels use so far).
+(counterpart of ``repro/kernels/registry.py``).
 
 Dispatch is decided by where the data lies:
 
@@ -11,8 +10,12 @@ Dispatch is decided by where the data lies:
 ``supports(problem)`` keeps its JAX meaning: a shape the kernel cannot
 take is routed by the caller (the inference engine) to the torch
 ``Sequential``, decided from shapes before any launch and counted in
-``KernelSpec.unsupported``.  Tunable parameters resolve explicit >
-defaults; tuned winners wait for the port of the tuner.
+``KernelSpec.unsupported``.  Tunable parameters resolve explicit > tuned
+> default (:func:`resolve_params_info`), tuned winners coming from the
+port's tune cache (:mod:`repro_torch.tune.cache`), which
+:mod:`repro_torch.tune.kernel_tuner` fills on the card.  Every dispatch
+is counted in ``repro_kernel_dispatch_total`` by kernel, provenance and
+tier, as in the reference.
 
 Each spec names its precision ``tier`` (``"f32"``, or ``"int8"`` for a
 quantized variant registered as ``<base>_int8``), and
@@ -26,9 +29,17 @@ above 48 KB must be opted into by the launcher
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+from repro_torch.obs import metrics as _m
 
 SMEM_PER_BLOCK = 232_448  # bytes a Hopper block can use
+BACKEND = "cuda"          # the backend string in tune-cache keys
+
+_DISPATCHES = _m.counter(
+    "repro_kernel_dispatch_total",
+    "kernel dispatches by resolved-params provenance and precision tier",
+    ("kernel", "provenance", "tier"))
 
 
 def round_up(n: int, m: int) -> int:
@@ -45,15 +56,28 @@ class TunableParam:
 
 @dataclasses.dataclass
 class KernelSpec:
-    """Declaration the registry dispatches.
+    """Declaration the registry dispatches and the tuner sweeps.
+
+    A call splits into a static ``problem`` dict (shapes, dtype name,
+    config such as ``acts`` or ``causal``: what keys the tune cache and
+    synthesizes sweep inputs) and the positional ``arrays`` tuple.
 
     * ``kernel`` is the launching wrapper (CUDA tensors only); it carries
       the plain-integer launch count ``kernel.launches``, raised where it
       launches and nowhere else;
     * ``run_call(problem, arrays, params)`` calls ``kernel``;
     * ``ref_call(problem, arrays)`` is the plain PyTorch version;
-    * ``fits(problem, params)`` is the shared-memory model;
+    * ``make_call(problem, generator, device) -> arrays`` builds the
+      inputs of a sweep from a seeded ``torch.Generator``;
+    * ``cache_key(problem, backend)`` keys the tune cache, and the
+      optional ``cache_keys`` gives ordered lookup fallbacks (the fused
+      MLP tries the exact batch before the pow2 bucket);
+    * ``candidates(problem)`` lists the sweep's param dicts, defaults
+      first;
+    * ``fits(problem, params)`` is the shared-memory (and register) model;
     * ``supports(problem)`` says whether the kernel takes the shape at all;
+    * ``tol`` is ``(rtol, atol)`` against the plain version on the card,
+      ``None`` for bit-exact;
     * ``tier`` is the precision tier, ``"f32"`` or ``"int8"``.  An int8
       variant is held against its own int8-simulating plain version;
       accuracy against f32 is the quant gate's concern
@@ -64,10 +88,15 @@ class KernelSpec:
     kernel: Callable
     run_call: Callable
     ref_call: Callable
+    make_call: Callable
+    cache_key: Callable
+    candidates: Callable
     fits: Callable
     supports: Callable
-    tol: Tuple[float, float]
+    cache_keys: Optional[Callable] = None
+    tol: Optional[Tuple[float, float]] = None
     tier: str = "f32"
+    default_problems: Tuple[dict, ...] = ()
     plain_calls: int = 0
     unsupported: int = 0
 
@@ -80,10 +109,21 @@ class KernelSpec:
         self.plain_calls = 0
         self.unsupported = 0
 
+    def defaults(self) -> Dict[str, int]:
+        return {p.name: p.default for p in self.params}
+
+    def lookup_keys(self, problem: dict, backend: str = BACKEND) -> List[str]:
+        if self.cache_keys is not None:
+            return list(self.cache_keys(problem, backend))
+        return [self.cache_key(problem, backend)]
+
 
 _SPECS: Dict[str, KernelSpec] = {}
 _BUILTIN_OPS = ("repro_torch.kernels.fused_mlp.ops",
-                "repro_torch.kernels.fused_mlp.int8")
+                "repro_torch.kernels.fused_mlp.int8",
+                "repro_torch.kernels.flash_attention.ops",
+                "repro_torch.kernels.flash_attention.int8",
+                "repro_torch.kernels.stencil_gather.ops")
 
 
 def register(spec: KernelSpec) -> KernelSpec:
@@ -91,10 +131,24 @@ def register(spec: KernelSpec) -> KernelSpec:
     return spec
 
 
-def all_specs() -> List[KernelSpec]:
+def ensure_builtin_specs() -> None:
+    """Import the kernel packages so their specs self-register."""
     import importlib
     for mod in _BUILTIN_OPS:
         importlib.import_module(mod)
+
+
+def get_spec(name: str) -> KernelSpec:
+    ensure_builtin_specs()
+    try:
+        return _SPECS[name]
+    except KeyError:
+        raise KeyError(f"unknown kernel {name!r}; registered: "
+                       f"{sorted(_SPECS)}") from None
+
+
+def all_specs() -> List[KernelSpec]:
+    ensure_builtin_specs()
     return [_SPECS[k] for k in sorted(_SPECS)]
 
 
@@ -103,34 +157,101 @@ def reset_counts() -> None:
         spec.reset_counts()
 
 
-def resolve_params(spec: KernelSpec, problem: dict,
-                   overrides: Optional[dict] = None) -> Dict[str, int]:
-    """Explicit overrides win, else each parameter's default, stepped down
-    its ladder to the largest value that fits.  An explicit value that
-    does not fit raises."""
+def ladder_candidates(spec_params: Sequence[TunableParam],
+                      clip: Optional[Dict[str, int]] = None,
+                      fits: Optional[Callable] = None) -> List[dict]:
+    """Cartesian product of the params' ladders, defaults first, each
+    axis clipped to ``clip[name]`` (inclusive; the default always stays),
+    filtered by ``fits``.
+
+    Defaults first matters: the sweep measures the all-defaults combo as
+    the baseline every winner's speedup is reported against, and ties
+    keep the default.
+    """
+    clip = clip or {}
+    combos: List[dict] = [{}]
+    for p in spec_params:
+        hi = clip.get(p.name)
+        vals = [p.default] + [int(v) for v in p.ladder
+                              if v != p.default and (hi is None or v <= hi)]
+        combos = [dict(c, **{p.name: v}) for c in combos for v in vals]
+    return [c for c in combos if fits is None or fits(c)]
+
+
+def fitting_defaults(spec: KernelSpec, problem: dict) -> Dict[str, int]:
+    """The spec's defaults, stepped down until they fit this card: the
+    largest parameter drops one rung of its ladder at a time.  Raises
+    when nothing on the ladders fits."""
+    params = spec.defaults()
+    while not spec.fits(problem, params):
+        lower = {p.name: max((v for v in p.ladder if v < params[p.name]),
+                             default=None) for p in spec.params}
+        lower = {k: v for k, v in lower.items() if v is not None}
+        if not lower:
+            raise ValueError(f"{spec.name}: no parameters fit {problem}")
+        name = max(lower, key=lambda k: (params[k], k))
+        params[name] = lower[name]
+    return params
+
+
+def tuned_params(spec: KernelSpec, problem: dict) -> Dict[str, int]:
+    """Validated tune-cache winner for ``problem``, or {} when untuned
+    (a record that is not ``exact`` never resolves)."""
+    if not spec.params:
+        return {}
+    from repro_torch.tune.cache import best_params
+    return best_params(spec.name, spec.lookup_keys(problem)) or {}
+
+
+def resolve_params_info(spec: KernelSpec, problem: dict,
+                        overrides: Optional[dict] = None
+                        ) -> Tuple[Dict[str, int], str]:
+    """Explicit overrides > tuned winners > spec defaults, re-checked
+    against this card's shared-memory model: a tuned (or caller-supplied)
+    config that does not fit serves the defaults instead, stepped down
+    until they fit (:func:`fitting_defaults`).
+
+    Returns ``(params, provenance)``; the provenance (``explicit``,
+    ``tuned``, ``default`` or ``default:smem-fallback``, the first two
+    mixed as ``explicit+tuned``) is what each dispatch is counted under.
+    Untuned defaults that do not fit are stepped down too, under
+    ``default``.
+    """
     overrides = {k: v for k, v in (overrides or {}).items() if v is not None}
+    tuned = None
     params: Dict[str, int] = {}
+    sources = set()
     for p in spec.params:
         if p.name in overrides:
             params[p.name] = int(overrides[p.name])
-            if not spec.fits(problem, params):
-                raise ValueError(f"{spec.name}: {p.name}={params[p.name]} "
-                                 f"does not fit {problem}")
+            sources.add("explicit")
             continue
-        for v in sorted((v for v in p.ladder if v <= p.default),
-                        reverse=True):
-            if spec.fits(problem, dict(params, **{p.name: v})):
-                params[p.name] = v
-                break
+        if tuned is None:
+            tuned = tuned_params(spec, problem)
+        if p.name in tuned:
+            params[p.name] = int(tuned[p.name])
+            sources.add("tuned")
         else:
-            raise ValueError(f"{spec.name}: no {p.name} fits {problem}")
-    return params
+            params[p.name] = p.default
+            sources.add("default")
+    provenance = "+".join(s for s in ("explicit", "tuned", "default")
+                          if s in sources) or "default"
+    if params and not spec.fits(problem, params):
+        if provenance != "default":
+            provenance = "default:smem-fallback"
+        params = fitting_defaults(spec, problem)
+    return params, provenance
+
+
+def resolve_params(spec: KernelSpec, problem: dict,
+                   overrides: Optional[dict] = None) -> Dict[str, int]:
+    return resolve_params_info(spec, problem, overrides)[0]
 
 
 def quantized_variant(spec: KernelSpec) -> Optional[KernelSpec]:
     """The registered int8 twin of a base spec (``<name>_int8``), or None
     when the kernel has no quantized variant."""
-    all_specs()
+    ensure_builtin_specs()
     return _SPECS.get(spec.name + "_int8")
 
 
@@ -163,13 +284,18 @@ def select_tier_spec(spec: KernelSpec, problem: Optional[dict] = None, *,
 def dispatch(spec: KernelSpec, problem: dict, arrays: tuple, device, *,
              overrides: Optional[dict] = None):
     """Run ``spec`` on ``arrays``, which lie on ``device``: the plain
-    version on the CPU, the kernel on CUDA (or raise)."""
+    version on the CPU (counted under provenance ``ref``), the kernel
+    with resolved parameters on CUDA (or raise)."""
     if device.type == "cpu":
         spec.plain_calls += 1
+        _DISPATCHES.inc(1, kernel=spec.name, provenance="ref",
+                        tier=spec.tier)
         return spec.ref_call(problem, arrays)
     if device.type != "cuda":
         raise ValueError(f"{spec.name}: no kernel for device {device}")
     if not spec.supports(problem):
         raise ValueError(f"{spec.name}: the kernel does not take {problem}")
-    return spec.run_call(problem, arrays,
-                         resolve_params(spec, problem, overrides))
+    params, provenance = resolve_params_info(spec, problem, overrides)
+    _DISPATCHES.inc(1, kernel=spec.name, provenance=provenance,
+                    tier=spec.tier)
+    return spec.run_call(problem, arrays, params)

@@ -4,9 +4,10 @@ gates (counterpart of ``repro/quant``).
   * :mod:`repro_torch.quant.budgets` -- the per-bundle RMSE budget
     registry;
   * :mod:`repro_torch.quant.quantize` -- per-output-channel static weight
-    quantization, per-row dynamic activation quantization and
+    quantization, per-row dynamic activation quantization,
     :func:`quant_mlp_ref`, the plain version of the ``fused_mlp_int8``
-    CUDA kernel;
+    CUDA kernel, and :func:`quantize_kv`, the int8 KV cache of
+    ``flash_attention_int8``;
   * :mod:`repro_torch.quant.calibrate` -- calibration rows from the
     held-out split of a ``SurrogateDB``;
   * :mod:`repro_torch.quant.gate` -- the per-bundle accuracy gate, its
@@ -14,13 +15,12 @@ gates (counterpart of ``repro/quant``).
 
 Package import stays lazy: only the stdlib-only budget registry is
 imported here, so importing ``repro_torch.quant`` does not load torch.
-``quantize_kv`` waits for the port of ``flash_attention_int8``.
 """
 from repro_torch.quant.budgets import (budget_pair, clear_budgets,
                                        rmse_budget, set_rmse_budget)
 
 __all__ = ["budget_pair", "clear_budgets", "gate_bundle", "gate_passed",
-           "quant_mlp_ref", "quantize_params",
+           "quant_mlp_ref", "quantize_kv", "quantize_params",
            "quantize_weights_per_channel", "rmse_budget",
            "set_rmse_budget", "verdict"]
 
@@ -29,6 +29,7 @@ _LAZY = {
     "gate_passed": "repro_torch.quant.gate",
     "verdict": "repro_torch.quant.gate",
     "quant_mlp_ref": "repro_torch.quant.quantize",
+    "quantize_kv": "repro_torch.quant.quantize",
     "quantize_params": "repro_torch.quant.quantize",
     "quantize_weights_per_channel": "repro_torch.quant.quantize",
 }

@@ -1,6 +1,6 @@
 """Per-channel int8 quantization math (counterpart of
-``repro/quant/quantize.py``), shared by the ``fused_mlp_int8`` CUDA
-kernel and its plain version.
+``repro/quant/quantize.py``), shared by the ``fused_mlp_int8`` and
+``flash_attention_int8`` CUDA kernels and their plain versions.
 
 Every scale is constant over its dot's contraction dimension, so it
 commutes out of the int32 accumulator exactly:
@@ -69,6 +69,25 @@ def quantize_rows(h) -> Tuple[torch.Tensor, torch.Tensor]:
     hs = _scale(h.abs().amax(dim=1, keepdim=True))
     hq = torch.round(h / hs).to(torch.int8)
     return hq, hs
+
+
+def quantize_kv(k, v):
+    """int8 KV-cache quantization for the ``flash_attention_int8`` path,
+    where ``k`` and ``v`` (``[B, Skv, KV, hd]``) lie.
+
+    K is quantized **per token** (absmax over head_dim, the contraction
+    axis of the score dot), V **per channel** (absmax over the tokens,
+    the contraction axis of ``p @ v``); a zero token or channel gets the
+    scale 1/127.  Returns ``(kq, ks [B, Skv, KV, 1], vq, vs [B, 1, KV,
+    hd])``.
+    """
+    k = k.to(torch.float32)
+    v = v.to(torch.float32)
+    ks = _scale(k.abs().amax(dim=-1, keepdim=True))
+    kq = torch.round(k / ks).to(torch.int8)
+    vs = _scale(v.abs().amax(dim=1, keepdim=True))
+    vq = torch.round(v / vs).to(torch.int8)
+    return kq, ks, vq, vs
 
 
 def quantize_params(weights: Sequence, biases: Sequence, *,

@@ -1,1 +1,1 @@
-"""Serving of the port (only the batch buckets so far)."""
+"""Serving of the port (so far the batch buckets and the flush policy)."""

@@ -15,8 +15,8 @@ Reads are memoized and refreshed when the file's ``(mtime_ns, size)``
 changes; writes are atomic (tmp + rename), so a crashed writer never
 leaves a torn file and concurrent writers merge.  The reference migrates
 legacy schema-1 files; the port never wrote schema 1, so that migration
-is dropped and any file that is not schema 2 reads as empty.
-``best_tile`` and the sweep wait for the port of the tuner.
+is dropped and any file that is not schema 2 reads as empty.  The sweep
+that fills the caches is :mod:`repro_torch.tune.kernel_tuner`.
 """
 from __future__ import annotations
 
@@ -164,3 +164,17 @@ def best_params(kernel: str, keys: Sequence[str]) -> Optional[Dict[str, int]]:
                    "tune-cache lookup chains that missed, by leading key",
                    ("kernel", "key")).inc(1, kernel=kernel, key=keys[0])
     return None
+
+
+def best_tile(widths, dtype, backend: str, batch: int) -> Optional[int]:
+    """Tuned ``block_rows`` for a fused-MLP call, or None when untuned.
+
+    The lookup is the fused MLP spec's own (``mlp_cache_keys``): the
+    exact batch first, then its power-of-two bucket.
+    """
+    from repro_torch.kernels.fused_mlp.ops import SPEC
+    problem = {"widths": widths, "dtype": _dtype_name(dtype),
+               "batch": int(batch)}
+    rows = (best_params(SPEC.name, SPEC.lookup_keys(problem, backend))
+            or {}).get("block_rows")
+    return int(rows) if rows and rows > 0 else None

@@ -190,3 +190,156 @@ def test_engine_int8_route_launches_kernel(dev, tmp_path, monkeypatch):
     finally:
         InferenceEngine.invalidate()
         clear_budgets()
+
+
+# ------------------------------------------- the tune path's kernels ------
+FIVE = ((0, 1), (2, 0), (1, 1), (0, 0), (1, 2))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,w,out_h,out_w,origin,tile", [
+    (512, 512, 508, 508, (1, 1), (8, 128)),
+    (512, 512, 508, 508, (1, 1), (64, 512)),
+    (101, 77, 97, 73, (1, 1), (16, 256)),
+    (9, 9, 1, 1, (3, 2), (8, 128)),
+])
+def test_stencil_gather_kernel_matches_plain_version(dev, dtype, h, w, out_h,
+                                                     out_w, origin, tile):
+    from repro_torch.kernels.stencil_gather import ops
+    from repro_torch.kernels.stencil_gather.ref import stencil_gather_ref
+    from repro_torch.kernels.stencil_gather.stencil_gather import (
+        stencil_gather)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (h, w)).astype(np.float32)).to(dev, getattr(torch, dtype))
+    before = ops.SPEC.launches
+    got = stencil_gather(x, FIVE, out_h, out_w, origin=origin,
+                         block_h=tile[0], block_w=tile[1])
+    torch.cuda.synchronize()
+    assert ops.SPEC.launches == before + 1
+    assert torch.equal(got, stencil_gather_ref(x, FIVE, out_h, out_w,
+                                               origin=origin))
+    with pytest.raises(ValueError):
+        stencil_gather(x, ((0, 0), (h, 0)), out_h, out_w, block_h=8,
+                       block_w=128)
+
+
+def _attn(shape, dev, seed=0, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    b, sq, skv, h, kv, hd = shape
+
+    def t(*dims):
+        return torch.from_numpy(rng.standard_normal(dims).astype(
+            np.float32)).to(dev, dtype)
+    return t(b, sq, h, hd), t(b, skv, kv, hd), t(b, skv, kv, hd)
+
+
+@pytest.mark.parametrize("shape,kw,tile", [
+    ((1, 256, 256, 8, 2, 64), {}, (128, 128)),
+    ((4, 32, 512, 8, 2, 64), {"q_offset": 480}, (16, 256)),
+    ((2, 37, 101, 6, 2, 40), {"causal": False}, (16, 32)),
+    ((1, 20, 50, 4, 4, 16), {"kv_valid_len": 0}, (32, 16)),
+    ((1, 20, 50, 3, 1, 96), {"kv_valid_len": 7, "causal": False}, (64, 64)),
+    ((1, 300, 300, 2, 2, 64), {}, (256, 16)),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain_version(dev, shape, kw, tile,
+                                                      dtype):
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    q, k, v = _attn(shape, dev, dtype=getattr(torch, dtype))
+    before = ops.SPEC.launches
+    got = flash_attention(q, k, v, block_q=tile[0], block_kv=tile[1], **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.SPEC.launches == before + 1 and got.dtype == q.dtype
+    rtol, atol = ops.TOL
+    # bf16 outputs: one rounding of f32 results, at most one ulp apart
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol if dtype == "float32" else 2 ** -7)
+
+
+@pytest.mark.parametrize("shape,kw,tile", [
+    ((4, 32, 512, 8, 2, 64), {"q_offset": 480}, (128, 128)),
+    ((2, 37, 101, 6, 2, 40), {"causal": False}, (16, 32)),
+    ((1, 64, 64, 4, 1, 128), {}, (32, 256)),
+])
+def test_flash_attention_int8_kernel_matches_plain_version(dev, shape, kw,
+                                                           tile):
+    from repro_torch.kernels.flash_attention import int8
+    from repro_torch.quant.quantize import quantize_kv
+    q, k, v = _attn(shape, dev, seed=1)
+    arrays = (q,) + quantize_kv(k, v)
+    before = int8.SPEC.launches
+    got = int8.flash_attention_int8(*arrays, block_q=tile[0],
+                                    block_kv=tile[1], **kw)
+    want = int8.flash_attention_int8_ref(*arrays, **kw)
+    torch.cuda.synchronize()
+    assert int8.SPEC.launches == before + 1
+    rtol, atol = int8.TOL
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    # the scores are equal bit for bit: only the softmax's sums differ
+    assert (got - want).abs().max().item() < 1e-5
+
+
+@pytest.mark.parametrize("name,problem", [
+    ("stencil_gather", {"h": 96, "w": 200, "out_h": 92, "out_w": 196,
+                        "offsets": FIVE, "origin": (1, 1),
+                        "dtype": "float32"}),
+    ("flash_attention", {"b": 1, "sq": 64, "skv": 96, "h": 4, "kv": 2,
+                         "hd": 32, "causal": True, "q_offset": 0,
+                         "dtype": "float32"}),
+    ("flash_attention_int8", {"b": 2, "sq": 16, "skv": 128, "h": 4, "kv": 2,
+                              "hd": 64, "causal": True, "q_offset": 112,
+                              "dtype": "float32"}),
+])
+def test_one_problem_sweep_winner_is_exact(dev, tmp_path, name, problem):
+    from repro_torch.kernels import registry
+    from repro_torch.tune import TuneCache, sweep
+    spec = registry.get_spec(name)
+    before = spec.launches
+    rec = sweep(name, problem, reps=2, warmup=1,
+                cache=TuneCache(name, tmp_path / f"{name}.json"))
+    assert rec["exact"] is True and rec["backend"] == "cuda"
+    assert all(e["exact"] and "error" not in e for e in rec["swept"])
+    assert rec["params"] in spec.candidates(dict(problem))
+    assert rec["us"] <= rec["default_us"] and spec.launches > before
+
+
+def test_tuned_block_rows_reach_engine_bit_identical(dev, tmp_path,
+                                                     monkeypatch):
+    import repro_torch.tune.cache as tcache
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.fused_mlp import ops
+    from repro_torch.kernels.fused_mlp.fused_mlp import fused_mlp
+    from repro_torch.nn import MLP, save_model
+    from repro_torch.tune import autotune
+    monkeypatch.setattr(tcache, "ART", tmp_path / "tune_torch")
+    monkeypatch.setattr(tcache, "_default", {})
+    monkeypatch.delenv("REPRO_QUANT", raising=False)
+    path = save_model(tmp_path / "b", MLP((1, 6), [64, 32], 1).init(0))
+    rec, = autotune(path, buckets=[64], reps=2, warmup=1)
+    assert rec["exact"]
+    seen = []
+    run = ops.SPEC.run_call
+    monkeypatch.setattr(ops.SPEC, "run_call", lambda problem, arrays, params:
+                        seen.append(dict(params)) or run(problem, arrays,
+                                                         params))
+    try:
+        InferenceEngine.invalidate()
+        eng = InferenceEngine.get(path)
+        assert eng.route == "fused_mlp"
+        x = torch.randn(40, 6, device=dev)
+        y = eng.apply_batched(x)              # padded to bucket 64
+        assert seen == [rec["params"]]
+        padded = torch.cat([x, x.new_zeros((24, 6))])
+        assert registry.resolve_params_info(
+            ops.SPEC, ops.inspect_call(padded, eng._packed)) == (
+            rec["params"], "tuned")
+        default = fused_mlp(padded, eng._packed, block_rows=16)[:40]
+        torch.cuda.synchronize()
+        assert torch.equal(y, default)
+    finally:
+        InferenceEngine.invalidate()

@@ -143,9 +143,11 @@ def test_shared_memory_model():
     # width 4096: 8 rows would take 256 KB, over the 227 KB a block has
     assert registry.resolve_params(ops.SPEC, _problem((6, 4096, 1))) == \
         {"block_rows": 4}
-    with pytest.raises(ValueError):
-        registry.resolve_params(ops.SPEC, _problem((6, 4096, 1)),
-                                {"block_rows": 16})
+    # an explicit tile that overflows this card serves the fitting
+    # defaults, and says so in its provenance
+    assert registry.resolve_params_info(
+        ops.SPEC, _problem((6, 4096, 1)), {"block_rows": 16}) == \
+        ({"block_rows": 4}, "default:smem-fallback")
     assert ops.SPEC.supports(_problem(bude))
     assert not ops.SPEC.supports(_problem((6, 30000, 1)))
     assert not ops.SPEC.supports(_problem((6,) + (8,) * 17 + (1,)))
@@ -173,4 +175,6 @@ def test_build_raises_without_nvcc(monkeypatch):
     monkeypatch.setattr(_build.os, "access", lambda path, mode: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
-    assert set(_build.sources()) == {"fused_mlp", "fused_mlp_int8"}
+    assert set(_build.sources()) == {"flash_attention", "flash_attention_int8",
+                                     "fused_mlp", "fused_mlp_int8",
+                                     "stencil_gather"}

@@ -148,9 +148,9 @@ def test_shared_memory_model_and_spec():
         {"block_rows": 4}
     assert registry.resolve_params(int8.SPEC, _problem(BUDE),
                                    {"block_rows": 32}) == {"block_rows": 32}
-    with pytest.raises(ValueError):
-        registry.resolve_params(int8.SPEC, _problem((6, 8192, 1)),
-                                {"block_rows": 16})
+    assert registry.resolve_params_info(
+        int8.SPEC, _problem((6, 8192, 1)), {"block_rows": 16}) == \
+        ({"block_rows": 4}, "default:smem-fallback")
     assert int8.SPEC.supports(_problem(BUDE))
     assert not int8.SPEC.supports(_problem((6, 50000, 1)))
     assert not int8.SPEC.supports(_problem((6,) + (8,) * 17 + (1,)))
@@ -158,7 +158,8 @@ def test_shared_memory_model_and_spec():
     assert int8.SPEC.tier == "int8" and int8.SPEC.tol == (2e-2, 2e-2)
     assert fused_ops.SPEC.tier == "f32"
     names = [s.name for s in registry.all_specs()]
-    assert names == ["fused_mlp", "fused_mlp_int8"]
+    assert names == ["flash_attention", "flash_attention_int8", "fused_mlp",
+                     "fused_mlp_int8", "stencil_gather"]
 
 
 def test_cpu_dispatch_takes_plain_version_and_counts():

@@ -298,10 +298,10 @@ def test_engine_tier_modes(tmp_path, monkeypatch):
     served = _m.counter("repro_quant_served_rows_total",
                         "rows served by the gated int8 tier", ("bundle",))
     before = served.value(bundle=mp)
-    plain = registry.all_specs()[1].plain_calls
+    plain = registry.get_spec("fused_mlp_int8").plain_calls
     yq = eng.apply_batched(x[:100])
     assert served.value(bundle=mp) == before + 100
-    assert registry.all_specs()[1].plain_calls == plain + 1
+    assert registry.get_spec("fused_mlp_int8").plain_calls == plain + 1
     assert torch.isfinite(yq).all()
     assert float(torch.sqrt(torch.mean((yq - y_f32[:100]) ** 2))) <= budget
     # bucket padding does not change a row
@@ -400,7 +400,7 @@ def test_jax_verdicts_are_not_read(tmp_path, monkeypatch):
 
 
 def test_select_tier_spec_resolution_order():
-    base = registry.all_specs()[0]
+    base = registry.get_spec("fused_mlp")
     q = registry.quantized_variant(base)
     assert (base.name, q.name) == ("fused_mlp", "fused_mlp_int8")
     problem = {"widths": (4, 16, 2), "acts": ("relu", "identity"),
