@@ -53,7 +53,20 @@ source, all started together), and prints one JSON line per phase:
    serving the bundle at bucket 256 with the tuned ``block_rows``
    (provenance ``tuned``), rows equal to the default config's bit for
    bit;
-8. the ``kernels`` line, the ``nvidia-smi`` line and, last,
+8. ``lm_slice`` -- the RWKV6 LM's serving path at the full width of
+   rwkv6-1.6b (24 layers, d_model 2,048, 32 heads of 64, d_ff 7,168,
+   vocab 65,536, bf16, seeded random weights on the card): ``prefill``
+   of 4 prompts of 2,048 tokens (exactly 24 rwkv6_chunk launches), the
+   same prefill with the WKV recurrence computed by the plain version
+   (the first layer's state bit for bit, logits and every layer's
+   states within ``LM_TOL_BF16`` of the largest magnitude),
+   ``serve_step`` on token 2,047 after a prefill of 2,047 tokens against
+   the 2,048-token prefill's logits (the cache handoff), then
+   ``launch.serve_lm.generate`` for 33 tokens (24 launches per decode
+   step); the same comparisons on an f32 copy of the weights (within
+   ``LM_TOL_F32``); host times and the kernel's times at the prefill
+   shape and at T = 1;
+9. the ``kernels`` line, the ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Before the slices, the ``kernel`` lines also hold stencil_gather (bit
@@ -61,13 +74,15 @@ for bit: every candidate tile of its default problem in f32 and bf16, a
 grid no tile divides, 4096x4096), flash_attention (its tolerance: both
 default problems, non-causal, GQA groups 1 and 3, ``kv_valid_len`` 0 and
 150, ``q_offset``, bf16 inputs, the llama3.2-3b prefill) and
-flash_attention_int8 (its default problem and the decode window) against
-their plain versions.
+flash_attention_int8 (its default problem and the decode window) and
+rwkv6_chunk (its default problem, T 1 and 33, head sizes 8, 16 and 64,
+bf16 inputs, the rwkv6-1.6b prefill shape; the final state bit for bit)
+against their plain versions.
 
 Launch counts are set to 0 just before each main path (the f32 slice's
-region calls, each int8 slice's infer region, the ``run_tune`` call) and
-read just after.  Any failure raises, so the script exits non-zero and
-prints no result.  The bundle weights are random: nothing here measures
+region calls, each int8 slice's infer region, the ``run_tune`` call, the
+LM's prefill and its generate loop) and read just after.  Any failure
+raises, so the script exits non-zero and prints no result.  The bundle weights are random: nothing here measures
 surrogate accuracy.
 """
 import functools
@@ -109,6 +124,19 @@ DECODE = dict(b=4, sq=32, skv=8192, causal=True, q_offset=8160, **LLAMA)
 # tolerance can round one bf16 ulp apart, 2**-7 of the value at most
 BF16_RTOL = 2 ** -7
 TUNE_BUCKETS = (64, 256, 1024)
+# the LM slice: rwkv6-1.6b (src/repro/configs/archs.py:23-30) serving 4
+# prompts of 2,048 tokens, then 33 generated tokens (32 decode steps); its
+# WKV recurrence at the prefill shape (B 4, T 2,048, 32 heads of 64, f32)
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "rwkv6-1.6b", 4, 2048, 33
+RWKV_PREFILL = {"b": LM_BATCH, "t": LM_PROMPT, "h": 32, "hd": 64,
+                "dtype": "float32"}
+# the LM against itself with the plain recurrence, each error against
+# the largest magnitude of the compared tensor.  In bf16, 24 layers
+# amplify the activations' rounding past the reference's 2e-2
+# (tests/test_kernels.py:118-122): 5.8% of the largest logit on the
+# H100, so 0.1.  On an f32 copy of the weights only the recurrence's own
+# f32 rounding (about 1e-7 of its terms) is amplified: 1e-3
+LM_TOL_F32, LM_TOL_BF16 = 1e-3, 0.1
 PEAK_F32_FLOPS = 67e12   # H100 SXM f32 outside the tensor cores
 PEAK_INT8_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12
@@ -910,12 +938,14 @@ def run_tune_phase(bundle, dev, work):
         y_default = (fused_mlp(xn, eng._packed, **default) * eng.norm[3]
                      + eng.norm[2])
     torch.cuda.synchronize()
+    tunable = [s for s in registry.all_specs() if s.params]
     checks = {
         "every_record_exact": bool(records) and all(r["exact"]
                                                     for r in records),
         "records": len(records) == len(TUNE_BUCKETS) + sum(
-            len(s.default_problems) for s in registry.all_specs()),
-        "every_kernel_launched": all(n > 0 for n in launches.values()),
+            len(s.default_problems) for s in tunable),
+        "every_kernel_launched": all(launches[s.name] > 0
+                                     for s in tunable),
         "second_pass_all_cached": relaunched == {k: 0 for k in relaunched}
         and len(again) == len(records) - len(TUNE_BUCKETS),
         "engine_route_fused_mlp": eng.route == "fused_mlp",
@@ -930,6 +960,299 @@ def run_tune_phase(bundle, dev, work):
     if not all(checks.values()):
         raise AssertionError(f"tune phase checks failed: {checks}")
     return launches
+
+
+def rwkv6_term_scale(r, k, v, w, u, s0):
+    """``sum_i |r_i| |S_ij + u_i k_i v_j|`` for every output of the WKV
+    recurrence, by the plain version's loop: the scale of the rounding
+    error of o's sum over the head, whatever order it runs in."""
+    import torch
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    S = s0.float()
+    out = torch.empty_like(rf)
+    for t in range(r.shape[1]):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        out[:, t] = torch.einsum("bhi,bhij->bhj", rf[:, t].abs(),
+                                 (S + uf * kv).abs())
+        S = wf[:, t, :, :, None] * S + kv
+    return out
+
+
+def check_rwkv6(dev):
+    """rwkv6_chunk (through its op) against its plain version: o within
+    the spec's (1e-5, 1e-5) (bf16 outputs one bf16 ulp), the final state
+    bit for bit.  At the rwkv6-1.6b prefill shape the relative part is
+    taken against ``sum_i |r_i t_ij|`` (:func:`rwkv6_term_scale`), the
+    scale of a dot product's rounding error, and the plain (1e-5, 1e-5)
+    ratio is reported beside it.  Returns ``(errors, failures, prefill
+    arrays)``; the caller raises on failures after the LM slice has run."""
+    import torch
+    from repro_torch.kernels.rwkv6_chunk import ops
+    from repro_torch.kernels.rwkv6_chunk.ref import rwkv6_chunk_ref
+
+    rtol, atol = ops.SPEC.tol
+    default = ops.SPEC.default_problems[0]
+    cases = [
+        ("default", default),
+        ("T 1", dict(RWKV_PREFILL, t=1)),
+        ("T 33", dict(default, t=33)),
+        ("hd 8", dict(default, hd=8)),
+        ("hd 64", dict(default, t=100, h=4, hd=64)),
+        ("bf16", dict(default, t=100, h=4, hd=64, dtype="bfloat16")),
+        ("rwkv6-1.6b prefill", RWKV_PREFILL),
+    ]
+    results, failures = {}, []
+    for i, (label, problem) in enumerate(cases):
+        arrays = ops.SPEC.make_call(
+            problem, torch.Generator().manual_seed(60 + i), dev)
+        o, sT = ops.rwkv6_chunk_op(*arrays)
+        want_o, want_s = rwkv6_chunk_ref(*arrays)
+        torch.cuda.synchronize()
+        r = BF16_RTOL if problem["dtype"] == "bfloat16" else rtol
+        got, want = o.float(), want_o.float()
+        max_abs, worst_flat = compare(got, want, r, atol)
+        res = {"max_abs_err": max_abs, "worst_flat": worst_flat,
+               "max_abs_o": want.abs().max().item(),
+               "state_bit_exact": bool(torch.equal(sT, want_s)),
+               "finite": bool(torch.isfinite(o).all())}
+        if label == "rwkv6-1.6b prefill":
+            scale = rwkv6_term_scale(*arrays)
+            res["worst_vs_terms"] = ((got - want).abs() / (
+                atol + r * scale)).max().item()
+            res["max_term_scale"] = scale.max().item()
+            worst = res["worst_vs_terms"]
+            prefill = arrays
+        else:
+            worst = worst_flat
+        results[label] = res
+        if not (worst <= 1.0 and res["state_bit_exact"] and res["finite"]
+                and o.dtype == arrays[0].dtype):
+            failures.append(f"rwkv6_chunk {label}: {res}")
+    emit("kernel", kernel="rwkv6_chunk", cases=results, rtol=rtol,
+         atol=atol, bf16_rtol=BF16_RTOL, ok=not failures)
+    return results, failures, prefill
+
+
+def rwkv6_bound(problem):
+    """(bound_ms, bound_by, bytes, flops) of one WKV call: r, k, v, w read
+    and o written once in the problem's dtype, u, s0 and sT in f32; 4 hd^2
+    f32 operations per (b, t, h) (r S and the decay-and-add update)."""
+    b, t, h, hd = (problem[k] for k in ("b", "t", "h", "hd"))
+    el = 4 if problem["dtype"] == "float32" else 2
+    nbytes = el * 5 * b * t * h * hd + 4 * (h * hd + 2 * b * h * hd * hd)
+    flops = 4 * hd * hd * b * t * h
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", nbytes, flops)
+
+
+def time_rwkv6(dev, prefill_arrays):
+    """CUDA-event times of rwkv6_chunk and its plain version at the
+    prefill shape and at T = 1 (a decode step), beside the bound.  No one
+    PyTorch call computes this recurrence: no library time."""
+    import torch
+    from repro_torch.kernels.rwkv6_chunk import ops
+    from repro_torch.kernels.rwkv6_chunk.ref import rwkv6_chunk_ref
+
+    out = {}
+    step = dict(RWKV_PREFILL, t=1)
+    for label, problem, arrays, iters in (
+            ("prefill", RWKV_PREFILL, prefill_arrays, 20),
+            ("decode", step, ops.SPEC.make_call(
+                step, torch.Generator().manual_seed(70), dev), 200)):
+        bound_ms, bound_by, nbytes, flops = rwkv6_bound(problem)
+        ms = cuda_ms(lambda: ops.SPEC.run_call(problem, arrays, {}), iters)
+        plain_ms = cuda_ms(lambda: rwkv6_chunk_ref(*arrays),
+                           3 if problem["t"] > 1 else iters, warmup=1)
+        out[label] = dict(problem=problem, ms=ms, plain_ms=plain_ms,
+                          library_ms=None, bound_ms=bound_ms,
+                          bound_by=bound_by, share_of_bound=bound_ms / ms,
+                          bytes=nbytes, flops=flops)
+    return out
+
+
+def lm_states(caches):
+    """Every layer's S, x_last and cm_x_last, stacked."""
+    import torch
+    layers = caches["stack"][0]
+    return {"S": torch.stack([c["mixer"]["S"] for c in layers]),
+            "x_last": torch.stack([c["mixer"]["x_last"] for c in layers]),
+            "cm_x_last": torch.stack([c["cm_x_last"] for c in layers])}
+
+
+def lm_compare(got, want):
+    """(max abs error, largest |want|, worst elementwise ratio at rtol =
+    atol = 2e-2, the reference's bf16 model tolerance); the checks hold
+    the first against tol * (1 + the second)."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max().item(), want.abs().max().item(),
+            compare(got, want, 2e-2, 2e-2)[1])
+
+
+def lm_against_plain(cfg, params, prompts, logits, caches):
+    """The prefill that gave ``logits``/``caches`` run again with the WKV
+    recurrence computed by the plain version (which must launch
+    nothing), and the cache handoff: ``serve_step`` on the last prompt
+    token after a prefill of the others, against ``logits``."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.kernels.rwkv6_chunk import ops
+    from repro_torch.kernels.rwkv6_chunk.ref import rwkv6_chunk_ref
+    from repro_torch.models import blocks, lm
+
+    before = ops.SPEC.launches
+    with mock.patch.object(blocks, "rwkv6_chunk_op", rwkv6_chunk_ref):
+        t0 = time.perf_counter()
+        logits_p, caches_p = lm.prefill(cfg, params, prompts)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    plain_launches = ops.SPEC.launches - before
+    mine, ref = lm_states(caches), lm_states(caches_p)
+    vs = {"logits": lm_compare(logits, logits_p)}
+    vs.update({k: lm_compare(mine[k], ref[k]) for k in mine})
+    _, short = lm.prefill(cfg, params, prompts[:, :-1])
+    step, _ = lm.serve_step(cfg, params, short, prompts[:, -1:],
+                            prompts.shape[1] - 1)
+    return {
+        "plain_wkv_prefill_s": seconds,
+        "plain_path_launches": plain_launches,
+        "vs_plain_wkv": {k: dict(zip(("max_abs_err", "max_abs", "worst"), v))
+                         for k, v in vs.items()},
+        "S_max_abs_err_by_layer": (mine["S"] - ref["S"]).abs().amax(
+            dim=(1, 2, 3, 4)).tolist(),
+        "layer0_state_bit_exact": bool(torch.equal(mine["S"][0],
+                                                   ref["S"][0])),
+        "handoff": dict(zip(("max_abs_err", "max_abs", "worst"),
+                            lm_compare(step, logits)))}
+
+
+def lm_within(res, tol):
+    """Every comparison of :func:`lm_against_plain` within ``tol`` of the
+    largest magnitude."""
+    cmp = list(res["vs_plain_wkv"].values()) + [res["handoff"]]
+    return all(c["max_abs_err"] <= tol * (1 + c["max_abs"]) for c in cmp)
+
+
+def run_lm_slice(dev, smi, rwkv_arrays):
+    """prefill -> serve_step of rwkv6-1.6b at full width through the
+    port's entry points, held against the same model with the WKV
+    recurrence computed by the plain version, in its bf16 and as an f32
+    copy; then rwkv6_chunk's times (``rwkv_arrays``: its inputs at the
+    prefill shape).  Returns the generate loop's rwkv6_chunk launches
+    and the kernel's times."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.rwkv6_chunk import ops
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import lm
+
+    cfg = get_config(LM_ARCH)
+    seconds = {}
+    t0 = time.perf_counter()
+    params = lm.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    seconds["init_params"] = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=g, device=dev)
+    lm.prefill(cfg, params, prompts)  # warm-up: cuBLAS handles, allocator
+
+    registry.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = lm.prefill(cfg, params, prompts)
+    torch.cuda.synchronize()
+    seconds["prefill"] = time.perf_counter() - t0
+    prefill_launches = (ops.SPEC.launches, ops.SPEC.plain_calls)
+    bf16 = lm_against_plain(cfg, params, prompts, logits, caches)
+
+    registry.reset_counts()
+    res = serve_lm.generate(cfg, params, prompts, LM_GEN)
+    gen_launches = ops.SPEC.launches
+    tokens = res["tokens"]
+    finite = bool(torch.isfinite(logits).all()
+                  and torch.isfinite(res["logits"]).all())
+    del caches
+
+    # the same weights in f32: the recurrence's own differences, without
+    # bf16 rounding of the activations to amplify them layer by layer
+    cfg32 = cfg.replace(dtype="float32")
+    params32 = _cast(params, torch.float32)
+    del params
+    registry.reset_counts()
+    logits32, caches32 = lm.prefill(cfg32, params32, prompts)
+    torch.cuda.synchronize()
+    f32_launches = ops.SPEC.launches
+    f32 = lm_against_plain(cfg32, params32, prompts, logits32, caches32)
+    finite = finite and bool(torch.isfinite(logits32).all())
+    del params32, caches32
+
+    timing = time_rwkv6(dev, rwkv_arrays)
+    steps = LM_GEN - 1
+    checks = {
+        "prefill_launches_one_per_layer":
+        prefill_launches == (cfg.n_layers, 0)
+        and f32_launches == cfg.n_layers,
+        "plain_path_launched_nothing": bf16["plain_path_launches"] == 0
+        and f32["plain_path_launches"] == 0,
+        "generate_launches_one_per_layer_per_call":
+        gen_launches == cfg.n_layers * LM_GEN,
+        "logits_finite": finite,
+        "logits_shape": tuple(logits.shape) == (LM_BATCH, cfg.padded_vocab),
+        "layer0_state_bit_exact": bf16["layer0_state_bit_exact"]
+        and f32["layer0_state_bit_exact"],
+        "bf16_matches_plain_wkv_and_handoff": lm_within(bf16, LM_TOL_BF16),
+        "f32_matches_plain_wkv_and_handoff": lm_within(f32, LM_TOL_F32),
+        "tokens": tuple(tokens.shape) == (LM_BATCH, LM_GEN)
+        and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+    }
+    numbers = dict(
+        prefill_s=seconds["prefill"], decode_s=res["decode_s"],
+        generate_prefill_s=res["prefill_s"],
+        decode_ms_per_token=res["decode_s"] / steps * 1e3,
+        tokens_per_s=LM_BATCH * steps / res["decode_s"],
+        kernel_ms_prefill=timing["prefill"]["ms"],
+        kernel_ms_decode=timing["decode"]["ms"],
+        plain_ms_prefill=timing["prefill"]["plain_ms"],
+        plain_ms_decode=timing["decode"]["plain_ms"],
+        bound_ms_prefill=timing["prefill"]["bound_ms"],
+        bound_ms_decode=timing["decode"]["bound_ms"],
+        kernel_share_of_prefill=cfg.n_layers * timing["prefill"]["ms"]
+        / (seconds["prefill"] * 1e3))
+    emit("lm_slice", arch=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_rwkv_heads,
+         head_size=cfg.rwkv_head_size, d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, dtype=cfg.dtype, params=n_params,
+         batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN, seconds=seconds,
+         launches={"prefill": prefill_launches[0], "generate": gen_launches,
+                   "f32_prefill": f32_launches},
+         bf16=bf16, f32=f32, tol_bf16=LM_TOL_BF16, tol_f32=LM_TOL_F32,
+         sample=tokens[0, :8].tolist(), timing=timing, nvidia_smi=smi,
+         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+         **numbers, **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"lm slice checks failed: {checks}")
+    return gen_launches, timing
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast(v, dtype) for v in tree)
+    return tree.to(dtype)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _leaves(x)]
+    return [tree]
 
 
 def main():
@@ -948,6 +1271,8 @@ def main():
     from repro_torch.kernels.flash_attention import flash_attention as flash
     from repro_torch.kernels.flash_attention import int8 as flash8
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rwkv6_chunk import ops as rwkv_ops
+    from repro_torch.kernels.rwkv6_chunk import rwkv6_chunk as rwkv
     from repro_torch.kernels.stencil_gather import ops as stencil_ops
     from repro_torch.kernels.stencil_gather import stencil_gather as stencil
 
@@ -977,6 +1302,7 @@ def main():
     errs_new = {"stencil_gather": check_stencil(dev),
                 "flash_attention": check_flash(dev),
                 "flash_attention_int8": check_flash8(dev)}
+    rwkv_errs, rwkv_failures, rwkv_arrays = check_rwkv6(dev)
 
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -990,6 +1316,9 @@ def main():
     timings_new = time_new_kernels(dev, smi, work / "timing_sweeps")
     tune_launches = run_tune_phase(work / "bundle", dev, work)
     shutil.rmtree(work)
+    lm_launches, rwkv_timing = run_lm_slice(dev, smi, rwkv_arrays)
+    if rwkv_failures:
+        raise AssertionError("; ".join(rwkv_failures))
     new_rows = []
     for spec, mod in ((stencil_ops.SPEC, stencil), (flash_ops.SPEC, flash),
                       (flash8.SPEC, flash8)):
@@ -1020,7 +1349,19 @@ def main():
         "plain_ms": timings8["plain_ms"],
         "bound_ms": timings8["bound_ms"],
         "bound_by": timings8["bound_by"],
-        "library_ms": timings8["library_ms"]}] + new_rows}), flush=True)
+        "library_ms": timings8["library_ms"]}] + new_rows + [{
+        "name": "rwkv6_chunk", "route": "cuda", "source": rwkv.SOURCE,
+        "replaces": rwkv.REPLACES, "launches": lm_launches,
+        "max_abs_err": rwkv_errs["rwkv6-1.6b prefill"]["max_abs_err"],
+        "rtol": rwkv_ops.SPEC.tol[0], "atol": rwkv_ops.SPEC.tol[1],
+        "shape": RWKV_PREFILL, "ms": rwkv_timing["prefill"]["ms"],
+        "plain_ms": rwkv_timing["prefill"]["plain_ms"],
+        "bound_ms": rwkv_timing["prefill"]["bound_ms"],
+        "bound_by": rwkv_timing["prefill"]["bound_by"],
+        "library_ms": None, "decode_ms": rwkv_timing["decode"]["ms"],
+        "decode_plain_ms": rwkv_timing["decode"]["plain_ms"],
+        "decode_bound_ms": rwkv_timing["decode"]["bound_ms"]}]}),
+        flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

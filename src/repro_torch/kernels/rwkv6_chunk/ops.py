@@ -1,0 +1,85 @@
+"""Registry declaration and op of the RWKV6 WKV recurrence (counterpart of
+``repro/kernels/rwkv6_chunk/ops.py``).
+
+No tunable parameters: the grid is (batch, head) and the time loop runs
+inside the kernel, so there is nothing to sweep
+(:func:`repro_torch.tune.autotune_registered` skips the spec).  The
+registry still owns the dispatch: the plain version on the CPU, the
+kernel on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import registry
+from repro_torch.kernels.rwkv6_chunk.ref import check_shapes, rwkv6_chunk_ref
+from repro_torch.kernels.rwkv6_chunk.rwkv6_chunk import (HEAD_DIMS,
+                                                         rwkv6_chunk)
+
+#: (rtol, atol) against the plain version, the reference's: both compute
+#: in f32 and differ only in the order of o's sum over the head.
+TOL = (1e-5, 1e-5)
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def inspect_call(r, k, v, w, u, s0) -> dict:
+    B, T, H, hd = r.shape
+    return {"b": int(B), "t": int(T), "h": int(H), "hd": int(hd),
+            "dtype": str(r.dtype).removeprefix("torch.")}
+
+
+def _run(problem, arrays, params):
+    del params  # no tunables
+    return rwkv6_chunk(*arrays)
+
+
+def _ref(problem, arrays):
+    return rwkv6_chunk_ref(*arrays)
+
+
+def _make(problem, generator, device):
+    """The reference's inputs: normal r, k, v, u; decays w in
+    [0.7, 0.999); a small initial state."""
+    B, T, H, hd = problem["b"], problem["t"], problem["h"], problem["hd"]
+    dt = _DTYPES[problem["dtype"]]
+
+    def t(*shape, lo=None, hi=None):
+        if lo is None:
+            a = torch.randn(shape, generator=generator)
+        else:
+            a = torch.rand(shape, generator=generator) * (hi - lo) + lo
+        return a.to(device=device, dtype=dt)
+    r, k, v = t(B, T, H, hd), t(B, T, H, hd), t(B, T, H, hd)
+    w = t(B, T, H, hd, lo=0.7, hi=0.999)
+    u = t(H, hd)
+    s0 = t(B, H, hd, hd) * 0.1
+    return (r, k, v, w, u, s0)
+
+
+def _key(problem, backend):
+    p = problem
+    return (f"b{p['b']}-t{p['t']}-h{p['h']}-hd{p['hd']}"
+            f"|{p['dtype']}|{backend}")
+
+
+def _supports(problem):
+    return problem["dtype"] in _DTYPES and problem["hd"] in HEAD_DIMS
+
+
+SPEC = registry.register(registry.KernelSpec(
+    name="rwkv6_chunk", params=(),
+    kernel=rwkv6_chunk, run_call=_run, ref_call=_ref, make_call=_make,
+    cache_key=_key, candidates=lambda problem: [{}],
+    fits=lambda problem, params: True, supports=_supports, tol=TOL,
+    default_problems=(
+        {"b": 2, "t": 64, "h": 2, "hd": 16, "dtype": "float32"},
+    )))
+
+
+def rwkv6_chunk_op(r, k, v, w, u, s0):
+    """The WKV recurrence over r, k, v, w ``[B, T, H, hd]`` from state s0
+    ``[B, H, hd, hd]`` with bonus u ``[H, hd]``: the plain version on the
+    CPU, the kernel on the card.  Returns ``(o, sT)``."""
+    check_shapes(r, k, v, w, u, s0)
+    return registry.dispatch(SPEC, inspect_call(r, k, v, w, u, s0),
+                             (r, k, v, w, u, s0), r.device)

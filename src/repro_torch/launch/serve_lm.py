@@ -1,0 +1,72 @@
+"""Batched LM serving: prefill a batch of prompts, then decode greedily
+(the loop of ``examples/serve_lm.py`` as a function).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm
+
+serves ``rwkv6-1.6b`` at full width with seeded random weights on the
+card (4 random prompts of 2,048 tokens, 33 generated tokens) and prints
+one JSON line of host times.  The example's own small
+GQA model waits for the port of the attention blocks.
+"""
+from __future__ import annotations
+
+import json
+import time
+
+import torch
+
+from repro_torch.configs.base import get_config
+from repro_torch.models import lm
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(cfg, params, prompts, gen):
+    """``prefill`` over ``prompts`` ``[B, S]``, then ``gen - 1`` greedy
+    ``serve_step`` calls: ``gen`` new tokens per prompt, the first from
+    the prefill's logits.  Returns a dict with ``tokens`` ``[B, gen]``,
+    the last ``logits`` ``[B, Vp]``, and host seconds ``prefill_s`` and
+    ``decode_s``, each ended by a device synchronize."""
+    dev = params["tok_embed"].device
+    prompts = prompts.to(dev)
+    S = prompts.shape[1]
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, caches = lm.prefill(cfg, params, prompts, cache_len=S + gen)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    tok = logits.argmax(-1)[:, None]
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, caches = lm.serve_step(cfg, params, caches, tok, S + i)
+        tok = logits.argmax(-1)[:, None]
+        out.append(tok)
+    _sync(dev)
+    return {"tokens": torch.cat(out, dim=1), "logits": logits,
+            "prefill_s": t_prefill, "decode_s": time.perf_counter() - t0}
+
+
+def main(batch=4, prompt_len=2048, gen=33, seed=0):
+    cfg = get_config("rwkv6-1.6b")
+    params = lm.init_params(seed, cfg)
+    dev = params["tok_embed"].device
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            generator=g, device=dev)
+    res = generate(cfg, params, prompts, gen)
+    print(json.dumps({
+        "arch": cfg.name, "batch": batch, "prompt_len": prompt_len,
+        "gen": gen, "prefill_s": res["prefill_s"],
+        "decode_s": res["decode_s"],
+        "decode_ms_per_step": res["decode_s"] / (gen - 1) * 1e3,
+        "tokens_per_s": batch * (gen - 1) / res["decode_s"],
+        "device": torch.cuda.get_device_name(dev)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

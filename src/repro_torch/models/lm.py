@@ -1,0 +1,261 @@
+"""The LM's serving surface (counterpart of ``repro/models/lm.py``).
+
+Public surface, under the reference's names:
+  init_params(seed, cfg, device=None)    -> params
+  params_from_jax(cfg, tree, device=None) -> params
+  forward(cfg, params, tokens, ...)      -> logits
+  init_caches(cfg, batch, cache_len)     -> decode caches
+  prefill(cfg, params, tokens)           -> (logits_last, caches)
+  serve_step(cfg, params, caches, tokens, pos) -> (logits, caches)
+
+Parameters are dicts of tensors with the reference's keys.  The
+reference stacks each pattern slot's ``R`` repeats on a leading axis
+(built by ``vmap``, walked by ``lax.scan``); the port keeps a list of
+``R`` per-layer dicts instead, ``params["stack"][slot][r]``, and walks
+the layers in an unrolled loop.  Caches are laid out the same way.
+The port runs recurrent-only configurations (RWKV6 mixers): no
+attention, positional table or encoder yet.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
+from repro_torch.models.blocks import (MIXER_CACHE, MIXER_INIT, MIXER_SEQ,
+                                       MIXER_STEP, _dense_init, apply_norm,
+                                       mixer, mlp_apply, mlp_init, norm_init)
+from repro_torch.models.loss import embed_lookup
+
+
+def _layers(cfg):
+    """Every layer's (slot, repeat, spec) in the reference's order: the
+    prefix (slot None), then the pattern repeated."""
+    out = [(None, i, s) for i, s in enumerate(cfg.prefix)]
+    for r in range(cfg.pattern_repeats):
+        out += [(slot, r, s) for slot, s in enumerate(cfg.pattern)]
+    return out
+
+
+def _check_supported(cfg):
+    specs = list(cfg.prefix) + list(cfg.pattern)
+    for s in specs:
+        mixer(MIXER_INIT, s.mixer)
+        if s.cross_attn:
+            raise NotImplementedError("cross attention is not in the port "
+                                      "yet (ROADMAP queue 1 item 14)")
+    if cfg.enc_dec:
+        raise NotImplementedError("encoder-decoder models are not in the "
+                                  "port yet (ROADMAP queue 1 item 14)")
+
+
+def _get(tree, slot, r):
+    return tree["prefix"][r] if slot is None else tree["stack"][slot][r]
+
+
+# ---------------------------------------------------------------- init -----
+
+
+def init_layer(gen, cfg, spec):
+    p = {
+        "ln1": norm_init(cfg, gen.device),
+        "mixer": mixer(MIXER_INIT, spec.mixer)(gen, cfg),
+        "ln2": norm_init(cfg, gen.device),
+        "mlp": mlp_init(gen, cfg, spec.mlp),
+    }
+    if cfg.ffn_surrogate_dim:
+        d, sd = cfg.d_model, cfg.ffn_surrogate_dim
+        p["surr"] = {
+            "w1": _dense_init(gen, (d, sd), cfg.torch_dtype),
+            "w2": _dense_init(gen, (sd, d), cfg.torch_dtype),
+        }
+    return p
+
+
+def init_params(seed, cfg, *, device=None):
+    """Seeded random parameters of the whole model, made on ``device``
+    (None: the card) in the configured dtype by a ``torch.Generator``
+    there.  The draws differ from the reference's ``jax.random`` ones:
+    to run the reference's weights, use :func:`params_from_jax`."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    Vp, D, dt = cfg.padded_vocab, cfg.d_model, cfg.torch_dtype
+    p = {"tok_embed": (torch.randn((Vp, D), generator=gen, device=dev)
+                       * 0.02).to(dt),
+         "prefix": [], "stack": tuple([] for _ in cfg.pattern)}
+    for slot, _, spec in _layers(cfg):
+        layer = init_layer(gen, cfg, spec)
+        (p["prefix"] if slot is None else p["stack"][slot]).append(layer)
+    p["final_norm"] = norm_init(cfg, dev)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = (torch.randn((D, Vp), generator=gen, device=dev)
+                        * 0.02).to(dt)
+    return p
+
+
+def _tensor(a, dev):
+    """A numpy leaf as a tensor of the same dtype, bf16 bit for bit (numpy's
+    bf16 comes from ml_dtypes, which ``torch.from_numpy`` rejects)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(a.copy()).to(dev)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(cfg, tree, *, device=None):
+    """The port's parameters from the reference's ``init_params`` pytree
+    given as numpy arrays: the stacked ``R`` axis of ``tree["stack"]``
+    unstacked into per-layer dicts, every leaf carried bit for bit."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    R = cfg.pattern_repeats
+    p = {"tok_embed": _tensor(tree["tok_embed"], dev),
+         "prefix": [_map(lp, lambda a: _tensor(a, dev))
+                    for lp in tree["prefix"]],
+         "stack": tuple([_map(slot, lambda a, r=r: _tensor(np.asarray(a)[r],
+                                                           dev))
+                         for r in range(R)] for slot in tree["stack"]),
+         "final_norm": _map(tree["final_norm"], lambda a: _tensor(a, dev))}
+    if "lm_head" in tree:
+        p["lm_head"] = _tensor(tree["lm_head"], dev)
+    return p
+
+
+# ------------------------------------------------------------- forward -----
+
+
+def _apply_layer_seq(cfg, p, spec, x):
+    h, mc = mixer(MIXER_SEQ, spec.mixer)(cfg, p["mixer"],
+                                          apply_norm(cfg, p["ln1"], x))
+    x = x + h
+    h, cm_new = mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x),
+                          spec.mlp)
+    x = x + h
+    cache = {"mixer": mc}
+    if spec.mlp == "rwkv_cm":
+        cache["cm_x_last"] = cm_new
+    return x, cache
+
+
+def hidden_states(cfg, params, tokens, *, collect_caches=False):
+    """tokens [B,S] -> (final-normed hidden [B,S,D], caches or None)."""
+    x = embed_lookup(params["tok_embed"], tokens)
+    caches = {"prefix": [], "stack": tuple([] for _ in cfg.pattern)}
+    for slot, r, spec in _layers(cfg):
+        x, c = _apply_layer_seq(cfg, _get(params, slot, r), spec, x)
+        if collect_caches:
+            (caches["prefix"] if slot is None
+             else caches["stack"][slot]).append(c)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return x, caches if collect_caches else None
+
+
+def _head_matrix(cfg, params, dtype):
+    head = params.get("lm_head")
+    return head if head is not None else params["tok_embed"].T.to(dtype)
+
+
+def _logits_from_hidden(cfg, params, x):
+    logits = x @ _head_matrix(cfg, params, x.dtype)
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= \
+            cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    return logits
+
+
+def forward(cfg, params, tokens, *, collect_caches=False, last_only=False):
+    """tokens [B,S] -> logits [B,S,Vp] (or [B,1,Vp] with last_only), and
+    the caches with ``collect_caches``."""
+    x, caches = hidden_states(cfg, params, tokens,
+                              collect_caches=collect_caches)
+    if last_only:
+        x = x[:, -1:]
+    logits = _logits_from_hidden(cfg, params, x)
+    return (logits, caches) if collect_caches else logits
+
+
+# -------------------------------------------------------------- decode -----
+
+
+def _layer_cache(cfg, spec, batch, cache_len, dtype, device):
+    c = {"mixer": mixer(MIXER_CACHE, spec.mixer)(cfg, batch, cache_len,
+                                                 dtype, device)}
+    if spec.mlp == "rwkv_cm":
+        c["cm_x_last"] = torch.zeros((batch, 1, cfg.d_model), dtype=dtype,
+                                     device=device)
+    return c
+
+
+def init_caches(cfg, batch, cache_len, dtype=None, *, device=None):
+    """Zero decode caches, laid out as the parameters."""
+    dtype = dtype or cfg.torch_dtype
+    dev = resolve_device(device)
+    caches = {"prefix": [], "stack": tuple([] for _ in cfg.pattern)}
+    for slot, _, spec in _layers(cfg):
+        c = _layer_cache(cfg, spec, batch, cache_len, dtype, dev)
+        (caches["prefix"] if slot is None else caches["stack"][slot]).append(c)
+    return caches
+
+
+def _apply_layer_step(cfg, p, spec, x, cache, pos):
+    h, mc = mixer(MIXER_STEP, spec.mixer)(
+        cfg, p["mixer"], apply_norm(cfg, p["ln1"], x), cache["mixer"], pos)
+    x = x + h
+    cm_prev = cache.get("cm_x_last")
+    cm_new = cm_prev
+    if cfg.ffn_surrogate_dim and "surr" in p:
+        # surrogate execution path (paper: the NN replaces the dominant
+        # kernel); the accurate path is taken on interleaved steps
+        xn = apply_norm(cfg, p["ln2"], x)
+        h = F.silu(xn @ p["surr"]["w1"]) @ p["surr"]["w2"]
+    else:
+        h, cm_new = mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x),
+                              spec.mlp, cm_prev=cm_prev)
+    x = x + h
+    new_cache = dict(cache)
+    new_cache["mixer"] = mc
+    if cm_prev is not None:
+        new_cache["cm_x_last"] = cm_new
+    return x, new_cache
+
+
+def serve_step(cfg, params, caches, tokens, pos):
+    """One decode step. tokens [B,1] -> (logits [B,Vp], new caches)."""
+    x = embed_lookup(params["tok_embed"], tokens)
+    new = {"prefix": [], "stack": tuple([] for _ in cfg.pattern)}
+    for slot, r, spec in _layers(cfg):
+        x, c = _apply_layer_step(cfg, _get(params, slot, r), spec, x,
+                                 _get(caches, slot, r), pos)
+        (new["prefix"] if slot is None else new["stack"][slot]).append(c)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return _logits_from_hidden(cfg, params, x[:, 0]), new
+
+
+def prefill(cfg, params, tokens, *, cache_len=None):
+    """Forward over the prompt; returns (last-token logits, decode caches)."""
+    logits, caches = forward(cfg, params, tokens, collect_caches=True,
+                             last_only=True)
+    B, S = tokens.shape
+    out = init_caches(cfg, B, cache_len or S, cfg.torch_dtype,
+                      device=params["tok_embed"].device)
+    for slot, r, spec in _layers(cfg):
+        src, dst = _get(caches, slot, r), _get(out, slot, r)
+        dst["mixer"] = _fill_mixer(cfg, spec, dst["mixer"], src["mixer"])
+        if "cm_x_last" in src:
+            dst["cm_x_last"] = src["cm_x_last"]
+    return logits[:, -1], out
+
+
+def _fill_mixer(cfg, spec, dst, src):
+    """A recurrent mixer's prefill state in its cache's dtypes."""
+    return {k: src[k].to(dst[k].dtype) for k in dst}

@@ -343,3 +343,86 @@ def test_tuned_block_rows_reach_engine_bit_identical(dev, tmp_path,
         assert torch.equal(y, default)
     finally:
         InferenceEngine.invalidate()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,h,hd", [
+    (2, 64, 2, 16),    # the spec's default problem
+    (4, 1, 32, 64),    # one decode step of rwkv6-1.6b
+    (2, 33, 2, 16),    # a ragged last chunk
+    (2, 64, 2, 8),
+    (1, 70, 3, 32),
+    (2, 100, 4, 64),
+    (1, 0, 2, 8),      # no step: sT is s0
+])
+def test_rwkv6_chunk_kernel_matches_plain_version(dev, dtype, b, t, h, hd):
+    from repro_torch.kernels.rwkv6_chunk import ops
+    from repro_torch.kernels.rwkv6_chunk.ref import rwkv6_chunk_ref
+    problem = {"b": b, "t": t, "h": h, "hd": hd, "dtype": dtype}
+    arrays = ops.SPEC.make_call(problem, torch.Generator().manual_seed(t),
+                                dev)
+    before = ops.SPEC.launches
+    o, sT = ops.rwkv6_chunk_op(*arrays)
+    want_o, want_s = rwkv6_chunk_ref(*arrays)
+    torch.cuda.synchronize()
+    assert ops.SPEC.launches == before + 1
+    assert o.dtype == arrays[0].dtype and sT.dtype == torch.float32
+    # the state's update rounds as the plain version's: bit for bit
+    assert torch.equal(sT, want_s)
+    rtol, atol = ops.SPEC.tol
+    torch.testing.assert_close(o.float(), want_o.float(), atol=atol,
+                               rtol=rtol if dtype == "float32" else 2 ** -7)
+
+
+def test_rwkv6_chunk_wrapper_refuses_what_it_cannot_take(dev):
+    from repro_torch.kernels.rwkv6_chunk import ops
+    from repro_torch.kernels.rwkv6_chunk.rwkv6_chunk import rwkv6_chunk
+    arrays = ops.SPEC.make_call({"b": 1, "t": 4, "h": 2, "hd": 16,
+                                 "dtype": "float32"},
+                                torch.Generator().manual_seed(0), dev)
+    bad_hd = ops.SPEC.make_call({"b": 1, "t": 4, "h": 2, "hd": 12,
+                                 "dtype": "float32"},
+                                torch.Generator().manual_seed(0), dev)
+    with pytest.raises(ValueError, match="head size"):
+        rwkv6_chunk(*bad_hd)
+    with pytest.raises(ValueError, match="the kernel does not take"):
+        ops.rwkv6_chunk_op(*bad_hd)
+    mixed = (arrays[0].to(torch.bfloat16),) + arrays[1:]
+    with pytest.raises(ValueError, match="one dtype"):
+        rwkv6_chunk(*mixed)
+    with pytest.raises(ValueError, match="CUDA"):
+        rwkv6_chunk(*(arrays[:5] + (arrays[5].cpu(),)))
+
+
+def test_lm_prefill_and_serve_step_launch_the_kernel(dev):
+    """At the reduced rwkv6-1.6b: one launch per layer for prefill and
+    for each decode step, the logits within the reference's bf16
+    tolerance of the same model with the plain recurrence, and the
+    cache handoff."""
+    from unittest import mock
+
+    from repro_torch.configs.archs import reduced
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.rwkv6_chunk import ops
+    from repro_torch.kernels.rwkv6_chunk.ref import rwkv6_chunk_ref
+    from repro_torch.models import blocks, lm
+    cfg = reduced(get_config("rwkv6-1.6b"))
+    params = lm.init_params(0, cfg, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    ops.SPEC.reset_counts()
+    logits, caches = lm.prefill(cfg, params, tokens)
+    torch.cuda.synchronize()
+    assert ops.SPEC.launches == cfg.n_layers and ops.SPEC.plain_calls == 0
+    with mock.patch.object(blocks, "rwkv6_chunk_op", rwkv6_chunk_ref):
+        plain, _ = lm.prefill(cfg, params, tokens)
+    assert ops.SPEC.launches == cfg.n_layers
+    err = (logits.float() - plain.float()).abs().max().item()
+    assert err <= 2e-2 * (1 + plain.float().abs().max().item())
+    _, short = lm.prefill(cfg, params, tokens[:, :-1])
+    ops.SPEC.reset_counts()
+    step, _ = lm.serve_step(cfg, params, short, tokens[:, -1:], 39)
+    torch.cuda.synchronize()
+    assert ops.SPEC.launches == cfg.n_layers
+    err = (step.float() - logits.float()).abs().max().item()
+    assert err <= 2e-2 * (1 + logits.float().abs().max().item())

@@ -177,4 +177,4 @@ def test_build_raises_without_nvcc(monkeypatch):
         _build.nvcc()
     assert set(_build.sources()) == {"flash_attention", "flash_attention_int8",
                                      "fused_mlp", "fused_mlp_int8",
-                                     "stencil_gather"}
+                                     "rwkv6_chunk", "stencil_gather"}

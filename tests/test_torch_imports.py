@@ -33,7 +33,10 @@ def test_port_imports_with_jax_and_repro_blocked():
         "assert {'repro_torch.core.engine', 'repro_torch.launch.dryrun',\n"
         "        'repro_torch.tune.kernel_tuner', 'repro_torch.serve.queue',\n"
         "        'repro_torch.kernels.stencil_gather.ops',\n"
-        "        'repro_torch.kernels.flash_attention.int8'} <= set(names)\n"
+        "        'repro_torch.kernels.flash_attention.int8',\n"
+        "        'repro_torch.kernels.rwkv6_chunk.ops',\n"
+        "        'repro_torch.models.lm', 'repro_torch.launch.serve_lm'\n"
+        "        } <= set(names)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
