@@ -15,10 +15,12 @@ source, all started together), and prints one JSON line per phase:
    shared-memory/spill report;
 3. ``kernel``  -- fused_mlp and fused_mlp_int8 against their plain
    PyTorch versions at the minibude surrogate widths
-   (6,1024,819,655,524,419,335,1) and at a gelu/tanh/silu/sigmoid net,
-   at batches 1, 37, 256 and 65,536, plus bit-identical rows across
-   batch sizes, padding and block sizes; the int8 lines also count the
-   elements that differ at all (none on a relu/identity net);
+   (6,1024,819,655,524,419,335,1) and at a gelu/tanh/silu/sigmoid net
+   (fused_mlp also at a (6,4096,1500,1) net, past the 1,024 columns of
+   its 16- and 32-row blocks), at batches 1, 37, 256 and 65,536, plus
+   bit-identical rows across batch sizes, padding and every
+   ``block_rows`` that fits; the int8 lines also count the elements that
+   differ at all (none on a relu/identity net);
 4. ``slice``   -- the minibude surrogate loop on the card, f32 tier:
    ``collect`` over 4,096 poses into a SurrogateDB, a bundle of seeded
    He-normal weights with normalization from the collected rows,
@@ -36,15 +38,23 @@ source, all started together), and prints one JSON line per phase:
    (``scale_mult=64`` must fail the gate, and the engine must serve f32
    through fused_mlp);
 6. ``timing``  -- CUDA-event times of each kernel, its plain version and
-   a per-layer library chain (``torch.addmm`` + activation for fused_mlp;
-   row quantization + ``torch._int_mm`` + dequant for fused_mlp_int8) at
-   batches 256 and 65,536, beside the least time the card could take;
+   a per-layer library chain (``torch.addmm`` + activation for fused_mlp,
+   at each ``block_rows`` too; row quantization + ``torch._int_mm`` +
+   dequant for fused_mlp_int8) at batches 256 and 65,536, beside the
+   least time the card could take (for fused_mlp and flash_attention
+   both the f32 CUDA-core bound, ``bound_ms``, and the 3xTF32
+   tensor-core bound their products run at, ``bound_tc_ms``);
    then the tune path's kernels at their largest shapes (stencil_gather
    on a 4096x4096 grid, flash_attention on the llama3.2-3b 4,096-token
    causal prefill, flash_attention_int8 on its decode window of 32
    queries against 8,192 cached tokens), at the untuned tiles and at the
    winner of a sweep of that shape, beside the plain version and a
    library call (``torch.take``, ``scaled_dot_product_attention``);
+   ``numerics`` -- fused_mlp's error over its tolerance at 65,536
+   minibude rows for four seeds, beside the same source built with one
+   TF32 product in place of three, and the TF32 ``mma.sync`` rate the
+   card sustains (a probe kernel), the yardstick of the two 3xTF32
+   kernels;
 7. ``tune``/``tune_phase`` -- the deploy-time tuning path into a
    temporary cache directory: ``run_tune`` over the minibude bundle's
    buckets (64, 256, 1024) and every registered kernel's problems, one
@@ -101,6 +111,88 @@ BUDE_WIDTHS = (6,) + BUDE_HIDDEN + (1,)         # hidden1=1024, mult=0.8
 BUDE_ACTS = ("relu",) * 6 + ("identity",)
 ACT_WIDTHS = (6, 512, 300, 130, 64, 1)
 ACT_ACTS = ("gelu", "tanh", "silu", "sigmoid", "identity")
+WIDE_WIDTHS = (6, 4096, 1500, 1)  # 1 to 8 rows a block, column passes
+WIDE_ACTS = ("relu", "relu", "identity")
+# fused_mlp's numerics: seeds of the weights and rows held to the
+# tolerance at 65,536 rows, and the line of the shared header whose
+# replacement by ONE_PASS_LO zeroes every lo part, leaving one TF32
+# product (hi.hi) per f32 product
+NUMERICS_SEEDS = (100, 101, 102, 103)
+SPLIT_LO = "lo = tf32_rna(x - __uint_as_float(hi));"
+ONE_PASS_LO = "lo = 0u;"
+# each warp: 8 independent accumulators, `iters` rounds of 8 TF32 mma on
+# random operands
+MMA_PROBE = r"""
+#include <cuda_runtime.h>
+#include <cstdint>
+#include "../../csrc/tf32x3.cuh"
+__global__ void probe(float* out, const float* in, int iters) {
+  const int tid = threadIdx.x;
+  uint32_t a[4], b[8][2];
+  for (int i = 0; i < 4; ++i) a[i] = tf32_rna(in[(tid * 4 + i) & 4095]);
+  for (int j = 0; j < 8; ++j)
+    for (int i = 0; i < 2; ++i)
+      b[j][i] = tf32_rna(in[(tid * 16 + 2 * j + i) & 4095]);
+  float d[8][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mma_tf32(d[j], a, b[j][0], b[j][1]);
+  }
+  float s = 0.0f;
+  for (int j = 0; j < 8; ++j) s += d[j][0] + d[j][1] + d[j][2] + d[j][3];
+  out[blockIdx.x * blockDim.x + tid] = s;
+}
+extern "C" int mma_probe(float* out, const float* in, int blocks,
+                         int threads, int iters, void* stream) {
+  probe<<<blocks, threads, 0, (cudaStream_t)stream>>>(out, in, iters);
+  return (int)cudaGetLastError();
+}
+// one mma per warp (block): d = c + a b with a [16][8], b [8][8] (k, n)
+// and c, d [16][8], row-major, a and b already TF32
+__global__ void once(const float* a, const float* b, const float* c,
+                     float* d) {
+  const int g = threadIdx.x >> 2, t = threadIdx.x & 3;
+  a += blockIdx.x * 128; b += blockIdx.x * 64; c += blockIdx.x * 128;
+  d += blockIdx.x * 128;
+  const uint32_t af[4] = {__float_as_uint(a[g * 8 + t]),
+                          __float_as_uint(a[(g + 8) * 8 + t]),
+                          __float_as_uint(a[g * 8 + t + 4]),
+                          __float_as_uint(a[(g + 8) * 8 + t + 4])};
+  float acc[4] = {c[g * 8 + 2 * t], c[g * 8 + 2 * t + 1],
+                  c[(g + 8) * 8 + 2 * t], c[(g + 8) * 8 + 2 * t + 1]};
+  mma_tf32(acc, af, __float_as_uint(b[t * 8 + g]),
+           __float_as_uint(b[(t + 4) * 8 + g]));
+  d[g * 8 + 2 * t] = acc[0];
+  d[g * 8 + 2 * t + 1] = acc[1];
+  d[(g + 8) * 8 + 2 * t] = acc[2];
+  d[(g + 8) * 8 + 2 * t + 1] = acc[3];
+}
+extern "C" int mma_once(const float* a, const float* b, const float* c,
+                        float* d, int n, void* stream) {
+  once<<<n, 32, 0, (cudaStream_t)stream>>>(a, b, c, d);
+  return (int)cudaGetLastError();
+}
+"""
+# models of one TF32 mma's f32 accumulation, d = c + sum_k a_k b_k (the
+# products are exact): "rn", the exact sum rounded to nearest; "tG", the
+# nine terms aligned to the largest one's exponent and truncated G bits
+# past f32's 24, summed, then rounded toward zero to f32 (A100's tensor
+# cores keep 3: Fasi et al., PeerJ Comput. Sci. 7:e330, 2021)
+MMA_MODELS = ("rn", "t0", "t1", "t2", "t3", "t4")
+
+
+def mma_model(c, prods, model):
+    """One mma's outputs under ``model``: c [...] f64, prods [..., 8]."""
+    import numpy as np
+    terms = np.concatenate([c[..., None], prods], -1)
+    if model == "rn":
+        return terms.sum(-1).astype(np.float32)
+    _, e = np.frexp(np.abs(terms).max(-1, keepdims=True))
+    ulp = np.ldexp(1.0, e - 24 - int(model[1:]))
+    s = (np.trunc(terms / ulp) * ulp).sum(-1)
+    _, e = np.frexp(s)
+    ulp = np.ldexp(1.0, e - 24)
+    return (np.trunc(s / ulp) * ulp).astype(np.float32)
 BATCHES = (1, 37, 256, 65536)
 TIMED_BATCHES = (256, 65536)
 COLLECT_POSES, INFER_POSES = 4096, 65536
@@ -138,6 +230,10 @@ RWKV_PREFILL = {"b": LM_BATCH, "t": LM_PROMPT, "h": 32, "hd": 64,
 # f32 rounding (about 1e-7 of its terms) is amplified: 1e-3
 LM_TOL_F32, LM_TOL_BF16 = 1e-3, 0.1
 PEAK_F32_FLOPS = 67e12   # H100 SXM f32 outside the tensor cores
+# H100 SXM TF32 tensor cores, dense: the fused_mlp and flash_attention
+# kernels form each f32 product as three TF32 products (3xTF32), so their
+# tensor-core bound is 3 x the operations at this rate
+PEAK_TF32_FLOPS = 495e12
 PEAK_INT8_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12
 
@@ -194,7 +290,9 @@ def check_kernel(name, widths, acts, dev):
     import numpy as np
     import torch
     from repro_torch.kernels.fused_mlp import ops
-    from repro_torch.kernels.fused_mlp.fused_mlp import fused_mlp, pack_mlp
+    from repro_torch.kernels.fused_mlp.fused_mlp import (BLOCK_ROWS,
+                                                         fits_smem, fused_mlp,
+                                                         pack_mlp)
     from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
 
     rtol, atol = ops.SPEC.tol
@@ -220,8 +318,8 @@ def check_kernel(name, widths, acts, dev):
     alone = ops.fused_mlp_op(x37, packed)
     padded = ops.fused_mlp_op(
         torch.cat([x37, torch.zeros_like(x_all[:27])]), packed)[:37]
-    block_rows = [fused_mlp(x37, packed, block_rows=r)
-                  for r in (1, 2, 4, 8, 16)]
+    tiles = [r for r in BLOCK_ROWS if fits_smem(widths, r)]
+    block_rows = [fused_mlp(x37, packed, block_rows=r) for r in tiles]
     torch.cuda.synchronize()
     identical = (torch.equal(alone, padded) and torch.equal(alone, full[:37])
                  and all(torch.equal(alone, b) for b in block_rows))
@@ -231,7 +329,7 @@ def check_kernel(name, widths, acts, dev):
     emit("kernel", kernel="fused_mlp", net=name, widths=list(widths),
          acts=list(acts),
          max_abs_err={str(b): e for b, e in errs.items()}, rtol=rtol,
-         atol=atol, rows_bit_identical=identical)
+         atol=atol, rows_bit_identical=identical, block_rows=tiles)
     return packed, errs
 
 
@@ -470,20 +568,28 @@ def run_int8_slice(app, key, hidden, dev, work):
     return launches["fused_mlp_int8"]
 
 
+def tc_bound_ms(flops, nbytes):
+    """The least time of a 3xTF32 kernel: three TF32 products per f32
+    one at the tensor cores' rate, or the bytes, whichever is larger."""
+    return max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+
+
 def time_kernel(packed, acts, dev, smi):
-    """Kernel, plain version and per-layer cuBLAS chain at TIMED_BATCHES."""
+    """Kernel (at the untuned block_rows and at each of the ladder's),
+    plain version and per-layer cuBLAS chain at TIMED_BATCHES, beside the
+    CUDA-core f32 bound and the 3xTF32 tensor-core bound."""
     import numpy as np
     import torch
     from repro_torch.kernels import registry
     from repro_torch.kernels.fused_mlp import ops
-    from repro_torch.kernels.fused_mlp.fused_mlp import fused_mlp
+    from repro_torch.kernels.fused_mlp.fused_mlp import BLOCK_ROWS, fused_mlp
     from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
     from repro_torch.nn.layers import ACTS
 
     ws, bs = packed.weights, packed.biases
     widths = packed.widths
     flops_per_row = 2 * sum(a * b for a, b in zip(widths[:-1], widths[1:]))
-    n_params = packed.params.numel()
+    n_params = sum(a * b + b for a, b in zip(widths[:-1], widths[1:]))
     rng = np.random.default_rng(3)
     timings = {}
     for batch in TIMED_BATCHES:
@@ -507,19 +613,167 @@ def time_kernel(packed, acts, dev, smi):
 
         ms = {k: cuda_ms(f, iters) for k, f in
               (("ms", kernel), ("plain_ms", plain), ("library_ms", library))}
+        ms["ms_by_block_rows"] = {
+            str(r): cuda_ms(lambda: fused_mlp(x, packed, block_rows=r), iters)
+            for r in BLOCK_ROWS}
         flops = flops_per_row * batch
         nbytes = 4 * (batch * widths[0] + batch * widths[-1] + n_params)
         t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
         bound_ms = max(t_ops, t_bytes) * 1e3
+        bound_tc = tc_bound_ms(flops, nbytes)
         timings[batch] = dict(
             ms, bound_ms=bound_ms,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
-            share_of_bound=bound_ms / ms["ms"], flops=flops, bytes=nbytes,
-            block_rows=block_rows)
+            share_of_bound=bound_ms / ms["ms"], bound_tc_ms=bound_tc,
+            bound_tc="3xTF32 on the tensor cores",
+            tc_share_of_bound=bound_tc / ms["ms"], flops=flops,
+            bytes=nbytes, block_rows=block_rows)
         emit("timing", kernel="fused_mlp", batch=batch,
              library="per-layer cuBLAS chain (torch.addmm + activation)",
              nvidia_smi=smi, **timings[batch])
     return timings
+
+
+def start_probe_builds(work):
+    """Start nvcc on the two numerics probes, each beside a copy of the
+    shared header (SPLIT_LO replaced by ONE_PASS_LO) so that its relative
+    include resolves: fused_mlp.cu as it is, which then forms one TF32
+    product per f32 product, and MMA_PROBE.  Returns {name: (process,
+    library path)}."""
+    from repro_torch.kernels import _build
+    header = _build.KERNELS_DIR / "csrc" / "tf32x3.cuh"
+    one_pass = header.read_text()
+    if one_pass.count(SPLIT_LO) != 1:
+        raise AssertionError(f"{header.name}: {SPLIT_LO!r} not found once")
+    csrc = work / "probe" / "fused_mlp" / "csrc"
+    csrc.mkdir(parents=True)
+    (work / "probe" / "csrc").mkdir()
+    (work / "probe" / "csrc" / header.name).write_text(
+        one_pass.replace(SPLIT_LO, ONE_PASS_LO))
+    text = _build.sources()["fused_mlp"].read_text()
+    jobs = {}
+    for name, source in (("fused_mlp_1xtf32", text), ("mma_probe", MMA_PROBE)):
+        src, so = csrc / f"{name}.cu", csrc / f"{name}.so"
+        src.write_text(source)
+        jobs[name] = (subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    return jobs
+
+
+def finish_probe_builds(jobs, t0):
+    """Wait for the probes' nvcc (started at ``t0``) and load them."""
+    import ctypes
+    libs = {}
+    for name, (proc, so) in jobs.items():
+        report, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{report}")
+        emit("build", probe=name, seconds_since_start=time.perf_counter() - t0,
+             ptxas=[line.strip() for line in report.splitlines()
+                    if "registers" in line or "spill" in line])
+        libs[name] = ctypes.CDLL(str(so))
+    return libs
+
+
+def check_numerics(dev, libs, smi):
+    """fused_mlp at 65,536 minibude rows for each of NUMERICS_SEEDS: the
+    largest error and the worst error over its allowance (fails above
+    1), beside the same kernel with one TF32 product per f32 product;
+    then the TF32 mma.sync rate of the probe at 8 and 16 warps an SM."""
+    import ctypes
+    from unittest import mock
+    import numpy as np
+    import torch
+    from repro_torch.kernels.fused_mlp import fused_mlp as fm
+    from repro_torch.kernels.fused_mlp import ops
+    from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
+
+    rtol, atol = ops.SPEC.tol
+    one_pass = fm.bind(libs["fused_mlp_1xtf32"])
+    seeds = {}
+    for seed in NUMERICS_SEEDS:
+        ws, bs = he_stack(BUDE_WIDTHS, seed)
+        packed = fm.pack_mlp([torch.from_numpy(w) for w in ws],
+                             [torch.from_numpy(b) for b in bs], BUDE_ACTS,
+                             device=dev)
+        x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (INFER_POSES, BUDE_WIDTHS[0])).astype(np.float32)).to(dev)
+        want = fused_mlp_ref(x, packed.weights, packed.biases, BUDE_ACTS)
+        got = fm.fused_mlp(x, packed, block_rows=ops.DEFAULT_BLOCK_ROWS)
+        with mock.patch.object(fm, "_lib", lambda: one_pass):
+            got1 = fm.fused_mlp(x, packed, block_rows=ops.DEFAULT_BLOCK_ROWS)
+        torch.cuda.synchronize()
+        (err, worst), (err1, worst1) = (compare(got, want, rtol, atol),
+                                        compare(got1, want, rtol, atol))
+        seeds[seed] = dict(max_abs_err=err, worst_over_tol=worst,
+                           max_abs_y=want.abs().max().item(),
+                           mean_signed_err=(got - want).mean().item(),
+                           one_tf32_max_abs_err=err1,
+                           one_tf32_worst_over_tol=worst1)
+        if not (worst <= 1.0 and torch.isfinite(got).all()):
+            raise AssertionError(f"fused_mlp seed {seed}: max abs error "
+                                 f"{err}, {worst}x the tolerance")
+    emit("numerics", kernel="fused_mlp", rows=INFER_POSES, rtol=rtol,
+         atol=atol, block_rows=ops.DEFAULT_BLOCK_ROWS, seeds=seeds,
+         worst_over_tol=max(v["worst_over_tol"] for v in seeds.values()))
+
+    lib = libs["mma_probe"]
+    lib.mma_probe.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty(2 * sms * 256, device=dev)
+    rnd = torch.randn(4096, device=dev,
+                      generator=torch.Generator(dev).manual_seed(0))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    iters, rates = 4096, {}
+    for warps in (8, 16):
+        blocks = sms * warps // 8
+
+        def run():
+            err = lib.mma_probe(out.data_ptr(), rnd.data_ptr(), blocks, 256,
+                                iters, stream)
+            if err:
+                raise RuntimeError(f"mma probe launch failed: {err}")
+        ms = cuda_ms(run, 5)
+        mma = blocks * 8 * iters * 8
+        rates[warps] = {"ms": ms, "tflops": mma * 2 * 16 * 8 * 8 / ms / 1e9}
+    emit("numerics", probe="mma.sync.m16n8k8 tf32, random operands",
+         by_warps_per_sm=rates, peak_tflops=PEAK_TF32_FLOPS / 1e12,
+         share_of_peak=max(r["tflops"] for r in rates.values())
+         / (PEAK_TF32_FLOPS / 1e12), nvidia_smi=smi)
+
+    # how one mma accumulates: 256 warps of random TF32 a and b (scales
+    # 2^-6 .. 2^6) and f32 c (2^-4 .. 2^4), within the range where the
+    # f64 sums of the models are exact; the share of the 32,768 outputs
+    # each model of MMA_MODELS gives bit for bit
+    lib.mma_once.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int,
+                                                     ctypes.c_void_p]
+    rng = np.random.default_rng(5)
+    n = 256
+
+    def tf32(v):
+        u = v.astype(np.float32).view(np.uint32)
+        u = ((u & 0x7FFFFFFF) + 0x1000) & 0xFFFFE000 | (u & 0x80000000)
+        return u.astype(np.uint32).view(np.float32)
+
+    def draw(shape, spread):
+        return (rng.standard_normal(shape)
+                * np.exp2(rng.integers(-spread, spread + 1, shape)))
+    a, b = tf32(draw((n, 16, 8), 6)), tf32(draw((n, 8, 8), 6))
+    c = draw((n, 16, 8), 4).astype(np.float32)
+    d = torch.empty((n, 16, 8), device=dev)
+    ta, tb, tc = (torch.from_numpy(v).to(dev) for v in (a, b, c))
+    if lib.mma_once(ta.data_ptr(), tb.data_ptr(), tc.data_ptr(),
+                    d.data_ptr(), n, stream):
+        raise RuntimeError("mma_once launch failed")
+    got = d.cpu().numpy()
+    prods = (a.astype(np.float64)[:, :, None, :]
+             * np.swapaxes(b, 1, 2).astype(np.float64)[:, None, :, :])
+    match = {m: float((mma_model(c.astype(np.float64), prods, m)
+                       == got).mean()) for m in MMA_MODELS}
+    emit("numerics", probe="one mma.sync.m16n8k8 tf32 against models of "
+         "its accumulation", outputs=int(got.size), share_bit_equal=match)
 
 
 def int8_library_chain(packed, x):
@@ -778,7 +1032,8 @@ def stencil_cell(dev):
 
 def prefill_cell(dev):
     """The llama3.2-3b causal prefill of 4,096 tokens; bound by f32
-    operations (4 * hd per visible query-key pair)."""
+    operations (4 * hd per visible query-key pair) on the CUDA cores, and
+    by 3x those at the TF32 rate on the tensor cores (3xTF32)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -803,7 +1058,8 @@ def prefill_cell(dev):
                      "f32, is_causal, K/V repeated per group beforehand",
         bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
-        flops=flops, bytes=nbytes)
+        bound_tc_ms=tc_bound_ms(flops, nbytes),
+        bound_tc="3xTF32 on the tensor cores", flops=flops, bytes=nbytes)
 
 
 def decode_cell(dev):
@@ -869,6 +1125,10 @@ def time_new_kernels(dev, smi, tmp):
             tuned_candidates=len(rec["swept"]),
             share_of_bound=cell["bound_ms"] / ms["ms"],
             tuned_share_of_bound=cell["bound_ms"] / ms["tuned_ms"])
+        if "bound_tc_ms" in cell:
+            timings[spec.name].update(
+                tc_share_of_bound=cell["bound_tc_ms"] / ms["ms"],
+                tuned_tc_share_of_bound=cell["bound_tc_ms"] / ms["tuned_ms"])
         emit("timing", kernel=spec.name, nvidia_smi=smi, **timings[spec.name])
     return timings
 
@@ -1284,8 +1544,13 @@ def main():
     emit("device", kind=kind, count=count, nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
+    work = ROOT / "build" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
     t0 = time.perf_counter()
+    probe_jobs = start_probe_builds(work)
     built = _build.build_all()
+    probe_libs = finish_probe_builds(probe_jobs, t0)
     build_s = time.perf_counter() - t0
     for b in built.values():
         emit("build", kernel=b.name, source=str(b.source.relative_to(ROOT)),
@@ -1297,6 +1562,7 @@ def main():
 
     bude, errs = check_kernel("minibude", BUDE_WIDTHS, BUDE_ACTS, dev)
     check_kernel("activations", ACT_WIDTHS, ACT_ACTS, dev)
+    check_kernel("wide", WIDE_WIDTHS, WIDE_ACTS, dev)
     bude8, errs8 = check_kernel_int8("minibude", BUDE_WIDTHS, BUDE_ACTS, dev)
     check_kernel_int8("activations", ACT_WIDTHS, ACT_ACTS, dev)
     errs_new = {"stencil_gather": check_stencil(dev),
@@ -1304,9 +1570,6 @@ def main():
                 "flash_attention_int8": check_flash8(dev)}
     rwkv_errs, rwkv_failures, rwkv_arrays = check_rwkv6(dev)
 
-    work = ROOT / "build" / "chip_smoke"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
     launches = run_slice(dev, work)
     int8_launches = sum(run_int8_slice(app, key, hidden, dev, work)
                         for app, key, hidden in INT8_SLICES)
@@ -1314,6 +1577,7 @@ def main():
     timings = time_kernel(bude, BUDE_ACTS, dev, smi)[INFER_POSES]
     timings8 = time_int8(bude8, dev, smi)[INFER_POSES]
     timings_new = time_new_kernels(dev, smi, work / "timing_sweeps")
+    check_numerics(dev, probe_libs, smi)
     tune_launches = run_tune_phase(work / "bundle", dev, work)
     shutil.rmtree(work)
     lm_launches, rwkv_timing = run_lm_slice(dev, smi, rwkv_arrays)
@@ -1331,6 +1595,8 @@ def main():
             "shape": t["problem"], "ms": t["ms"], "tuned_ms": t["tuned_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        if "bound_tc_ms" in t:
+            new_rows[-1]["bound_tc_ms"] = t["bound_tc_ms"]
     print(json.dumps({"kernels": [{
         "name": "fused_mlp", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": launches["fused_mlp"],
@@ -1340,6 +1606,7 @@ def main():
         "plain_ms": timings["plain_ms"],
         "bound_ms": timings["bound_ms"],
         "bound_by": timings["bound_by"],
+        "bound_tc_ms": timings["bound_tc_ms"],
         "library_ms": timings["library_ms"]}, {
         "name": "fused_mlp_int8", "route": "cuda", "source": int8.SOURCE,
         "replaces": int8.REPLACES, "launches": int8_launches,

@@ -7,11 +7,13 @@ interface, so it compiles on its own in seconds into a shared library
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <src>
 
-The library lands under ``build/kernels/`` at the root of the checkout at
-first use, named by a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  ``nvcc`` is looked up
-only when a kernel is first needed: the package imports on machines
-without the CUDA toolkit.
+Shared device code lives in headers (``kernels/csrc/*.cuh``) that a source
+includes by a quoted path relative to itself.  The library lands under
+``build/kernels/`` at the root of the checkout at first use, named by a
+hash of its source, the headers it includes (transitively) and the flags,
+so an edited source or header is rebuilt and an unchanged one is loaded
+as it is.  ``nvcc`` is looked up only when a kernel is first needed: the
+package imports on machines without the CUDA toolkit.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import dataclasses
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -65,8 +68,28 @@ def nvcc() -> str:
                        "the port's CUDA kernels need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def includes(src: pathlib.Path) -> List[pathlib.Path]:
+    """The headers ``src`` includes by quoted path, transitively, each
+    resolved against the directory of the file that includes it."""
+    found: List[pathlib.Path] = []
+    todo = [src]
+    while todo:
+        path = todo.pop()
+        for name in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / name.decode()).resolve()
+            if dep.exists() and dep not in found and dep != src:
+                found.append(dep)
+                todo.append(dep)
+    return found
+
+
 def _target(src: pathlib.Path) -> pathlib.Path:
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for dep in includes(src):
+        h.update(dep.read_bytes())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

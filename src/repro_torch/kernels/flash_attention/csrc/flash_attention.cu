@@ -1,5 +1,5 @@
 // Flash attention (online softmax, GQA, causal on absolute positions) on
-// Hopper (sm_90a), f32 math on the CUDA cores.
+// Hopper (sm_90a), f32-accurate products on the tensor cores.
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py::
 // flash_attention (the Pallas TPU kernel, pallas_call at l.73, _kernel at
@@ -15,112 +15,130 @@
 // max m, denominator l and accumulator acc, acc / max(l, 1e-30) at the
 // end, as the TPU kernel does.
 //
-// What bounds it on the card: f32 operations (4 * hd per visible
-// (query, key) pair; 67 TFLOP/s outside the tensor cores) at the shapes
-// of a prefill; a decode window is bound by bytes.  What the design does
-// about it: a block owns block_q query rows of one (b, h).  Its q tile,
-// pre-scaled, stays in shared memory; K and V stream through shared
-// memory one block_kv chunk at a time (the TPU kernel kept the whole K/V
-// of a head resident, which 227 KB cannot hold at long Skv).  Each of the
-// 8 warps owns block_q / 8 rows for the whole chunk: it forms their
-// scores four rows at a time in registers (lane c, c + 32, ... of the
-// chunk), does the online-softmax update with warp shuffles, writes p to
-// shared memory and accumulates p @ V into registers (lane d, d + 32, ...
-// of hd).  Rows never cross warps, so one chunk needs two block barriers.
-// K rows are padded by one float so the lanes' reads of one k-column fall
-// on distinct banks.  Tensor cores (TF32 would break the 2e-5 tolerance;
-// bf16 mma for bf16 inputs), TMA and warp specialisation are later work.
+// What bounds it on the card: the two products, 4 * hd operations per
+// visible (query, key) pair.  On the CUDA cores in f32 (67 TFLOP/s) the
+// llama3.2-3b prefill cannot go under 1.54 ms; this kernel runs them on
+// the tensor cores in 3xTF32 (../../csrc/tf32x3.cuh: three TF32 mma per
+// product, f32 accuracy), whose floor is 3x the operations at 495 TFLOP/s,
+// 0.63 ms there.  A decode window is bound by bytes.
 //
-// Masking: keys past Skv are never visited (bounds, not zero padding), so
-// a row that sees no key at all (kv_valid = 0, or every key in its causal
-// future) averages V over the Skv real keys, as the reference's oracle
-// does.  Keys wholly masked for every row of the block are skipped at the
-// end of the range only when every row of the block sees at least one
-// key: then the skipped scores would each have contributed exp(-1e30 - m)
-// = 0, so skipping changes no bit.
+// What the design does about it (FlashAttention-2 on mma.sync):
+// - A block owns block_q (64 or 128) query rows of one (b, h): one warp
+//   per 16 rows, so warps never share a row and the softmax needs no
+//   block barrier.  The pre-scaled q tile sits in shared memory; each
+//   warp splits its A fragments once per k-step of a chunk and reuses
+//   them over the chunk's block_kv / 8 key tiles.
+// - K/V chunks stream through a ring of two shared-memory stages filled
+//   with 16-byte cp.async, so chunk j + 1 is in flight while chunk j
+//   computes.  Rows are padded (f32: hd + 4 words; bf16: hd + 8 halves) so
+//   that the fragment loads of a warp hit 32 distinct banks.  Once an f32
+//   chunk has landed, the whole block splits it into TF32 hi and lo once,
+//   into a shared buffer (every warp reads all of K and V, so splitting
+//   per warp would do the same work 8 times);
+//   K's fragments then come four at a time by ldmatrix.  bf16 K/V are
+//   staged as their raw bytes and widened when a fragment is loaded; a
+//   bf16 value is exact in TF32, so its lo part is zero and the K and V
+//   products take two mma, not three.
+// - S = Q K^T accumulates in C fragments; the online softmax runs on them
+//   (a thread holds 2 rows; row max and sum over the 4 lanes of a quad by
+//   __shfl_xor_sync).  P never leaves registers: the P @ V product sums
+//   over the chunk's keys in a permuted order, A column t of a k-step
+//   standing for key 2t and column t + 4 for key 2t + 1, which is exactly
+//   where S's C fragment holds them (c0, c1; c2, c3).  V's B fragments are
+//   read with the same permutation (rows 2t and 2t + 1 of the stage).
+// - Query blocks run longest first (the last causal block walks every
+//   key), so the short ones fill the tail of the grid.
+//
+// Masking: keys past Skv are never visited, so a row that sees no key at
+// all (kv_valid = 0, or every key in its causal future) averages V over
+// the Skv real keys, as the reference's oracle does; inside a chunk a
+// key past the visited range scores -inf (p = 0) and a masked key -1e30.
+// Keys masked for every row of the block are skipped at the end of the
+// range only when every row of the block sees at least one key, and a
+// warp skips the chunks past the causal horizon of its own 16 rows on
+// the same condition: each skipped score would have contributed
+// exp(-1e30 - m) = 0 with a correction of 1, so skipping changes no bit.
+// Only chunks that cross a mask boundary pay for the mask.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#define THREADS 256
-#define WARPS (THREADS / 32)
-#define MAX_BLOCK_KV 256
-#define MAX_CJ (MAX_BLOCK_KV / 32)
-#define NEG_INF (-1e30f)
+#include <cstdint>
+#include <type_traits>
+
+#include "../../csrc/tf32x3.cuh"
+
+#define MAX_WARPS 8
+#define STAGES 2
+#define NEG_BIG (-1e30f)
+#define NEG_INF (__int_as_float(0xff800000))  // -inf: p = exp(-inf) = 0
+#define LOG2E 1.4426950408889634f  // p = exp(x) as exp2(x log2 e)
 
 struct Problem {
   int B, Sq, Skv, H, KV, hd;
   int causal, q_offset, kv_valid;
-  int bkv;
-  int bf16;  // q, k, v and o are bf16 (else f32)
+  int vec;  // K/V rows are whole, aligned 16-byte chunks: cp.async them
   float scale;
 };
 
-__device__ __forceinline__ float load_elem(const void* p, size_t i,
-                                           int bf16) {
-  return bf16 ? __bfloat162float(
-                    reinterpret_cast<const __nv_bfloat16*>(p)[i])
-              : reinterpret_cast<const float*>(p)[i];
+// Row strides, in elements, of the q tile (f32) and of a K/V stage.
+__host__ __device__ constexpr int q_stride(int hdt) { return hdt + 4; }
+__host__ __device__ constexpr int kv_stride(int hdt, bool bf16) {
+  return bf16 ? hdt + 8 : hdt + 4;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// hd padded to the head tile the kernel is built for: 32, 64, 96 or 128.
+__host__ __device__ constexpr int head_tile(int hd) {
+  return (hd + 31) / 32 * 32;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// Dynamic shared memory of one block: the f32 q tile, STAGES x {K, V}
+// chunks as they arrive, and for f32 inputs one chunk split into TF32
+// {K hi, K lo, V hi, V lo}; flash_attention.py's smem_bytes computes the
+// same.
+__host__ __device__ inline size_t smem_size(int bq, int bkv, int hd,
+                                            bool bf16) {
+  const int hdt = head_tile(hd);
+  const size_t kv = (size_t)bkv * kv_stride(hdt, bf16);
+  return sizeof(float) * (size_t)bq * q_stride(hdt) +
+         STAGES * 2 * kv * (bf16 ? 2 : 4) + (bf16 ? 0 : 4 * kv * 4);
 }
 
-// Dynamic shared memory of one block, in floats: q tile, K chunk (rows
-// padded by one), V chunk, p tile, and m, l, corr per row;
-// flash_attention.py's smem_bytes computes the same.
-__host__ __device__ __forceinline__ size_t smem_floats(int bq, int bkv,
-                                                       int hd) {
-  return (size_t)bq * hd + (size_t)bkv * (hd + 1) + (size_t)bkv * hd +
-         (size_t)bq * bkv + 3 * (size_t)bq;
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 
-// RPW query rows per warp (block_q = 8 * RPW); HDC groups of 32 columns of
-// hd per lane (hd <= 32 * HDC).
-template <int RPW, int HDC>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const void* __restrict__ q,
-                       const void* __restrict__ k,
-                       const void* __restrict__ v, void* __restrict__ o,
+// HDT: the head tile; BKV: keys per chunk; T: float or __nv_bfloat16.
+template <int HDT, int BKV, typename T>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o,
                        Problem p) {
-  constexpr int BQ = RPW * WARPS;
-  constexpr int RG = RPW < 4 ? RPW : 4;  // rows per score group
-  extern __shared__ __align__(16) float smem[];
-  const int hd = p.hd, bkv = p.bkv;
-  float* const Qs = smem;                            // [BQ, hd]
-  float* const Ks = Qs + (size_t)BQ * hd;            // [bkv, hd + 1]
-  float* const Vs = Ks + (size_t)bkv * (hd + 1);     // [bkv, hd]
-  float* const Ps = Vs + (size_t)bkv * hd;           // [BQ, bkv]
-  float* const Ms = Ps + (size_t)BQ * bkv;           // [BQ]
-  float* const Ls = Ms + BQ;                         // [BQ]
-  float* const Cs = Ls + BQ;                         // [BQ]
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int QS = q_stride(HDT), KS = kv_stride(HDT, BF16);
+  constexpr int NT = BKV / 8;  // key tiles of a chunk
+  constexpr int DT = HDT / 8;  // head-dim tiles
+  // tiles whose B fragments are split together and whose mma interleave
+  constexpr int GN = NT < 4 ? NT : 4, GD = 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  const int BQ = nwarps * 16;
+  float* const Qs = reinterpret_cast<float*>(smem_raw);        // [BQ, QS]
+  T* const KVs = reinterpret_cast<T*>(Qs + (size_t)BQ * QS);   // stages
+  // f32: the current chunk split once for all warps, [BKV, KS] each
+  uint32_t* const Khi =
+      reinterpret_cast<uint32_t*>(KVs + (size_t)STAGES * 2 * BKV * KS);
+  uint32_t* const Klo = Khi + BKV * KS;
+  uint32_t* const Vhi = Klo + BKV * KS;
+  uint32_t* const Vlo = Vhi + BKV * KS;
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (p.H / p.KV);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  for (int idx = tid; idx < BQ * hd; idx += THREADS) {
-    const int r = idx / hd, d = idx - r * hd;
-    const int qi = q0 + r;
-    Qs[idx] = qi < p.Sq
-                  ? load_elem(q, (((size_t)b * p.Sq + qi) * p.H + h) * hd + d,
-                              p.bf16) * p.scale
-                  : 0.0f;
-  }
-  for (int r = tid; r < BQ; r += THREADS) {
-    Ms[r] = NEG_INF;
-    Ls[r] = 0.0f;
-  }
+  const int gid = lane >> 2, tig = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (p.H / p.KV);
+  const int hd = p.hd;
 
   // the keys this block visits: all Skv unless every row sees a key
   const int q_last = min(q0 + BQ, p.Sq) - 1;
@@ -129,189 +147,320 @@ flash_attention_kernel(const void* __restrict__ q,
     kv_end = min(kv_end, p.kv_valid);
     if (p.causal) kv_end = min(kv_end, p.q_offset + q_last + 1);
   }
+  const int n_chunks = (kv_end + BKV - 1) / BKV;
 
-  float acc[RPW][HDC];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i)
-#pragma unroll
-    for (int dg = 0; dg < HDC; ++dg) acc[i][dg] = 0.0f;
+  // stale or never-written stage rows must be finite (p = 0 times them),
+  // and the head-dim padding zero: clear the stages once
+  {
+    const int n16 = (int)(STAGES * 2 * BKV * KS * sizeof(T) / 16);
+    float4* z = reinterpret_cast<float4*>(KVs);
+    for (int i = tid; i < n16; i += nthreads)
+      z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   __syncthreads();
 
-  for (int kv0 = 0; kv0 < kv_end; kv0 += bkv) {
-    const int nc = min(bkv, kv_end - kv0);
-    const int cj = (nc + 31) / 32;
-    for (int idx = tid; idx < nc * hd; idx += THREADS) {
-      const int c = idx / hd, d = idx - c * hd;
-      const size_t gi = (((size_t)b * p.Skv + kv0 + c) * p.KV + g) * hd + d;
-      Ks[c * (hd + 1) + d] = load_elem(k, gi, p.bf16);
-      Vs[c * hd + d] = load_elem(v, gi, p.bf16);
+  const size_t key_stride = (size_t)p.KV * hd;  // elements between keys
+  const T* const kbase = k + ((size_t)b * p.Skv * p.KV + g) * hd;
+  const T* const vbase = v + ((size_t)b * p.Skv * p.KV + g) * hd;
+  auto load_chunk = [&](int kv0, int stage) {
+    const int nc = min(BKV, kv_end - kv0);
+    T* const Kd = KVs + (size_t)(2 * stage) * BKV * KS;
+    T* const Vd = Kd + (size_t)BKV * KS;
+    const T* const ks = kbase + (size_t)kv0 * key_stride;
+    const T* const vs = vbase + (size_t)kv0 * key_stride;
+    if (p.vec) {
+      constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
+      const int cpr = hd / EPC;
+      for (int i = tid; i < nc * cpr; i += nthreads) {
+        const int c = i / cpr, j = (i - c * cpr) * EPC;
+        cp_async16(Kd + c * KS + j, ks + c * key_stride + j);
+        cp_async16(Vd + c * KS + j, vs + c * key_stride + j);
+      }
+    } else {  // rows not in whole 16-byte chunks (odd hd): plain copies
+      for (int i = tid; i < nc * hd; i += nthreads) {
+        const int c = i / hd, d = i - c * hd;
+        Kd[c * KS + d] = ks[c * key_stride + d];
+        Vd[c * KS + d] = vs[c * key_stride + d];
+      }
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+  load_chunk(0, 0);
 
-    // scores and the online-softmax update of this warp's rows
-    int koff[MAX_CJ];
-#pragma unroll
-    for (int j = 0; j < MAX_CJ; ++j)
-      koff[j] = min(lane + 32 * j, nc - 1) * (hd + 1);
-    for (int i0 = 0; i0 < RPW; i0 += RG) {
-      float s[RG][MAX_CJ];
-#pragma unroll
-      for (int ii = 0; ii < RG; ++ii)
-#pragma unroll
-        for (int j = 0; j < MAX_CJ; ++j) s[ii][j] = 0.0f;
-      for (int kk = 0; kk < hd; ++kk) {
-        float kv[MAX_CJ];
-#pragma unroll
-        for (int j = 0; j < MAX_CJ; ++j)
-          if (j < cj) kv[j] = Ks[koff[j] + kk];
-#pragma unroll
-        for (int ii = 0; ii < RG; ++ii) {
-          const float qv = Qs[(warp + WARPS * (i0 + ii)) * hd + kk];
-#pragma unroll
-          for (int j = 0; j < MAX_CJ; ++j)
-            if (j < cj) s[ii][j] = fmaf(qv, kv[j], s[ii][j]);
-        }
-      }
-#pragma unroll
-      for (int ii = 0; ii < RG; ++ii) {
-        const int r = warp + WARPS * (i0 + ii);
-        const int qpos = q0 + r + p.q_offset;
-        float mx = NEG_INF;
-#pragma unroll
-        for (int j = 0; j < MAX_CJ; ++j) {
-          const int c = lane + 32 * j;
-          if (j < cj && c < nc) {
-            const int kp = kv0 + c;
-            const bool seen = kp < p.kv_valid && (!p.causal || kp <= qpos);
-            s[ii][j] = seen ? s[ii][j] : NEG_INF;
-            mx = fmaxf(mx, s[ii][j]);
-          }
-        }
-        mx = warp_max(mx);
-        const float m_old = Ms[r];
-        const float m_new = fmaxf(m_old, mx);
-        float sum = 0.0f;
-#pragma unroll
-        for (int j = 0; j < MAX_CJ; ++j) {
-          const int c = lane + 32 * j;
-          if (j < cj && c < nc) {
-            const float e = expf(s[ii][j] - m_new);
-            Ps[r * bkv + c] = e;
-            sum += e;
-          }
-        }
-        sum = warp_sum(sum);
-        const float corr = expf(m_old - m_new);
-        __syncwarp();
-        if (lane == 0) {
-          Ms[r] = m_new;
-          Ls[r] = Ls[r] * corr + sum;
-          Cs[r] = corr;
-        }
-      }
-    }
-    __syncwarp();
-
-    // acc = acc * corr + p @ V for this warp's rows
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const float corr = Cs[warp + WARPS * i];
-#pragma unroll
-      for (int dg = 0; dg < HDC; ++dg) acc[i][dg] *= corr;
-    }
-    for (int c = 0; c < nc; ++c) {
-      float vv[HDC];
-#pragma unroll
-      for (int dg = 0; dg < HDC; ++dg) {
-        const int d = lane + 32 * dg;
-        vv[dg] = d < hd ? Vs[c * hd + d] : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const float pv = Ps[(warp + WARPS * i) * bkv + c];
-#pragma unroll
-        for (int dg = 0; dg < HDC; ++dg)
-          acc[i][dg] = fmaf(pv, vv[dg], acc[i][dg]);
-      }
-    }
-    __syncthreads();
+  // the pre-scaled q tile, zero past Sq and past hd
+  for (int idx = tid; idx < BQ * HDT; idx += nthreads) {
+    const int r = idx / HDT, d = idx - r * HDT;
+    const int qi = q0 + r;
+    Qs[r * QS + d] =
+        qi < p.Sq && d < hd
+            ? to_f32(q[(((size_t)b * p.Sq + qi) * p.H + h) * hd + d]) *
+                  p.scale
+            : 0.0f;
   }
 
+  // this warp's rows and the keys it must visit
+  const int wq0 = q0 + warp * 16;
+  const bool live = wq0 < p.Sq;
+  int w_end = kv_end;
+  if (p.kv_valid > 0 && (!p.causal || p.q_offset + wq0 >= 0)) {
+    w_end = min(w_end, p.kv_valid);
+    if (p.causal) w_end = min(w_end, p.q_offset + min(wq0 + 15, p.Sq - 1) + 1);
+  }
+
+  float acc[DT][4];
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int r = warp + WARPS * i;
-    const int qi = q0 + r;
-    if (qi >= p.Sq) continue;
-    const float l = fmaxf(Ls[r], 1e-30f);
+  for (int dt = 0; dt < DT; ++dt)
 #pragma unroll
-    for (int dg = 0; dg < HDC; ++dg) {
-      const int d = lane + 32 * dg;
-      if (d >= hd) continue;
-      const float val = acc[i][dg] / l;
-      const size_t oi = (((size_t)b * p.Sq + qi) * p.H + h) * hd + d;
-      if (p.bf16)
-        reinterpret_cast<__nv_bfloat16*>(o)[oi] = __float2bfloat16_rn(val);
-      else
-        reinterpret_cast<float*>(o)[oi] = val;
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.0f;
+  float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.0f, 0.0f};
+  const float* const Qw = Qs + (size_t)warp * 16 * QS;
+
+  for (int j = 0; j < n_chunks; ++j) {
+    const int kv0 = j * BKV;
+    const T* const Ks = KVs + (size_t)(2 * (j % STAGES)) * BKV * KS;
+    const T* const Vs = Ks + (size_t)BKV * KS;
+    cp_async_wait<0>();
+    __syncthreads();  // chunk j landed; every warp is done with chunk j - 1
+    if constexpr (!BF16) {
+      // split chunk j into TF32 hi and lo once, for all warps (four
+      // floats at a time; stale rows past the chunk are finite)
+      for (int i = tid; i < BKV * HDT / 4; i += nthreads) {
+        const int r = i / (HDT / 4), c = (i - r * (HDT / 4)) * 4;
+        const int at = r * KS + c;
+        const float4 kf = *reinterpret_cast<const float4*>(Ks + at);
+        const float4 vf = *reinterpret_cast<const float4*>(Vs + at);
+        uint4 h, l;
+        tf32_split(kf.x, h.x, l.x);
+        tf32_split(kf.y, h.y, l.y);
+        tf32_split(kf.z, h.z, l.z);
+        tf32_split(kf.w, h.w, l.w);
+        *reinterpret_cast<uint4*>(Khi + at) = h;
+        *reinterpret_cast<uint4*>(Klo + at) = l;
+        tf32_split(vf.x, h.x, l.x);
+        tf32_split(vf.y, h.y, l.y);
+        tf32_split(vf.z, h.z, l.z);
+        tf32_split(vf.w, h.w, l.w);
+        *reinterpret_cast<uint4*>(Vhi + at) = h;
+        *reinterpret_cast<uint4*>(Vlo + at) = l;
+      }
     }
+    // chunk j + 1 into the stage chunk j - 1 left
+    if (j + 1 < n_chunks) load_chunk(kv0 + BKV, (j + 1) % STAGES);
+    if constexpr (!BF16) __syncthreads();  // the split chunk is visible
+
+    if (live && kv0 < w_end) {
+
+      // S = Q K^T for this warp's 16 rows and the chunk's BKV keys
+      float s[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+#pragma unroll
+      for (int kt = 0; kt < DT; ++kt) {
+        uint32_t a_hi[4], a_lo[4];
+        const float* qa = Qw + gid * QS + kt * 8 + tig;
+        tf32_split(qa[0], a_hi[0], a_lo[0]);
+        tf32_split(qa[8 * QS], a_hi[1], a_lo[1]);
+        tf32_split(qa[4], a_hi[2], a_lo[2]);
+        tf32_split(qa[8 * QS + 4], a_hi[3], a_lo[3]);
+#pragma unroll
+        for (int n0 = 0; n0 < NT; n0 += GN) {
+          BFrags<GN> bf;
+#pragma unroll
+          for (int i = 0; i < GN; i += 2) {
+            if constexpr (BF16) {
+#pragma unroll
+              for (int u = i; u < i + 2; ++u) {
+                const int at = ((n0 + u) * 8 + gid) * KS + kt * 8 + tig;
+                bf.exact(u, to_f32(Ks[at]), to_f32(Ks[at + 4]));
+              }
+            } else {
+              // key tiles i and i + 1, k 0-3 and 4-7: one ldmatrix each
+              // for hi and lo (lane: tile i + lane / 16, row lane % 8)
+              const int at = ((n0 + i + (lane >> 4)) * 8 + (lane & 7)) * KS +
+                             kt * 8 + ((lane >> 1) & 4);
+              ldmatrix_x4(bf.hi[i][0], bf.hi[i][1], bf.hi[i + 1][0],
+                          bf.hi[i + 1][1], Khi + at);
+              ldmatrix_x4(bf.lo[i][0], bf.lo[i][1], bf.lo[i + 1][0],
+                          bf.lo[i + 1][1], Klo + at);
+            }
+          }
+          mma_3xtf32<GN, BF16>(
+              [&](int i) -> float (&)[4] { return s[n0 + i]; }, a_hi, a_lo,
+              bf);
+        }
+      }
+
+      // masks, only where the chunk crosses a boundary for these rows
+      const bool clean = kv0 + BKV <= kv_end && kv0 + BKV <= p.kv_valid &&
+                         (!p.causal || kv0 + BKV - 1 <= p.q_offset + wq0);
+      if (!clean) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = kv0 + nt * 8 + 2 * tig + (e & 1);
+            const int qpos = wq0 + gid + (e >> 1) * 8 + p.q_offset;
+            const bool seen = c < p.kv_valid && (!p.causal || c <= qpos);
+            s[nt][e] = c >= kv_end ? NEG_INF : seen ? s[nt][e] : NEG_BIG;
+          }
+      }
+
+      // online softmax: rows gid (e = 0, 1) and gid + 8 (e = 2, 3)
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+      }
+      float corr[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = expf(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = exp2f((s[nt][e] - m[e >> 1]) * LOG2E);
+          sum[e >> 1] += s[nt][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[r] = l[r] * corr[r] + sum[r];
+      }
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[dt][e] *= corr[e >> 1];
+
+      // acc += P V, keys of k-step kt in the order 2t, 2t + 1 (see top)
+#pragma unroll
+      for (int kt = 0; kt < NT; ++kt) {
+        uint32_t p_hi[4], p_lo[4];
+        tf32_split(s[kt][0], p_hi[0], p_lo[0]);
+        tf32_split(s[kt][2], p_hi[1], p_lo[1]);
+        tf32_split(s[kt][1], p_hi[2], p_lo[2]);
+        tf32_split(s[kt][3], p_hi[3], p_lo[3]);
+        const int vat = (kt * 8 + 2 * tig) * KS + gid;
+#pragma unroll
+        for (int d0 = 0; d0 < DT; d0 += GD) {
+          BFrags<GD> bf;
+#pragma unroll
+          for (int i = 0; i < GD; ++i) {
+            const int at = vat + (d0 + i) * 8;
+            if constexpr (BF16)
+              bf.exact(i, to_f32(Vs[at]), to_f32(Vs[at + KS]));
+            else
+              bf.load(i, Vhi + at, Vlo + at, KS);
+          }
+          mma_3xtf32<GD, BF16>(
+              [&](int i) -> float (&)[4] { return acc[d0 + i]; }, p_hi,
+              p_lo, bf);
+        }
+      }
+    }
+  }
+
+  if (!live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = wq0 + gid + 8 * r;
+    if (qi >= p.Sq) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    T* const orow = o + (((size_t)b * p.Sq + qi) * p.H + h) * hd;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = dt * 8 + 2 * tig + e;
+        if (d >= hd) continue;
+        const float val = acc[dt][2 * r + e] / den;
+        if constexpr (BF16)
+          orow[d] = __float2bfloat16_rn(val);
+        else
+          orow[d] = val;
+      }
   }
 }
 
-template <int RPW, int HDC>
+template <int HDT, int BKV, typename T>
 static cudaError_t launch(const void* q, const void* k, const void* v,
-                          void* o, const Problem& p, cudaStream_t stream) {
-  const size_t smem = smem_floats(RPW * WARPS, p.bkv, p.hd) * sizeof(float);
+                          void* o, const Problem& p, int block_q,
+                          cudaStream_t stream) {
+  const size_t smem = smem_size(block_q, BKV, p.hd,
+                                std::is_same<T, __nv_bfloat16>::value);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<RPW, HDC>,
+      flash_attention_kernel<HDT, BKV, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((p.Sq + RPW * WARPS - 1) / (RPW * WARPS)),
-                  (unsigned)p.H, (unsigned)p.B);
-  flash_attention_kernel<RPW, HDC><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, p);
+  const dim3 grid((unsigned)((p.Sq + block_q - 1) / block_q), (unsigned)p.H,
+                  (unsigned)p.B);
+  flash_attention_kernel<HDT, BKV, T><<<grid, block_q * 2, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), p);
   return cudaGetLastError();
 }
 
-template <int HDC>
-static cudaError_t launch_rows(int block_q, const void* q, const void* k,
-                               const void* v, void* o, const Problem& p,
-                               cudaStream_t s) {
-  switch (block_q) {
-    case 16: return launch<2, HDC>(q, k, v, o, p, s);
-    case 32: return launch<4, HDC>(q, k, v, o, p, s);
-    case 64: return launch<8, HDC>(q, k, v, o, p, s);
-    case 128: return launch<16, HDC>(q, k, v, o, p, s);
-    case 256:
-      // 32 rows x 4 column groups would be 128 accumulators a thread
-      if constexpr (HDC <= 2) return launch<32, HDC>(q, k, v, o, p, s);
-      return cudaErrorInvalidValue;
+template <int HDT, typename T>
+static cudaError_t launch_kv(int block_q, int block_kv, const void* q,
+                             const void* k, const void* v, void* o,
+                             const Problem& p, cudaStream_t s) {
+  switch (block_kv) {
+    case 32: return launch<HDT, 32, T>(q, k, v, o, p, block_q, s);
+    case 64: return launch<HDT, 64, T>(q, k, v, o, p, block_q, s);
+    case 128: return launch<HDT, 128, T>(q, k, v, o, p, block_q, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+static cudaError_t launch_hd(int block_q, int block_kv, const void* q,
+                             const void* k, const void* v, void* o,
+                             const Problem& p, cudaStream_t s) {
+  switch (head_tile(p.hd)) {
+    case 32: return launch_kv<32, T>(block_q, block_kv, q, k, v, o, p, s);
+    case 64: return launch_kv<64, T>(block_q, block_kv, q, k, v, o, p, s);
+    case 96: return launch_kv<96, T>(block_q, block_kv, q, k, v, o, p, s);
+    case 128: return launch_kv<128, T>(block_q, block_kv, q, k, v, o, p, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 extern "C" size_t flash_attention_smem_bytes(int block_q, int block_kv,
-                                             int hd) {
-  return smem_floats(block_q, block_kv, hd) * sizeof(float);
+                                             int hd, int bf16) {
+  return smem_size(block_q, block_kv, hd, bf16 != 0);
 }
 
 // q [B, Sq, H, hd], k and v [B, Skv, KV, hd] and o [B, Sq, H, hd] are
 // contiguous device pointers of f32 (bf16 = 0) or bf16 (bf16 = 1).
-// kv_valid is already clamped to [0, Skv].  Returns a cudaError_t (0 on
-// success); the launch is asynchronous on `stream`.
+// kv_valid is already clamped to [0, Skv].  block_q is 64 or 128 (4 or 8
+// warps), block_kv 32, 64 or 128.  Returns a cudaError_t (0 on success);
+// the launch is asynchronous on `stream`.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int Sq, int Skv, int H,
                                int KV, int hd, int causal, int q_offset,
                                int kv_valid, int bf16, float scale,
                                int block_q, int block_kv, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || hd < 1 ||
-      hd > 128 || block_kv < 1 || block_kv > MAX_BLOCK_KV)
+      hd > 128 || (block_q != 64 && block_q != 128))
     return (int)cudaErrorInvalidValue;
   Problem p;
   p.B = B; p.Sq = Sq; p.Skv = Skv; p.H = H; p.KV = KV; p.hd = hd;
   p.causal = causal; p.q_offset = q_offset; p.kv_valid = kv_valid;
-  p.bkv = block_kv; p.bf16 = bf16; p.scale = scale;
+  p.scale = scale;
+  const int elem = bf16 ? 2 : 4;
+  p.vec = (hd * elem) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(v) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd <= 32) return (int)launch_rows<1>(block_q, q, k, v, o, p, s);
-  if (hd <= 64) return (int)launch_rows<2>(block_q, q, k, v, o, p, s);
-  return (int)launch_rows<4>(block_q, q, k, v, o, p, s);
+  if (bf16)
+    return (int)launch_hd<__nv_bfloat16>(block_q, block_kv, q, k, v, o, p, s);
+  return (int)launch_hd<float>(block_q, block_kv, q, k, v, o, p, s);
 }

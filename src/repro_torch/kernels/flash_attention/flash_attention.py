@@ -4,17 +4,22 @@ absolute-position causal mask), and its wrapper.
 Replaces ``src/repro/kernels/flash_attention/flash_attention.py::
 flash_attention`` (the Pallas TPU kernel).  The kernel,
 ``csrc/flash_attention.cu``, gives each block ``block_q`` query rows of
-one (batch, head), keeps their scaled q tile in shared memory and streams
-K/V through shared memory ``block_kv`` keys at a time, with the running
-max, denominator and accumulator in f32.
+one (batch, head), one warp per 16 rows, keeps their scaled q tile in
+shared memory and streams K/V through a two-stage ring of shared memory
+``block_kv`` keys at a time (16-byte ``cp.async``), with the running max,
+denominator and accumulator in f32.
 
-What bounds it on an H100: f32 operations at prefill shapes (no tensor
-cores: TF32 would break the 2e-5 tolerance), bytes for a decode window.
-What the design does about it: each warp owns ``block_q / 8`` rows for a
-whole chunk, forms their scores four rows at a time in registers and
-keeps its ``p @ V`` accumulator in registers, so a chunk costs two block
-barriers; keys past the causal horizon of the whole block are skipped
-when every row sees a key.
+What bounds it on an H100: the two products at prefill shapes, bytes for
+a decode window.  What the design does about it: both products run on
+the tensor cores as 3xTF32 ``mma.sync`` (each f32 operand split into two
+TF32 parts, three products; two when K/V are bf16 and so exact in TF32),
+which keeps f32 accuracy and the 2e-5 tolerance.  Each f32 chunk is split
+once by the whole block into a shared hi/lo buffer.  S stays in registers
+as mma accumulators, the online softmax runs on them with quad shuffles,
+and P feeds ``P @ V`` from the same registers (the chunk's keys are summed
+in a permuted order that matches the accumulator layout); keys past the
+causal horizon of a block, or of a warp's 16 rows, are skipped when every
+row sees a key.
 
 Keys past ``Skv`` are never read, so a row that sees no key (``kv_valid_len
 = 0``) gets the mean of V over the ``Skv`` keys, as the reference's
@@ -34,39 +39,44 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.registry import SMEM_PER_BLOCK
+from repro_torch.kernels.registry import SMEM_PER_BLOCK, round_up
 
-BLOCK_Q = (16, 32, 64, 128, 256)   # the row counts the source instantiates
-MAX_BLOCK_KV = 256                 # MAX_BLOCK_KV in the source
+BLOCK_Q = (64, 128)        # rows per block the source launches: 4 or 8 warps
+BLOCK_KV = (32, 64, 128)   # the chunk sizes the source instantiates
+STAGES = 2                 # K/V chunks in flight (STAGES in the source)
 MAX_HEAD_DIM = 128
-MAX_ACC = 64                       # accumulators a thread may hold
 DTYPES = (torch.float32, torch.bfloat16)
 SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:73"
 
 
-def column_groups(hd: int) -> int:
-    """Groups of 32 columns of hd each lane accumulates (1, 2 or 4)."""
-    return 1 if hd <= 32 else 2 if hd <= 64 else 4
+def head_tile(hd: int) -> int:
+    """hd rounded up to the head tile the source is built for (32, 64, 96
+    or 128); the columns past hd are zeros in shared memory."""
+    return round_up(hd, 32)
 
 
-def smem_bytes(block_q: int, block_kv: int, hd: int) -> int:
-    """Dynamic shared memory of one block: the q tile, one K chunk (rows
-    padded by one float), one V chunk, the p tile and m, l and the
-    correction per row, all f32 (``smem_floats`` in the source)."""
-    return 4 * (block_q * hd + block_kv * (hd + 1) + block_kv * hd
-                + block_q * block_kv + 3 * block_q)
+def smem_bytes(block_q: int, block_kv: int, hd: int,
+               bf16: bool = False) -> int:
+    """Dynamic shared memory of one block (``smem_size`` in the source):
+    the f32 q tile (rows padded by 4 words), ``STAGES`` K and V chunks in
+    the input dtype as they arrive (rows padded by 4 f32 words or 8 bf16
+    halves, so a warp's fragment loads hit 32 distinct banks), and for f32
+    inputs one chunk split into TF32 K hi, K lo, V hi and V lo."""
+    hdt = head_tile(hd)
+    if bf16:
+        return 4 * block_q * (hdt + 4) + STAGES * 2 * block_kv * 2 * (hdt + 8)
+    return (4 * block_q * (hdt + 4)
+            + (STAGES * 2 + 4) * block_kv * 4 * (hdt + 4))
 
 
-def fits(hd: int, block_q: int, block_kv: int, smem=smem_bytes) -> bool:
-    """Whether the kernel takes this tile at head dim ``hd``: an
-    instantiated ``block_q``, ``block_kv`` up to 256, at most 64 register
-    accumulators a thread (``block_q / 8`` rows x the column groups), and
-    the shared memory of ``smem`` within a block's 227 KB."""
-    return (block_q in BLOCK_Q and 1 <= block_kv <= MAX_BLOCK_KV
+def fits(hd: int, block_q: int, block_kv: int, bf16: bool = False) -> bool:
+    """Whether the kernel takes this tile at head dim ``hd``: a launched
+    ``block_q`` and ``block_kv``, and its shared memory within a block's
+    227 KB (at hd 128 in f32 only ``block_kv`` 32 fits)."""
+    return (block_q in BLOCK_Q and block_kv in BLOCK_KV
             and 1 <= hd <= MAX_HEAD_DIM
-            and block_q // 8 * column_groups(hd) <= MAX_ACC
-            and smem(block_q, block_kv, hd) <= SMEM_PER_BLOCK)
+            and smem_bytes(block_q, block_kv, hd, bf16) <= SMEM_PER_BLOCK)
 
 
 def softmax_scale(hd: int) -> float:
@@ -93,9 +103,11 @@ def _lib():
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float]
         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.flash_attention.restype = ctypes.c_int
-    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
-    if lib.flash_attention_smem_bytes(128, 64, 64) != smem_bytes(128, 64, 64):
+    if any(lib.flash_attention_smem_bytes(128, 64, hd, bf16)
+           != smem_bytes(128, 64, hd, bool(bf16))
+           for hd in (40, 128) for bf16 in (0, 1)):
         raise RuntimeError("csrc/flash_attention.cu and flash_attention.py "
                            "disagree on the shared-memory layout")
     return lib
@@ -120,7 +132,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check_shapes(q, k, v)
     B, Sq, H, hd = (int(s) for s in q.shape)
     Skv, KV = int(k.shape[1]), int(k.shape[2])
-    if not fits(hd, block_q, block_kv):
+    if not fits(hd, block_q, block_kv, q.dtype == torch.bfloat16):
         raise ValueError(f"block_q={block_q}, block_kv={block_kv} does not "
                          f"fit hd={hd}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()

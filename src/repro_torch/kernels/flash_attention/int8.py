@@ -29,7 +29,7 @@ import torch
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.flash_attention import ops as f32_ops
 from repro_torch.kernels.flash_attention.flash_attention import (
-    check_shapes, fits as fits_tile, softmax_scale)
+    MAX_HEAD_DIM, check_shapes, softmax_scale)
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_mask
 from repro_torch.quant.quantize import _scale, quantize_kv
 
@@ -45,6 +45,16 @@ REPLACES = "src/repro/kernels/flash_attention/int8.py:111"
 #: The reference's one-int8-step ``TOL`` of 2e-2 would pass an all-zero
 #: output there; 1e-5 still fails a kernel that drops a chunk of keys.
 TOL = (1e-5, 1e-5)
+#: the reference's ladder (both tunables); the source instantiates every
+#: block_q rung, and block_kv up to 256
+LADDER, DEFAULT_BLOCK = (16, 32, 64, 128, 256), 128
+MAX_BLOCK_KV = 256
+MAX_ACC = 64               # f32 accumulators a thread may hold
+
+
+def column_groups(hd: int) -> int:
+    """Groups of 32 columns of hd each lane accumulates (1, 2 or 4)."""
+    return 1 if hd <= 32 else 2 if hd <= 64 else 4
 
 
 def smem_bytes(block_q: int, block_kv: int, hd: int) -> int:
@@ -58,7 +68,15 @@ def smem_bytes(block_q: int, block_kv: int, hd: int) -> int:
 
 
 def fits(hd: int, block_q: int, block_kv: int) -> bool:
-    return hd % 4 == 0 and fits_tile(hd, block_q, block_kv, smem_bytes)
+    """Whether the kernel takes this tile at head dim ``hd``: hd a
+    multiple of 4 (int32 words of K), an instantiated ``block_q``,
+    ``block_kv`` up to 256, at most 64 register accumulators a thread
+    (``block_q / 8`` rows x the column groups) and the shared memory
+    within a block's 227 KB."""
+    return (hd % 4 == 0 and block_q in LADDER
+            and 1 <= block_kv <= MAX_BLOCK_KV and 1 <= hd <= MAX_HEAD_DIM
+            and block_q // 8 * column_groups(hd) <= MAX_ACC
+            and smem_bytes(block_q, block_kv, hd) <= registry.SMEM_PER_BLOCK)
 
 
 def flash_attention_int8_ref(q, kq, ks, vq, vs, *, causal=True,
@@ -196,12 +214,12 @@ def _fits(problem, params):
 def _supports(problem):
     return (problem["dtype"] == "float32"
             and problem["h"] % problem["kv"] == 0
-            and fits(problem["hd"], f32_ops.BLOCK_LADDER[0],
-                     f32_ops.BLOCK_LADDER[0]))
+            and fits(problem["hd"], LADDER[0], LADDER[0]))
 
 
 SPEC = registry.register(registry.KernelSpec(
-    name="flash_attention_int8", params=f32_ops.block_params(),
+    name="flash_attention_int8", params=f32_ops.block_params(
+        (DEFAULT_BLOCK, LADDER), (DEFAULT_BLOCK, LADDER)),
     kernel=flash_attention_int8, run_call=_run, ref_call=_ref,
     make_call=_make, cache_key=f32_ops.cache_key,
     candidates=lambda problem: f32_ops.candidates(SPEC, problem, _fits),

@@ -1,11 +1,16 @@
 """Registry declaration and op of flash attention (counterpart of
 ``repro/kernels/flash_attention/ops.py``).
 
-Tunables: ``block_q`` (query rows per block) and ``block_kv`` (the K/V
-chunk).  Validation is to a tolerance, not bit-exact: the online-softmax
-rescaling order changes with the chunking, and the kernel scales q before
-the dot where the oracle divides the scores, so candidates must match the
-naive-softmax plain version to f32 tolerance.
+Tunables: ``block_q`` (query rows per block: 4 or 8 warps of 16 rows)
+and ``block_kv`` (the K/V chunk), on the ladders the kernel launches,
+which are not the reference's (16 to 256 for both): a warp's mma
+fragments are 16 rows tall, and at hd 128 in f32 only chunks of 32 keys
+fit beside the q tile and their TF32 split.  Validation is to a
+tolerance, not bit-exact: the online-softmax rescaling order changes with the chunking, the kernel
+scales q before the dot where the oracle divides the scores, and its
+products are 3xTF32 on the tensor cores (about 2^-22 relative per
+product, summed in f32), so candidates must match the naive-softmax plain
+version to f32 tolerance.
 """
 from __future__ import annotations
 
@@ -13,14 +18,15 @@ import torch
 
 from repro_torch.kernels import registry
 from repro_torch.kernels.flash_attention.flash_attention import (
-    check_shapes, fits, flash_attention)
+    BLOCK_KV, BLOCK_Q, check_shapes, fits, flash_attention)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-BLOCK_LADDER = (16, 32, 64, 128, 256)
-DEFAULT_BLOCK = 128
+DEFAULT_BLOCK_Q, DEFAULT_BLOCK_KV = 128, 32
 #: (rtol, atol) against the plain version on the card, the reference's
-#: tolerance: both compute in f32, apart only by the order of the
-#: softmax's sums and where the 1/sqrt(hd) scale is applied.
+#: tolerance: both compute in f32, apart by the order of the softmax's
+#: sums, where the 1/sqrt(hd) scale is applied and the 3xTF32 split of
+#: each product (tests/test_torch_flash_attention.py emulates it at the
+#: llama3.2-3b shape: far inside).
 TOL = (2e-5, 2e-5)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -73,29 +79,35 @@ def cache_key(problem, backend):
 
 def _fits(problem, params):
     """The port's design, not the Pallas one (which keeps a head's whole
-    K/V resident): the q tile, one K and one V chunk, the p tile and the
-    per-row m, l and correction in shared memory, plus the register
-    accumulators (:func:`~repro_torch.kernels.flash_attention.
-    flash_attention.fits`)."""
-    return fits(problem["hd"], params["block_q"], params["block_kv"])
+    K/V resident): the q tile, two K/V stages and the split chunk in
+    shared memory
+    (:func:`~repro_torch.kernels.flash_attention.flash_attention.fits`)."""
+    return fits(problem["hd"], params["block_q"], params["block_kv"],
+                problem["dtype"] == "bfloat16")
 
 
 def _supports(problem):
     return (problem["dtype"] in _DTYPES and problem["h"] % problem["kv"] == 0
-            and fits(problem["hd"], BLOCK_LADDER[0], BLOCK_LADDER[0]))
+            and fits(problem["hd"], BLOCK_Q[0], BLOCK_KV[0],
+                     problem["dtype"] == "bfloat16"))
 
 
 def candidates(spec, problem, fits_fn):
-    """The reference's ladder clip: no tile past the rounded-up extent."""
-    clip = {"block_q": registry.round_up(problem["sq"], 16),
-            "block_kv": registry.round_up(problem["skv"], 16)}
+    """The reference's ladder clip: no tile past the extent rounded up to
+    the ladder's smallest rung (16 on the reference's ladders)."""
+    bq, bkv = spec.params
+    clip = {"block_q": registry.round_up(problem["sq"], bq.ladder[0]),
+            "block_kv": registry.round_up(problem["skv"], bkv.ladder[0])}
     return registry.ladder_candidates(spec.params, clip,
                                       fits=lambda c: fits_fn(problem, c))
 
 
-def block_params():
-    return (registry.TunableParam("block_q", DEFAULT_BLOCK, BLOCK_LADDER),
-            registry.TunableParam("block_kv", DEFAULT_BLOCK, BLOCK_LADDER))
+def block_params(block_q=(DEFAULT_BLOCK_Q, BLOCK_Q),
+                 block_kv=(DEFAULT_BLOCK_KV, BLOCK_KV)):
+    """The two tunables as ``(default, ladder)`` pairs: this kernel's
+    by default, the reference's for the int8 kernel."""
+    return (registry.TunableParam("block_q", *block_q),
+            registry.TunableParam("block_kv", *block_kv))
 
 
 SPEC = registry.register(registry.KernelSpec(

@@ -1,7 +1,12 @@
 """Registry declaration and spec adapters for the fused-MLP kernel
 (counterpart of ``repro/kernels/fused_mlp/ops.py``).
 
-``fused_mlp_sharded`` waits for the port of ``dist/``.
+The tunable keeps the name the engine, tuner and cache know,
+``block_rows``; its ladder is what the kernel instantiates (16 or 32 rows
+a block, one or two m16 tiles of tensor-core fragments, for layers up to
+1,024 wide; 1 to 8 rows for any width), not the reference's
+``batch_tile`` ladder.  ``fused_mlp_sharded`` waits for the port of
+``dist/``.
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
 from repro_torch.serve.batcher import bucket_size
 from repro_torch.tune.cache import shape_key
 
-DEFAULT_BLOCK_ROWS = 16
+DEFAULT_BLOCK_ROWS = 32
 #: the reference's representative problems (``fused_mlp/ops.py:113-118``)
 DEFAULT_PROBLEMS = (
     {"widths": (5, 128, 128, 1), "acts": ("relu", "relu", "identity"),
@@ -84,8 +89,9 @@ def _fits(problem, params):
 def candidate_tiles(widths, bucket):
     """``block_rows`` worth sweeping for one bucket: the default first
     (ties keep it), then the rest of the ladder up to the bucket, each
-    checked against shared memory.  The single source of the fused MLP's
-    candidates: the spec and the tuner both consume it."""
+    checked against the kernel's limits (:func:`fits_smem`).  The single
+    source of the fused MLP's candidates: the spec and the tuner both
+    consume it."""
     tiles = [DEFAULT_BLOCK_ROWS] + [t for t in BLOCK_ROWS if t <= bucket
                                     and t != DEFAULT_BLOCK_ROWS]
     return [t for t in tiles if fits_smem(widths, t)]
@@ -98,17 +104,19 @@ def _cands(problem):
 
 def _supports(problem):
     """f32 rows [B, F0], at most MAX_LAYERS layers, and one row's two
-    activation buffers fit a block's shared memory."""
+    activation buffers (``block_rows`` 1) fit a block's shared memory."""
     return (problem["dtype"] == "float32" and problem["ndim"] == 2
             and len(problem["acts"]) <= MAX_LAYERS
-            and fits_smem(problem["widths"], 1))
+            and fits_smem(problem["widths"], BLOCK_ROWS[0]))
 
 
 # Tolerance of the kernel against the plain version on the card: both sum
-# in f32, the kernel in ascending k with fmaf, cuBLAS in its own blocked
-# order.  Each layer's sum of K <= 1024 terms then differs by a few
-# sqrt(K) * 2^-24 relative, which at the minibude widths and O(1)
-# activations stays under 1e-5; 1e-4 leaves room for seven layers.
+# in f32, the kernel as 3xTF32 mma in ascending k (each product to about
+# 2^-22 relative), cuBLAS in its own blocked order.  Each layer's sum of
+# K <= 1024 terms then differs by a few sqrt(K) * 2^-22 relative, which
+# at the minibude widths and O(1) activations stays under 1e-5 (the CPU
+# emulation in tests/test_torch_fused_mlp.py); 1e-4 leaves room for seven
+# layers.
 SPEC = registry.register(registry.KernelSpec(
     name="fused_mlp",
     params=(registry.TunableParam("block_rows", DEFAULT_BLOCK_ROWS,

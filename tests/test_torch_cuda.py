@@ -54,25 +54,69 @@ def test_kernel_matches_plain_version(dev, widths, acts, batch):
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("widths,acts", [
+    # minibude-wide: 16-byte (1024) and 4-byte (819, 655) weight copies
+    ((6, 1024, 819, 655, 1), ("relu", "relu", "relu", "identity")),
+    # widths off the n8 tile, every activation
+    ((6, 100, 36, 13, 1), ("gelu", "tanh", "silu", "sigmoid")),
+    ((3, 8, 1), ("identity", "relu")),
+    # past 1,024 wide: 1 to 8 rows only, three column passes
+    ((6, 2100, 1100, 3), ("relu", "tanh", "identity")),
+    # the widest one row's two buffers hold (exactly 227 KB)
+    ((5, 29056, 3), ("relu", "identity")),
+])
+@pytest.mark.parametrize("batch", [1, 37, 300])
+def test_kernel_matches_plain_version_at_every_block_rows(dev, widths, acts,
+                                                          batch):
+    from repro_torch.kernels.fused_mlp import ops
+    from repro_torch.kernels.fused_mlp.fused_mlp import (BLOCK_ROWS,
+                                                         fits_smem, fused_mlp)
+    from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
+    packed = _packed(widths, acts, dev, seed=batch)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (batch, widths[0])).astype(np.float32)).to(dev)
+    want = fused_mlp_ref(x, packed.weights, packed.biases, acts)
+    rtol, atol = ops.SPEC.tol
+    tiles = [r for r in BLOCK_ROWS if fits_smem(widths, r)]
+    assert tiles and ops.SPEC.supports(ops.inspect_call(x, packed))
+    for rows in tiles:
+        got = fused_mlp(x, packed, block_rows=rows)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"block_rows {rows}: {m}")
+
+
 def test_rows_bit_identical_across_batch_and_block_rows(dev):
     from repro_torch.kernels.fused_mlp import ops
-    from repro_torch.kernels.fused_mlp.fused_mlp import fused_mlp
+    from repro_torch.kernels.fused_mlp.fused_mlp import BLOCK_ROWS, fused_mlp
     packed = _packed((6, 96, 50, 1), ("relu", "relu", "identity"), dev)
+    # 64 rows run as clusters of blocks sharing the columns, 8,192 rows as
+    # single blocks: the rows agree bit for bit all the same
     x = torch.from_numpy(np.random.default_rng(2).standard_normal(
-        (64, 6)).astype(np.float32)).to(dev)
+        (8192, 6)).astype(np.float32)).to(dev)
     alone = ops.fused_mlp_op(x[:37].contiguous(), packed)
-    padded = ops.fused_mlp_op(x, packed)[:37]
+    padded = ops.fused_mlp_op(x[:64].contiguous(), packed)[:37]
     assert torch.equal(alone, padded)
-    for rows in (1, 2, 4, 8, 16):
+    for rows in BLOCK_ROWS:
         assert torch.equal(alone, fused_mlp(x[:37].contiguous(), packed,
                                             block_rows=rows))
+        assert torch.equal(alone, fused_mlp(x, packed, block_rows=rows)[:37])
+    # past 1,024 wide (1 to 8 rows, column passes)
+    wide = _packed((6, 1300, 40, 1), ("relu", "relu", "identity"), dev)
+    alone = ops.fused_mlp_op(x[:37].contiguous(), wide)
+    for rows in (1, 2, 4, 8):
+        assert torch.equal(alone, fused_mlp(x[:37].contiguous(), wide,
+                                            block_rows=rows))
+        assert torch.equal(alone, fused_mlp(x[:300].contiguous(), wide,
+                                            block_rows=rows)[:37])
 
 
-def test_engine_routes_pure_mlp_to_kernel(dev, tmp_path):
+@pytest.mark.parametrize("hidden", [[32, 16], [4096]])
+def test_engine_routes_pure_mlp_to_kernel(dev, tmp_path, hidden):
     from repro_torch.core.engine import InferenceEngine
     from repro_torch.kernels.fused_mlp import ops
     from repro_torch.nn import MLP, save_model
-    path = save_model(tmp_path / "b", MLP((1, 6), [32, 16], 1).init(0))
+    path = save_model(tmp_path / "b", MLP((1, 6), hidden, 1).init(0))
     eng = InferenceEngine.get(path)
     assert eng.route == "fused_mlp"
     before = ops.SPEC.launches
@@ -233,31 +277,43 @@ def _attn(shape, dev, seed=0, dtype=torch.float32):
     return t(b, sq, h, hd), t(b, skv, kv, hd), t(b, skv, kv, hd)
 
 
-@pytest.mark.parametrize("shape,kw,tile", [
-    ((1, 256, 256, 8, 2, 64), {}, (128, 128)),
-    ((4, 32, 512, 8, 2, 64), {"q_offset": 480}, (16, 256)),
-    ((2, 37, 101, 6, 2, 40), {"causal": False}, (16, 32)),
-    ((1, 20, 50, 4, 4, 16), {"kv_valid_len": 0}, (32, 16)),
-    ((1, 20, 50, 3, 1, 96), {"kv_valid_len": 7, "causal": False}, (64, 64)),
-    ((1, 300, 300, 2, 2, 64), {}, (256, 16)),
+@pytest.mark.parametrize("shape,kw", [
+    ((1, 256, 256, 8, 2, 64), {}),                     # the default prefill
+    ((4, 32, 512, 8, 2, 64), {"q_offset": 480}),       # the default decode
+    ((2, 37, 101, 6, 2, 40), {"causal": False}),       # ragged, group 3
+    ((1, 20, 50, 4, 4, 16), {"kv_valid_len": 0}),      # group 1
+    ((1, 20, 50, 3, 1, 96), {"kv_valid_len": 7, "causal": False}),
+    ((1, 300, 300, 2, 2, 64), {}),
+    ((1, 77, 133, 6, 2, 100), {"kv_valid_len": 90}),   # hd 100, partial
+    ((1, 150, 201, 3, 1, 128), {"q_offset": 17}),      # hd 128, group 3
+    ((2, 65, 129, 4, 4, 32), {}),                      # hd 32, group 1
+    ((1, 40, 70, 2, 1, 7), {}),                        # hd 7: plain copies
+    ((1, 64, 100, 2, 2, 128), {"kv_valid_len": 0}),
+    ((1, 50, 60, 2, 2, 64), {"q_offset": -20}),        # rows that see no key
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_attention_kernel_matches_plain_version(dev, shape, kw, tile,
-                                                      dtype):
+def test_flash_attention_kernel_matches_plain_version(dev, shape, kw, dtype):
+    """Every tile of the ladders that fits, against the plain version."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention)
+        BLOCK_KV, BLOCK_Q, fits, flash_attention)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     q, k, v = _attn(shape, dev, dtype=getattr(torch, dtype))
-    before = ops.SPEC.launches
-    got = flash_attention(q, k, v, block_q=tile[0], block_kv=tile[1], **kw)
     want = flash_attention_ref(q, k, v, **kw)
-    torch.cuda.synchronize()
-    assert ops.SPEC.launches == before + 1 and got.dtype == q.dtype
     rtol, atol = ops.TOL
-    # bf16 outputs: one rounding of f32 results, at most one ulp apart
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol if dtype == "float32" else 2 ** -7)
+    tiles = [(bq, bkv) for bq in BLOCK_Q for bkv in BLOCK_KV
+             if fits(shape[-1], bq, bkv, dtype == "bfloat16")]
+    assert len(tiles) >= 2
+    for bq, bkv in tiles:
+        before = ops.SPEC.launches
+        got = flash_attention(q, k, v, block_q=bq, block_kv=bkv, **kw)
+        torch.cuda.synchronize()
+        assert ops.SPEC.launches == before + 1 and got.dtype == q.dtype
+        # bf16 outputs: one rounding of f32 results, at most one ulp apart
+        torch.testing.assert_close(
+            got.float(), want.float(), atol=atol,
+            rtol=rtol if dtype == "float32" else 2 ** -7,
+            msg=lambda m: f"tile {bq}x{bkv}: {m}")
 
 
 @pytest.mark.parametrize("shape,kw,tile", [

@@ -18,7 +18,7 @@ from repro.quant import quantize as jq  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.flash_attention import int8, ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    flash_attention, fits, smem_bytes)
+    flash_attention, fits, smem_bytes, softmax_scale)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.quant.quantize import quantize_kv  # noqa: E402
 
@@ -160,8 +160,8 @@ def test_cpu_dispatch_takes_plain_version_and_counts():
 def test_specs_match_reference_declarations():
     for spec, jspec in ((ops.SPEC, jax_ops.SPEC),
                         (int8.SPEC, jax_int8.SPEC)):
-        assert [(p.name, p.default, p.ladder) for p in spec.params] == \
-            [(p.name, p.default, p.ladder) for p in jspec.params]
+        assert [p.name for p in spec.params] == \
+            [p.name for p in jspec.params]
         # the port's tolerance is at least as strict as the reference's
         assert all(a <= b for a, b in zip(spec.tol, jspec.tol))
         assert spec.tier == jspec.tier
@@ -174,27 +174,106 @@ def test_specs_match_reference_declarations():
             assert cands[0] == spec.defaults()
             assert all(spec.fits(problem, c) for c in cands)
     assert ops.SPEC.tol == (2e-5, 2e-5) and int8.SPEC.tol == (1e-5, 1e-5)
+    # the int8 kernel keeps the reference's ladders; the f32 kernel's are
+    # the tiles it launches (warps of 16 rows, two K/V stages)
+    assert [(p.default, p.ladder) for p in int8.SPEC.params] == \
+        [(p.default, p.ladder) for p in jax_int8.SPEC.params]
+    assert [(p.default, p.ladder) for p in ops.SPEC.params] == \
+        [(128, (64, 128)), (32, (32, 64, 128))]
 
 
 def test_shared_memory_and_register_model():
-    """The port's own design: q tile, one K and one V chunk, the p tile
-    and per-row state in shared memory; at most 64 accumulators a
-    thread."""
-    assert smem_bytes(128, 128, 64) == 4 * (128 * 64 + 128 * 65 + 128 * 64
-                                            + 128 * 128 + 3 * 128)
-    assert fits(64, 128, 128)
-    assert not fits(128, 128, 128)          # 256 KB, over 227 KB
-    assert fits(128, 64, 128)
-    assert not fits(128, 256, 16)           # 32 rows x 4 column groups
-    assert fits(64, 256, 16) and not fits(64, 32, 512)
-    assert not fits(160, 16, 16)            # hd past 128
+    """The port's own design: the f32 q tile, two K/V stages and, for f32
+    inputs, one chunk split into TF32 hi and lo in shared memory, rows
+    padded against bank conflicts; hd rounds up to a head tile of 32, 64,
+    96 or 128."""
+    assert smem_bytes(128, 32, 128) == (4 * 128 * 132
+                                        + (2 * 2 + 4) * 32 * 4 * 132)
+    assert smem_bytes(64, 32, 100) == smem_bytes(64, 32, 128)
+    assert smem_bytes(128, 128, 64, bf16=True) == (
+        4 * 128 * 68 + 2 * 2 * 128 * 2 * 72)
+    assert smem_bytes(64, 32, 1) == 4 * 64 * 36 + 8 * 32 * 4 * 36
+    assert fits(128, 128, 32) and fits(128, 64, 32)
+    assert not fits(128, 128, 64)           # 270 KB of chunks, 66 KB of q
+    assert not fits(128, 64, 64)
+    assert fits(128, 128, 128, bf16=True)   # bf16: no split chunk, half-width
+    assert fits(96, 128, 32) and not fits(96, 128, 64)
+    assert fits(1, 64, 32) and fits(64, 128, 64) and fits(32, 128, 128)
+    assert not fits(64, 32, 64)             # block_q: 4 or 8 warps of 16
+    assert not fits(64, 256, 64) and not fits(64, 128, 16)
+    assert not fits(64, 128, 256)
+    assert not fits(160, 64, 32)            # hd past 128
     assert int8.smem_bytes(32, 128, 128) == 4 * (
         32 * 32 + 32 + 128 * 33 + 128 + 128 * 128 + 32 * 128 + 3 * 32)
     assert not int8.fits(62, 16, 16)        # hd % 4 != 0
+    assert int8.fits(64, 256, 16) and not int8.fits(128, 256, 16)
     llama = {"b": 1, "sq": 4096, "skv": 4096, "h": 24, "kv": 8, "hd": 128,
              "causal": True, "q_offset": 0, "dtype": "float32"}
-    # the default 128 x 128 tile overflows at hd 128: it steps down
+    # the default 128 x 32 tile fits at every head dim and dtype
     assert registry.resolve_params_info(ops.SPEC, llama) == \
-        ({"block_q": 64, "block_kv": 128}, "default")
+        ({"block_q": 128, "block_kv": 32}, "default")
+    # an explicit tile that does not fit serves the default
+    assert registry.resolve_params_info(ops.SPEC, llama, {"block_kv": 64}) \
+        == ({"block_q": 128, "block_kv": 32}, "default:smem-fallback")
+    assert registry.resolve_params_info(int8.SPEC, dict(llama, sq=32)) == \
+        ({"block_q": 128, "block_kv": 128}, "default")
     assert not ops.SPEC.supports(dict(llama, dtype="float16"))
+    assert ops.SPEC.supports(dict(llama, dtype="bfloat16", hd=1))
     assert not int8.SPEC.supports(dict(llama, dtype="bfloat16"))
+
+
+# ------------------------------------------------------ 3xTF32 numerics ---
+# A CPU emulation of the products csrc/flash_attention.cu forms on the
+# tensor cores, to predict the tolerance before any chip run.
+
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32: the magnitude rounded half away from zero at
+    bit 13, the low 13 bits cleared."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    r = ((u & np.uint32(0x7FFFFFFF)) + np.uint32(0x1000)) \
+        & np.uint32(0xFFFFE000)
+    return (r | (u & np.uint32(0x80000000))).view(np.float32)
+
+
+def _mma_matmul(a, b, passes):
+    """``a @ b`` in k-steps of 8, each adding the TF32 products lo.hi,
+    hi.lo, hi.hi (``passes=1``: hi.hi alone) to an f32 accumulator."""
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
+    terms = ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi))[3 - passes:]
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        for x, y in terms:
+            acc = (acc + x[:, k0:k0 + 8].astype(np.float64)
+                   @ y[k0:k0 + 8].astype(np.float64)).astype(np.float32)
+    return acc
+
+
+def test_3xtf32_llama_prefill_within_tolerance_1xtf32_not():
+    """One head of the llama3.2-3b causal prefill (4,096 keys, hd 128),
+    its last 128 query rows (the longest): scores q*scale . k and p @ v
+    as 3xTF32 products stay inside (2e-5, 2e-5) of the f32 plain
+    version; single-pass TF32 scores and products do not."""
+    s, hd, rows = 4096, 128, 128
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((1, rows, 1, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((1, s, 1, hd)).astype(np.float32)
+            for _ in range(2))
+    offset = s - rows
+    want = flash_attention_ref(*_t(q, k, v), q_offset=offset).numpy()[0, :, 0]
+    qs = q[0, :, 0] * np.float32(softmax_scale(hd))
+    mask = np.arange(s)[None, :] <= np.arange(rows)[:, None] + offset
+
+    def emulate(passes):
+        sc = np.where(mask, _mma_matmul(qs, k[0, :, 0].T.copy(), passes),
+                      np.float32(-1e30))
+        p = np.exp(sc - sc.max(axis=1, keepdims=True)).astype(np.float32)
+        o = _mma_matmul(p, v[0, :, 0], passes)
+        return o / p.sum(axis=1, keepdims=True, dtype=np.float32)
+
+    rtol, atol = TOL
+    worst = lambda got: float(np.max(  # noqa: E731
+        np.abs(got - want) / (atol + rtol * np.abs(want))))
+    assert worst(emulate(3)) < 0.1
+    assert worst(emulate(1)) > 1.0
+

@@ -134,18 +134,50 @@ def test_candidates_defaults_first_and_filtered_by_fits():
     assert registry.ladder_candidates(two, {"a": 2, "b": 8}) == [
         {"a": 2, "b": 8}, {"a": 1, "b": 8}]
     # the fused MLP: block_rows that overflow a 4096-wide net are not swept
+    # (16 and 32 take layers up to 1,024 wide; 8 rows' two buffers would
+    # take 256 KB)
     wide = {"widths": (6, 4096, 1), "acts": ("relu", "identity"),
             "batch": 256, "ndim": 2, "dtype": "float32"}
     assert fused_ops.SPEC.candidates(wide) == [{"block_rows": 1},
                                                {"block_rows": 2},
                                                {"block_rows": 4}]
+    assert fused_ops.SPEC.candidates(dict(wide, widths=(1500, 1024, 1))) \
+        == [{"block_rows": 1}, {"block_rows": 2}, {"block_rows": 4},
+            {"block_rows": 8}, {"block_rows": 16}]
     small = dict(wide, widths=(6, 64, 1), batch=4)
     assert fused_ops.SPEC.candidates(small) == [
-        {"block_rows": 16}, {"block_rows": 1}, {"block_rows": 2},
+        {"block_rows": 32}, {"block_rows": 1}, {"block_rows": 2},
         {"block_rows": 4}]
     # the tuner's helper is the spec's source
-    assert candidate_tiles((6, 64, 1), 8) == [16, 1, 2, 4, 8]
+    assert candidate_tiles((6, 64, 1), 8) == [32, 1, 2, 4, 8]
+    assert candidate_tiles((6, 64, 1), 256) == [32, 1, 2, 4, 8, 16]
+    assert candidate_tiles((1500, 1024, 1), 1024) == [1, 2, 4, 8, 16]
     assert candidate_tiles((6, 4096, 1), 1024) == [1, 2, 4]
+
+
+def test_flash_attention_sweeps_only_the_kernels_tiles():
+    """``run_tune`` sweeps the tiles the kernel launches: block_q 64 or
+    128, block_kv 32, 64 or 128, clipped to the extent rounded up to the
+    smallest rung, and filtered by shared memory (at hd 128 in f32 only
+    chunks of 32 keys fit beside the q tile and their TF32 split)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    spec = flash_ops.SPEC
+    tiles = lambda problem: [(c["block_q"], c["block_kv"])  # noqa: E731
+                             for c in spec.candidates(problem)]
+    llama = {"b": 1, "sq": 4096, "skv": 4096, "h": 24, "kv": 8, "hd": 128,
+             "causal": True, "q_offset": 0, "dtype": "float32"}
+    assert tiles(llama) == [(128, 32), (64, 32)]
+    assert tiles(dict(llama, dtype="bfloat16")) == [
+        (128, 32), (128, 64), (128, 128), (64, 32), (64, 64), (64, 128)]
+    decode = spec.default_problems[1]
+    assert tiles(decode) == [(128, 32), (128, 64), (64, 32), (64, 64)]
+    assert tiles(dict(decode, sq=20, skv=50)) == [
+        (128, 32), (128, 64), (64, 32), (64, 64)]
+    assert tiles(dict(decode, sq=20, skv=20)) == [(128, 32), (64, 32)]
+    for problem in spec.default_problems + (llama,):
+        assert spec.supports(problem)
+        assert all(c["block_q"] in (64, 128) and c["block_kv"] in (32, 64, 128)
+                   for c in spec.candidates(problem))
 
 
 def test_sweep_on_the_cpu_raises(tmp_path):
