@@ -85,9 +85,12 @@ grid no tile divides, 4096x4096), flash_attention (its tolerance: both
 default problems, non-causal, GQA groups 1 and 3, ``kv_valid_len`` 0 and
 150, ``q_offset``, bf16 inputs, the llama3.2-3b prefill) and
 flash_attention_int8 (its default problem and the decode window) and
-rwkv6_chunk (its default problem, T 1 and 33, head sizes 8, 16 and 64,
-bf16 inputs, the rwkv6-1.6b prefill shape; the final state bit for bit)
-against their plain versions.
+rwkv6_chunk (its default problem, T 1 and 33, head sizes 8, 16, 24, 64
+and 128, bf16 inputs, the rwkv6-1.6b prefill shape; the final state bit
+for bit) against their plain versions.  fused_mlp_int8's rows are held
+bit-identical across every ``block_rows`` that fits;
+rwkv6_chunk's timing lines also give its device time from a CUDA graph
+(at T = 1 a loop of launches is paced by the host).
 
 Launch counts are set to 0 just before each main path (the f32 slice's
 region calls, each int8 slice's infer region, the ``run_tune`` call, the
@@ -236,6 +239,14 @@ PEAK_F32_FLOPS = 67e12   # H100 SXM f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12
 PEAK_INT8_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12
+# what each redesigned kernel's timing line names
+INT8_DESIGN = ("mma.sync m16n8k32 s8 (16-64 rows a block, 8 warps), "
+               "weights by a TMA ring of k64 slabs refilled by the last "
+               "warp out, quantized from the accumulators; dp4a at 1-8 "
+               "rows")
+RWKV_DESIGN = ("one block per (b, h), rows split across warps (row groups "
+               "x head tile threads), cp.async double-buffered chunks, o "
+               "reduced once per chunk")
 
 
 def emit(phase, **fields):
@@ -365,8 +376,9 @@ def check_kernel_int8(name, widths, acts, dev):
     alone = int8.fused_mlp_int8_op(x37, packed)
     padded = int8.fused_mlp_int8_op(
         torch.cat([x37, torch.zeros_like(x_all[:27])]), packed)[:37]
+    launches = [r for r in int8.BLOCK_ROWS if int8.fits_smem(widths, r)]
     block_rows = [int8.fused_mlp_int8(x37, packed, block_rows=r)
-                  for r in int8.BLOCK_ROWS]
+                  for r in launches]
     torch.cuda.synchronize()
     identical = (torch.equal(alone, padded) and torch.equal(alone, full[:37])
                  and all(torch.equal(alone, b) for b in block_rows))
@@ -381,7 +393,7 @@ def check_kernel_int8(name, widths, acts, dev):
          acts=list(acts), max_abs_err={str(b): e for b, e in errs.items()},
          elements_differing={str(b): n for b, n in differ.items()},
          bit_exact_expected=exact_acts, rtol=rtol, atol=atol,
-         rows_bit_identical=identical)
+         rows_bit_identical=identical, block_rows=launches)
     return packed, errs
 
 
@@ -841,8 +853,8 @@ def time_int8(packed, dev, smi):
         block_rows = registry.resolve_params(
             int8.SPEC, int8.inspect_call(x, packed))["block_rows"]
 
-        def kernel():
-            return int8.fused_mlp_int8(x, packed, block_rows=block_rows)
+        def kernel(rows=block_rows):
+            return int8.fused_mlp_int8(x, packed, block_rows=rows)
 
         def plain():
             return quant_mlp_ref(x, packed.qlayers, packed.acts)
@@ -853,6 +865,10 @@ def time_int8(packed, dev, smi):
         library_agrees = None
         if library is not None:
             library_agrees = bool(torch.equal(library(), plain()))
+        # every mma-path block size that fits, and the rows path at 8
+        by_rows = {r: cuda_ms(functools.partial(kernel, r), iters)
+                   for r in int8.MMA_BLOCK_ROWS + (8,)
+                   if int8.fits_smem(widths, r)}
         ops = 2 * n_weights * batch
         f32_ops = f32_per_row * batch
         nbytes = (4 * batch * (widths[0] + widths[-1]) + n_weights
@@ -864,8 +880,11 @@ def time_int8(packed, dev, smi):
             ms, bound_ms=bound_ms,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             share_of_bound=bound_ms / ms["ms"], int8_ops=ops,
-            f32_ops=f32_ops, bytes=nbytes, block_rows=block_rows)
+            f32_ops=f32_ops, bytes=nbytes, block_rows=block_rows,
+            launch=int8.launch_shape(widths, batch, block_rows),
+            ms_by_block_rows=by_rows)
         emit("timing", kernel="fused_mlp_int8", batch=batch,
+             design=INT8_DESIGN,
              library="per-layer torch quantization + torch._int_mm + "
                      "dequant", library_error=library_error,
              library_equals_plain=library_agrees, nvidia_smi=smi,
@@ -1249,6 +1268,7 @@ def check_rwkv6(dev):
     arrays)``; the caller raises on failures after the LM slice has run."""
     import torch
     from repro_torch.kernels.rwkv6_chunk import ops
+    from repro_torch.kernels.rwkv6_chunk import rwkv6_chunk as rwkv
     from repro_torch.kernels.rwkv6_chunk.ref import rwkv6_chunk_ref
 
     rtol, atol = ops.SPEC.tol
@@ -1260,8 +1280,15 @@ def check_rwkv6(dev):
         ("hd 8", dict(default, hd=8)),
         ("hd 64", dict(default, t=100, h=4, hd=64)),
         ("bf16", dict(default, t=100, h=4, hd=64, dtype="bfloat16")),
+        ("hd 24", dict(default, t=33, hd=24)),
+        ("hd 128", dict(default, t=100, h=4, hd=128)),
+        ("hd 128 bf16", dict(default, t=33, hd=128, dtype="bfloat16")),
         ("rwkv6-1.6b prefill", RWKV_PREFILL),
     ]
+    # held to the scale of their terms (rwkv6_term_scale): the prefill,
+    # and 128-term dot products, whose f32 rounding in any order reaches
+    # a flat 1e-5 where o is small
+    term_scaled = {"rwkv6-1.6b prefill", "hd 128", "hd 128 bf16"}
     results, failures = {}, []
     for i, (label, problem) in enumerate(cases):
         arrays = ops.SPEC.make_call(
@@ -1276,15 +1303,17 @@ def check_rwkv6(dev):
                "max_abs_o": want.abs().max().item(),
                "state_bit_exact": bool(torch.equal(sT, want_s)),
                "finite": bool(torch.isfinite(o).all())}
-        if label == "rwkv6-1.6b prefill":
+        if label in term_scaled:
             scale = rwkv6_term_scale(*arrays)
             res["worst_vs_terms"] = ((got - want).abs() / (
                 atol + r * scale)).max().item()
             res["max_term_scale"] = scale.max().item()
             worst = res["worst_vs_terms"]
-            prefill = arrays
         else:
             worst = worst_flat
+        if label == "rwkv6-1.6b prefill":
+            prefill = arrays
+        res["launch"] = rwkv.launch_shape(problem["hd"])
         results[label] = res
         if not (worst <= 1.0 and res["state_bit_exact"] and res["finite"]
                 and o.dtype == arrays[0].dtype):
@@ -1307,12 +1336,34 @@ def rwkv6_bound(problem):
             "operations" if t_ops >= t_bytes else "bytes", nbytes, flops)
 
 
-def time_rwkv6(dev, prefill_arrays):
+def graph_ms(fn, n=20, replays=10):
+    """Device ms of one ``fn()`` from a CUDA graph of ``n`` calls, so that
+    the host's launch time (the Python wrapper, tens of microseconds)
+    does not pace a kernel shorter than it."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph.replay, replays) / n
+
+
+def time_rwkv6(dev, prefill_arrays, smi):
     """CUDA-event times of rwkv6_chunk and its plain version at the
-    prefill shape and at T = 1 (a decode step), beside the bound.  No one
-    PyTorch call computes this recurrence: no library time."""
+    prefill shape and at T = 1 (a decode step), beside the bound: each
+    launched from the host in a loop (``ms``, what a caller sees) and
+    replayed from a CUDA graph (``graph_ms``, the device's time; at T = 1
+    the loop is paced by the host).  No one PyTorch call computes this
+    recurrence: no library time."""
     import torch
     from repro_torch.kernels.rwkv6_chunk import ops
+    from repro_torch.kernels.rwkv6_chunk import rwkv6_chunk as rwkv
     from repro_torch.kernels.rwkv6_chunk.ref import rwkv6_chunk_ref
 
     out = {}
@@ -1322,13 +1373,22 @@ def time_rwkv6(dev, prefill_arrays):
             ("decode", step, ops.SPEC.make_call(
                 step, torch.Generator().manual_seed(70), dev), 200)):
         bound_ms, bound_by, nbytes, flops = rwkv6_bound(problem)
-        ms = cuda_ms(lambda: ops.SPEC.run_call(problem, arrays, {}), iters)
+
+        def kernel():
+            return ops.SPEC.run_call(problem, arrays, {})
+        ms = cuda_ms(kernel, iters)
+        device_ms = graph_ms(kernel)
         plain_ms = cuda_ms(lambda: rwkv6_chunk_ref(*arrays),
                            3 if problem["t"] > 1 else iters, warmup=1)
-        out[label] = dict(problem=problem, ms=ms, plain_ms=plain_ms,
-                          library_ms=None, bound_ms=bound_ms,
-                          bound_by=bound_by, share_of_bound=bound_ms / ms,
-                          bytes=nbytes, flops=flops)
+        out[label] = dict(problem=problem, ms=ms, graph_ms=device_ms,
+                          plain_ms=plain_ms, library_ms=None,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          share_of_bound=bound_ms / ms,
+                          graph_share_of_bound=bound_ms / device_ms,
+                          bytes=nbytes, flops=flops,
+                          launch=rwkv.launch_shape(problem["hd"]))
+        emit("timing", kernel="rwkv6_chunk", case=label, design=RWKV_DESIGN,
+             nvidia_smi=smi, **out[label])
     return out
 
 
@@ -1451,7 +1511,7 @@ def run_lm_slice(dev, smi, rwkv_arrays):
     finite = finite and bool(torch.isfinite(logits32).all())
     del params32, caches32
 
-    timing = time_rwkv6(dev, rwkv_arrays)
+    timing = time_rwkv6(dev, rwkv_arrays, smi)
     steps = LM_GEN - 1
     checks = {
         "prefill_launches_one_per_layer":
@@ -1575,7 +1635,8 @@ def main():
                         for app, key, hidden in INT8_SLICES)
 
     timings = time_kernel(bude, BUDE_ACTS, dev, smi)[INFER_POSES]
-    timings8 = time_int8(bude8, dev, smi)[INFER_POSES]
+    timings8_all = time_int8(bude8, dev, smi)
+    timings8, time8_256 = timings8_all[INFER_POSES], timings8_all[256]
     timings_new = time_new_kernels(dev, smi, work / "timing_sweeps")
     check_numerics(dev, probe_libs, smi)
     tune_launches = run_tune_phase(work / "bundle", dev, work)
@@ -1616,7 +1677,11 @@ def main():
         "plain_ms": timings8["plain_ms"],
         "bound_ms": timings8["bound_ms"],
         "bound_by": timings8["bound_by"],
-        "library_ms": timings8["library_ms"]}] + new_rows + [{
+        "library_ms": timings8["library_ms"],
+        "launch": timings8["launch"],
+        "ms_256": time8_256["ms"], "bound_ms_256": time8_256["bound_ms"],
+        "plain_ms_256": time8_256["plain_ms"],
+        "library_ms_256": time8_256["library_ms"]}] + new_rows + [{
         "name": "rwkv6_chunk", "route": "cuda", "source": rwkv.SOURCE,
         "replaces": rwkv.REPLACES, "launches": lm_launches,
         "max_abs_err": rwkv_errs["rwkv6-1.6b prefill"]["max_abs_err"],
@@ -1625,7 +1690,10 @@ def main():
         "plain_ms": rwkv_timing["prefill"]["plain_ms"],
         "bound_ms": rwkv_timing["prefill"]["bound_ms"],
         "bound_by": rwkv_timing["prefill"]["bound_by"],
-        "library_ms": None, "decode_ms": rwkv_timing["decode"]["ms"],
+        "library_ms": None, "graph_ms": rwkv_timing["prefill"]["graph_ms"],
+        "launch": rwkv_timing["prefill"]["launch"],
+        "decode_ms": rwkv_timing["decode"]["ms"],
+        "decode_graph_ms": rwkv_timing["decode"]["graph_ms"],
         "decode_plain_ms": rwkv_timing["decode"]["plain_ms"],
         "decode_bound_ms": rwkv_timing["decode"]["bound_ms"]}]}),
         flush=True)

@@ -7,14 +7,17 @@ Pallas TPU kernel).  The kernel, ``csrc/fused_mlp_int8.cu``, takes
 weights quantized statically per output channel
 (:func:`repro_torch.quant.quantize.quantize_params`, once at bundle
 load), quantizes each activation row dynamically inside the kernel
-(absmax/127, round half to even), accumulates int8 x int8 -> int32 with
-``__dp4a`` and fuses the rank-1 dequant into the bias + activation
-epilogue.  Activations stay in shared memory between layers.
+(absmax/127, round half to even), accumulates int8 x int8 -> int32 and
+fuses the rank-1 dequant into the bias + activation epilogue.
+Activations stay in shared memory between layers.
 
-What bounds it on an H100: int8 operations at serving batches.  The
-design maps threads to the live output columns and packs the weights as
-int32 words of four consecutive k per column, so one coalesced 32-bit
-load feeds one ``__dp4a`` per row of the block.
+What bounds it on an H100: int8 operations at serving batches, and the
+L2 reads of the weights (every block of rows streams the whole net).
+``block_rows`` 16, 32 and 64 run the product on the tensor cores
+(``mma.sync`` m16n8k32 s8), the weights streamed through a shared-memory
+ring by the TMA; 1, 2, 4 and 8 run it as ``__dp4a`` on the CUDA cores and
+take layers of any width whose rows fit a block.  Both read one pack
+(:func:`pack_words`): each layer in the order of the mma's B fragments.
 
 The plain version is :func:`repro_torch.quant.quantize.quant_mlp_ref`;
 :func:`fused_mlp_int8` counts its launches in ``fused_mlp_int8.launches``.
@@ -40,9 +43,15 @@ from repro_torch.kernels.registry import SMEM_PER_BLOCK, round_up
 from repro_torch.quant.quantize import quant_mlp_ref, quantize_params
 
 MAX_LAYERS = 16            # LayerTable capacity in csrc/fused_mlp_int8.cu
-K_PAD = 16                 # K zero-padding of the packed weights (K_PAD)
-BLOCK_ROWS = (1, 2, 4, 8, 16, 32)   # the template instances the source builds
-DEFAULT_BLOCK_ROWS = 16
+K_PAD = 32                 # K zero-padding of the pack: one mma k (K_PAD)
+N_PAD = 8                  # N zero-padding of the pack: one mma n (N_PAD)
+ROWS_BLOCK_ROWS = (1, 2, 4, 8)   # the __dp4a rows path, any width
+MMA_BLOCK_ROWS = (16, 32, 64)    # the tensor-core path
+BLOCK_ROWS = ROWS_BLOCK_ROWS + MMA_BLOCK_ROWS  # the instances the source builds
+DEFAULT_BLOCK_ROWS = 32
+# the mma path's constants in csrc/fused_mlp_int8.cu
+MMA_WARPS, MMA_SLAB_STEPS, MMA_MAX_STAGES = 8, 2, 6
+MMA_ACC_REGS, MMA_META_BYTES = 128, 2048
 SOURCE = "src/repro_torch/kernels/fused_mlp/csrc/fused_mlp_int8.cu"
 REPLACES = "src/repro/kernels/fused_mlp/int8.py:108"
 
@@ -57,18 +66,68 @@ REPLACES = "src/repro/kernels/fused_mlp/int8.py:108"
 TOL = (2e-2, 2e-2)
 
 
+def mma_max_out(block_rows: int) -> int:
+    """The widest layer output the mma path takes at ``block_rows``: the
+    8 warps hold every output column's int32 accumulators, at most
+    ``MMA_ACC_REGS`` a thread.  0 for the rows path (no such limit)."""
+    if block_rows in ROWS_BLOCK_ROWS:
+        return 0
+    return MMA_WARPS * N_PAD * (MMA_ACC_REGS // 4 // (block_rows // 16))
+
+
+def _mma_parts(widths, block_rows):
+    """(bytes of a ring slab, bytes of the rest) of an mma-path block."""
+    n_pad = round_up(max(widths[1:]), N_PAD)
+    slab = MMA_SLAB_STEPS * K_PAD * n_pad
+    rest = (MMA_META_BYTES + 2 * 4 * n_pad
+            + block_rows * (round_up(max(widths[:-1]), K_PAD) + 16))
+    return slab, rest
+
+
+def mma_stages(widths: Sequence[int], block_rows: int) -> int:
+    """The mma path's ring slots: as many slabs (``MMA_SLAB_STEPS`` k32
+    steps of the widest output) as fit beside the rest of a block's
+    shared memory, at least 2, at most ``MMA_MAX_STAGES`` (as
+    ``mma_stages`` in the source)."""
+    slab, rest = _mma_parts(widths, block_rows)
+    return min(MMA_MAX_STAGES, max(2, (SMEM_PER_BLOCK - rest) // slab))
+
+
 def smem_bytes(widths: Sequence[int], block_rows: int) -> int:
-    """Dynamic shared memory of one block: the f32 rows
-    ``[block_rows, round_up(max width, 4)]``, their int8 copy
-    ``[block_rows, round_up(max width, K_PAD)]`` and the row scales (as
-    ``smem_bytes`` in the source computes it)."""
-    w = max(widths)
-    return (block_rows * round_up(w, 4) * 4 + block_rows * round_up(w, K_PAD)
-            + round_up(block_rows * 4, 16))
+    """Dynamic shared memory of one block (as ``smem_size`` in the source
+    computes it).  Rows path: the f32 rows ``[block_rows, round_up(max
+    width, 4)]``, their int8 copy ``[block_rows, round_up(max width,
+    K_PAD)]`` and the row scales.  mma path: the barriers, counts, scales
+    and table, a layer's ``ws`` and ``b``, :func:`mma_stages` slabs, and
+    the int8 rows ``[block_rows, round_up(widest input, K_PAD) + 16]``."""
+    if block_rows in ROWS_BLOCK_ROWS:
+        w = max(widths)
+        return (block_rows * round_up(w, 4) * 4
+                + block_rows * round_up(w, K_PAD)
+                + round_up(block_rows * 4, 16))
+    slab, rest = _mma_parts(widths, block_rows)
+    return rest + mma_stages(widths, block_rows) * slab
 
 
 def fits_smem(widths: Sequence[int], block_rows: int) -> bool:
+    """Whether ``block_rows`` takes the net: its shared memory fits a
+    block and, on the mma path, every layer output fits the accumulators
+    (:func:`mma_max_out`)."""
+    if block_rows in MMA_BLOCK_ROWS and \
+            max(widths[1:]) > mma_max_out(block_rows):
+        return False
     return smem_bytes(widths, block_rows) <= SMEM_PER_BLOCK
+
+
+def launch_shape(widths: Sequence[int], batch: int, block_rows: int) -> dict:
+    """What one launch runs: its path, blocks, threads a block, ring
+    slabs and shared memory a block."""
+    mma = block_rows in MMA_BLOCK_ROWS
+    return {"path": "mma.sync s8" if mma else "dp4a",
+            "block_rows": block_rows, "blocks": -(-batch // block_rows),
+            "threads": MMA_WARPS * 32 if mma else 256,
+            "ring_slabs": mma_stages(widths, block_rows) if mma else 0,
+            "smem_bytes": smem_bytes(widths, block_rows)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,13 +135,13 @@ class PackedInt8MLP:
     """A quantized dense stack packed once for the kernel.
 
     ``qweights`` holds every layer's weights as int32 words, layer ``l``
-    at ``qweights[q_off:q_off + K_pad/4 * out]`` as ``[K_pad/4, out]``
-    row-major, word ``(g, n)`` holding ``wq[4g:4g+4, n]`` (byte ``j`` =
-    ``wq[4g+j, n]``; K zero-padded to a multiple of ``K_PAD``).
-    ``fparams`` holds the f32 ``ws`` then ``b`` of each layer; ``table``
-    holds ``(in, out, act code, q_off, s_off, b_off)`` per layer as int64,
-    the layout the C entry point reads.  ``qlayers`` keeps the unpacked
-    ``(wq int8 [in, out], ws, b)`` for the plain version.
+    at ``qweights[q_off:q_off + round_up(in, K_PAD) * round_up(out,
+    N_PAD) / 4]`` in the order of ``mma.sync`` m16n8k32's B fragments
+    (:func:`pack_words`).  ``fparams`` holds the f32 ``ws`` then ``b`` of
+    each layer; ``table`` holds ``(in, out, act code, q_off, s_off,
+    b_off)`` per layer as int64, the layout the C entry point reads.
+    ``qlayers`` keeps the unpacked ``(wq int8 [in, out], ws, b)`` for the
+    plain version and the quant gate.
     """
     qweights: torch.Tensor
     fparams: torch.Tensor
@@ -93,14 +152,20 @@ class PackedInt8MLP:
 
 
 def pack_words(wq: torch.Tensor) -> torch.Tensor:
-    """int8 ``[K, N]`` -> int32 words ``[round_up(K, K_PAD) / 4, N]``,
-    four consecutive k of one column per word, K zero-padded."""
+    """int8 ``[K, N]`` -> int32 words ``[Kp / 32, Np / 8, 32, 2]`` (K
+    zero-padded to ``Kp``, a multiple of ``K_PAD``; N to ``Np``, a
+    multiple of ``N_PAD``): for each k32 x n8 tile, the two B-fragment
+    registers of each lane ``(g, t) = (lane // 4, lane % 4)``, word ``r``
+    holding ``wq[32 kt + 16 r + 4 t + b, 8 nt + g]`` in byte ``b``."""
     k, n = int(wq.shape[0]), int(wq.shape[1])
-    kp = round_up(k, K_PAD)
-    padded = torch.zeros((kp, n), dtype=torch.int8, device=wq.device)
-    padded[:k] = wq
-    return (padded.view(kp // 4, 4, n).permute(0, 2, 1).reshape(-1)
-            .view(torch.int32).view(kp // 4, n))
+    kp, np_ = round_up(k, K_PAD), round_up(n, N_PAD)
+    padded = torch.zeros((kp, np_), dtype=torch.int8, device=wq.device)
+    padded[:k, :n] = wq
+    # [kt, r, t, b, nt, g] -> [kt, nt, g, t, r, b]
+    tiles = padded.view(kp // 32, 2, 4, 4, np_ // 8, 8).permute(
+        0, 4, 5, 2, 1, 3)
+    return tiles.contiguous().view(torch.int32).view(kp // 32, np_ // 8,
+                                                     32, 2)
 
 
 def pack_int8_mlp(qlayers, acts, device=None) -> PackedInt8MLP:
@@ -159,17 +224,28 @@ def _lib():
     for name in ("fused_mlp_int8_max_layers", "fused_mlp_int8_k_pad"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
+    lib.fused_mlp_int8_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.fused_mlp_int8_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_mlp_int8_max_out.argtypes = [ctypes.c_int]
+    lib.fused_mlp_int8_max_out.restype = ctypes.c_int
+    widths = (6, 1024, 819, 655, 524, 419, 335, 1)
     if (lib.fused_mlp_int8_max_layers(), lib.fused_mlp_int8_k_pad()) != \
-            (MAX_LAYERS, K_PAD):
+            (MAX_LAYERS, K_PAD) or any(
+                lib.fused_mlp_int8_smem_bytes(
+                    max(widths[:-1]), max(widths[1:]), max(widths), r)
+                != smem_bytes(widths, r)
+                or lib.fused_mlp_int8_max_out(r) != mma_max_out(r)
+                for r in BLOCK_ROWS):
         raise RuntimeError("csrc/fused_mlp_int8.cu and int8.py disagree on "
-                           "MAX_LAYERS or K_PAD")
+                           "MAX_LAYERS, K_PAD or the block model")
     return lib
 
 
 def fused_mlp_int8(x: torch.Tensor, packed: PackedInt8MLP, *,
                    block_rows: int) -> torch.Tensor:
     """Launch the kernel on ``x`` ([B, widths[0]] f32, on the card that
-    holds ``packed``); returns [B, widths[-1]] f32."""
+    holds ``packed``) with ``block_rows`` rows a block; returns [B,
+    widths[-1]] f32."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_int8 kernel needs a CUDA tensor, got "
                          f"{x.device}")

@@ -2,15 +2,19 @@
 
 Replaces ``src/repro/kernels/rwkv6_chunk/rwkv6_chunk.py::rwkv6_chunk``
 (the Pallas TPU kernel).  The kernel, ``csrc/rwkv6_chunk.cu``, runs one
-block per (batch, head) with ``hd`` threads; thread ``j`` keeps column
-``j`` of the ``[hd, hd]`` state in registers and walks the time steps,
-which the block stages in shared memory ``CHUNK`` at a time.
+block per (batch, head).  The head is padded to a tile of 32, 64 or 128
+lanes and its rows are split into row groups (:func:`launch_shape`):
+thread ``(g, j)`` keeps the state's column ``j`` over the rows of group
+``g`` in registers, each group's partial of ``o`` goes to shared memory
+and the block adds the partials in ascending ``g`` once per chunk of
+steps.  The steps are staged into shared memory by ``cp.async``,
+double-buffered.  Any head size from 1 to :data:`MAX_HEAD_DIM`.
 
 What bounds it on an H100: bytes (r, k, v, w read once, o written once),
-but the recurrence is serial in time, so this simple design is bound by
-the latency of each step's chain of ``hd`` FMAs.  The state's update is
-rounded as the plain version rounds it, so the final state equals it bit
-for bit; ``o``'s sum over ``i`` runs in another order.
+but the recurrence is serial in time, so a block per (batch, head) is
+bound by issue on its SM.  The state's update is rounded as the plain
+version rounds it, so the final state equals it bit for bit; ``o``'s sum
+over ``i`` runs in the order above.
 
 The plain version is
 :func:`repro_torch.kernels.rwkv6_chunk.ref.rwkv6_chunk_ref`;
@@ -26,10 +30,25 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6_chunk.ref import check_shapes
 
-HEAD_DIMS = (8, 16, 32, 64)   # the head sizes csrc/rwkv6_chunk.cu takes
+MAX_HEAD_DIM = 128   # the kernel takes head sizes 1 .. MAX_HEAD_DIM
+#: per head tile (csrc/rwkv6_chunk.cu's Tile): (row groups, steps a chunk)
+TILES = {32: (4, 32), 64: (8, 32), 128: (4, 16)}
 ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 SOURCE = "src/repro_torch/kernels/rwkv6_chunk/csrc/rwkv6_chunk.cu"
 REPLACES = "src/repro/kernels/rwkv6_chunk/rwkv6_chunk.py:47"
+
+
+def launch_shape(hd: int) -> dict:
+    """The block that walks one (batch, head) at head size ``hd``: its
+    head tile, row groups, rows per group, threads and steps a chunk."""
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head size {hd}: the kernel takes 1 to "
+                         f"{MAX_HEAD_DIM}")
+    tile = next(t for t in sorted(TILES) if hd <= t)
+    groups, chunk = TILES[tile]
+    return {"head_tile": tile, "row_groups": groups,
+            "rows_per_group": tile // groups, "threads": tile * groups,
+            "chunk": chunk}
 
 
 @functools.lru_cache(maxsize=None)
@@ -38,13 +57,15 @@ def _lib():
     lib.rwkv6_chunk.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     lib.rwkv6_chunk.restype = ctypes.c_int
-    lib.rwkv6_chunk_takes_head_dim.argtypes = [ctypes.c_int]
-    lib.rwkv6_chunk_takes_head_dim.restype = ctypes.c_int
-    takes = tuple(n for n in range(1, 257)
-                  if lib.rwkv6_chunk_takes_head_dim(n))
-    if takes != HEAD_DIMS:
-        raise RuntimeError(f"csrc/rwkv6_chunk.cu takes head sizes {takes}, "
-                           f"rwkv6_chunk.py says {HEAD_DIMS}")
+    for name in ("rwkv6_chunk_takes_head_dim", "rwkv6_chunk_threads"):
+        getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_int
+    takes = [n for n in range(1, 257) if lib.rwkv6_chunk_takes_head_dim(n)]
+    threads = [lib.rwkv6_chunk_threads(n) for n in takes]
+    if takes != list(range(1, MAX_HEAD_DIM + 1)) or threads != [
+            launch_shape(n)["threads"] for n in takes]:
+        raise RuntimeError("csrc/rwkv6_chunk.cu and rwkv6_chunk.py disagree "
+                           "on the head sizes or the block shapes")
     return lib
 
 
@@ -64,8 +85,7 @@ def rwkv6_chunk(r, k, v, w, u, s0):
                          f"{sorted(map(str, ELEMENT_BYTES))}, got "
                          f"{[str(t.dtype) for t in (r, k, v, w)]}")
     B, T, H, hd = (int(n) for n in r.shape)
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head size {hd}: the kernel takes {HEAD_DIMS}")
+    launch_shape(hd)  # raises above MAX_HEAD_DIM
     r, k, v, w = (t.contiguous() for t in (r, k, v, w))
     u = u.to(torch.float32).contiguous()
     s0 = s0.to(torch.float32).contiguous()

@@ -165,17 +165,29 @@ def test_int8_kernel_matches_plain_version(dev, widths, acts, batch):
         assert torch.equal(got, want)
 
 
-def test_int8_rows_bit_identical_across_batch_and_block_rows(dev):
+@pytest.mark.parametrize("widths,acts", [
+    ((6, 96, 50, 1), ("relu", "gelu", "identity")),
+    ((5, 130, 17, 3), ("gelu", "tanh", "identity")),
+    ((6, 8192, 1), ("relu", "identity")),   # the rows path only
+])
+def test_int8_rows_bit_identical_across_batch_and_block_rows(dev, widths,
+                                                            acts):
+    """A row's bits do not depend on the batch, the padding, the path or
+    ``block_rows``."""
     from repro_torch.kernels.fused_mlp import int8
-    packed = _qpacked((6, 96, 50, 1), ("relu", "gelu", "identity"), dev)
+    packed = _qpacked(widths, acts, dev)
     x = torch.from_numpy(np.random.default_rng(2).standard_normal(
-        (64, 6)).astype(np.float32)).to(dev)
+        (64, widths[0])).astype(np.float32)).to(dev)
     alone = int8.fused_mlp_int8_op(x[:37].contiguous(), packed)
     padded = int8.fused_mlp_int8_op(x, packed)[:37]
     assert torch.equal(alone, padded)
-    for rows in int8.BLOCK_ROWS:
+    launched = [rows for rows in int8.BLOCK_ROWS
+                if int8.fits_smem(widths, rows)]
+    for rows in launched:
         assert torch.equal(alone, int8.fused_mlp_int8(
-            x[:37].contiguous(), packed, block_rows=rows))
+            x[:37].contiguous(), packed, block_rows=rows)), rows
+    mma = [r for r in launched if r in int8.MMA_BLOCK_ROWS]
+    assert bool(mma) == (max(widths[1:]) <= int8.mma_max_out(16))
 
 
 def test_int8_wrapper_refuses_what_it_cannot_take(dev):
@@ -231,6 +243,45 @@ def test_engine_int8_route_launches_kernel(dev, tmp_path, monkeypatch):
         assert (eng.tier, eng.route) == ("f32", "fused_mlp")
         eng(x)
         assert ops.SPEC.launches == f + 1
+    finally:
+        InferenceEngine.invalidate()
+        clear_budgets()
+
+
+def test_engine_int8_route_launches_kernel_on_a_wide_bundle(dev, tmp_path,
+                                                           monkeypatch):
+    """A (6, 8192, 1) bundle, past every mma block's accumulators, is
+    still served by the int8 kernel (rows path), bit for bit."""
+    import repro_torch.tune.cache as tcache
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.fused_mlp import int8
+    from repro_torch.kernels.fused_mlp import ops
+    from repro_torch.nn import MLP, save_model
+    from repro_torch.quant.budgets import clear_budgets
+    from repro_torch.quant.gate import gate_bundle
+    from repro_torch.quant.quantize import quant_mlp_ref
+    monkeypatch.setattr(tcache, "_default", {"quant_gate": tcache.TuneCache(
+        "quant_gate", path=tmp_path / "gate.json")})
+    monkeypatch.delenv("REPRO_QUANT", raising=False)
+    path = save_model(tmp_path / "b", MLP((1, 6), [8192], 1).init(0))
+    rows = np.random.default_rng(4).standard_normal((256, 6)).astype(
+        np.float32)
+    try:
+        assert gate_bundle(path, rows, budget=1.0)["exact"]
+        eng = InferenceEngine.get(path)
+        assert (eng.tier, eng.route) == ("int8", "fused_mlp_int8")
+        assert eng._packed.widths == (6, 8192, 1)
+        x = torch.randn(300, 6, device=dev)
+        assert registry.resolve_params(
+            int8.SPEC, int8.inspect_call(x, eng._packed)) == \
+            {"block_rows": 4}
+        q, f = int8.SPEC.launches, ops.SPEC.launches
+        y = eng(x)
+        torch.cuda.synchronize()
+        assert int8.SPEC.launches == q + 1 and ops.SPEC.launches == f
+        assert torch.equal(y, quant_mlp_ref(x, eng._packed.qlayers,
+                                            eng._packed.acts))
     finally:
         InferenceEngine.invalidate()
         clear_budgets()
@@ -430,13 +481,57 @@ def test_rwkv6_chunk_kernel_matches_plain_version(dev, dtype, b, t, h, hd):
                                rtol=rtol if dtype == "float32" else 2 ** -7)
 
 
+def _rwkv6_term_scale(r, k, v, w, u, s0):
+    """``sum_i |r_i| |S_ij + u_i k_i v_j|`` per output, in f64: the scale
+    of a dot product's rounding error, whatever its order."""
+    rf, kf, vf, wf = (t.double() for t in (r, k, v, w))
+    uf = u.double()[None, :, :, None]
+    S = s0.double()
+    out = torch.empty_like(rf)
+    for t in range(r.shape[1]):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        out[:, t] = torch.einsum("bhi,bhij->bhj", rf[:, t].abs(),
+                                 (S + uf * kv).abs())
+        S = wf[:, t, :, :, None] * S + kv
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [0, 1, 33])
+@pytest.mark.parametrize("hd", [7, 12, 24, 96, 128])
+def test_rwkv6_chunk_kernel_any_head_size(dev, dtype, t, hd):
+    """Head sizes off 8/16/32/64 (padded head tiles of 32 and 128; hd 7's
+    rows stage by 4-byte copies in f32 and plain loads in bf16): the
+    state bit for bit, o within the spec's (1e-5, 1e-5) against the scale
+    of its terms, sum_i |r_i t_ij| (a 128-term f32 dot product's rounding
+    reaches the flat 1e-5 in any order), bf16 outputs one bf16 ulp."""
+    from repro_torch.kernels.rwkv6_chunk import ops
+    from repro_torch.kernels.rwkv6_chunk.ref import rwkv6_chunk_ref
+    problem = {"b": 2, "t": t, "h": 2, "hd": hd, "dtype": dtype}
+    arrays = ops.SPEC.make_call(problem,
+                                torch.Generator().manual_seed(hd + t), dev)
+    before = ops.SPEC.launches
+    o, sT = ops.rwkv6_chunk_op(*arrays)
+    want_o, want_s = rwkv6_chunk_ref(*arrays)
+    torch.cuda.synchronize()
+    assert ops.SPEC.launches == before + 1
+    assert o.dtype == arrays[0].dtype and o.shape == arrays[0].shape
+    assert torch.equal(sT, want_s)
+    rtol, atol = ops.SPEC.tol
+    if dtype == "bfloat16":
+        rtol = 2 ** -7
+    scale = _rwkv6_term_scale(*arrays).float()
+    err = (o.float() - want_o.float()).abs()
+    assert bool((err <= atol + rtol * scale).all()), err.max().item()
+
+
 def test_rwkv6_chunk_wrapper_refuses_what_it_cannot_take(dev):
     from repro_torch.kernels.rwkv6_chunk import ops
     from repro_torch.kernels.rwkv6_chunk.rwkv6_chunk import rwkv6_chunk
     arrays = ops.SPEC.make_call({"b": 1, "t": 4, "h": 2, "hd": 16,
                                  "dtype": "float32"},
                                 torch.Generator().manual_seed(0), dev)
-    bad_hd = ops.SPEC.make_call({"b": 1, "t": 4, "h": 2, "hd": 12,
+    bad_hd = ops.SPEC.make_call({"b": 1, "t": 4, "h": 2, "hd": 129,
                                  "dtype": "float32"},
                                 torch.Generator().manual_seed(0), dev)
     with pytest.raises(ValueError, match="head size"):

@@ -15,7 +15,8 @@ from repro.kernels.rwkv6_chunk.rwkv6_chunk import (  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.rwkv6_chunk import ops  # noqa: E402
 from repro_torch.kernels.rwkv6_chunk.ref import rwkv6_chunk_ref  # noqa: E402
-from repro_torch.kernels.rwkv6_chunk.rwkv6_chunk import rwkv6_chunk  # noqa: E402
+from repro_torch.kernels.rwkv6_chunk.rwkv6_chunk import (  # noqa: E402
+    MAX_HEAD_DIM, launch_shape, rwkv6_chunk)
 
 RTOL, ATOL = 1e-5, 1e-5
 
@@ -121,8 +122,8 @@ def test_spec_matches_reference_declaration():
         jspec.cache_key(problem, "cuda")
     assert ops.SPEC.candidates(problem) == [{}]
     assert registry.resolve_params_info(ops.SPEC, problem) == ({}, "default")
-    for hd, ok in ((8, True), (16, True), (32, True), (64, True),
-                   (12, False), (128, False)):
+    for hd, ok in ((1, True), (8, True), (12, True), (64, True),
+                   (128, True), (129, False)):
         assert ops.SPEC.supports(dict(problem, hd=hd)) is ok, hd
     assert ops.SPEC.supports(dict(problem, dtype="bfloat16"))
     assert not ops.SPEC.supports(dict(problem, dtype="float16"))
@@ -158,3 +159,94 @@ def test_autotune_registered_skips_paramless_kernels(monkeypatch):
     assert swept == []
     autotune_registered(["stencil_gather"])
     assert swept == ["stencil_gather"]
+
+
+def _kernel_order(r, k, v, w, u, s0):
+    """A torch emulation of csrc/rwkv6_chunk.cu's arithmetic: the head
+    padded with zeros to its tile, each row group's partial of o a chain
+    of fused multiply-adds over its rows in ascending i (emulated in f64,
+    rounded to f32: exact up to a double rounding), the partials added in
+    ascending group order in f32, and the state updated as the plain
+    version updates it.  Returns (o, sT) in f32 at the head size."""
+    B, T, H, hd = r.shape
+    shape = launch_shape(hd)
+    ht, groups, rows = (shape["head_tile"], shape["row_groups"],
+                        shape["rows_per_group"])
+
+    def pad(t, dims):
+        return torch.nn.functional.pad(t.float(), [0, ht - hd] * dims)
+    rf, kf, vf, wf = (pad(t, 1) for t in (r, k, v, w))
+    uf = pad(u, 1)[None, :, :, None]
+    S = pad(s0, 2)
+    o = torch.empty((B, T, H, ht))
+    for t in range(T):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]   # [B, H, i, j]
+        term = (uf.double() * kv.double() + S.double()).float()
+        term = term.view(B, H, groups, rows, ht)
+        rg = rf[:, t].view(B, H, groups, rows)
+        p = torch.zeros((B, H, groups, ht))
+        for q in range(rows):
+            p = (rg[..., q, None].double() * term[:, :, :, q].double()
+                 + p.double()).float()
+        acc = p[:, :, 0]
+        for g in range(1, groups):
+            acc = acc + p[:, :, g]
+        o[:, t] = acc
+        S = wf[:, t, :, :, None] * S + kv
+    return o[..., :hd], S[:, :, :hd, :hd]
+
+
+def _term_scale(r, k, v, w, u, s0):
+    """``sum_i |r_i| |S_ij + u_i k_i v_j|`` per output, in f64: the scale
+    of a dot product's rounding error, whatever its order."""
+    rf, kf, vf, wf = (a.astype(np.float64) for a in (r, k, v, w))
+    S = s0.astype(np.float64)
+    out = np.empty_like(rf)
+    for t in range(r.shape[1]):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        out[:, t] = np.einsum("bhi,bhij->bhj", np.abs(rf[:, t]),
+                              np.abs(S + u[None, :, :, None] * kv))
+        S = wf[:, t, :, :, None] * S + kv
+    return out
+
+
+@pytest.mark.parametrize("T", [1, 33, 100])
+@pytest.mark.parametrize("hd", [12, 24, 64, 96, 128])
+def test_kernel_order_matches_oracle_and_state_bit_for_bit(hd, T):
+    """The kernel's o order (row-group partials, then groups in ascending
+    order) and its padded head tile, against the jnp oracle and the
+    Pallas kernel in interpret mode; its state equals the plain version's
+    bit for bit."""
+    arrays = _inputs(1, T, 2, hd, seed=hd + T)
+    targs = [torch.from_numpy(a) for a in arrays]
+    o, s = _kernel_order(*targs)
+    want_o, want_s = rwkv6_chunk_ref(*targs)
+    assert torch.equal(s, want_s)
+    jarrays = [jnp.asarray(a) for a in arrays]
+    scale = _term_scale(*arrays)
+    for jo, js in (jax_ref(*jarrays), jax_pallas(*jarrays, interpret=True)):
+        np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=RTOL,
+                                   atol=ATOL)
+        err = np.abs(o.numpy() - np.asarray(jo))
+        assert (err <= ATOL + RTOL * scale).all(), err.max()
+    # the emulation and the plain version differ by rounding only
+    err = (o - want_o).abs().numpy()
+    assert (err <= ATOL + RTOL * scale).all(), err.max()
+
+
+@pytest.mark.parametrize("hd,tile,groups,threads,chunk", [
+    (1, 32, 4, 128, 32), (12, 32, 4, 128, 32), (32, 32, 4, 128, 32),
+    (33, 64, 8, 512, 32), (64, 64, 8, 512, 32), (96, 128, 4, 512, 16),
+    (128, 128, 4, 512, 16)])
+def test_launch_shape_per_head_tile(hd, tile, groups, threads, chunk):
+    """Head sizes 1 to MAX_HEAD_DIM: the tile each takes, its row groups
+    (rows a group: a multiple of 4, the kernel's vector reads) and
+    threads; above the limit the wrapper raises and names it."""
+    shape = launch_shape(hd)
+    assert (shape["head_tile"], shape["row_groups"], shape["threads"],
+            shape["chunk"]) == (tile, groups, threads, chunk)
+    assert shape["rows_per_group"] * groups == tile
+    assert shape["rows_per_group"] % 4 == 0
+    assert MAX_HEAD_DIM == 128
+    with pytest.raises(ValueError, match="128"):
+        launch_shape(MAX_HEAD_DIM + 1)
