@@ -50,6 +50,18 @@ source, all started together), and prints one JSON line per phase:
    queries against 8,192 cached tokens), at the untuned tiles and at the
    winner of a sweep of that shape, beside the plain version and a
    library call (``torch.take``, ``scaled_dot_product_attention``);
+   flash_attention_int8's line also gives ``bound_tc_ms`` (the int8
+   score dot at the int8 peak plus the two f16 products of p.V at the
+   f16 peak, or the bytes) with its shares, how the launch covers the
+   window (q tiles, slices, warps, the key split count, blocks) at both
+   tiles, its design, and the time of one decode step (Sq 1 over the
+   same 8,192 keys: ``step_ms``, ``step_plain_ms``, ``step_bound_ms``,
+   and its device time from a CUDA graph, ``step_graph_ms``, since a
+   loop of such short calls is paced by the wrapper's host time; each
+   field also at the swept tile, ``tuned_*``), and that step's device
+   time over other launches (``step_graph_ms_by_launch``: ``block_kv``
+   32/64/128 x 1, 2 or 4 warps sharing the block's one row tile x 8 to
+   64 key splits);
    ``numerics`` -- fused_mlp's error over its tolerance at 65,536
    minibude rows for four seeds, beside the same source built with one
    TF32 product in place of three, and the TF32 ``mma.sync`` rate the
@@ -84,8 +96,11 @@ for bit: every candidate tile of its default problem in f32 and bf16, a
 grid no tile divides, 4096x4096), flash_attention (its tolerance: both
 default problems, non-causal, GQA groups 1 and 3, ``kv_valid_len`` 0 and
 150, ``q_offset``, bf16 inputs, the llama3.2-3b prefill) and
-flash_attention_int8 (its default problem and the decode window) and
-rwkv6_chunk (its default problem, T 1 and 33, head sizes 8, 16, 24, 64
+flash_attention_int8 (its default problem, the decode window, one decode
+step, GQA groups 1 and 4, hd 4, 36 and 64, 8,191 keys non-causal,
+``q_offset`` -16, ``kv_valid_len`` 0 and 5,000, all at the decode
+window's size; a second launch bit-identical; the count of elements that
+differ at all) and rwkv6_chunk (its default problem, T 1 and 33, head sizes 8, 16, 24, 64
 and 128, bf16 inputs, the rwkv6-1.6b prefill shape; the final state bit
 for bit) against their plain versions.  fused_mlp_int8's rows are held
 bit-identical across every ``block_rows`` that fits;
@@ -218,6 +233,19 @@ DECODE = dict(b=4, sq=32, skv=8192, causal=True, q_offset=8160, **LLAMA)
 # bf16 outputs are the f32 results rounded once: two that agree to f32
 # tolerance can round one bf16 ulp apart, 2**-7 of the value at most
 BF16_RTOL = 2 ** -7
+# flash_attention_int8's further cases beside its default problem and the
+# decode window: (label, shape, extra keywords of the call)
+FLASH8_CASES = [
+    ("decode step (Sq 1)", dict(DECODE, sq=1, q_offset=8191), {}),
+    ("group 1", dict(DECODE, h=8), {}),
+    ("group 4, hd 64", dict(DECODE, h=32, hd=64), {}),
+    ("hd 36", dict(DECODE, hd=36), {}),
+    ("hd 4", dict(DECODE, hd=4), {}),
+    ("Skv 8,191, non-causal", dict(DECODE, skv=8191, causal=False), {}),
+    ("q_offset -16", dict(DECODE, q_offset=-16), {}),
+    ("kv_valid_len 0", DECODE, {"kv_valid_len": 0}),
+    ("kv_valid_len 5,000", DECODE, {"kv_valid_len": 5000}),
+]
 TUNE_BUCKETS = (64, 256, 1024)
 # the LM slice: rwkv6-1.6b (src/repro/configs/archs.py:23-30) serving 4
 # prompts of 2,048 tokens, then 33 generated tokens (32 decode steps); its
@@ -238,12 +266,20 @@ PEAK_F32_FLOPS = 67e12   # H100 SXM f32 outside the tensor cores
 # tensor-core bound is 3 x the operations at this rate
 PEAK_TF32_FLOPS = 495e12
 PEAK_INT8_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
+PEAK_F16_FLOPS = 989e12  # H100 SXM f16 tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12
 # what each redesigned kernel's timing line names
 INT8_DESIGN = ("mma.sync m16n8k32 s8 (16-64 rows a block, 8 warps), "
                "weights by a TMA ring of k64 slabs refilled by the last "
                "warp out, quantized from the accumulators; dp4a at 1-8 "
                "rows")
+FLASH8_DESIGN = ("keys split across blocks (split_count: about two blocks "
+                 "an SM), partials combined in ascending split order by a "
+                 "second kernel; a block takes every q head of one kv head "
+                 "(up to 6 row tiles of 16; below 4 tiles, key groups of "
+                 "warps share a tile); mma.sync m16n8k32 s8 scores, p.V as "
+                 "two f16 m16n8k16 products (p hi + lo, vq exact), a fresh "
+                 "partial per 32 keys; cp.async double-buffered int8 K/V")
 RWKV_DESIGN = ("one block per (b, h), rows split across warps (row groups "
                "x head tile threads), cp.async double-buffered chunks, o "
                "reduced once per chunk")
@@ -994,30 +1030,37 @@ def check_flash(dev):
 
 def check_flash8(dev):
     """flash_attention_int8 (through its op) against its plain version
-    at the spec's tolerance: its default problem and the llama3.2-3b
-    decode window, with the count of elements that differ at all."""
+    at the spec's tolerance, with the count of elements that differ at
+    all: its default problem, the llama3.2-3b decode window and one decode
+    step, and that window with GQA groups 1 and 4, hd 4, 36 and 64, 8,191
+    keys (no split or chunk divides them), non-causal, ``q_offset`` < 0
+    (rows that see no key) and ``kv_valid_len`` 0 and 5,000."""
     import torch
     from repro_torch.kernels.flash_attention import int8
     from repro_torch.quant.quantize import quantize_kv
 
     rtol, atol = int8.TOL
+    cases = [("default decode", int8.SPEC.default_problems[0], {}),
+             ("llama3.2-3b decode window", DECODE, {})] + FLASH8_CASES
     errs, differ = {}, {}
-    for i, (label, shape) in enumerate(
-            (("default decode", int8.SPEC.default_problems[0]),
-             ("llama3.2-3b decode window", DECODE))):
+    for i, (label, shape, extra) in enumerate(cases):
         q, k, v = attention_inputs(shape, dev, seed=40 + i)
         arrays = (q,) + quantize_kv(k, v)
-        kw = {"causal": shape["causal"], "q_offset": shape["q_offset"]}
+        kw = dict({"causal": shape["causal"],
+                   "q_offset": shape["q_offset"]}, **extra)
         got = int8.flash_attention_int8_op(*arrays, **kw)
+        again = int8.flash_attention_int8_op(*arrays, **kw)
         want = int8.flash_attention_int8_ref(*arrays, **kw)
         torch.cuda.synchronize()
         max_abs, worst = compare(got, want, rtol, atol)
-        if not (worst <= 1.0 and torch.isfinite(got).all()):
+        if not (worst <= 1.0 and torch.isfinite(got).all()
+                and torch.equal(got, again)):
             raise AssertionError(f"flash_attention_int8 {label}: max abs "
-                                 f"error {max_abs}, {worst}x the tolerance")
+                                 f"error {max_abs}, {worst}x the tolerance, "
+                                 f"repeat equal {torch.equal(got, again)}")
         errs[label], differ[label] = max_abs, int((got != want).sum())
     emit("kernel", kernel="flash_attention_int8", max_abs_err=errs,
-         elements_differing=differ, elements=got.numel(), rtol=rtol,
+         elements_differing=differ, repeat_bit_identical=True, rtol=rtol,
          atol=atol)
     return errs["llama3.2-3b decode window"]
 
@@ -1084,7 +1127,10 @@ def prefill_cell(dev):
 def decode_cell(dev):
     """The llama3.2-3b decode window over an int8 cache; the int8 score
     multiply-adds at the int8 peak and the f32 ``p @ v`` at the f32 peak
-    (the larger), or the bytes (K and V as int8), whichever is larger."""
+    (the larger), or the bytes (K and V as int8), whichever is larger.
+    ``bound_tc_ms`` is the design's: the score dot at the int8 peak plus
+    the two f16 products of p.V at the f16 peak, or the bytes.  Also one
+    decode step (Sq 1 over the same 8,192 keys), bound by bytes."""
     from repro_torch.kernels.flash_attention import int8
     from repro_torch.quant.quantize import quantize_kv
 
@@ -1098,14 +1144,85 @@ def decode_cell(dev):
               + 4 * (arrays[2].numel() + arrays[4].numel()))
     t_ops = max(ops / PEAK_INT8_OPS, ops / PEAK_F32_FLOPS)
     t_bytes = nbytes / PEAK_HBM_BYTES
+    t_tc = ops / PEAK_INT8_OPS + 2 * ops / PEAK_F16_FLOPS
+    step = (q[:, -1:].contiguous(),) + arrays[1:]
+    step_kw = {"causal": True, "q_offset": DECODE["skv"] - 1}
+    step_bytes = nbytes - 4 * 2 * (q.numel() - step[0].numel())
+    sms = int8.sm_count(q.device)
+
+    def describe(params):
+        """How the launch covers the window at these tiles, and one decode
+        step's time (a loop of wrapper calls, a CUDA graph, the plain
+        version)."""
+        shape = int8.launch_shape(DECODE["sq"], DECODE["h"], DECODE["kv"],
+                                  params["block_q"])
+        splits = int8.split_count(DECODE["b"], DECODE["sq"], DECODE["skv"],
+                                  DECODE["h"], DECODE["kv"],
+                                  params["block_q"], sms)
+
+        step_shape = int8.launch_shape(1, DECODE["h"], DECODE["kv"],
+                                       params["block_q"])
+        step_splits = int8.split_count(DECODE["b"], 1, DECODE["skv"],
+                                       DECODE["h"], DECODE["kv"],
+                                       params["block_q"], sms)
+
+        def call():
+            return int8.flash_attention_int8(*step, **step_kw, **params)
+        return dict(
+            launch=dict(shape, splits=splits, sms=sms, blocks=DECODE["b"]
+                        * DECODE["kv"] * shape["q_tiles"] * shape["slices"]
+                        * splits),
+            step_launch=dict(step_shape, splits=step_splits,
+                             blocks=DECODE["b"] * DECODE["kv"]
+                             * step_shape["slices"] * step_splits),
+            step_ms=cuda_ms(call, 20), step_graph_ms=graph_ms(call),
+            step_plain_ms=cuda_ms(lambda: int8.flash_attention_int8_ref(
+                *step, **step_kw), 5))
+
+    def step_sweep():
+        """One decode step's device time (CUDA graph) at each block_kv
+        over other launches than the wrapper's: 1, 2 or 4 warps sharing
+        the block's one row tile (key groups), and 8 to 64 key splits;
+        each launch first held against the plain version."""
+        from unittest import mock
+        want = int8.flash_attention_int8_ref(*step, **step_kw)
+        rtol, atol = int8.TOL
+        out = {}
+        for bkv in (32, 64, 128):
+            params = {"block_q": int8.DEFAULT_BLOCK, "block_kv": bkv}
+            for kg in (1, 2, 4):
+                shape = dict(int8.launch_shape(1, DECODE["h"], DECODE["kv"],
+                                               params["block_q"]))
+                shape.update(key_groups=kg, warps=shape["row_tiles"] * kg)
+                for splits in (8, 16, 32, 64):
+                    with mock.patch.object(int8, "launch_shape",
+                                           lambda *a, s=shape: s), \
+                            mock.patch.object(int8, "split_count",
+                                              lambda *a, n=splits: n):
+                        def call(params=params):
+                            return int8.flash_attention_int8(
+                                *step, **step_kw, **params)
+                        max_abs, worst = compare(call(), want, rtol, atol)
+                        if worst > 1.0:
+                            raise AssertionError(
+                                f"flash_attention_int8 decode step, "
+                                f"block_kv {bkv}, {kg} key groups, {splits} "
+                                f"splits: max abs error {max_abs}")
+                        out[f"kv{bkv}_kg{kg}_s{splits}"] = graph_ms(call)
+        return out
     return dict(
         spec=int8.SPEC, arrays=arrays, iters=20,
         problem=int8.inspect_call(*arrays, **kw),
         plain=lambda: int8.flash_attention_int8_ref(*arrays, **kw),
-        library=None, library_call=None,
+        library=None, library_call=None, design=FLASH8_DESIGN,
+        describe=describe, step_sweep=step_sweep,
         bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
-        int8_ops=ops, f32_ops=ops, bytes=nbytes)
+        bound_tc_ms=max(t_tc, t_bytes) * 1e3,
+        bound_tc="int8 score dot at the int8 peak + two f16 p.V products "
+                 "at the f16 peak, or the bytes",
+        step_bound_ms=step_bytes / PEAK_HBM_BYTES * 1e3,
+        step_bound_by="bytes", int8_ops=ops, f32_ops=ops, bytes=nbytes)
 
 
 def time_new_kernels(dev, smi, tmp):
@@ -1137,6 +1254,16 @@ def time_new_kernels(dev, smi, tmp):
               "tuned_ms": cuda_ms(kernel(rec["params"]), iters),
               "plain_ms": cuda_ms(plain, max(iters // 4, 3)),
               "library_ms": cuda_ms(library, iters) if library else None}
+        # what the cell measures beyond that, at the untuned tile and at
+        # the tuned one
+        describe = cell.pop("describe", None)
+        if describe:
+            ms.update(describe(default))
+            ms.update({"tuned_" + k: v
+                       for k, v in describe(rec["params"]).items()})
+        step_sweep = cell.pop("step_sweep", None)
+        if step_sweep:
+            ms["step_graph_ms_by_launch"] = step_sweep()
         timings[spec.name] = dict(
             cell, **ms, problem={k: v for k, v in problem.items()
                                  if k != "offsets"},
@@ -1658,6 +1785,12 @@ def main():
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         if "bound_tc_ms" in t:
             new_rows[-1]["bound_tc_ms"] = t["bound_tc_ms"]
+        if "step_ms" in t:
+            new_rows[-1].update(step_ms=t["step_ms"],
+                                tuned_step_ms=t["tuned_step_ms"],
+                                step_graph_ms=t["step_graph_ms"],
+                                tuned_step_graph_ms=t["tuned_step_graph_ms"],
+                                step_bound_ms=t["step_bound_ms"])
     print(json.dumps({"kernels": [{
         "name": "fused_mlp", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": launches["fused_mlp"],

@@ -367,27 +367,73 @@ def test_flash_attention_kernel_matches_plain_version(dev, shape, kw, dtype):
             msg=lambda m: f"tile {bq}x{bkv}: {m}")
 
 
-@pytest.mark.parametrize("shape,kw,tile", [
-    ((4, 32, 512, 8, 2, 64), {"q_offset": 480}, (128, 128)),
-    ((2, 37, 101, 6, 2, 40), {"causal": False}, (16, 32)),
-    ((1, 64, 64, 4, 1, 128), {}, (32, 256)),
+@pytest.mark.parametrize("shape,kw", [
+    ((4, 32, 1024, 6, 2, 128), {"q_offset": 992}),     # decode window / 8
+    ((4, 32, 512, 8, 2, 64), {"q_offset": 480}),       # the default decode
+    ((2, 37, 101, 4, 4, 64), {"causal": False}),       # group 1, ragged
+    ((1, 20, 777, 8, 2, 36), {"q_offset": 757}),       # group 4, hd 36
+    ((2, 1, 4099, 6, 2, 128), {"q_offset": 4098}),     # Sq 1, Skv 4,099
+    ((1, 50, 300, 3, 1, 4), {"q_offset": -20}),        # hd 4, rows see none
+    ((1, 24, 500, 4, 1, 64), {"kv_valid_len": 0}),
+    ((2, 40, 1000, 6, 2, 128), {"kv_valid_len": 333, "q_offset": 960}),
+    ((1, 16, 300, 16, 1, 32), {"causal": False, "kv_valid_len": 150}),
+    ((1, 300, 300, 24, 8, 128), {}),                   # q tiles and slices
 ])
-def test_flash_attention_int8_kernel_matches_plain_version(dev, shape, kw,
-                                                           tile):
+def test_flash_attention_int8_kernel_matches_plain_version(dev, shape, kw):
+    """Every tile of the ladders (all fit), against the plain version:
+    scores bit-equal, so the difference is the softmax's f32 rounding;
+    a second launch equals the first bit for bit."""
     from repro_torch.kernels.flash_attention import int8
     from repro_torch.quant.quantize import quantize_kv
     q, k, v = _attn(shape, dev, seed=1)
     arrays = (q,) + quantize_kv(k, v)
-    before = int8.SPEC.launches
-    got = int8.flash_attention_int8(*arrays, block_q=tile[0],
-                                    block_kv=tile[1], **kw)
     want = int8.flash_attention_int8_ref(*arrays, **kw)
-    torch.cuda.synchronize()
-    assert int8.SPEC.launches == before + 1
     rtol, atol = int8.TOL
-    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
-    # the scores are equal bit for bit: only the softmax's sums differ
-    assert (got - want).abs().max().item() < 1e-5
+    tiles = [(bq, bkv) for bq in int8.LADDER for bkv in int8.LADDER
+             if int8.fits(shape[-1], bq, bkv)]
+    assert len(tiles) == 25
+    for bq, bkv in tiles:
+        before = int8.SPEC.launches
+        got = int8.flash_attention_int8(*arrays, block_q=bq, block_kv=bkv,
+                                        **kw)
+        again = int8.flash_attention_int8(*arrays, block_q=bq, block_kv=bkv,
+                                          **kw)
+        torch.cuda.synchronize()
+        assert int8.SPEC.launches == before + 2
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"tile {bq}x{bkv}: {m}")
+        # the scores are equal bit for bit: only the softmax's sums differ
+        assert (got - want).abs().max().item() < 1e-5, f"tile {bq}x{bkv}"
+        assert torch.equal(got, again), f"tile {bq}x{bkv}: launches differ"
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5, 32])
+def test_flash_attention_int8_any_split_count(dev, monkeypatch, splits):
+    """Split counts past the one split_count picks: a causal prefill whose
+    early q tiles leave splits empty, rows that see no key (q_offset < 0)
+    and a partial kv_valid_len; and K/V at an odd address (byte copies)."""
+    from repro_torch.kernels.flash_attention import int8
+    from repro_torch.quant.quantize import quantize_kv
+    monkeypatch.setattr(int8, "split_count", lambda *args: splits)
+    q, k, v = _attn((2, 70, 600, 6, 2, 64), dev, seed=2)
+    arrays = (q,) + quantize_kv(k, v)
+    odd = []
+    for a in (arrays[1], arrays[3]):   # kq, vq one byte past an aligned start
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=dev)
+        odd.append(buf[1:].view(a.shape).copy_(a))
+    shifted = (q, odd[0], arrays[2], odd[1], arrays[4])
+    assert shifted[1].data_ptr() % 4 == 1
+    for kw in ({}, {"q_offset": -30}, {"q_offset": 500, "kv_valid_len": 444},
+               {"causal": False, "kv_valid_len": 0}):
+        want = int8.flash_attention_int8_ref(*arrays, **kw)
+        for bq, bkv in ((16, 16), (32, 64), (128, 256)):
+            for args in (arrays, shifted):
+                got = int8.flash_attention_int8(*args, block_q=bq,
+                                                block_kv=bkv, **kw)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(
+                    got, want, rtol=int8.TOL[0], atol=int8.TOL[1],
+                    msg=lambda m: f"{kw} tile {bq}x{bkv}: {m}")
 
 
 @pytest.mark.parametrize("name,problem", [

@@ -20,7 +20,7 @@ from repro_torch.kernels.flash_attention import int8, ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     flash_attention, fits, smem_bytes, softmax_scale)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
-from repro_torch.quant.quantize import quantize_kv  # noqa: E402
+from repro_torch.quant.quantize import _scale, quantize_kv  # noqa: E402
 
 # (rtol, atol) of the f32 path: the spec's, both sides f32 on the CPU
 TOL = ops.TOL
@@ -140,6 +140,187 @@ def test_int8_plain_version_matches_jax_oracle_and_pallas_interpret(
     assert not (np.abs(plain - oracle) > 1e-5).any(), differing
 
 
+@pytest.mark.parametrize("shape,causal,q_offset,kv_valid_len", [
+    ((2, 16, 37, 4, 2, 16), True, 21, 30),    # Skv no block divides
+    ((1, 12, 45, 6, 2, 8), False, 0, 17),     # non-causal, group 3
+    ((4, 8, 61, 6, 2, 16), True, 53, 1),      # one key seen
+    ((2, 16, 40, 4, 2, 16), True, 24, 0),     # no key: block_k divides Skv
+    ((1, 8, 24, 4, 1, 8), False, 0, 0),
+])
+def test_int8_kv_valid_len_matches_pallas_interpret(shape, causal, q_offset,
+                                                    kv_valid_len):
+    """kv_valid_len, carried from the reference's Pallas function (its
+    oracle has none).  At 0 every score is -1e30 and the Pallas kernel
+    averages V over its padded keys too, so only shapes whose Skv the
+    8-key block divides compare there."""
+    q, k, v = _qkv(*shape, seed=4)
+    jarr = (jnp.asarray(q),) + tuple(jq.quantize_kv(*_j(k, v)))
+    tarr = (torch.from_numpy(q),) + tuple(quantize_kv(*_t(k, v)))
+    kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kv_valid_len)
+    pallas = np.asarray(jax_int8.flash_attention_int8(
+        *jarr, block_q=8, block_k=8, interpret=True, **kw))
+    plain = int8.flash_attention_int8_ref(*tarr, **kw).numpy()
+    op = int8.flash_attention_int8_op(*tarr, **kw).numpy()
+    np.testing.assert_array_equal(op, plain)
+    rtol, atol = int8.TOL
+    np.testing.assert_allclose(plain, pallas, rtol=rtol, atol=atol)
+    if kv_valid_len == 0:   # the mean of each kv head's dequantized V
+        v_deq = (tarr[3].float() * tarr[4]).numpy().mean(axis=1)
+        want = np.repeat(v_deq, shape[3] // shape[4], axis=1)[:, None]
+        np.testing.assert_allclose(plain, np.broadcast_to(want, plain.shape),
+                                   rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------------------ the split-key design ---
+# A model of csrc/flash_attention_int8.cu's key partition and combine, to
+# hold the design to the plain version before any chip run.
+
+def _kv_end(skv, valid, causal, q_offset, first, last):
+    """The keys a block (or warp) visits: all Skv unless every row sees
+    key 0; ``first``/``last``: its rows' first and last positions."""
+    if valid > 0 and (not causal or q_offset + first >= 0):
+        end = min(skv, valid)
+        return min(end, q_offset + last + 1) if causal else end
+    return skv
+
+
+def _split_model(q, kq, ks, vq, vs, *, causal, q_offset, kv_valid_len,
+                 block_q, splits):
+    """The kernel's arithmetic by blocks: per (q tile, slice) the keys it
+    visits, ``per`` = ceil(kv_end / splits) rounded up to 16 keys a split,
+    each split's (m, l, acc = sum p vq) per row (a split past kv_end is
+    flagged and adds nothing), the splits added in ascending order with
+    weights exp(m_s - M), then o = vs * acc / max(l, 1e-30).  Returns the
+    output and the number of (block, split) pairs that were empty."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = kq.shape[1], kq.shape[2]
+    group = H // KV
+    valid = Skv if kv_valid_len is None else min(max(kv_valid_len, 0), Skv)
+    qf = q.float()
+    qs = _scale(qf.abs().amax(-1, keepdim=True))
+    qq = torch.round(qf / qs)
+    s32 = torch.einsum("bqhd,bkhd->bhqk", qq,
+                       kq.float().repeat_interleave(group, dim=2))
+    s = (s32 * (qs * np.float32(softmax_scale(hd))).permute(0, 2, 1, 3)
+         * ks.repeat_interleave(group, dim=2).permute(0, 2, 3, 1))
+    pos = torch.arange(Sq)[:, None] + q_offset
+    key = torch.arange(Skv)[None, :]
+    seen = (key < valid) & ((key <= pos) if causal else True)
+    s = torch.where(seen[None, None], s, torch.tensor(-1e30))   # [B,H,Sq,Skv]
+    vqf = vq.float().permute(0, 2, 1, 3)                         # [B,KV,Skv,hd]
+    shape = int8.launch_shape(Sq, H, KV, block_q)
+    rows_cap = 16 * shape["row_tiles"]
+    out = torch.zeros_like(qf)
+    empty = 0
+    for tile in range(shape["q_tiles"]):
+        q0 = tile * block_q
+        live = (min(q0 + block_q, Sq) - q0) * group
+        for sl in range(shape["slices"]):
+            r0 = sl * rows_cap
+            n = min(live - r0, rows_cap)
+            if n <= 0:
+                continue
+            R = torch.arange(r0, r0 + n)
+            rpos, hh = q0 + R // group, R % group
+            end = _kv_end(Skv, valid, causal, q_offset, int(rpos[0]),
+                          int(rpos[-1]))
+            per = -(-(-(-end // splits)) // 16) * 16
+            heads = torch.arange(KV)[:, None] * group + hh[None, :]  # [KV,n]
+            sb = s[:, heads, rpos[None, :]]                   # [B,KV,n,Skv]
+            M = torch.full(sb.shape[:3], -float("inf"))
+            parts = []
+            for sp in range(splits):
+                a, e = sp * per, min(sp * per + per, end)
+                if a >= end:
+                    empty += 1
+                    continue
+                m = sb[..., a:e].amax(-1)
+                p = torch.exp(sb[..., a:e] - m[..., None])
+                parts.append((m, p.sum(-1), p @ vqf[:, :, a:e]))
+                M = torch.maximum(M, m)
+            L = torch.zeros_like(M)
+            A = torch.zeros(sb.shape[:3] + (hd,))
+            for m, l, acc in parts:
+                w = torch.exp(m - M)
+                L = L + l * w
+                A = A + acc * w[..., None]
+            o = A * vs[:, 0, :, None, :] / torch.clamp(L, min=1e-30)[..., None]
+            out[:, rpos[None, :], heads] = o
+    return out, empty
+
+
+@pytest.mark.parametrize("shape,kw,block_q", [
+    ((4, 32, 300, 6, 2, 16), {"q_offset": 268}, 32),      # a decode window
+    ((1, 40, 40, 4, 1, 8), {}, 16),                       # prefill: empty splits
+    ((1, 50, 90, 3, 1, 8), {"q_offset": -20}, 16),        # rows that see no key
+    ((2, 24, 77, 4, 2, 12), {"kv_valid_len": 0}, 128),
+    ((2, 24, 77, 4, 2, 12), {"kv_valid_len": 0, "causal": False}, 16),
+    ((1, 20, 100, 16, 1, 8), {"kv_valid_len": 41, "causal": False}, 64),
+])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 16])
+def test_split_and_combine_model_matches_plain_version(shape, kw, block_q,
+                                                       splits):
+    q, k, v = _t(*_qkv(*shape, seed=6))
+    arrays = (q,) + tuple(quantize_kv(k, v))
+    kw = dict({"causal": True, "q_offset": 0, "kv_valid_len": None}, **kw)
+    want = int8.flash_attention_int8_ref(*arrays, **kw)
+    got, empty = _split_model(*arrays, block_q=block_q, splits=splits, **kw)
+    rtol, atol = int8.TOL
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    if splits == 16 and shape[1] == shape[2]:
+        assert empty > 0   # the causal prefill's early tiles
+
+
+def test_split_model_covers_slices_and_empty_splits():
+    """A group of 16 at block_q 16 is 256 rows: three blocks of 6 row
+    tiles per q tile; a causal tile near the start leaves most of 16
+    splits empty."""
+    assert int8.launch_shape(20, 16, 1, 16) == {
+        "q_tiles": 2, "row_tiles": 6, "key_groups": 1, "warps": 6,
+        "slices": 3}
+    q, k, v = _t(*_qkv(1, 20, 100, 16, 1, 8, seed=7))
+    arrays = (q,) + tuple(quantize_kv(k, v))
+    want = int8.flash_attention_int8_ref(*arrays, causal=True, q_offset=3)
+    got, empty = _split_model(*arrays, causal=True, q_offset=3,
+                              kv_valid_len=None, block_q=16, splits=16)
+    assert empty >= 16
+    torch.testing.assert_close(got, want, rtol=int8.TOL[0], atol=int8.TOL[1])
+
+
+def test_launch_shape_and_split_count():
+    """The llama3.2-3b decode window (B 4, 32 queries, 8,192 keys, 24
+    heads over 8 kv heads): one q tile of 96 rows per (b, kv head), 32
+    blocks, so the keys are split until the grid holds about two blocks
+    on each of 132 SMs, at every block_q; enough blocks already, or a
+    short cache, split less."""
+    assert int8.launch_shape(32, 24, 8, 32) == {
+        "q_tiles": 1, "row_tiles": 6, "key_groups": 1, "warps": 6,
+        "slices": 1}
+    # positions past Sq are no rows: the untuned block_q 128 is the same
+    assert int8.launch_shape(32, 24, 8, 128) == int8.launch_shape(32, 24, 8,
+                                                                  32)
+    # one decode step: 3 rows, one tile, four warps taking turns over keys
+    assert int8.launch_shape(1, 24, 8, 128) == {
+        "q_tiles": 1, "row_tiles": 1, "key_groups": 4, "warps": 4,
+        "slices": 1}
+    assert int8.launch_shape(2, 12, 4, 16)["key_groups"] == 4
+    assert int8.launch_shape(8, 12, 4, 16)["key_groups"] == 2
+    assert int8.launch_shape(300, 32, 2, 256) == {
+        "q_tiles": 2, "row_tiles": 6, "key_groups": 1, "warps": 6,
+        "slices": 43}
+    for sq in (32, 1):
+        for bq in int8.LADDER:
+            shape = int8.launch_shape(sq, 24, 8, bq)
+            splits = int8.split_count(4, sq, 8192, 24, 8, bq, 132)
+            blocks = 4 * 8 * shape["q_tiles"] * shape["slices"] * splits
+            assert 132 <= blocks <= 2 * 132 and splits > 1
+    assert int8.split_count(4, 32, 8192, 24, 8, 128, 132) == 8
+    assert int8.split_count(1, 4096, 4096, 24, 8, 128, 132) == 1
+    assert int8.split_count(4, 32, 512, 8, 2, 128, 132) == 2  # 256 keys each
+    assert int8.split_count(1, 1, 100, 1, 1, 16, 132) == 1
+    assert int8.split_count(1, 1, 1 << 20, 1, 1, 16, 132) == int8.MAX_SPLITS
+
+
 def test_cpu_dispatch_takes_plain_version_and_counts():
     registry.reset_counts()
     q, k, v = _t(*_qkv(1, 8, 8, 2, 1, 8))
@@ -203,10 +384,19 @@ def test_shared_memory_and_register_model():
     assert not fits(64, 256, 64) and not fits(64, 128, 16)
     assert not fits(64, 128, 256)
     assert not fits(160, 64, 32)            # hd past 128
-    assert int8.smem_bytes(32, 128, 128) == 4 * (
-        32 * 32 + 32 + 128 * 33 + 128 + 128 * 128 + 32 * 128 + 3 * 32)
+    # int8: the q rows of 6 warps and their scales, two stages of int8 K
+    # and V rows (hd padded to 32, plus 16 bytes) and K scales
+    assert int8.smem_bytes(96, 128, 128) == (96 * (144 + 4)
+                                             + 2 * 128 * (2 * 144 + 4))
+    assert int8.smem_bytes(64, 16, 36) == int8.smem_bytes(64, 16, 64)
+    # short chunks: the stages are at least the key groups' exchange
+    assert int8.smem_bytes(16, 16, 128) == 16 * 148 + 48 * 132 * 4
     assert not int8.fits(62, 16, 16)        # hd % 4 != 0
-    assert int8.fits(64, 256, 16) and not int8.fits(128, 256, 16)
+    assert not int8.fits(132, 16, 16) and not int8.fits(64, 48, 16)
+    # every tile of the ladder at every head dim: rows past 6 tiles of 16
+    # go to further blocks, not into registers
+    assert all(int8.fits(hd, bq, bkv) for hd in (4, 36, 128)
+               for bq in int8.LADDER for bkv in int8.LADDER)
     llama = {"b": 1, "sq": 4096, "skv": 4096, "h": 24, "kv": 8, "hd": 128,
              "causal": True, "q_offset": 0, "dtype": "float32"}
     # the default 128 x 32 tile fits at every head dim and dtype
