@@ -37,6 +37,21 @@ source, all started together), and prints one JSON line per phase:
    within the budget of the f32 Sequential; then the fail drill
    (``scale_mult=64`` must fail the gate, and the engine must serve f32
    through fused_mlp);
+   ``train_slice`` -- the paper's training side on the card, one line per
+   part: minibude collects 16,384 poses, ``fit`` trains the full-width
+   MLP (5 epochs at batch 128; seconds per epoch, steps/s, ``val_rmse``,
+   which must beat the mean ``y_sd``), the bundle is served over 65,536
+   poses through the engine (fused_mlp must launch; rows within its
+   tolerance of the trained Sequential), and one epoch on the card is
+   held against one on the CPU from the same seed (``TRAIN_*_TOL``);
+   bonds runs ``nested_search`` on 4,096 collected rows and serves its
+   ``best_trial`` (the route must be fused_mlp for a pure MLP, the
+   Sequential for one with Dropout); miniweather fits a CNN on a
+   120-step trajectory and runs the predicated region interleaved 0:1,
+   1:1 and 1:3 over 16 steps (1:1 no worse than 0:1); particlefilter
+   fits a CNN on the filter's estimates over 256 frames and reports the
+   surrogate's and the filter's error against the truth on an unseen
+   video;
 6. ``timing``  -- CUDA-event times of each kernel, its plain version and
    a per-layer library chain (``torch.addmm`` + activation for fused_mlp,
    at each ``block_rows`` too; row quantization + ``torch._int_mm`` +
@@ -108,10 +123,11 @@ rwkv6_chunk's timing lines also give its device time from a CUDA graph
 (at T = 1 a loop of launches is paced by the host).
 
 Launch counts are set to 0 just before each main path (the f32 slice's
-region calls, each int8 slice's infer region, the ``run_tune`` call, the
-LM's prefill and its generate loop) and read just after.  Any failure
-raises, so the script exits non-zero and prints no result.  The bundle weights are random: nothing here measures
-surrogate accuracy.
+region calls, each int8 slice's infer region, the train slice's infer
+regions, the ``run_tune`` call, the LM's prefill and its generate loop)
+and read just after.  Any failure raises, so the script exits non-zero
+and prints no result.  Outside the train slice the bundle weights are
+random: nothing there measures surrogate accuracy.
 """
 import functools
 import importlib
@@ -219,6 +235,29 @@ COLLECT_POSES, INFER_POSES = 4096, 65536
 INT8_SLICES = (("minibude", "poses", BUDE_HIDDEN),
                ("bonds", "bonds", (512, 512)),
                ("binomial", "opts", (512, 512)))
+# the train slice: minibude fit at full width on 16,384 collected poses
+# (5 epochs at batch 128) and served over 65,536; the bonds search on
+# 4,096 rows; miniweather over a 120-step trajectory, interleaved over 16
+# steps (tests/test_apps.py:75-100 at the example's 120 steps and 20
+# epochs); particlefilter over 256 frames
+TRAIN_POSES, TRAIN_INFER, TRAIN_EPOCHS, TRAIN_BATCH = 16384, 65536, 5, 128
+SEARCH_ROWS = 4096
+MW_STEPS, MW_HORIZON, CNN_EPOCHS = 120, 16, 20
+MW_ARCH = {"k1": 3, "ch1": 8, "k2": 0}
+PF_FRAMES = 256
+PF_ARCH = {"conv_k": 3, "stride": 2, "pool": 2, "fc2": 64}
+# one epoch (102 Adam steps) of the minibude fit on the card against the
+# CPU, the parameters' L2 distance over the CPU's distance from the init.
+# Adam's step is normalized, so an element whose gradient sits at the
+# level of rounding takes a step of lr with either sign, and ReLU units
+# flip: the difference grows over the epoch.  The phase also runs the
+# CPU epoch on one thread, a change of summation order alone; on the
+# H100 machine's CPU (8 threads against 1) that leaves the parameters
+# 0.18 of their distance from the init apart and the validation RMSE
+# 0.7% apart, so the card is held to about twice that: 0.4 and 2%.  The
+# first batch's gradients at the init take no step: f32 sums of up to
+# 1,024 terms in another order, 1e-4 of each tensor's largest gradient
+TRAIN_PARAM_TOL, TRAIN_RMSE_RTOL, TRAIN_GRAD_TOL = 0.4, 0.02, 1e-4
 GATE_BUDGET_REL = 0.05   # x the f32 output RMS (tests/test_quant.py:58-65)
 # the tune path's kernels at their largest shapes: the stencil gather of
 # the spec's default problem on a 4096x4096 grid, and the attention of
@@ -614,6 +653,293 @@ def run_int8_slice(app, key, hidden, dev, work):
     if not all(checks.values()):
         raise AssertionError(f"int8 slice {app} checks failed: {checks}")
     return launches["fused_mlp_int8"]
+
+
+def _tree_distance(a, b):
+    """The L2 distance between two lists of per-layer parameter dicts."""
+    import torch
+    return float(torch.sqrt(sum(((x[k].double().cpu() - y[k].double().cpu())
+                                 ** 2).sum() for x, y in zip(a, b) for k in x)))
+
+
+def _first_batch_grads(X, Y, stats, dev):
+    """The loss gradients of the seeded minibude net at its init on the
+    first 128 normalized rows, as fit forms them, on ``dev``."""
+    import numpy as np
+    import torch
+    from repro_torch.nn import MLP
+    net = MLP((1, 6), list(BUDE_HIDDEN), 1).init(0).to(dev)
+    params = [p for layer in net.param_list() for p in layer.values()]
+    xb = (X[:128] - np.asarray(stats["x_mu"], np.float32)) / np.asarray(
+        stats["x_sd"], np.float32)
+    yb = (Y[:128] - np.asarray(stats["y_mu"], np.float32)) / np.asarray(
+        stats["y_sd"], np.float32)
+    for p in params:
+        p.requires_grad_(True)
+    pred = net(torch.from_numpy(xb.astype(np.float32)).to(dev))
+    loss = ((pred - torch.from_numpy(yb.astype(np.float32)).to(dev)) ** 2
+            ).mean()
+    return [g.cpu() for g in torch.autograd.grad(loss, params)]
+
+
+def device_busy(fn):
+    """fn's result, its host seconds (ended by a sync) and the seconds of
+    kernel time torch.profiler's CUDA activity records in them (None
+    where the trace holds no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) * 1e-6
+    return out, wall, busy or None
+
+
+def run_train_slice(dev, smi, work):
+    """The paper's training side on the card: fit -> save -> serve for
+    minibude at full width, the nested search for bonds, and the two CNN
+    apps.  Returns the fused_mlp launches of its infer calls."""
+    import numpy as np
+    import torch
+    from repro_torch.apps import bonds, minibude, miniweather, particlefilter
+    from repro_torch.core import InferenceEngine
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.fused_mlp import ops
+    from repro_torch.nas.nested import best_trial, nested_search, save_trial
+    from repro_torch.nas.space import build_net
+    from repro_torch.nas.train_surrogate import fit
+    from repro_torch.nn import MLP, save_model
+
+    t_phase = time.perf_counter()
+    rtol, atol = ops.SPEC.tol
+    fused_launches = 0
+
+    def host_s(fn, *args, **kw):
+        """fn's result and its host seconds, ended by a sync."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def served(bundle, x, y):
+        """The region's rows ``y`` for ``x`` against the bundle's
+        Sequential on the same normalized rows: (engine, max abs err,
+        worst error over its allowance)."""
+        eng = InferenceEngine.get(bundle, dev)
+        with torch.no_grad():
+            want = eng.net((x - eng.norm[0]) / eng.norm[1]) * eng.norm[3] \
+                + eng.norm[2]
+        y_sd = float(eng.norm[3].abs().max())
+        return (eng,) + compare(y, want, rtol, atol * y_sd)
+
+    # ---- minibude: collect, fit at full width, serve through fused_mlp
+    part = "minibude"
+    seconds = {}
+    collect = minibude.make_region(TRAIN_POSES, "collect",
+                                   database=str(work / "db"), device=dev)
+    _, seconds["collect"] = host_s(collect, poses=minibude.make_inputs(
+        TRAIN_POSES, seed=3, device=dev))
+    rows = collect.db.group("minibude").load()
+    X, Y = rows["inputs"], rows["outputs"]
+    net = MLP((1, 6), list(BUDE_HIDDEN), 1)
+    (_, val_rmse, stats), seconds["fit"] = host_s(
+        fit, net, X, Y, epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH,
+        device=dev)
+    n_train = int(X.shape[0] * 0.8)
+    steps = TRAIN_EPOCHS * (n_train // TRAIN_BATCH)
+    bundle = save_model(work / "minibude", net, extra=stats)
+    poses = minibude.make_inputs(TRAIN_INFER, seed=4, device=dev)
+    infer = minibude.make_region(TRAIN_INFER, "infer", model=bundle,
+                                 device=dev)
+    registry.reset_counts()
+    _, seconds["infer_first"] = host_s(infer, poses=poses)
+    y, seconds["infer"] = host_s(infer, poses=poses)
+    y = y["out"]
+    launches = registry.get_spec("fused_mlp").launches
+    fused_launches += launches
+    eng, max_abs, worst = served(bundle, poses, y)
+    mape = minibude.qoi_error(minibude.energies(poses)[:, None], y)
+
+    # one epoch on the card, profiled, and on the CPU from the same seed
+    (p_card, rmse_card, _), epoch_s, busy_s = device_busy(
+        lambda: fit(MLP((1, 6), list(BUDE_HIDDEN), 1), X, Y, epochs=1,
+                    batch_size=TRAIN_BATCH, device=dev))
+    (p_cpu, rmse_cpu, _), seconds["fit_cpu_epoch"] = host_s(
+        fit, MLP((1, 6), list(BUDE_HIDDEN), 1), X, Y, epochs=1,
+        batch_size=TRAIN_BATCH, device="cpu")
+    # the spread a change of summation order alone makes: the same
+    # epoch on one CPU thread
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        (p_cpu1, rmse_cpu1, _), seconds["fit_cpu_epoch_one_thread"] = \
+            host_s(fit, MLP((1, 6), list(BUDE_HIDDEN), 1), X, Y, epochs=1,
+                   batch_size=TRAIN_BATCH, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    p_init = MLP((1, 6), list(BUDE_HIDDEN), 1).init(0).param_list()
+    moved = _tree_distance(p_cpu, p_init)
+    param_dist = _tree_distance(p_card, p_cpu) / moved
+    cpu_spread = _tree_distance(p_cpu1, p_cpu) / moved
+    g_card = _first_batch_grads(X, Y, stats, dev)
+    g_cpu = _first_batch_grads(X, Y, stats, "cpu")
+    grad_err = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(g_card, g_cpu))
+    y_sd_mean = float(np.mean(stats["y_sd"]))
+    checks = {
+        "better_than_the_mean": val_rmse < y_sd_mean,
+        "route_fused_mlp": eng.route == "fused_mlp",
+        "fused_mlp_launched": launches >= 1,
+        "matches_sequential": worst <= 1.0,
+        "finite": bool(torch.isfinite(y).all()),
+        "card_vs_cpu_params": param_dist <= TRAIN_PARAM_TOL,
+        "card_vs_cpu_val_rmse": abs(rmse_card / rmse_cpu - 1)
+        <= TRAIN_RMSE_RTOL,
+        "card_vs_cpu_grads": grad_err <= TRAIN_GRAD_TOL,
+    }
+    emit("train_slice", part=part, widths=list(BUDE_WIDTHS),
+         rows=int(X.shape[0]), epochs=TRAIN_EPOCHS, batch=TRAIN_BATCH,
+         seconds=seconds, seconds_per_epoch=seconds["fit"] / TRAIN_EPOCHS,
+         profiled_epoch={"seconds": epoch_s, "device_kernel_s": busy_s,
+                         "device_busy_share": busy_s and busy_s / epoch_s},
+         steps=steps, steps_per_s=steps / seconds["fit"], val_rmse=val_rmse,
+         mean_y_sd=y_sd_mean, infer_rows=TRAIN_INFER,
+         launches={"fused_mlp": launches}, route=eng.route,
+         max_abs_err_vs_sequential=max_abs, surrogate_mape_pct=mape,
+         card_vs_cpu={"param_distance_rel": param_dist,
+                      "param_tol": TRAIN_PARAM_TOL,
+                      "max_abs_param_diff": max(
+                          float((a[k].cpu() - b[k]).abs().max())
+                          for a, b in zip(p_card, p_cpu) for k in a),
+                      "val_rmse_card": rmse_card, "val_rmse_cpu": rmse_cpu,
+                      "grad_err_rel": grad_err, "cpu_threads": threads,
+                      "cpu_one_thread_distance_rel": cpu_spread,
+                      "val_rmse_cpu_one_thread": rmse_cpu1},
+         nvidia_smi=smi, **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"train_slice {part} checks failed: {checks}")
+
+    # ---- bonds: the nested search on the card, then serve its pick
+    part = "bonds"
+    seconds = {}
+    collect = bonds.make_region(SEARCH_ROWS, "collect",
+                                database=str(work / "db"), device=dev)
+    collect(bonds=bonds.make_inputs(SEARCH_ROWS, seed=1, device=dev))
+    res, seconds["search"] = host_s(
+        nested_search, bonds, collect.db.group("bonds"), outer_iters=4,
+        inner_iters=2, epochs=5, verbose=False, device=dev)
+    bt = best_trial(res)
+    bundle = save_trial(bt, work / "bonds")
+    x = bonds.make_inputs(TRAIN_INFER, seed=2, device=dev)
+    infer = bonds.make_region(TRAIN_INFER, "infer", model=bundle, device=dev)
+    registry.reset_counts()
+    y, seconds["infer_first"] = host_s(infer, bonds=x)
+    y = y["out"]
+    launches = registry.get_spec("fused_mlp").launches
+    fused_launches += launches
+    eng, max_abs, worst = served(bundle, x, y)
+    pure = not any(layer["kind"] == "dropout" for layer in eng.spec["layers"])
+    checks = {
+        "route_matches_purity": eng.route == ("fused_mlp" if pure
+                                              else "sequential"),
+        "launches_match_route": (launches >= 1) == pure,
+        "matches_sequential": worst <= 1.0,
+        "finite": bool(torch.isfinite(y).all()),
+    }
+    emit("train_slice", part=part, rows=SEARCH_ROWS, seconds=seconds,
+         trials=[{"arch": t["arch"], "val_rmse": t["val_rmse"],
+                  "latency_ms": t["latency"] * 1e3,
+                  "hypers": t.get("hypers")} for t in res["trials"]],
+         pareto=res["pareto"], best=res["trials"].index(bt),
+         pure_mlp=pure, route=eng.route, launches={"fused_mlp": launches},
+         max_abs_err_vs_sequential=max_abs,
+         surrogate_rmse=bonds.qoi_error(bonds.accurate(x)["out"], y),
+         nvidia_smi=smi, **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"train_slice {part} checks failed: {checks}")
+
+    # ---- miniweather: collect a trajectory, fit the CNN, interleave
+    part = "miniweather"
+    seconds = {}
+    region = miniweather.make_region(mode="collect",
+                                     database=str(work / "db"), device=dev)
+
+    def trajectory():
+        s = miniweather.init_state(device=dev)
+        for _ in range(MW_STEPS):
+            s = region(state=s)["state"]
+
+    _, seconds["collect"] = host_s(trajectory)
+    d = region.db.group("miniweather").load()
+    X = d["inputs"].reshape(d["inputs"].shape[0], -1)
+    Y = d["outputs"].reshape(d["outputs"].shape[0], -1)
+    net = build_net(miniweather.surrogate_space(), MW_ARCH)
+    (_, val_rmse, stats), seconds["fit"] = host_s(
+        fit, net, X, Y, epochs=CNN_EPOCHS, x_reshape=(30, 30, 20),
+        device=dev)
+    bundle = save_model(work / "miniweather", net, extra=stats)
+    region2 = miniweather.make_region(mode="predicated", model=bundle,
+                                      device=dev)
+    s0 = miniweather.init_state(device=dev)
+    ref = miniweather.run(s0, MW_HORIZON)
+    errs = {}
+    for na, ns in ((0, 1), (1, 1), (1, 3)):
+        approx, seconds[f"run_{na}:{ns}"] = host_s(
+            miniweather.run, s0, MW_HORIZON, region2, (na, ns))
+        errs[f"{na}:{ns}"] = miniweather.qoi_error(ref, approx)
+    eng = InferenceEngine.get(bundle, dev)
+    checks = {
+        "route_sequential": eng.route == "sequential",
+        "finite": all(np.isfinite(list(errs.values()))),
+        "interleave_1:1_no_worse_than_0:1": errs["1:1"]
+        <= errs["0:1"] + 1e-9,
+    }
+    emit("train_slice", part=part, rows=int(X.shape[0]), arch=MW_ARCH,
+         epochs=CNN_EPOCHS, seconds=seconds, val_rmse=val_rmse,
+         horizon=MW_HORIZON, qoi_error=errs, route=eng.route,
+         nvidia_smi=smi, **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"train_slice {part} checks failed: {checks}")
+
+    # ---- particlefilter: collect the filter's estimates, fit the CNN
+    part = "particlefilter"
+    seconds = {}
+    pf = particlefilter
+    frames, _ = pf.make_video(PF_FRAMES, device=dev)
+    region = pf.make_region(PF_FRAMES, "collect", database=str(work / "db"),
+                            device=dev)
+    _, seconds["collect"] = host_s(region, frames=frames.reshape(
+        PF_FRAMES, -1))
+    d = region.db.group("particlefilter").load()
+    net = build_net(pf.surrogate_space(), PF_ARCH)
+    (_, val_rmse, stats), seconds["fit"] = host_s(
+        fit, net, d["inputs"], d["outputs"], epochs=CNN_EPOCHS,
+        x_reshape=(pf.H, pf.W, 1), device=dev)
+    bundle = save_model(work / "particlefilter", net, extra=stats)
+    # a video the surrogate has not seen, through the filter and the CNN
+    test_frames, truth = pf.make_video(PF_FRAMES, seed=1, device=dev)
+    flat = test_frames.reshape(PF_FRAMES, -1)
+    acc, seconds["accurate"] = host_s(pf.accurate, test_frames)
+    infer = pf.make_region(PF_FRAMES, "infer", model=bundle, device=dev)
+    sur, seconds["infer"] = host_s(infer, frames=flat)
+    errs = {"surrogate": pf.qoi_error(truth, sur["loc"]),
+            "accurate": pf.qoi_error(truth, acc["loc"])}
+    eng = InferenceEngine.get(bundle, dev)
+    checks = {"route_sequential": eng.route == "sequential",
+              "finite": all(np.isfinite(list(errs.values())))}
+    emit("train_slice", part=part, frames=PF_FRAMES, arch=PF_ARCH,
+         epochs=CNN_EPOCHS, seconds=seconds, val_rmse=val_rmse,
+         qoi_error_vs_truth=errs, route=eng.route, nvidia_smi=smi,
+         **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"train_slice {part} checks failed: {checks}")
+    emit("train_slice", part="total", seconds=time.perf_counter() - t_phase,
+         fused_mlp_launches=fused_launches, nvidia_smi=smi)
+    return fused_launches
 
 
 def tc_bound_ms(flops, nbytes):
@@ -1760,6 +2086,7 @@ def main():
     launches = run_slice(dev, work)
     int8_launches = sum(run_int8_slice(app, key, hidden, dev, work)
                         for app, key, hidden in INT8_SLICES)
+    train_launches = run_train_slice(dev, smi, work / "train")
 
     timings = time_kernel(bude, BUDE_ACTS, dev, smi)[INFER_POSES]
     timings8_all = time_int8(bude8, dev, smi)
@@ -1793,7 +2120,10 @@ def main():
                                 step_bound_ms=t["step_bound_ms"])
     print(json.dumps({"kernels": [{
         "name": "fused_mlp", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches["fused_mlp"],
+        "replaces": REPLACES,
+        "launches": launches["fused_mlp"] + train_launches,
+        "launches_by_path": {"slice": launches["fused_mlp"],
+                             "train_slice": train_launches},
         "max_abs_err": errs[INFER_POSES], "rtol": SPEC.tol[0],
         "atol": SPEC.tol[1],
         "batch": INFER_POSES, "ms": timings["ms"],

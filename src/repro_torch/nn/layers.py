@@ -16,9 +16,13 @@ bundle written by either package loads in the other without a transpose:
 
 :class:`Sequential` builds its layers' parameters from the input shape
 the way the JAX ``Sequential.init`` threads shapes.  ``forward`` is the
-counterpart of the JAX ``Sequential.apply`` at inference: Dropout is the
-identity there.  Parameters are created with ``requires_grad=False``:
-this package serves surrogates and does not train them yet.
+counterpart of the JAX ``Sequential.apply``: Dropout drops only in
+training mode (``net.train()``) and only when the forward is given a
+``torch.Generator``, the counterpart of ``apply(train=True, rng=key)``;
+otherwise it is the identity.  Parameters are created with
+``requires_grad=False``, which serving relies on;
+:func:`repro_torch.nas.train_surrogate.fit` switches gradients on for the
+net it trains and off again when it returns.
 """
 from __future__ import annotations
 
@@ -195,15 +199,20 @@ class Activation(Layer):
 
 
 class Dropout(Layer):
-    """The identity at inference (training waits for the port of
-    ``nas/train_surrogate``)."""
+    """Train-time dropout: in training mode and given a generator, keeps
+    each element with probability ``1 - rate`` and scales what it keeps
+    by ``1 / (1 - rate)``; the identity otherwise."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
-        return x
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if not self.training or self.rate <= 0 or generator is None:
+            return x
+        keep = torch.rand(x.shape, generator=generator, device=x.device,
+                          dtype=x.dtype) < 1 - self.rate
+        return torch.where(keep, x / (1 - self.rate), 0.0)
 
     def spec(self):
         return {"kind": "dropout", "rate": self.rate}
@@ -251,9 +260,12 @@ class Sequential(nn.Module):
             layer.build(shape)
             shape = layer.out_shape(shape)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """``generator`` feeds the Dropout layers, in layer order, in
+        training mode (the JAX ``apply``'s ``rng``)."""
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, generator) if isinstance(layer, Dropout) \
+                else layer(x)
         return x
 
     def init(self, seed: int = 0) -> "Sequential":

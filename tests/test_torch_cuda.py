@@ -131,6 +131,73 @@ def test_engine_routes_pure_mlp_to_kernel(dev, tmp_path, hidden):
     assert ops.SPEC.unsupported == unsupported + 1
 
 
+# one epoch of fit on the card against the CPU, the tolerance chip_smoke.py
+# states and reasons for (TRAIN_PARAM_TOL, TRAIN_RMSE_RTOL): Adam's
+# normalized step carries rounding differences forward, so the parameters
+# are held by their L2 distance over their distance from the init
+TRAIN_PARAM_TOL, TRAIN_RMSE_RTOL = 0.4, 0.02
+
+
+def _train_rows(n=2000, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, 5)).astype(np.float32)
+    Y = (np.sin(X[:, :1]) + X[:, 1:2] * X[:, 2:3]).astype(np.float32)
+    return X, Y
+
+
+def _distance(a, b):
+    return float(torch.sqrt(sum(((x[k].double().cpu() - y[k].double().cpu())
+                                 ** 2).sum() for x, y in zip(a, b)
+                                for k in x)))
+
+
+def test_fit_one_epoch_on_the_card_against_the_cpu(dev):
+    from repro_torch.nas.train_surrogate import fit
+    from repro_torch.nn import MLP
+    X, Y = _train_rows()
+    p_card, r_card, s_card = fit(MLP((1, 5), [64, 64], 1), X, Y, epochs=1,
+                                 device=dev)
+    p_cpu, r_cpu, s_cpu = fit(MLP((1, 5), [64, 64], 1), X, Y, epochs=1,
+                              device="cpu")
+    assert s_card == s_cpu
+    assert all(t.device.type == "cuda" for layer in p_card
+               for t in layer.values())
+    init = MLP((1, 5), [64, 64], 1).init(0).param_list()
+    assert _distance(p_card, p_cpu) <= \
+        TRAIN_PARAM_TOL * _distance(p_cpu, init)
+    assert abs(r_card / r_cpu - 1) <= TRAIN_RMSE_RTOL
+
+
+def test_port_trained_mlp_is_served_through_fused_mlp(dev, tmp_path):
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.kernels.fused_mlp import ops
+    from repro_torch.nas.train_surrogate import fit
+    from repro_torch.nn import MLP, save_model
+    X, Y = _train_rows()
+    net = MLP((1, 5), [64, 32], 1)
+    _, _, stats = fit(net, X, Y, epochs=2, device=dev)
+    path = save_model(tmp_path / "trained", net, extra=stats)
+    eng = InferenceEngine.get(path)
+    assert eng.route == "fused_mlp"
+    x = torch.from_numpy(X[:300]).to(dev)
+    before = ops.SPEC.launches
+    y = eng(x)
+    assert ops.SPEC.launches == before + 1
+    with torch.no_grad():
+        xn = (x - eng.norm[0]) / eng.norm[1]
+        want = net(xn) * eng.norm[3] + eng.norm[2]
+    rtol, atol = ops.SPEC.tol
+    torch.testing.assert_close(y, want, rtol=rtol,
+                               atol=atol * float(eng.norm[3].max()))
+
+
+def test_latency_on_the_card_is_a_positive_median(dev):
+    from repro_torch.nas.train_surrogate import latency
+    from repro_torch.nn import MLP
+    net = MLP((1, 6), [1024, 512], 1).init(0).to(dev)
+    assert latency(net, (256, 6), reps=5, device=dev) > 0
+
+
 def _qpacked(widths, acts, dev, seed=0):
     from repro_torch.kernels.fused_mlp.int8 import pack_int8_mlp
     from repro_torch.quant.quantize import quantize_params
