@@ -52,6 +52,27 @@ source, all started together), and prints one JSON line per phase:
    fits a CNN on the filter's estimates over 256 frames and reports the
    surrogate's and the filter's error against the truth on an unseen
    video;
+   ``serve_slice`` -- the serving layer (ServeQueue -> Batcher ->
+   InferenceEngine.apply_batched) on the card, one line per part: 8
+   submitter threads x 32 ``infer_async`` minibude requests of 1 to 4,096
+   rows over the f32 and the gated int8 bundle through one queue
+   (``FlushPolicy(16384, 2 ms, 65,536)``), every request bit-identical to
+   a synchronous ``infer`` of its rows, once traced (NVTX ranges, every
+   request covered from enqueue to scatter, the Chrome trace under
+   ``build/chip_smoke/``, the card's busy share from torch.profiler) and
+   once plain, beside the same requests one at a time (rows/s, p50/p99
+   per key, batches, bucket fill, launches, host time by span);
+   binomial's ``price_chunks_async`` (65,536 options in chunks of 4,096,
+   bit-equal) and miniweather's ``run_ensemble_async`` (8 members, 16
+   steps, within ``MW_SERVE_TOL``); four fault drills through
+   ``REPRO_FAULTS`` plans (a ``batcher.scatter`` raise retried; NaN from
+   the int8 engine screened, served by the accurate path, the breaker
+   OPEN then closed by HALF_OPEN probes on an injected clock; corrupted
+   f32 weights under shadow scoring at rate 1: the scorer's RMSE equal
+   to the direct one, CRITICAL, the breaker tripped on quality); the
+   residency drill (a byte budget below the three bundles' sum: one
+   eviction, one reload, metered bytes within 10% of
+   ``memory_allocated``); and two tenants weighted 3:1 under overload;
 6. ``timing``  -- CUDA-event times of each kernel, its plain version and
    a per-layer library chain (``torch.addmm`` + activation for fused_mlp,
    at each ``block_rows`` too; row quantization + ``torch._int_mm`` +
@@ -124,8 +145,8 @@ rwkv6_chunk's timing lines also give its device time from a CUDA graph
 
 Launch counts are set to 0 just before each main path (the f32 slice's
 region calls, each int8 slice's infer region, the train slice's infer
-regions, the ``run_tune`` call, the LM's prefill and its generate loop)
-and read just after.  Any failure raises, so the script exits non-zero
+regions, the serve slice's traced coalesced run, the ``run_tune`` call,
+the LM's prefill and its generate loop) and read just after.  Any failure raises, so the script exits non-zero
 and prints no result.  Outside the train slice the bundle weights are
 random: nothing there measures surrogate accuracy.
 """
@@ -259,6 +280,46 @@ PF_ARCH = {"conv_k": 3, "stride": 2, "pool": 2, "fc2": 64}
 # 1,024 terms in another order, 1e-4 of each tensor's largest gradient
 TRAIN_PARAM_TOL, TRAIN_RMSE_RTOL, TRAIN_GRAD_TOL = 0.4, 0.02, 1e-4
 GATE_BUDGET_REL = 0.05   # x the f32 output RMS (tests/test_quant.py:58-65)
+# the serve slice: the paper's many-callers regime through ServeQueue ->
+# Batcher -> InferenceEngine.apply_batched on fused_mlp / fused_mlp_int8.
+# 8 submitter threads x 32 requests, each of a row count drawn with a
+# seed from SERVE_ROWS, over the f32 and the gated int8 minibude bundles
+SERVE_THREADS, SERVE_REQUESTS = 8, 32
+SERVE_ROWS = (1, 7, 64, 256, 1000, 4096)
+SERVE_POLICY = dict(max_batch_rows=16384, max_delay_s=0.002,
+                    max_pending_rows=65536)
+SERVE_SWITCH_S = 5e-4  # sys.setswitchinterval for one more coalesced run
+# the async app drivers: binomial's 65,536 options in chunks of 4,096,
+# miniweather's ensemble of 8 for 16 steps.  The CNN runs through cuDNN
+# convolutions, whose algorithm may differ between a batch of 8 and a
+# batch of 1: each member's state after 16 steps is held to 1e-4 of the
+# state's largest magnitude (f32 sums of 180 products per output
+# rounded at 1e-7, carried through 16 autoregressive steps)
+BIN_OPTIONS, BIN_CHUNK = 65536, 4096
+MW_ENSEMBLE, MW_ENSEMBLE_STEPS, MW_SERVE_TOL = 8, 16, 1e-4
+# the residency drill: the metered bytes against memory_allocated deltas
+RESIDENCY_TOL = 0.10
+# loads one bundle in a fresh process (argv: the port's src directory, the
+# bundle) and prints the memory_allocated delta around the load beside
+# the engine's metered bytes
+RESIDENCY_PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.core.engine import InferenceEngine
+dev = torch.device("cuda", 0)
+torch.zeros(1, device=dev)
+torch.cuda.synchronize()
+m0 = torch.cuda.memory_allocated(dev)
+eng = InferenceEngine.get(sys.argv[2], dev)
+torch.cuda.synchronize()
+print(json.dumps({"delta": torch.cuda.memory_allocated(dev) - m0,
+                  "metered": eng.resident_nbytes, "route": eng.route}))
+"""
+# the tenancy drill: 2 tenants weighted 3:1, one key each, both kept
+# backlogged for TENANT_ROUNDS rounds of one flush each (capacity for
+# one key a round: overload), requests of TENANT_ROWS rows
+TENANT_ROUNDS, TENANT_ROWS, TENANT_SHARE_TOL = 64, 256, 0.20
 # the tune path's kernels at their largest shapes: the stencil gather of
 # the spec's default problem on a 4096x4096 grid, and the attention of
 # the repo's llama3.2-3b config (src/repro/configs/archs.py:39-44: 24
@@ -940,6 +1001,517 @@ def run_train_slice(dev, smi, work):
     emit("train_slice", part="total", seconds=time.perf_counter() - t_phase,
          fused_mlp_launches=fused_launches, nvidia_smi=smi)
     return fused_launches
+
+
+def run_serve_slice(dev, smi, work):
+    """The serving layer on the card through the port's entry points:
+    coalesced serving from 8 threads against one-at-a-time synchronous
+    serving, the two async app drivers, four fault drills, the trace,
+    residency and tenancy.  Returns the fused_mlp and fused_mlp_int8
+    launches of the coalesced run."""
+    import collections
+    import gc
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.apps import binomial, minibude, miniweather
+    from repro_torch.core import InferenceEngine
+    from repro_torch.core.database import SurrogateDB
+    from repro_torch.kernels import registry
+    from repro_torch.obs import (CRITICAL, SHADOW, TRACER,
+                                 request_coverage)
+    from repro_torch.quant.calibrate import calibration_rows
+    from repro_torch.quant.gate import gate_bundle
+    from repro_torch.resilience import BREAKERS, FAULTS, BreakerPolicy
+    from repro_torch.resilience.breaker import CLOSED, HALF_OPEN, OPEN
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.serve import (RESIDENCY, Batcher, FlushPolicy,
+                                   ScratchPool, ServeQueue, TenantBoard,
+                                   TenantSpec)
+
+    t_phase = time.perf_counter()
+    key32 = str(work / "bundle")
+    key8 = str(work / "minibude" / "bundle")
+    key_bin = str(work / "binomial" / "bundle")
+    key_mw = str(work / "train" / "miniweather")
+    # the int8 slice's fail drill left the minibude bundle failed: gate it
+    # again at scale_mult 1 (its budget is still registered)
+    gate = gate_bundle(key8, calibration_rows(
+        SurrogateDB(str(work / "minibude" / "db")), "minibude"), device=dev)
+    if gate["exact"] is not True:
+        raise AssertionError(f"serve slice: int8 minibude gate {gate}")
+    for key, route in ((key32, "fused_mlp"), (key8, "fused_mlp_int8"),
+                       (key_bin, "fused_mlp")):
+        if InferenceEngine.get(key, dev).route != route:
+            raise AssertionError(f"serve slice: {key} not on {route}")
+
+    regions = {}
+
+    def region(key, n, mode, serving=None):
+        """minibude regions of n poses, one per (key, n, mode, queue)."""
+        k = (key, n, mode, id(serving))
+        if k not in regions:
+            regions[k] = minibude.make_region(n, mode, model=key,
+                                              serving=serving, device=dev)
+        return regions[k]
+
+    # ---- 1. coalesced serving from 8 threads: once traced (NVTX ranges,
+    # under torch.profiler for the card's busy share), once plain for the
+    # rates and latencies
+    rng = np.random.default_rng(7)
+    work_items = [[(key32 if (t + i) % 2 == 0 else key8,
+                    minibude.make_inputs(int(rng.choice(SERVE_ROWS)),
+                                         seed=1000 * t + i, device=dev))
+                   for i in range(SERVE_REQUESTS)]
+                  for t in range(SERVE_THREADS)]
+    total_rows = sum(int(x.shape[0]) for items in work_items
+                     for _, x in items)
+    pool = ScratchPool()
+
+    def serve_queue():
+        return ServeQueue(FlushPolicy(**SERVE_POLICY), device=dev,
+                          batcher=Batcher(device=dev, scratch=pool))
+
+    def coalesced(queue, lanes=SERVE_THREADS):
+        """Every request through ``queue``'s dispatcher, the 8 threads'
+        lists split over ``lanes`` submitter threads (1: one thread
+        submits them all, then waits on each): the rows of each, and the
+        host seconds, ended by a sync."""
+        results = [[None] * SERVE_REQUESTS for _ in range(SERVE_THREADS)]
+        errors = []
+
+        def submitter(lane):
+            try:
+                mine = [(t, i) for t in range(SERVE_THREADS)
+                        if t % lanes == lane for i in range(SERVE_REQUESTS)]
+                handles = []
+                for t, i in mine:
+                    key, x = work_items[t][i]
+                    handles.append(region(key, int(x.shape[0]),
+                                          "infer_async", queue)(poses=x))
+                for (t, i), h in zip(mine, handles):
+                    results[t][i] = h.result(60.0)["out"]
+            except Exception as e:  # reported below: the phase fails
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=submitter, args=(lane,))
+                   for lane in range(lanes)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(120.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if errors or any(th.is_alive() for th in threads):
+            raise AssertionError(f"serve slice submitters failed: {errors}")
+        return results, wall
+
+    warm = serve_queue().start()
+    try:  # the first batches pay the pool's page-locked allocations
+        coalesced(warm)
+    finally:
+        warm.close()
+    traced_q = serve_queue().start()
+    TRACER.clear()
+    TRACER.enable(annotate=True)
+    registry.reset_counts()
+    try:
+        (traced, traced_wall), _, busy = device_busy(
+            lambda: coalesced(traced_q))
+    finally:
+        TRACER.disable()
+        traced_q.close()
+    launches = {s.name: s.launches for s in registry.all_specs()}
+    events = TRACER.chrome_events()
+    dropped = sum(TRACER.drop_counts().values())
+    trace_path = work / "serve_trace.json"
+    TRACER.export_chrome_trace(trace_path)
+    TRACER.clear()
+    lane_q = serve_queue().start()
+    try:  # the same requests from one submitter thread
+        one_lane, one_lane_wall = coalesced(lane_q, lanes=1)
+    finally:
+        lane_q.close()
+    queue = serve_queue().start()
+    try:
+        results, wall = coalesced(queue)
+    finally:
+        queue.close()
+    # the same run with the interpreter's thread switch interval cut from
+    # 5 ms to 0.5 ms: the dispatcher waits for the GIL after each stream
+    # sync it makes, at most one interval while the submitters run Python
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(SERVE_SWITCH_S)
+    switch_q = serve_queue().start()
+    try:
+        switched, switched_wall = coalesced(switch_q)
+    finally:
+        switch_q.close()
+        sys.setswitchinterval(switch)
+
+    # the same requests one at a time, synchronously: the baseline, and
+    # each request's rows to hold the coalesced ones against
+    def one_at_a_time():
+        return [[region(key, int(x.shape[0]), "infer")(poses=x)["out"]
+                 for key, x in items] for items in work_items]
+
+    sync_out, sync_wall = None, 0.0
+    one_at_a_time()  # warm: every row count's first call
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sync_out = one_at_a_time()
+    torch.cuda.synchronize()
+    sync_wall = time.perf_counter() - t0
+    mismatched = sum(
+        not all(torch.equal(r[t][i], sync_out[t][i])
+                for r in (results, traced, one_lane, switched))
+        for t in range(SERVE_THREADS) for i in range(SERVE_REQUESTS))
+    snaps = {name: queue.stats(key).snapshot()
+             for name, key in (("f32", key32), ("int8", key8))}
+    names = collections.Counter(e["name"] for e in events)
+    # host time by span over the traced run, and per batch
+    span_ms = collections.Counter()
+    for e in events:
+        span_ms[e["name"]] += e.get("dur", 0.0) / 1e3
+    n_batches = max(1, names["batch.apply"])
+    traces = {e["args"]["trace"] for e in events
+              if e["name"] == "queue.submit"}
+    cov = request_coverage(events)
+    per_request = [cov.get(tr, {}) for tr in traces]
+    checks = {
+        "bit_identical_to_sync": mismatched == 0,
+        "fused_mlp_launched": launches["fused_mlp"] >= 1,
+        "fused_mlp_int8_launched": launches["fused_mlp_int8"] >= 1,
+        "every_request_completed": sum(
+            s["requests_completed"] for s in snaps.values())
+        == SERVE_THREADS * SERVE_REQUESTS,
+        "no_failures": all(s["requests_failed"] == 0
+                           for s in snaps.values()),
+        "every_request_traced": len(traces)
+        == SERVE_THREADS * SERVE_REQUESTS and dropped == 0,
+        "every_request_covered": all(c.get("coverage", 0.0) >= 0.95
+                                     and c.get("spans", 0) >= 2
+                                     for c in per_request),
+    }
+    emit("serve_slice", part="coalesced", requests=SERVE_THREADS
+         * SERVE_REQUESTS, threads=SERVE_THREADS, rows=total_rows,
+         seconds=wall, rows_per_s=total_rows / wall,
+         sync_seconds=sync_wall, sync_rows_per_s=total_rows / sync_wall,
+         one_thread_seconds=one_lane_wall,
+         one_thread_rows_per_s=total_rows / one_lane_wall,
+         switch_interval_s={"default": switch, "cut": SERVE_SWITCH_S},
+         switch_cut_seconds=switched_wall,
+         switch_cut_rows_per_s=total_rows / switched_wall,
+         coalescing_gain_x=sync_wall / wall,
+         traced_seconds=traced_wall, device_busy_s=busy,
+         device_busy_share=busy / traced_wall if busy else None,
+         p50_ms={k: s["latency_p50_ms"] for k, s in snaps.items()},
+         p99_ms={k: s["latency_p99_ms"] for k, s in snaps.items()},
+         batches={k: s["batches"] for k, s in snaps.items()},
+         mean_bucket_fill={k: s["batch_occupancy"]
+                           for k, s in snaps.items()},
+         flush_reasons={k: s["flush_reasons"] for k, s in snaps.items()},
+         launches=launches, mismatched_requests=mismatched,
+         span_counts=dict(sorted(names.items())),
+         span_ms_total={k: round(v, 3) for k, v in sorted(span_ms.items())},
+         span_ms_per_batch={k: round(span_ms[k] / n_batches, 4) for k in (
+             "batch.gather", "batch.apply", "engine.apply", "batch.to_host",
+             "batch.scatter")},
+         min_coverage=min((c.get("coverage", 0.0) for c in per_request),
+                          default=None),
+         trace_events=len(events), trace_dropped=dropped,
+         pool=pool.stats(), trace_file=str(
+             trace_path.relative_to(ROOT)), policy=SERVE_POLICY,
+         nvidia_smi=smi, **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"serve slice coalesced checks: {checks}")
+
+    # ---- 2. the async app drivers against their synchronous twins
+    seconds = {}
+    q = ServeQueue(FlushPolicy(max_batch_rows=1 << 20,
+                               max_pending_rows=1 << 20), device=dev)
+    opts = binomial.make_inputs(BIN_OPTIONS, seed=11, device=dev)
+    r_async = binomial.make_region(BIN_CHUNK, "infer_async", model=key_bin,
+                                   serving=q, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = binomial.price_chunks_async(opts, r_async, q, chunk=BIN_CHUNK)
+    torch.cuda.synchronize()
+    seconds["price_chunks_async"] = time.perf_counter() - t0
+    want = binomial.make_region(BIN_OPTIONS, "infer", model=key_bin,
+                                device=dev)(opts=opts)["out"]
+    bin_batches = q.stats(key_bin).snapshot()["batches"]
+    states = [miniweather.init_state(seed=s, device=dev)
+              for s in range(MW_ENSEMBLE)]
+    mw_async = miniweather.make_region(mode="infer_async", model=key_mw,
+                                       serving=q, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = miniweather.run_ensemble_async(states, MW_ENSEMBLE_STEPS,
+                                          mw_async, q)
+    torch.cuda.synchronize()
+    seconds["run_ensemble_async"] = time.perf_counter() - t0
+    mw_sync = miniweather.make_region(mode="infer", model=key_mw,
+                                      device=dev)
+    mw_err = 0.0
+    for s0, got_s in zip(states, outs):
+        ref = s0
+        for _ in range(MW_ENSEMBLE_STEPS):
+            ref = mw_sync(state=ref)["state"]
+        mw_err = max(mw_err, float((got_s - ref).abs().max())
+                     / float(ref.abs().max()))
+    q.close()
+    mw_snap = q.stats(key_mw).snapshot()
+    checks = {
+        "binomial_bit_equal": bool(torch.equal(got, want)),
+        "binomial_one_batch": bin_batches == 1,
+        "miniweather_within_tol": mw_err <= MW_SERVE_TOL,
+        "miniweather_batch_per_step": mw_snap["batches"]
+        == MW_ENSEMBLE_STEPS,
+    }
+    emit("serve_slice", part="async_apps", seconds=seconds,
+         binomial={"options": BIN_OPTIONS, "chunk": BIN_CHUNK,
+                   "batches": bin_batches,
+                   "route": InferenceEngine.get(key_bin, dev).route},
+         miniweather={"ensemble": MW_ENSEMBLE, "steps": MW_ENSEMBLE_STEPS,
+                      "batches": mw_snap["batches"],
+                      "max_rel_err": mw_err, "tol": MW_SERVE_TOL},
+         nvidia_smi=smi, **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"serve slice async app checks: {checks}")
+
+    # ---- 3. fault drills, through REPRO_FAULTS plans in this process
+    drills = {}
+    x = minibude.make_inputs(256, seed=21, device=dev)
+    accurate = minibude.accurate(x)["out"]
+    sync32 = region(key32, 256, "infer")(poses=x)["out"]
+    sync8 = region(key8, 256, "infer")(poses=x)["out"]
+    q = ServeQueue(FlushPolicy(max_batch_rows=1 << 20,
+                               max_pending_rows=1 << 20), device=dev)
+    retries = obs_metrics.counter("repro_resilience_retries_total",
+                                  "dispatch attempts retried after a "
+                                  "transient failure", ("key",))
+    nonfinite = obs_metrics.counter("repro_resilience_nonfinite_total",
+                                    "output rows screened as NaN/Inf "
+                                    "before scatter", ("key",))
+    fallbacks = obs_metrics.counter("repro_resilience_fallback_total",
+                                    "requests routed to the accurate path "
+                                    "by the breaker", ("key", "path"))
+    try:
+        # a raise at batcher.scatter, once: retried, rows unchanged
+        os.environ["REPRO_FAULTS"] = "batcher.scatter:raise:n=1"
+        FAULTS.configure(os.environ["REPRO_FAULTS"])
+        before = retries.value(key=key32)
+        hs = [region(key32, 256, "infer_async", q)(poses=x)
+              for _ in range(3)]
+        q.flush(key32)
+        outs = [h.result(30.0)["out"] for h in hs]
+        drills["scatter_raise"] = {
+            "retried": retries.value(key=key32) - before == 1,
+            "rows_bit_identical": all(torch.equal(o, sync32)
+                                      for o in outs),
+            "fired": FAULTS.rules[0].snapshot()["fires"] == 1}
+
+        # NaN out of the int8 engine: screened, the accurate path serves,
+        # the breaker opens, serves the accurate path at once, then its
+        # HALF_OPEN probes close it after the cooldown (injected clock)
+        now = [0.0]
+        brk = BREAKERS.configure(key8, BreakerPolicy(
+            min_samples=2, open_cooldown_s=0.2, probe_n=2, probe_every=1),
+            clock=lambda: now[0])
+        os.environ["REPRO_FAULTS"] = (
+            f"engine.apply:nan:key={pathlib.Path(key8).parent.name}/bundle")
+        FAULTS.configure(os.environ["REPRO_FAULTS"])
+        screened0 = nonfinite.value(key=key8)
+        fallback0 = fallbacks.value(key=key8, path="result")
+        h = region(key8, 256, "infer_async", q)(poses=x)
+        deferred = h.deferred()
+        q.flush(key8)
+        fell_back = torch.equal(h.result(30.0)["out"], accurate)
+        screened = nonfinite.value(key=key8) - screened0 == 256
+        counted = fallbacks.value(key=key8, path="result") - fallback0 == 1
+        opened = brk.state == OPEN
+        h = region(key8, 256, "infer_async", q)(poses=x)
+        at_once = (not h.deferred()) and h.done() and torch.equal(
+            h.result()["out"], accurate)
+        FAULTS.clear()
+        now[0] += 0.25
+        probes = []
+        for _ in range(2):
+            h = region(key8, 256, "infer_async", q)(poses=x)
+            probes.append(brk.state == HALF_OPEN and h.deferred())
+            q.flush(key8)
+            probes.append(torch.equal(h.result(30.0)["out"], sync8))
+        drills["int8_nan"] = {
+            "deferred": deferred, "screened": screened,
+            "result_fell_back_to_accurate": fell_back,
+            "fallback_counted": counted, "breaker_open": opened,
+            "open_serves_accurate_at_once": at_once,
+            "half_open_probes_served": all(probes),
+            "breaker_closed": brk.state == CLOSED}
+
+        # corrupted f32 weights under shadow scoring at rate 1: the
+        # scorer's RMSE is the served rows' against the accurate path,
+        # the alert reaches CRITICAL and the closed breaker trips on it
+        clean_rmse = float(np.sqrt(np.mean(
+            (sync32.double() - accurate.double()).cpu().numpy() ** 2)))
+        brk32 = BREAKERS.configure(key32, BreakerPolicy(
+            open_cooldown_s=60.0))
+        SHADOW.reset()
+        SHADOW.set_budget(key32, 2.0 * clean_rmse)
+        SHADOW.enable(rate=1.0)
+        os.environ["REPRO_FAULTS"] = (
+            f"engine.apply:corrupt:key={key32},n=1,scale=0.5")
+        FAULTS.configure(os.environ["REPRO_FAULTS"])
+        served = []
+        for i in range(4):
+            h = region(key32, 256, "infer_async", q)(poses=x)
+            q.flush(key32)
+            served.append(h.result(30.0)["out"])
+            if i == 0:
+                SHADOW.flush(30.0)
+                first = SHADOW.snapshot()["keys"][key32]["rmse_ewma"]
+        SHADOW.flush(30.0)
+        direct = float(np.sqrt(np.mean(
+            (served[0].double() - accurate.double()).cpu().numpy() ** 2)))
+        state = SHADOW.state(key32)
+        allowed = BREAKERS.allow(key32)
+        drills["f32_corrupt"] = {
+            "served_rows_moved": not torch.equal(served[0], sync32),
+            "rmse_past_budget": direct > 2.0 * clean_rmse,
+            "scorer_rmse_matches": abs(first - direct) <= 1e-6 * direct,
+            "critical": state == CRITICAL,
+            "breaker_tripped_on_quality": (not allowed)
+            and brk32.state == OPEN}
+        drills["f32_corrupt_rmse"] = {"clean": clean_rmse,
+                                      "scorer": first, "direct": direct}
+    finally:
+        os.environ.pop("REPRO_FAULTS", None)
+        FAULTS.clear()
+        SHADOW.close(drain=True)
+        SHADOW.reset()
+        BREAKERS.reset()
+        q.close()
+        InferenceEngine.invalidate(key32)  # reload the clean weights
+    checks = {f"{d}.{k}": v for d, r in drills.items()
+              for k, v in r.items() if isinstance(v, bool)}
+    emit("serve_slice", part="fault_drills", drills=drills, nvidia_smi=smi,
+         **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"serve slice fault drills: {checks}")
+
+    # ---- 4. residency: a budget below the three bundles' sum
+    loads = collections.Counter()
+    orig_load = InferenceEngine._load
+
+    def counted(self):
+        loads[self.path] += 1
+        return orig_load(self)
+
+    InferenceEngine.invalidate()
+    RESIDENCY.set_budget(None)
+    keys = (key32, key8, key_bin)
+    # the meter against memory_allocated, each bundle loaded in a fresh
+    # process: in this one, after the earlier phases, the allocator hands
+    # a free 2 MB block whole to a 1.2 MB request and counts it whole
+    # (on an H100, 40% over the binomial bundle's tensors)
+    probes = [subprocess.Popen(
+        [sys.executable, "-c", RESIDENCY_PROBE, str(ROOT / "src"), key],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for key in keys]
+    fresh = {}
+    for key, probe in zip(keys, probes):
+        out, err = probe.communicate(timeout=300)
+        if probe.returncode:
+            raise AssertionError(f"residency probe failed: {err[-2000:]}")
+        fresh[key] = json.loads(out.strip().splitlines()[-1])
+    metered, deltas = {}, {}
+    InferenceEngine._load = counted
+    try:
+        for key in keys:
+            gc.collect()  # engines dropped earlier must not free in here
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated(dev)
+            eng = InferenceEngine.get(key, dev)
+            torch.cuda.synchronize()
+            deltas[key] = torch.cuda.memory_allocated(dev) - m0
+            metered[key] = eng.resident_nbytes
+            del eng
+        budget = sum(metered.values()) - 1
+        InferenceEngine.invalidate()
+        RESIDENCY.set_budget(budget)
+        RESIDENCY.reset_stats()
+        loads.clear()
+        for key in keys:
+            InferenceEngine.get(key, dev)
+        evicted_after_three = RESIDENCY.snapshot()["evictions"]
+        lru = list(RESIDENCY.resident())
+        loads.clear()
+        y_again = [region(key32, 256, "infer")(poses=x)["out"]
+                   for _ in range(3)]
+        reloads = loads[key32]
+        snap = RESIDENCY.snapshot()
+    finally:
+        InferenceEngine._load = orig_load
+        RESIDENCY.set_budget(None)
+        RESIDENCY.reset_stats()
+    checks = {
+        "one_eviction": evicted_after_three == 1 and key32 not in lru,
+        "evicted_reloads_once": reloads == 1,
+        "reloaded_rows_bit_identical": all(torch.equal(y, sync32)
+                                           for y in y_again),
+        "metered_within_10pct": all(
+            abs(metered[k] - fresh[k]["delta"])
+            <= RESIDENCY_TOL * fresh[k]["delta"] for k in keys),
+        "fresh_process_metered_alike": all(
+            fresh[k]["metered"] == metered[k] for k in keys),
+    }
+    emit("serve_slice", part="residency", budget_bytes=budget,
+         metered_bytes=metered,
+         allocated_delta_bytes={k: v["delta"] for k, v in fresh.items()},
+         allocated_delta_bytes_here=deltas,
+         evictions_after_three_loads=evicted_after_three,
+         evictions_total=snap["evictions"], reloads_of_evicted=reloads,
+         **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"serve slice residency checks: {checks}")
+
+    # ---- 5. tenancy: weights 3:1 under overload, one flush a round
+    board = TenantBoard([TenantSpec("heavy", weight=3.0),
+                         TenantSpec("light", weight=1.0)])
+    per_key = 4 * TENANT_ROWS
+    q = ServeQueue(FlushPolicy(max_batch_rows=per_key + per_key // 2,
+                               max_pending_rows=1 << 20),
+                   tenancy=board, device=dev)
+    tenant_key = {"heavy": key32, "light": key8}
+    xs = minibude.make_inputs(TENANT_ROWS, seed=31, device=dev)
+    futs = []
+    try:
+        for _ in range(TENANT_ROUNDS):
+            for tenant, key in tenant_key.items():
+                while q.depth(key) < per_key:
+                    futs.append(q.submit(key, xs, tenant=tenant))
+            q.flush(q._flush_order()[0], reason="tenancy")
+        served = {t: s["served_rows"] for t, s in board.snapshot().items()}
+    finally:
+        q.close(drain=True)
+    for f in futs:
+        f.result(30.0)
+    snap = board.snapshot()
+    share = served["heavy"] / max(1, served["heavy"] + served["light"])
+    checks = {"heavy_share_within_20pct":
+              abs(share / 0.75 - 1.0) <= TENANT_SHARE_TOL}
+    emit("serve_slice", part="tenancy", rounds=TENANT_ROUNDS,
+         served_rows_under_overload=served, heavy_share=share,
+         p99_ms={t: s["latency_p99_ms"] for t, s in snap.items()},
+         **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"serve slice tenancy checks: {checks}")
+    emit("serve_slice", part="total", seconds=time.perf_counter() - t_phase,
+         launches=launches, nvidia_smi=smi)
+    return launches
 
 
 def tc_bound_ms(flops, nbytes):
@@ -2087,6 +2659,7 @@ def main():
     int8_launches = sum(run_int8_slice(app, key, hidden, dev, work)
                         for app, key, hidden in INT8_SLICES)
     train_launches = run_train_slice(dev, smi, work / "train")
+    serve_launches = run_serve_slice(dev, smi, work)
 
     timings = time_kernel(bude, BUDE_ACTS, dev, smi)[INFER_POSES]
     timings8_all = time_int8(bude8, dev, smi)
@@ -2121,9 +2694,11 @@ def main():
     print(json.dumps({"kernels": [{
         "name": "fused_mlp", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES,
-        "launches": launches["fused_mlp"] + train_launches,
+        "launches": launches["fused_mlp"] + train_launches
+        + serve_launches["fused_mlp"],
         "launches_by_path": {"slice": launches["fused_mlp"],
-                             "train_slice": train_launches},
+                             "train_slice": train_launches,
+                             "serve_slice": serve_launches["fused_mlp"]},
         "max_abs_err": errs[INFER_POSES], "rtol": SPEC.tol[0],
         "atol": SPEC.tol[1],
         "batch": INFER_POSES, "ms": timings["ms"],
@@ -2133,7 +2708,10 @@ def main():
         "bound_tc_ms": timings["bound_tc_ms"],
         "library_ms": timings["library_ms"]}, {
         "name": "fused_mlp_int8", "route": "cuda", "source": int8.SOURCE,
-        "replaces": int8.REPLACES, "launches": int8_launches,
+        "replaces": int8.REPLACES,
+        "launches": int8_launches + serve_launches["fused_mlp_int8"],
+        "launches_by_path": {"int8_slice": int8_launches,
+                             "serve_slice": serve_launches["fused_mlp_int8"]},
         "max_abs_err": errs8[INFER_POSES], "rtol": int8.SPEC.tol[0],
         "atol": int8.SPEC.tol[1],
         "batch": INFER_POSES, "ms": timings8["ms"],

@@ -6,7 +6,8 @@ option.  The reference's ``lax.scan`` over levels is a Python loop over
 levels here, each level vectorized over all options.  QoI: option price.
 Metric: RMSE.  Surrogate: small MLP on (S, K, T, r, sigma).
 
-``price_chunks_async`` waits for the port of serving.
+``price_chunks_async`` prices a sweep of option chunks through the serve
+queue (the paper's many-callers regime).
 """
 from __future__ import annotations
 
@@ -56,13 +57,34 @@ def accurate(opts):
     return {"out": prices(opts)[:, None]}
 
 
-def make_region(n, mode="collect", model=None, database=None, device=None):
+def make_region(n, mode="collect", model=None, database=None, serving=None,
+                device=None):
     rngs = {"i": (0, n)}
     return approx_ml(accurate, name="binomial",
                      inputs={"opts": (_ifn, rngs)},
                      outputs={"out": (_ofn, rngs)},
                      mode=mode, model=model, database=database,
-                     device=device)
+                     serving=serving, device=device)
+
+
+def price_chunks_async(opts, region, queue, chunk: int):
+    """Price a sweep of option chunks through the serve queue.
+
+    Each chunk of ``chunk`` options is an independent region invocation
+    (a separate solver instance or sweep step); all of a sweep's chunks
+    are enqueued, then one flush coalesces them into a single batch.
+    ``region`` must be ``make_region(chunk, mode="infer_async",
+    serving=queue)``.
+    """
+    if region.mode != "infer_async" or region.serving is not queue:
+        raise ValueError("price_chunks_async needs an infer_async region "
+                         "serving through this queue")
+    n = int(opts.shape[0])
+    if n % chunk:
+        raise ValueError(f"{n} options do not split into chunks of {chunk}")
+    handles = [region(opts=opts[i:i + chunk]) for i in range(0, n, chunk)]
+    queue.flush(region.model_path, reason="sweep_step")
+    return torch.cat([h.result()["out"] for h in handles])
 
 
 def qoi_error(ref, approx):

@@ -91,13 +91,17 @@ def accurate(poses):
     return {"out": energies(poses)[:, None]}
 
 
-def make_region(n, mode="collect", model=None, database=None, device=None):
+def make_region(n, mode="collect", model=None, database=None, serving=None,
+                device=None):
+    """``serving=`` attaches a serve queue, as binomial's and
+    miniweather's regions take one (the reference's minibude region has
+    no such argument)."""
     rngs = {"i": (0, n)}
     return approx_ml(accurate, name="minibude",
                      inputs={"poses": (_ifn, rngs)},
                      outputs={"out": (_ofn, rngs)},
                      mode=mode, model=model, database=database,
-                     device=device)
+                     serving=serving, device=device)
 
 
 def qoi_error(ref, approx):

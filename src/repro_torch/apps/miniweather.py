@@ -71,12 +71,13 @@ def accurate(state):
     return {"state": timestep(state)}
 
 
-def make_region(mode="collect", model=None, database=None, device=None):
+def make_region(mode="collect", model=None, database=None, serving=None,
+                device=None):
     return approx_ml(accurate, name="miniweather",
                      inputs={"state": (stencil_fn, RANGES)},
                      outputs={"state": (point_fn, RANGES)},
                      mode=mode, model=model, database=database,
-                     device=device)
+                     serving=serving, device=device)
 
 
 def run(state, steps, region=None, interleave=(0, 1)):
@@ -89,6 +90,26 @@ def run(state, steps, region=None, interleave=(0, 1)):
         else:
             state = region(predicate=(t % cyc) >= na, state=state)["state"]
     return state
+
+
+def run_ensemble_async(states, steps, region, queue):
+    """Advance an ensemble of trajectories through a serve queue.
+
+    A single trajectory is auto-regressive (its surrogate calls cannot
+    batch with each other), but an ensemble of E members can: every
+    step enqueues E one-grid requests (``mode="infer_async"``) that the
+    queue coalesces into one batch, so surrogate inference is E-way
+    batched while each member still steps sequentially.
+    """
+    if region.mode != "infer_async" or region.serving is not queue:
+        raise ValueError("run_ensemble_async needs an infer_async region "
+                         "serving through this queue")
+    states = list(states)
+    for _ in range(steps):
+        handles = [region(state=s) for s in states]
+        queue.flush(region.model_path, reason="sweep_step")
+        states = [h.result()["state"] for h in handles]
+    return states
 
 
 def qoi_error(ref, approx):

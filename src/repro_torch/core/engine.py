@@ -10,6 +10,9 @@ the CPU, runs the torch ``Sequential``.  A bundle with ``dropout``
 layers is not pure, in both packages.  A pure bundle whose shapes the
 kernel cannot take (too wide for shared memory, too many layers) is
 routed to ``Sequential`` at load and counted in ``SPEC.unsupported``.
+On the CPU a pure-MLP ``Sequential`` runs over fixed tiles of
+:data:`CPU_TILE_ROWS` rows (:meth:`InferenceEngine._tiled`), so a row's
+output does not depend on its batch there either.
 
 Bundles rewritten on disk are not served stale: :meth:`get` reloads a
 bundle whose ``(mtime_ns, size)`` fingerprint changed since load, and
@@ -27,8 +30,18 @@ mode: ``auto`` (default) serves int8 only on a CUDA device, ``force`` or
 ``force``.  A failed int8 launch raises: it never falls back to the f32
 kernel or to the plain version.
 
-Residency accounting, fault injection, the tracer and sharded serving
-wait for their own parts of the port.
+Serving hooks, as in the reference: :meth:`apply_batched` (what the
+serve queue's batcher calls) fires the ``engine.apply`` fault site and
+records an ``engine.apply`` span whose ``compile`` flag marks the first
+call at a bucket.  A ``corrupt`` fault adds its scale to the weights and
+re-packs the ``fused_mlp`` kernel's copy, so the kernel serves the
+corrupted weights too; the int8 pack is left alone, as the reference
+leaves its load-time int8 layers.  Every load meters the bytes the
+engine holds on its device against the residency manager
+(:mod:`repro_torch.serve.residency`), and evicted bundles leave through
+:meth:`invalidate`.  XLA's buffer donation has no torch counterpart:
+``apply_batched`` takes no ``donate``.  Sharded serving waits for the
+port of ``dist/``.
 """
 from __future__ import annotations
 
@@ -43,10 +56,13 @@ from repro_torch.kernels import registry
 from repro_torch.kernels.fused_mlp import int8 as int8_ops
 from repro_torch.kernels.fused_mlp import ops as fused_ops
 from repro_torch.nn.serialize import load_model
+from repro_torch.obs import TRACER
 from repro_torch.obs import metrics as _m
 from repro_torch.quant import gate as quant_gate
 from repro_torch.quant.quantize import quantize_params
+from repro_torch.resilience.faults import FAULTS
 from repro_torch.serve.batcher import bucket_for
+from repro_torch.serve.residency import RESIDENCY
 
 _ELIGIBLE = _m.counter("repro_quant_eligible_total",
                        "bundle loads that resolved to the int8 tier",
@@ -57,6 +73,10 @@ _VERDICT_ERRORS = _m.counter(
     "repro_quant_verdict_read_errors_total",
     "gate verdicts that could not be read at bundle load (served f32)",
     ("bundle",))
+
+
+#: rows per tile of a pure-MLP bundle served on the CPU (:meth:`_tiled`)
+CPU_TILE_ROWS = 64
 
 
 def bundle_norm(spec, net, device):
@@ -95,6 +115,9 @@ class InferenceEngine:
     def __init__(self, model_path, device=None):
         self.path = str(model_path)
         self.device = resolve_device(device)
+        # buckets already served once since load: a batch at an unseen
+        # bucket is marked ``compile`` in its engine.apply span
+        self._seen_buckets: set = set()
         self._load()
 
     def _load(self):
@@ -108,6 +131,30 @@ class InferenceEngine:
             self.route, self._packed = self._quantize_residency()
         else:
             self.route, self._packed = self._route()
+        self._seen_buckets.clear()
+        # residency accounting: meter this load's bytes against the LRU
+        # byte budget and drop whatever the manager says must go.  The
+        # victims leave through invalidate(): eviction and retrain
+        # invalidation share one path on purpose.
+        self.resident_nbytes = self._resident_nbytes()
+        for victim in RESIDENCY.note_load(self.path, self.resident_nbytes):
+            type(self).invalidate(victim)
+
+    def _resident_nbytes(self) -> int:
+        """Bytes this engine holds on its device for the bundle: the
+        parameters, the normalization tensors and the kernel's pack,
+        each storage counted once."""
+        tensors = list(self.net.parameters()) + list(self.norm or ())
+        if self.route == "fused_mlp":
+            tensors.append(self._packed.params)
+        elif self.route == "fused_mlp_int8":
+            tensors += [self._packed.qweights, self._packed.fparams]
+            tensors += [t for layer in self._packed.qlayers for t in layer]
+        seen = {}
+        for t in tensors:
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+        return sum(seen.values())
 
     def _is_pure_mlp(self):
         kinds = [layer["kind"] for layer in self.spec["layers"]]
@@ -185,17 +232,22 @@ class InferenceEngine:
                 eng = cls._cache[key] = cls(key[0], dev)
             elif _bundle_mtime(key[0]) != eng._mtime:
                 eng.reload()
+        RESIDENCY.touch(key[0])
         return eng
 
     @classmethod
     def invalidate(cls, model_path=None):
-        """Drop cached engine(s) so the next get() reloads from disk."""
+        """Drop cached engine(s) so the next get() reloads from disk.
+
+        Residency eviction lands here too: the manager's LRU victims are
+        invalidated exactly like a retrained bundle."""
         with cls._cache_lock:
             if model_path is None:
                 cls._cache.clear()
             else:
                 for key in [k for k in cls._cache if k[0] == str(model_path)]:
                     del cls._cache[key]
+        RESIDENCY.drop(model_path)
 
     def reload(self):
         """Re-read the bundle from disk (and re-pack the kernel's weights)."""
@@ -220,11 +272,28 @@ class InferenceEngine:
         elif self.route == "fused_mlp":
             y = fused_ops.fused_mlp_from_spec(self.spec, None, x,
                                               packed=self._packed)
+        elif self.device.type == "cpu" and self._is_pure_mlp():
+            y = self._tiled(x)
         else:
             y = self.net(x)
         if self.norm is not None:
             y = y * self.norm[3] + self.norm[2]
         return y
+
+    def _tiled(self, x):
+        """The ``Sequential`` over fixed tiles of :data:`CPU_TILE_ROWS`
+        rows, the last zero-padded.  The CPU's BLAS picks its summation
+        order from the matrix shape (a matrix-vector product at one row
+        or one output column, other blockings elsewhere), so a row's bits
+        would depend on the batch it rides in; at one fixed shape they
+        do not, which is what the kernels give on the card and what the
+        serve queue's bit-identity with synchronous calls rests on."""
+        n, t = int(x.shape[0]), CPU_TILE_ROWS
+        pad = -n % t
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        y = torch.cat([self.net(x[i:i + t]) for i in range(0, n + pad, t)])
+        return y[:n] if pad else y
 
     def apply_batched(self, x, *, min_bucket: int = 8,
                       prepadded: bool = False):
@@ -233,14 +302,51 @@ class InferenceEngine:
         invisible to the bit: the kernel never splits a row's sums, so
         rows equal an unpadded :meth:`__call__`'s, and so on the
         ``fused_mlp_int8`` route, where a row's sums are exact integers.
-        ``prepadded=True`` says ``x`` is already bucket-shaped."""
+        ``prepadded=True`` says ``x`` is already bucket-shaped (the
+        batcher pads while it gathers).
+
+        The ``engine.apply`` fault site fires here, once per batch:
+        ``raise``/``stall`` act inside the injector, ``nan``/``inf``
+        poison every output row, ``corrupt`` perturbs the weights until
+        the next load (:meth:`_corrupt`)."""
         n = int(x.shape[0])
         if not prepadded:
             b = bucket_for(n, min_bucket)
             if b != n:
                 x = torch.cat([x, x.new_zeros((b - n,) + tuple(x.shape[1:]))])
-        y = self._serve(x, n)
+        fault = None
+        if FAULTS.enabled:
+            fault = FAULTS.fire("engine.apply", key=self.path)
+            if fault is not None and fault.mode == "corrupt":
+                self._corrupt(fault.scale)
+        if TRACER.enabled:
+            bucket = int(x.shape[0])
+            with TRACER.span("engine.apply", cat="engine",
+                             args={"path": self.path, "rows": n,
+                                   "bucket": bucket, "tier": self.tier,
+                                   "route": self.route,
+                                   "compile": bucket not in
+                                   self._seen_buckets}):
+                y = self._serve(x, n)
+            self._seen_buckets.add(bucket)
+        else:
+            y = self._serve(x, n)
+        if fault is not None and fault.mode in ("nan", "inf"):
+            y = y * float(fault.value)
         return y if n == int(y.shape[0]) else y[:n]
+
+    @torch.no_grad()
+    def _corrupt(self, scale: float):
+        """Add ``scale`` to every weight, persistent until reload (the
+        ``corrupt`` fault, which drives the shadow scorer and through it
+        the breaker's quality trip).  The ``fused_mlp`` route serves its
+        own packed copy, so it is packed again from the corrupted
+        weights; the int8 pack stays as loaded, as in the reference."""
+        for p in self.net.parameters():
+            p.add_(scale)
+        if self.route == "fused_mlp":
+            self._packed = fused_ops.pack_from_spec(self.spec, self.params,
+                                                    self.device)
 
     def infer_shape(self, in_shape):
         return self.net.out_shape()

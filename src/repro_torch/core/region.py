@@ -11,15 +11,31 @@ tensors, and per ml-mode:
   the data bridge;
 * ``predicated`` -- a boolean picks the path per invocation (eagerly:
   inference when true, the accurate path, collecting when the region
-  has a database, when false).
+  has a database, when false);
+* ``infer_async`` -- (serving) enqueue the bridged rows on a
+  :class:`repro_torch.serve.ServeQueue` and return an
+  :class:`AsyncRegionResult`; many callers' requests coalesce into one
+  batch before inference.
+
+A ``serving=`` queue can also be attached to a ``predicated`` region:
+the ML path then defers through the queue and both branches return an
+:class:`AsyncRegionResult`, so the caller's interface is uniform.
+
+Resilience, as in the reference: while a bundle's circuit breaker
+(:mod:`repro_torch.resilience.breaker`) is OPEN, inference is served by
+the accurate path instead (``_fallback``, counted per bundle and path in
+``repro_resilience_fallback_total``); a failed synchronous inference,
+and an async result whose dispatch failed (an injected fault, a
+non-finite screen, a dead dispatcher), degrade the same way and count a
+breaker failure.  With the breaker board disabled the failure raises.
+Sampled requests are shadow-scored against the accurate path on a
+background thread (:mod:`repro_torch.obs.quality`).
 
 The accurate path's wall time is taken on the host around work that ends
-in ``torch.cuda.synchronize()`` when the region runs on CUDA.
-
-Still to be ported, with their parts of the runtime: ``infer_async`` and
-the ``serving=`` hook (``serve/``), circuit breakers and the accurate
-fallback (``resilience/``), shadow scoring (``obs/``), and the traced
-``lax.cond``/``io_callback`` path, which has no eager torch counterpart.
+in ``torch.cuda.synchronize()`` when the region runs on CUDA.  The
+reference's traced path (both branches in one program under
+``lax.cond``, collection through ``io_callback``) has no eager torch
+counterpart.
 """
 from __future__ import annotations
 
@@ -34,6 +50,63 @@ from repro_torch.core.engine import InferenceEngine
 from repro_torch.core.functor import TensorFunctor
 from repro_torch.core.tensor_map import TensorMap
 from repro_torch.device import resolve_device
+from repro_torch.obs import TRACER
+from repro_torch.obs.quality import SHADOW
+from repro_torch.resilience.breaker import BREAKERS
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+class AsyncRegionResult:
+    """Deferred region invocation handle (``infer_async`` / serving).
+
+    ``result()`` blocks on the serve future (flushing on demand when the
+    queue has no dispatcher thread), moves the rows to the region's
+    device and runs the output data bridge in the caller's thread, so
+    bridging is paid by whoever consumes the result, not by the
+    dispatcher.
+    """
+
+    __slots__ = ("_region", "_arrays", "_future", "_done", "_deferred")
+
+    def __init__(self, region, arrays, future=None, resolved=None):
+        self._region, self._arrays = region, arrays
+        self._future = future
+        self._deferred = future is not None
+        self._done = resolved  # pre-resolved outputs (accurate path)
+
+    def done(self) -> bool:
+        return self._done is not None or self._future.done()
+
+    def deferred(self) -> bool:
+        """True when this invocation actually went through the queue."""
+        return self._deferred
+
+    def result(self, timeout: Optional[float] = None) -> dict:
+        if self._done is None:
+            region = self._region
+            try:
+                Y = self._future.result(timeout)
+            except TimeoutError:
+                raise  # not a surrogate failure: the caller set the budget
+            except Exception:
+                # zero-lost contract: a failed dispatch (injected fault,
+                # non-finite screen, dead dispatcher) degrades to the
+                # accurate path instead of surfacing the serve error
+                if not (BREAKERS.enabled and region.model_path):
+                    raise
+                BREAKERS.record_failure(region.model_path)
+                self._done = region._fallback(self._arrays, "result")
+                self._future = None
+                return self._done
+            self._done = region.bridge_from(Y.to(region.device),
+                                            self._arrays)
+            # the future holds a view of the batch's landing buffer: let
+            # it go, so the batcher's pool can hand the buffer out again
+            self._future = None
+        return self._done
 
 
 class MLRegion:
@@ -43,12 +116,17 @@ class MLRegion:
                  mode: str = "predicated",
                  model: Optional[str] = None,
                  database=None,
+                 serving=None,
                  device=None):
-        if mode not in ("collect", "infer", "predicated"):
+        if mode not in ("collect", "infer", "predicated", "infer_async"):
             raise ValueError(f"region {name}: unknown mode {mode!r}")
+        if mode == "infer_async" and serving is None:
+            raise ValueError(f"region {name}: mode='infer_async' needs a "
+                             f"serving= queue")
         self.name, self.fn, self.mode = name, fn, mode
         self.inputs, self.outputs = inputs, outputs
         self.model_path = model
+        self.serving = serving  # repro_torch.serve.ServeQueue (or None)
         self.device = resolve_device(device)
         self.db = (database if isinstance(database, SurrogateDB)
                    else SurrogateDB(database)) if database else None
@@ -115,9 +193,71 @@ class MLRegion:
         in_shape = tuple(eng.spec["in_shape"])
         return eng, X.reshape((-1,) + in_shape[1:]).to(torch.float32)
 
+    def _fallback(self, arrays: dict, path: str) -> dict:
+        """Serve this invocation from the accurate path (breaker OPEN or
+        a dispatch failure), wearing the surrogate's output contract."""
+        BREAKERS.note_fallback(self.model_path, path)
+        with TRACER.span("resilience.fallback", cat="region",
+                         args={"region": self.name, "key": self.model_path,
+                               "path": path}):
+            return self._accurate(arrays, collect=False)
+
     def _infer(self, arrays: dict):
+        use_breaker = BREAKERS.enabled and self.model_path is not None
+        if use_breaker and not BREAKERS.allow(self.model_path):
+            return self._fallback(arrays, "infer")
+        try:
+            eng, Xb = self._rows_in(arrays)
+            Y = eng(Xb)
+        except Exception:
+            if not use_breaker:
+                raise
+            BREAKERS.record_failure(self.model_path)
+            return self._fallback(arrays, "infer")
+        if use_breaker:
+            BREAKERS.record_success(self.model_path)
+        if SHADOW.enabled and SHADOW.sample():
+            self._shadow_submit(arrays, rows=int(Xb.shape[0]), Y=Y)
+        return self.bridge_from(Y, arrays)
+
+    def _infer_async(self, arrays: dict) -> AsyncRegionResult:
+        """Enqueue this invocation on the serve queue, keyed
+        (multiplexed) by bundle path."""
+        if (BREAKERS.enabled and self.model_path is not None
+                and not BREAKERS.allow(self.model_path)):
+            # breaker OPEN (or HALF_OPEN non-probe): resolve through the
+            # accurate path immediately, same handle contract
+            return AsyncRegionResult(
+                self, arrays,
+                resolved=self._fallback(arrays, "infer_async"))
         eng, Xb = self._rows_in(arrays)
-        return self.bridge_from(eng(Xb), arrays)
+        del eng  # resolved for bundle load/reload; the batcher gets per batch
+        fut = self.serving.submit(self.model_path, Xb)
+        if SHADOW.enabled and SHADOW.sample():
+            self._shadow_submit(arrays, rows=int(Xb.shape[0]), future=fut)
+        return AsyncRegionResult(self, arrays, future=fut)
+
+    def _shadow_submit(self, arrays: dict, *, rows: int, Y=None,
+                       future=None) -> None:
+        """Capture this sampled invocation for background accuracy
+        scoring: the surrogate's output rows against the accurate
+        function's bridged output over a *copy* of the inputs (the app
+        may write into its buffers after the region returns).  The
+        accurate replay runs later on the scorer's worker thread."""
+        snap = {k: v.detach().clone() for k, v in arrays.items()}
+        if future is not None:
+            pred = lambda: _host(future.result(60.0))  # noqa: E731
+            trace = future.trace
+        else:
+            pred = lambda: _host(Y)  # noqa: E731
+            trace = None
+
+        def ref():
+            with torch.no_grad():
+                return _host(self.bridge_out_tensors(self.fn(**snap)))
+
+        SHADOW.submit(self.model_path, pred=pred, ref=ref,
+                      region=self.name, rows=rows, trace=trace)
 
     def _n_sweep(self) -> int:
         functor = next(iter(self.inputs.values()))[0]
@@ -156,9 +296,20 @@ class MLRegion:
             return self._accurate(arrays, collect=True)
         if self.mode == "infer":
             return self._infer(arrays)
+        if self.mode == "infer_async":
+            return self._infer_async(arrays)
         if predicate is None:
             raise ValueError(f"region {self.name}: a predicated region "
                              f"needs a predicate")
+        if self.serving is not None:
+            # serving hook: the ML path defers through the queue; the
+            # accurate path resolves now but wears the same handle, so
+            # callers need not branch on the predicate
+            if bool(predicate):
+                return self._infer_async(arrays)
+            return AsyncRegionResult(
+                self, arrays,
+                resolved=self._accurate(arrays, collect=self.db is not None))
         if bool(predicate):
             return self._infer(arrays)
         return self._accurate(arrays, collect=self.db is not None)

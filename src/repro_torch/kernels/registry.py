@@ -31,7 +31,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+from repro_torch.obs import TRACER
 from repro_torch.obs import metrics as _m
+from repro_torch.resilience.faults import FAULTS
 
 SMEM_PER_BLOCK = 232_448  # bytes a Hopper block can use
 BACKEND = "cuda"          # the backend string in tune-cache keys
@@ -286,11 +288,22 @@ def dispatch(spec: KernelSpec, problem: dict, arrays: tuple, device, *,
              overrides: Optional[dict] = None):
     """Run ``spec`` on ``arrays``, which lie on ``device``: the plain
     version on the CPU (counted under provenance ``ref``), the kernel
-    with resolved parameters on CUDA (or raise)."""
+    with resolved parameters on CUDA (or raise).
+
+    The ``kernel.dispatch`` fault site fires first, and a
+    ``kernel.dispatch`` instant marks the call in a trace, as in the
+    reference; dispatch is eager here, so both happen once per call
+    (the reference's once per jit trace)."""
+    if FAULTS.enabled:
+        FAULTS.fire("kernel.dispatch", key=spec.name)
     if device.type == "cpu":
         spec.plain_calls += 1
         _DISPATCHES.inc(1, kernel=spec.name, provenance="ref",
                         tier=spec.tier)
+        if TRACER.enabled:
+            TRACER.instant("kernel.dispatch", cat="kernel",
+                           args={"kernel": spec.name, "path": "ref",
+                                 "tier": spec.tier})
         return spec.ref_call(problem, arrays)
     if device.type != "cuda":
         raise ValueError(f"{spec.name}: no kernel for device {device}")
@@ -299,4 +312,8 @@ def dispatch(spec: KernelSpec, problem: dict, arrays: tuple, device, *,
     params, provenance = resolve_params_info(spec, problem, overrides)
     _DISPATCHES.inc(1, kernel=spec.name, provenance=provenance,
                     tier=spec.tier)
+    if TRACER.enabled:
+        TRACER.instant("kernel.dispatch", cat="kernel",
+                       args={"kernel": spec.name, "params": dict(params),
+                             "provenance": provenance, "tier": spec.tier})
     return spec.run_call(problem, arrays, params)

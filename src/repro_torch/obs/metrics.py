@@ -1,20 +1,34 @@
 """Process-wide metrics registry with Prometheus text export (counterpart
-of ``repro/obs/metrics.py``, trimmed to what the port uses so far).
+of ``repro/obs/metrics.py``).
 
-Counters, gauges and explicit-bucket histograms, each labeled.  Metrics
-are always on: a handful of dict updates per batch, not per row.
-``MetricsRegistry.dump()`` renders the Prometheus text exposition format.
+Counters, gauges and explicit-bucket histograms, each labeled (the
+serve path labels by queue key, the kernel registry by kernel name and
+params provenance).  Metrics are always on: a handful of dict updates
+per batch, not per row, and the serving stack's health must be
+observable without anyone having remembered to flip a flag.
 
-Framework-free.  ``warn_once``/``note_static_fallback``, the tracer, the
-shadow scorer, SLOs and the endpoint wait for the rest of ``obs/``.
+``MetricsRegistry.dump()`` renders the Prometheus text exposition format;
+``collect()`` returns the same data as JSON-able dicts.
+
+:func:`warn_once` is the degradation-visibility helper: the first time a
+tag fires it logs a ``logging`` warning (logger ``repro_torch.obs``), and
+every occurrence counts in ``repro_obs_warnings_total``.  The queue's
+``controller=`` hook reports a failed controller through
+:func:`note_static_fallback`.
+
+Framework-free: stdlib only.
 """
 from __future__ import annotations
 
+import logging
 import math
 import threading
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
-#: serve-path batch/request latency buckets (seconds), roughly 2.5x apart
+LOG = logging.getLogger("repro_torch.obs")
+
+#: serve-path batch/request latency buckets (seconds): microseconds to
+#: seconds, roughly 2.5x apart
 DEFAULT_BUCKETS = (1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3, 5e-3, 1e-2, 2.5e-2,
                    5e-2, 1e-1, 2.5e-1, 5e-1, 1.0, 2.5)
 
@@ -25,8 +39,9 @@ def _escape(value: str) -> str:
 
 
 def _fmt_value(v: float) -> str:
-    """Prometheus sample-value rendering: ``NaN`` / ``+Inf`` / ``-Inf``
-    for non-finite values (``%g`` would emit ``nan``/``inf``)."""
+    """Prometheus sample-value rendering: the exposition format spells
+    non-finite values ``NaN`` / ``+Inf`` / ``-Inf`` (``%g`` would emit
+    ``nan``/``inf``, which real scrapers reject)."""
     v = float(v)
     if math.isnan(v):
         return "NaN"
@@ -59,6 +74,11 @@ class _Metric:
                 f"{self.name}: labels {sorted(labels)} != declared "
                 f"{sorted(self.labelnames)}")
         return tuple(str(labels[n]) for n in self.labelnames)
+
+    def collect(self) -> List[dict]:
+        with self._lock:
+            return [{"labels": dict(zip(self.labelnames, k)), "value": v}
+                    for k, v in sorted(self._vals.items())]
 
     def dump_lines(self) -> List[str]:
         out = [f"# HELP {self.name} {self.help}",
@@ -125,6 +145,21 @@ class Histogram(_Metric):
             st["sum"] += value
             st["count"] += 1
 
+    def snapshot(self, **labels) -> Optional[dict]:
+        with self._lock:
+            st = self._vals.get(self._key(labels))
+            if st is None:
+                return None
+            return {"buckets": dict(zip(self.buckets, st["counts"])),
+                    "sum": st["sum"], "count": st["count"]}
+
+    def collect(self) -> List[dict]:
+        with self._lock:
+            return [{"labels": dict(zip(self.labelnames, k)),
+                     "buckets": dict(zip(self.buckets, st["counts"])),
+                     "sum": st["sum"], "count": st["count"]}
+                    for k, st in sorted(self._vals.items())]
+
     def dump_lines(self) -> List[str]:
         out = [f"# HELP {self.name} {self.help}",
                f"# TYPE {self.name} {self.kind}"]
@@ -187,8 +222,24 @@ class MetricsRegistry:
             lines.extend(m.dump_lines())
         return "\n".join(lines) + ("\n" if lines else "")
 
+    def collect(self) -> Dict[str, dict]:
+        """JSON-able snapshot of every family."""
+        with self._lock:
+            metrics = dict(self._metrics)
+        return {name: {"type": m.kind, "help": m.help,
+                       "values": m.collect()}
+                for name, m in sorted(metrics.items())}
+
+    def clear(self) -> None:
+        with self._lock:
+            self._metrics.clear()
+
 
 _REGISTRY = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    return _REGISTRY
 
 
 def counter(name, help="", labelnames=()) -> Counter:
@@ -199,5 +250,43 @@ def gauge(name, help="", labelnames=()) -> Gauge:
     return _REGISTRY.gauge(name, help, labelnames)
 
 
+def histogram(name, help="", labelnames=(),
+              buckets=DEFAULT_BUCKETS) -> Histogram:
+    return _REGISTRY.histogram(name, help, labelnames, buckets=buckets)
+
+
 def dump() -> str:
     return _REGISTRY.dump()
+
+
+# ------------------------------------------------------------- warn-once ---
+_WARNED: set = set()
+_WARN_LOCK = threading.Lock()
+
+
+def warn_once(tag: str, message: str) -> None:
+    """Log ``message`` the first time ``tag`` fires; count every firing.
+
+    The counter (``repro_obs_warnings_total{tag}``) keeps degradations
+    visible on a scrape even after the one log line scrolled away.
+    """
+    counter("repro_obs_warnings_total",
+            "warn_once firings by tag", ("tag",)).inc(1, tag=tag)
+    with _WARN_LOCK:
+        if tag in _WARNED:
+            return
+        _WARNED.add(tag)
+    LOG.warning(message)
+
+
+def note_static_fallback(key: str, reason: str, detail: str = "") -> None:
+    """An adaptive controller degraded to the static flush policy for
+    ``key``.  Counted per occurrence, logged once per (key, reason) —
+    before this existed the degradation was silent and undiagnosable."""
+    counter("repro_controller_static_fallback_total",
+            "adaptive-controller decisions degraded to the static policy",
+            ("key", "reason")).inc(1, key=key, reason=reason)
+    warn_once(f"static-fallback:{reason}:{key}",
+              f"AdaptiveFlushController fell back to the static flush "
+              f"policy for key {key!r} ({reason})"
+              + (f": {detail}" if detail else ""))

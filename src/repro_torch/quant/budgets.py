@@ -5,8 +5,8 @@ One process-wide table mapping a bundle key (the serve-queue key: the
 bundle path) to its accuracy budget.  The **quant gate**
 (:mod:`repro_torch.quant.gate`) reads it: a quantized variant is
 eligible only if its RMSE vs the f32 net stays under the budget.  The
-shadow scorer, the reference's second reader, waits for the port of
-``obs/quality.py``.
+shadow scorer (:mod:`repro_torch.obs.quality`) reads the same numbers for
+its drift alerts.
 
 Import contract: stdlib only.
 """

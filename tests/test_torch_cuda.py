@@ -690,3 +690,158 @@ def test_lm_prefill_and_serve_step_launch_the_kernel(dev):
     assert ops.SPEC.launches == cfg.n_layers
     err = (step.float() - logits.float()).abs().max().item()
     assert err <= 2e-2 * (1 + logits.float().abs().max().item())
+
+
+# ------------------------------------------------ the serving layer -------
+def _serve_bundle(tmp_path, monkeypatch, hidden=(64, 32), gated=False):
+    """A seeded minibude-shaped bundle on the card, through the gate when
+    ``gated`` (the tests' own gate namespace under tmp_path)."""
+    import repro_torch.tune.cache as tcache
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.nn import MLP, save_model
+    from repro_torch.quant.gate import gate_bundle
+    monkeypatch.setattr(tcache, "_default", {"quant_gate": tcache.TuneCache(
+        "quant_gate", path=tmp_path / "gate.json")})
+    monkeypatch.delenv("REPRO_QUANT", raising=False)
+    path = save_model(tmp_path / ("q" if gated else "f"),
+                      MLP((1, 6), list(hidden), 1).init(0))
+    if gated:
+        rows = np.random.default_rng(3).standard_normal((256, 6)).astype(
+            np.float32)
+        assert gate_bundle(path, rows, budget=1.0)["exact"]
+    eng = InferenceEngine.get(path)
+    assert eng.route == ("fused_mlp_int8" if gated else "fused_mlp")
+    return path, eng
+
+
+@pytest.mark.parametrize("gated", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("on_card", [True, False], ids=["card", "host"])
+def test_coalesced_rows_bit_identical_to_sync(dev, tmp_path, monkeypatch,
+                                              gated, on_card):
+    """Requests of 1-300 rows, from the card or the host, coalesce into
+    bucket-padded batches through fused_mlp / fused_mlp_int8 and come
+    back bit for bit as a synchronous call of each alone."""
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.kernels import registry
+    from repro_torch.serve import FlushPolicy, ServeQueue
+    path, eng = _serve_bundle(tmp_path, monkeypatch, gated=gated)
+    spec = registry.get_spec(eng.route)
+    rng = np.random.default_rng(5)
+    xs = [torch.from_numpy(rng.standard_normal((n, 6)).astype(np.float32))
+          for n in (1, 7, 37, 300, 64, 3)]
+    if on_card:
+        xs = [x.to(dev) for x in xs]
+    q = ServeQueue(FlushPolicy(max_batch_rows=1 << 20))
+    try:
+        before = spec.launches
+        futs = [q.submit(path, x) for x in xs]
+        q.flush()
+        assert spec.launches == before + 1  # one batch, one launch
+        for x, f in zip(xs, futs):
+            y = f.result(10)
+            assert y.device.type == "cpu"
+            assert torch.equal(y, eng(x.to(dev)).cpu())
+        assert q.stats(path).snapshot()["bucket_rows"] == 512
+    finally:
+        q.close()
+        InferenceEngine.invalidate()
+
+
+def test_dispatcher_thread_serves_on_the_card(dev, tmp_path, monkeypatch):
+    """A started queue: the dispatcher thread launches on the queue's
+    device, and rows made on a side stream are waited for."""
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.kernels.fused_mlp import ops
+    from repro_torch.serve import FlushPolicy, ServeQueue
+    path, eng = _serve_bundle(tmp_path, monkeypatch)
+    q = ServeQueue(FlushPolicy(max_batch_rows=1 << 20, max_delay_s=0.002))
+    q.start()
+    side = torch.cuda.Stream()
+    try:
+        before = ops.SPEC.launches
+        futs, xs = [], []
+        for i in range(8):
+            with torch.cuda.stream(side):
+                x = torch.full((4 + i, 6), float(i), device=dev)
+                xs.append(x)
+                futs.append(q.submit(path, x))
+        ys = [f.result(10) for f in futs]
+        assert ops.SPEC.launches > before
+        side.synchronize()
+        for x, y in zip(xs, ys):
+            assert torch.equal(y, eng(x).cpu())
+    finally:
+        q.close()
+        InferenceEngine.invalidate()
+
+
+def test_pinned_pool_reuse_rule(dev):
+    """Page-locked buffers are not handed out again while a view lives,
+    and a landed batch is complete before any view is taken."""
+    from repro_torch.serve import ScratchPool
+    from repro_torch.serve.batcher import Batcher
+    pool = ScratchPool()
+    a = pool.take((64, 3), torch.float32, pin=True)
+    assert a.is_pinned()
+    base = a.untyped_storage().data_ptr()
+    view = a[5:9]
+    del a
+    b = pool.take((64, 3), torch.float32, pin=True)
+    assert b.untyped_storage().data_ptr() != base
+    assert pool.take((64, 3), torch.float32).is_pinned() is False
+    del view, b
+    c = pool.take((8, 3), torch.float32, pin=True)
+    assert c.untyped_storage().data_ptr() == base
+    del c
+    y = torch.arange(4096 * 3, dtype=torch.float32, device=dev).view(-1, 3)
+    host, finite = Batcher(engine_for=lambda k: None, scratch=pool)._to_host(
+        y * 2)
+    assert host.is_pinned() and bool(finite.all())
+    assert torch.equal(host, (y * 2).cpu())
+
+
+def test_nonfinite_screened_on_the_card(dev):
+    from repro_torch.serve import FlushPolicy, ServeQueue
+    from repro_torch.serve.batcher import Batcher, NonFiniteOutput
+
+    class _Engine:
+        def apply_batched(self, x, **kw):
+            y = x.to(dev)[:, :1] * 2
+            return torch.where(y > 100, torch.full_like(y, float("nan")), y)
+
+    q = ServeQueue(FlushPolicy(max_batch_rows=1 << 20),
+                   batcher=Batcher(engine_for=lambda k: _Engine()))
+    xs = [torch.ones(3, 2, device=dev), torch.ones(4, 2, device=dev),
+          torch.ones(2, 2, device=dev)]
+    xs[1][2, 0] = 1e3
+    futs = [q.submit("k", x) for x in xs]
+    q.flush()
+    with pytest.raises(NonFiniteOutput):
+        futs[1].result(5)
+    for i in (0, 2):
+        assert torch.equal(futs[i].result(5), torch.full((xs[i].shape[0], 1),
+                                                         2.0))
+    q.close()
+
+
+def test_corrupt_fault_reaches_the_packed_weights(dev, tmp_path,
+                                                  monkeypatch):
+    """A ``corrupt`` fault moves what the fused_mlp kernel serves: the
+    pack is rebuilt from the corrupted weights."""
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.kernels.fused_mlp import ops
+    from repro_torch.resilience import FAULTS
+    path, eng = _serve_bundle(tmp_path, monkeypatch)
+    x = torch.randn(40, 6, device=dev)
+    clean = eng.apply_batched(x)
+    try:
+        FAULTS.configure("engine.apply:corrupt:n=1,scale=0.01")
+        bad = eng.apply_batched(x)
+        assert not torch.equal(bad, clean)
+        with torch.no_grad():
+            want = ops.fused_mlp_from_spec(eng.spec, eng.params, x)
+        assert torch.equal(bad, want)
+        torch.testing.assert_close(bad, eng.net(x), rtol=1e-4, atol=1e-4)
+    finally:
+        FAULTS.clear()
+        InferenceEngine.invalidate()

@@ -39,7 +39,14 @@ def test_port_imports_with_jax_and_repro_blocked():
         "        'repro_torch.nas.nested', 'repro_torch.nas.train_surrogate',\n"
         "        'repro_torch.apps.miniweather',\n"
         "        'repro_torch.apps.particlefilter',\n"
-        "        'repro_torch.examples.quickstart'\n"
+        "        'repro_torch.examples.quickstart',\n"
+        "        'repro_torch.obs.trace', 'repro_torch.obs.quality',\n"
+        "        'repro_torch.obs.slo', 'repro_torch.resilience.faults',\n"
+        "        'repro_torch.resilience.retry',\n"
+        "        'repro_torch.resilience.breaker',\n"
+        "        'repro_torch.serve.stats', 'repro_torch.serve.scratch',\n"
+        "        'repro_torch.serve.batcher', 'repro_torch.serve.residency',\n"
+        "        'repro_torch.serve.tenancy'\n"
         "        } <= set(names)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n")
