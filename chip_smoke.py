@@ -73,6 +73,31 @@ source, all started together), and prints one JSON line per phase:
    residency drill (a byte budget below the three bundles' sum: one
    eviction, one reload, metered bytes within 10% of
    ``memory_allocated``); and two tenants weighted 3:1 under overload;
+   ``control_slice`` -- the serving layer's control plane on the card,
+   one line per part: ``floor`` (the median host time of 200 warm
+   ``apply_batched`` calls of 8 rows, each ended by a sync, for the f32
+   and the int8 minibude bundle: the dispatch floor the adaptive flush
+   controller's default takes); ``model`` (the controller's predicted
+   batch latency against the measured median of ``apply_batched`` at
+   buckets 8 to 16,384, both tiers, reported, not gated); ``adaptive``
+   (the serve slice's 256 requests through a queue driven by
+   ``AdaptiveFlushController``, its dispatcher thread and no explicit
+   flush: every row bit-identical to its synchronous ``infer``, every
+   deadline within ``[min_delay_s, max_delay_s]``, measured or corrected
+   latencies used by the end; rows/s, p50/p99, batches and decisions
+   beside the serve slice's static numbers); ``low_rate`` (one request
+   of 7 rows every 5 ms under a 50 ms static deadline, with and without
+   the controller); ``resweep`` (a drift re-sweep drill in a temporary
+   tune cache: both bundles served at the untuned bucket 512 until the
+   trigger fires, both tiers' cells swept on a side stream while serving
+   goes on, the records ``exact``, each counted once, the next dispatch
+   ``tuned`` and every row bit-identical throughout); ``endpoint`` (an
+   ``ObsServer`` watching the adaptive queue: a valid ``/metrics``
+   scrape with the controller, re-sweep and serve families,
+   ``/healthz`` 200 while the dispatcher lives and 503 naming the queue
+   once it dies, ``/varz`` and ``/tracez``, ``metrics_report --json``
+   quantiles, and ``python -m repro_torch.obs.server --demo
+   --self-check`` in a subprocess on the card);
 6. ``timing``  -- CUDA-event times of each kernel, its plain version and
    a per-layer library chain (``torch.addmm`` + activation for fused_mlp,
    at each ``block_rows`` too; row quantization + ``torch._int_mm`` +
@@ -145,9 +170,10 @@ rwkv6_chunk's timing lines also give its device time from a CUDA graph
 
 Launch counts are set to 0 just before each main path (the f32 slice's
 region calls, each int8 slice's infer region, the train slice's infer
-regions, the serve slice's traced coalesced run, the ``run_tune`` call,
-the LM's prefill and its generate loop) and read just after.  Any failure raises, so the script exits non-zero
-and prints no result.  Outside the train slice the bundle weights are
+regions, the serve slice's traced coalesced run, the control slice's
+adaptive run, the ``run_tune`` call, the LM's prefill and its generate
+loop) and read just after.  Any failure raises, so the script exits
+non-zero and prints no result.  Outside the train slice the bundle weights are
 random: nothing there measures surrogate accuracy.
 """
 import functools
@@ -289,6 +315,18 @@ SERVE_ROWS = (1, 7, 64, 256, 1000, 4096)
 SERVE_POLICY = dict(max_batch_rows=16384, max_delay_s=0.002,
                     max_pending_rows=65536)
 SERVE_SWITCH_S = 5e-4  # sys.setswitchinterval for one more coalesced run
+# the control slice: the dispatch floor (a warm apply_batched of 8 rows,
+# the median of 200, each ended by a sync), the latency model at every
+# bucket from 8 to 16,384, the serve slice's requests through the
+# adaptive controller, a low-rate leg (one request of 7 rows every 5 ms
+# under a 50 ms static deadline), and the re-sweep drill at 300 rows (the
+# untuned bucket 512) after 4 batches
+FLOOR_ROWS, FLOOR_CALLS = 8, 200
+MODEL_BUCKETS, MODEL_CALLS = tuple(8 << i for i in range(12)), 20
+LOW_RATE_REQUESTS, LOW_RATE_ROWS, LOW_RATE_GAP_S = 64, 7, 0.005
+LOW_RATE_POLICY = dict(max_batch_rows=16384, max_delay_s=0.05,
+                       max_pending_rows=65536)
+RESWEEP_AFTER, RESWEEP_ROWS, RESWEEP_BUCKET = 4, 300, 512
 # the async app drivers: binomial's 65,536 options in chunks of 4,096,
 # miniweather's ensemble of 8 for 16 steps.  The CNN runs through cuDNN
 # convolutions, whose algorithm may differ between a batch of 8 and a
@@ -1003,15 +1041,102 @@ def run_train_slice(dev, smi, work):
     return fused_launches
 
 
+def minibude_regions(dev):
+    """``region(key, n, mode, serving=None)``: minibude regions of n
+    poses on ``dev``, made once per (key, n, mode, queue)."""
+    from repro_torch.apps import minibude
+    regions = {}
+
+    def region(key, n, mode, serving=None):
+        k = (key, n, mode, id(serving))
+        if k not in regions:
+            regions[k] = minibude.make_region(n, mode, model=key,
+                                              serving=serving, device=dev)
+        return regions[k]
+
+    return region
+
+
+def serve_work_items(key32, key8, dev):
+    """The serve slice's requests: SERVE_THREADS lists of SERVE_REQUESTS
+    (bundle, poses), row counts drawn with seed 7 from SERVE_ROWS, the
+    f32 and the int8 minibude bundle alternating."""
+    import numpy as np
+    from repro_torch.apps import minibude
+    rng = np.random.default_rng(7)
+    return [[(key32 if (t + i) % 2 == 0 else key8,
+              minibude.make_inputs(int(rng.choice(SERVE_ROWS)),
+                                   seed=1000 * t + i, device=dev))
+             for i in range(SERVE_REQUESTS)]
+            for t in range(SERVE_THREADS)]
+
+
+def serve_coalesced(queue, work_items, region, lanes=SERVE_THREADS):
+    """Every request through ``queue``'s dispatcher (``infer_async``,
+    no explicit flush), the threads' lists split over ``lanes`` submitter
+    threads (1: one thread submits them all, then waits on each): the
+    rows of each, and the host seconds, ended by a sync."""
+    import threading
+    import torch
+    results = [[None] * SERVE_REQUESTS for _ in range(SERVE_THREADS)]
+    errors = []
+
+    def submitter(lane):
+        try:
+            mine = [(t, i) for t in range(SERVE_THREADS)
+                    if t % lanes == lane for i in range(SERVE_REQUESTS)]
+            handles = []
+            for t, i in mine:
+                key, x = work_items[t][i]
+                handles.append(region(key, int(x.shape[0]),
+                                      "infer_async", queue)(poses=x))
+            for (t, i), h in zip(mine, handles):
+                results[t][i] = h.result(60.0)["out"]
+        except Exception as e:  # reported below: the phase fails
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=submitter, args=(lane,))
+               for lane in range(lanes)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"serve submitters failed: {errors}")
+    return results, wall
+
+
+def serve_one_at_a_time(work_items, region):
+    """The same requests one at a time through synchronous ``infer``,
+    after a warm pass (every row count's first call): their rows and
+    the host seconds, ended by a sync."""
+    import torch
+
+    def run():
+        return [[region(key, int(x.shape[0]), "infer")(poses=x)["out"]
+                 for key, x in items] for items in work_items]
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def run_serve_slice(dev, smi, work):
     """The serving layer on the card through the port's entry points:
     coalesced serving from 8 threads against one-at-a-time synchronous
     serving, the two async app drivers, four fault drills, the trace,
     residency and tenancy.  Returns the fused_mlp and fused_mlp_int8
-    launches of the coalesced run."""
+    launches of the coalesced run, and the plain coalesced run's rates,
+    latencies and batches (the static policy's numbers)."""
     import collections
     import gc
-    import threading
     import numpy as np
     import torch
     from repro_torch.apps import binomial, minibude, miniweather
@@ -1045,25 +1170,12 @@ def run_serve_slice(dev, smi, work):
         if InferenceEngine.get(key, dev).route != route:
             raise AssertionError(f"serve slice: {key} not on {route}")
 
-    regions = {}
-
-    def region(key, n, mode, serving=None):
-        """minibude regions of n poses, one per (key, n, mode, queue)."""
-        k = (key, n, mode, id(serving))
-        if k not in regions:
-            regions[k] = minibude.make_region(n, mode, model=key,
-                                              serving=serving, device=dev)
-        return regions[k]
+    region = minibude_regions(dev)
 
     # ---- 1. coalesced serving from 8 threads: once traced (NVTX ranges,
     # under torch.profiler for the card's busy share), once plain for the
     # rates and latencies
-    rng = np.random.default_rng(7)
-    work_items = [[(key32 if (t + i) % 2 == 0 else key8,
-                    minibude.make_inputs(int(rng.choice(SERVE_ROWS)),
-                                         seed=1000 * t + i, device=dev))
-                   for i in range(SERVE_REQUESTS)]
-                  for t in range(SERVE_THREADS)]
+    work_items = serve_work_items(key32, key8, dev)
     total_rows = sum(int(x.shape[0]) for items in work_items
                      for _, x in items)
     pool = ScratchPool()
@@ -1073,40 +1185,7 @@ def run_serve_slice(dev, smi, work):
                           batcher=Batcher(device=dev, scratch=pool))
 
     def coalesced(queue, lanes=SERVE_THREADS):
-        """Every request through ``queue``'s dispatcher, the 8 threads'
-        lists split over ``lanes`` submitter threads (1: one thread
-        submits them all, then waits on each): the rows of each, and the
-        host seconds, ended by a sync."""
-        results = [[None] * SERVE_REQUESTS for _ in range(SERVE_THREADS)]
-        errors = []
-
-        def submitter(lane):
-            try:
-                mine = [(t, i) for t in range(SERVE_THREADS)
-                        if t % lanes == lane for i in range(SERVE_REQUESTS)]
-                handles = []
-                for t, i in mine:
-                    key, x = work_items[t][i]
-                    handles.append(region(key, int(x.shape[0]),
-                                          "infer_async", queue)(poses=x))
-                for (t, i), h in zip(mine, handles):
-                    results[t][i] = h.result(60.0)["out"]
-            except Exception as e:  # reported below: the phase fails
-                errors.append(repr(e))
-
-        threads = [threading.Thread(target=submitter, args=(lane,))
-                   for lane in range(lanes)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(120.0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        if errors or any(th.is_alive() for th in threads):
-            raise AssertionError(f"serve slice submitters failed: {errors}")
-        return results, wall
+        return serve_coalesced(queue, work_items, region, lanes)
 
     warm = serve_queue().start()
     try:  # the first batches pay the pool's page-locked allocations
@@ -1153,17 +1232,7 @@ def run_serve_slice(dev, smi, work):
 
     # the same requests one at a time, synchronously: the baseline, and
     # each request's rows to hold the coalesced ones against
-    def one_at_a_time():
-        return [[region(key, int(x.shape[0]), "infer")(poses=x)["out"]
-                 for key, x in items] for items in work_items]
-
-    sync_out, sync_wall = None, 0.0
-    one_at_a_time()  # warm: every row count's first call
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sync_out = one_at_a_time()
-    torch.cuda.synchronize()
-    sync_wall = time.perf_counter() - t0
+    sync_out, sync_wall = serve_one_at_a_time(work_items, region)
     mismatched = sum(
         not all(torch.equal(r[t][i], sync_out[t][i])
                 for r in (results, traced, one_lane, switched))
@@ -1227,6 +1296,14 @@ def run_serve_slice(dev, smi, work):
          nvidia_smi=smi, **checks)
     if not all(checks.values()):
         raise AssertionError(f"serve slice coalesced checks: {checks}")
+    static = {"rows_per_s": total_rows / wall,
+              "sync_rows_per_s": total_rows / sync_wall,
+              "coalescing_gain_x": sync_wall / wall,
+              "p50_ms": {k: s["latency_p50_ms"] for k, s in snaps.items()},
+              "p99_ms": {k: s["latency_p99_ms"] for k, s in snaps.items()},
+              "batches": {k: s["batches"] for k, s in snaps.items()},
+              "mean_bucket_fill": {k: s["batch_occupancy"]
+                                   for k, s in snaps.items()}}
 
     # ---- 2. the async app drivers against their synchronous twins
     seconds = {}
@@ -1511,6 +1588,382 @@ def run_serve_slice(dev, smi, work):
         raise AssertionError(f"serve slice tenancy checks: {checks}")
     emit("serve_slice", part="total", seconds=time.perf_counter() - t_phase,
          launches=launches, nvidia_smi=smi)
+    return launches, static
+
+
+def host_seconds(eng, x, calls):
+    """Host seconds of ``calls`` calls of ``eng.apply_batched(x)``, each
+    ended by a sync."""
+    import torch
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        eng.apply_batched(x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def http_get(url):
+    """(status, body) of one GET, error statuses included."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read().decode("utf-8")
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode("utf-8")
+
+
+def run_control_slice(dev, smi, work, static):
+    """The serving layer's control plane on the card, over the serve
+    slice's bundles and requests, one line per part: the dispatch floor,
+    the controller's latency model against measured batch times, serving
+    through the adaptive flush controller (and a low-rate leg), the drift
+    re-sweep drill and the obs endpoint.  Returns the fused_mlp and
+    fused_mlp_int8 launches of the adaptive run."""
+    import contextlib
+    import io
+    import statistics
+    import threading
+    import torch
+    import repro_torch.tune.cache as tcache
+    from repro_torch.apps import minibude
+    from repro_torch.core import InferenceEngine
+    from repro_torch.kernels import registry
+    from repro_torch.obs import ObsServer, metrics_report, pod_snapshot
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import validate_exposition
+    from repro_torch.serve import Batcher, FlushPolicy, ScratchPool, ServeQueue
+    from repro_torch.tune import AdaptiveFlushController
+    from repro_torch.tune.controller import DISPATCH_FLOOR_S
+    from repro_torch.tune.resweep import get_resweeper
+
+    t_phase = time.perf_counter()
+    keys = {"f32": str(work / "bundle"),
+            "int8": str(work / "minibude" / "bundle")}
+    engines = {t: InferenceEngine.get(k, dev) for t, k in keys.items()}
+    for tier, route in (("f32", "fused_mlp"), ("int8", "fused_mlp_int8")):
+        if engines[tier].route != route:
+            raise AssertionError(f"control slice: {tier} not on {route}")
+    decisions = obs_metrics.counter(
+        "repro_controller_decisions_total",
+        "adaptive flush decisions by latency-model source",
+        ("key", "source"))
+    sources = ("measured", "corrected", "roofline")
+
+    def decided():
+        return {t: {s: decisions.value(key=k, source=s) for s in sources}
+                for t, k in keys.items()}
+
+    # ---- 1. the dispatch floor: a warm apply_batched of 8 rows
+    floor = {}
+    for tier, eng in engines.items():
+        x = minibude.make_inputs(FLOOR_ROWS, seed=41, device=dev)
+        host_seconds(eng, x, 20)
+        times = sorted(host_seconds(eng, x, FLOOR_CALLS))
+        floor[tier] = {"median_s": statistics.median(times),
+                       "p10_s": times[len(times) // 10],
+                       "p90_s": times[(9 * len(times)) // 10]}
+    emit("control_slice", part="floor", rows=FLOOR_ROWS, calls=FLOOR_CALLS,
+         floor=floor, code_default_s=DISPATCH_FLOOR_S, nvidia_smi=smi)
+
+    # ---- 2. the controller's batch-latency model at its defaults
+    prior = AdaptiveFlushController(FlushPolicy(**SERVE_POLICY))
+    model = []
+    for tier, eng in engines.items():
+        widths = prior._widths_cached(keys[tier])
+        for b in MODEL_BUCKETS:
+            x = minibude.make_inputs(b, seed=43, device=dev)
+            host_seconds(eng, x, 3)
+            meas = statistics.median(host_seconds(eng, x, MODEL_CALLS))
+            pred = prior.predict_latency_s(widths, b)
+            model.append({"tier": tier, "bucket": b,
+                          "measured_ms": meas * 1e3,
+                          "predicted_ms": pred * 1e3,
+                          "err_pct": (pred - meas) / meas * 100.0})
+    emit("control_slice", part="model", calls=MODEL_CALLS, rows=model,
+         peak_flops=prior.peak_flops, hbm_bw=prior.hbm_bw,
+         overhead_s=prior.overhead_s, nvidia_smi=smi)
+
+    # ---- 3. the serve slice's requests through the adaptive controller
+    region = minibude_regions(dev)
+    work_items = serve_work_items(keys["f32"], keys["int8"], dev)
+    total_rows = sum(int(x.shape[0]) for items in work_items
+                     for _, x in items)
+    sync_out, sync_wall = serve_one_at_a_time(work_items, region)
+    policy = FlushPolicy(**SERVE_POLICY)
+    pool = ScratchPool()
+    delays = []
+
+    def adaptive_queue():
+        ctrl = AdaptiveFlushController(policy)
+        decide = ctrl.delay_for
+
+        def recorded(key, stats):  # every deadline the queue is given
+            d = decide(key, stats)
+            delays.append(d)
+            return d
+
+        ctrl.delay_for = recorded
+        return ServeQueue(policy, controller=ctrl, device=dev,
+                          batcher=Batcher(device=dev, scratch=pool)), ctrl
+
+    warm, _ = adaptive_queue()
+    warm.start()
+    try:  # the pool's page-locked buffers, as the serve slice warms
+        serve_coalesced(warm, work_items, region)
+    finally:
+        warm.close()
+    delays.clear()
+    queue, ctrl = adaptive_queue()
+    queue.start()
+    try:
+        before = decided()
+        registry.reset_counts()
+        results, wall = serve_coalesced(queue, work_items, region)
+        launches = {s.name: s.launches for s in registry.all_specs()}
+        after = decided()
+        by_source = {t: {s: after[t][s] - before[t][s] for s in sources}
+                     for t in keys}
+        mismatched = sum(
+            not torch.equal(results[t][i], sync_out[t][i])
+            for t in range(SERVE_THREADS) for i in range(SERVE_REQUESTS))
+        snaps = {t: queue.stats(k).snapshot() for t, k in keys.items()}
+        last = {t: ctrl.last_decision.get(k, {}) for t, k in keys.items()}
+        lo, hi = ctrl.min_delay_s, policy.max_delay_s
+        checks = {
+            "bit_identical_to_sync": mismatched == 0,
+            "fused_mlp_launched": launches["fused_mlp"] >= 1,
+            "fused_mlp_int8_launched": launches["fused_mlp_int8"] >= 1,
+            "every_request_completed": sum(
+                s["requests_completed"] for s in snaps.values())
+            == SERVE_THREADS * SERVE_REQUESTS,
+            "every_delay_within_bounds": bool(delays) and all(
+                d is not None and lo <= d <= hi for d in delays)
+            and all(d and lo <= d["delay_s"] <= hi for d in last.values()),
+            "measured_or_corrected_seen": all(
+                n["measured"] + n["corrected"] > 0
+                for n in by_source.values()),
+        }
+        emit("control_slice", part="adaptive",
+             requests=SERVE_THREADS * SERVE_REQUESTS, rows=total_rows,
+             seconds=wall, rows_per_s=total_rows / wall,
+             sync_rows_per_s=total_rows / sync_wall,
+             coalescing_gain_x=sync_wall / wall,
+             vs_static_x=total_rows / wall / static["rows_per_s"],
+             p50_ms={t: s["latency_p50_ms"] for t, s in snaps.items()},
+             p99_ms={t: s["latency_p99_ms"] for t, s in snaps.items()},
+             batches={t: s["batches"] for t, s in snaps.items()},
+             mean_bucket_fill={t: s["batch_occupancy"]
+                               for t, s in snaps.items()},
+             flush_reasons={t: s["flush_reasons"] for t, s in snaps.items()},
+             decisions_by_source=by_source, decisions=len(delays),
+             delay_s={"min": min(delays), "max": max(delays),
+                      "median": statistics.median(delays)},
+             last_decision=last, static=static, launches=launches,
+             mismatched_requests=mismatched, policy=SERVE_POLICY,
+             nvidia_smi=smi, **checks)
+        if not all(checks.values()):
+            raise AssertionError(f"control slice adaptive checks: {checks}")
+
+        # a low arrival rate: one request of 7 rows every 5 ms from one
+        # thread, under a 50 ms static deadline, with and without the
+        # controller
+        x = minibude.make_inputs(LOW_RATE_ROWS, seed=47, device=dev)
+        want = region(keys["f32"], LOW_RATE_ROWS, "infer")(poses=x)["out"]
+        low = {}
+        for leg in ("static", "adaptive"):
+            pol = FlushPolicy(**LOW_RATE_POLICY)
+            q = ServeQueue(pol, device=dev, controller=(
+                AdaptiveFlushController(pol) if leg == "adaptive" else None))
+            q.start()
+            r = region(keys["f32"], LOW_RATE_ROWS, "infer_async", q)
+            try:
+                handles = []
+                t_next = time.perf_counter()
+                for _ in range(LOW_RATE_REQUESTS):
+                    handles.append(r(poses=x))
+                    t_next += LOW_RATE_GAP_S
+                    time.sleep(max(0.0, t_next - time.perf_counter()))
+                outs = [h.result(30.0)["out"] for h in handles]
+            finally:
+                q.close()
+            s = q.stats(keys["f32"]).snapshot()
+            low[leg] = {"p50_ms": s["latency_p50_ms"],
+                        "p99_ms": s["latency_p99_ms"],
+                        "batches": s["batches"],
+                        "bit_identical": all(torch.equal(o, want)
+                                             for o in outs)}
+        checks = {f"{leg}_bit_identical": v["bit_identical"]
+                  for leg, v in low.items()}
+        emit("control_slice", part="low_rate", requests=LOW_RATE_REQUESTS,
+             rows=LOW_RATE_ROWS, gap_s=LOW_RATE_GAP_S, legs=low,
+             policy=LOW_RATE_POLICY, nvidia_smi=smi, **checks)
+        if not all(checks.values()):
+            raise AssertionError(f"control slice low-rate checks: {checks}")
+
+        # ---- 4. the drift re-sweep: an untuned bucket sustained by both
+        # bundles, swept in the background while serving goes on
+        saved = dict(tcache._default)
+        for k in ("fused_mlp", "fused_mlp_int8"):
+            tcache._default[k] = tcache.TuneCache(
+                k, path=work / "resweep_tune" / f"{k}.json")
+        resweeps = obs_metrics.counter(
+            "repro_tune_resweep_total",
+            "drift-triggered background kernel sweeps completed",
+            ("kernel",))
+        dispatches = obs_metrics.counter(
+            "repro_kernel_dispatch_total",
+            "kernel dispatches by resolved-params provenance and precision "
+            "tier", ("kernel", "provenance", "tier"))
+        kernels = {"f32": "fused_mlp", "int8": "fused_mlp_int8"}
+        swept0 = {k: resweeps.value(kernel=k) for k in kernels.values()}
+        x = minibude.make_inputs(RESWEEP_ROWS, seed=53, device=dev)
+        rs = get_resweeper()
+        rs.reset()
+        rs.enable(after=RESWEEP_AFTER)
+        q = ServeQueue(FlushPolicy(max_batch_rows=1 << 20,
+                                   max_pending_rows=1 << 20), device=dev)
+
+        def serve(key):
+            f = q.submit(key, x)
+            q.flush(key)
+            return f.result(60.0)
+
+        try:
+            outs = {t: [serve(k) for _ in range(RESWEEP_AFTER - 1)]
+                    for t, k in keys.items()}
+            t0 = time.perf_counter()
+            for t, k in keys.items():  # each bundle's trigger batch
+                outs[t].append(serve(k))
+            during = 0
+            while rs._pending and time.perf_counter() - t0 < 120.0:
+                for t, k in keys.items():
+                    outs[t].append(serve(k))
+                during += 1
+            flushed = rs.flush(120.0)
+            sweep_s = time.perf_counter() - t0
+            tuned0 = {t: dispatches.value(kernel=kernels[t],
+                                          provenance="tuned", tier=t)
+                      for t in keys}
+            tuned = {t: serve(k) for t, k in keys.items()}
+            served_tuned = {t: dispatches.value(
+                kernel=kernels[t], provenance="tuned", tier=t) - tuned0[t]
+                for t in keys}
+        finally:
+            rs.disable()
+            rs.reset()
+            q.close()
+            records = {k: tcache._default[k].entries()
+                       for k in kernels.values()}
+            tcache._default.clear()
+            tcache._default.update(saved)
+        swept = {k: resweeps.value(kernel=k) - swept0[k]
+                 for k in kernels.values()}
+        checks = {
+            "flushed": flushed,
+            "records_exact": all(len(r) == 1 and all(
+                v["exact"] for v in r.values()) for r in records.values()),
+            "records_at_bucket": all(
+                key.endswith(f"|cuda|b{RESWEEP_BUCKET}")
+                for r in records.values() for key in r),
+            "resweep_counted_once": swept == {k: 1 for k in swept},
+            "rows_unchanged_during_sweep": all(
+                torch.equal(o, v[0]) for v in outs.values() for o in v),
+            "next_dispatch_tuned": served_tuned == {t: 1 for t in keys},
+            "tuned_rows_bit_identical": all(
+                torch.equal(tuned[t], outs[t][0]) for t in keys),
+        }
+        emit("control_slice", part="resweep", after=RESWEEP_AFTER,
+             rows=RESWEEP_ROWS, bucket=RESWEEP_BUCKET, sweep_seconds=sweep_s,
+             batches_during_sweep=2 * during, resweeps=swept,
+             records={k: {key: {"winner": v["params"], "us": v["us"],
+                                "default_us": v["default_us"],
+                                "speedup_x": v["speedup_x"],
+                                "exact": v["exact"]}
+                          for key, v in r.items()}
+                      for k, r in records.items()},
+             nvidia_smi=smi, **checks)
+        if not all(checks.values()):
+            raise AssertionError(f"control slice resweep checks: {checks}")
+
+        # ---- 5. the obs endpoint watching the adaptive queue
+        server = ObsServer(port=0).start().watch_queue("adaptive", queue)
+        hook = threading.excepthook
+        try:
+            code_metrics, text = http_get(server.url("/metrics"))
+            exposition = validate_exposition(text)
+            live, live_body = http_get(server.url("/healthz"))
+            varz = json.loads(http_get(server.url("/varz"))[1])
+            tracez = json.loads(http_get(server.url("/tracez"))[1])
+
+            def stopped():
+                raise RuntimeError("dispatcher stopped by the drill")
+
+            # the dispatcher dies: readiness must flip and name the queue
+            threading.excepthook = lambda args: None
+            queue._due_locked = stopped
+            with queue._cv:
+                queue._cv.notify_all()
+            queue._thread.join(30.0)
+            dead, dead_body = http_get(server.url("/healthz"))
+        finally:
+            threading.excepthook = hook
+            server.stop()
+    finally:
+        queue.close()
+    snap_path = work / "control_metrics.json"
+    snap_path.write_text(json.dumps(pod_snapshot(), default=str))
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        report_rc = metrics_report.main(["--metrics", str(snap_path),
+                                         "--json"])
+    quantiles = json.loads(report.getvalue())["snapshots"][0][
+        "histogram_quantiles"]
+    latency_rows = quantiles.get("repro_serve_request_latency_seconds", [])
+    demo = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.server", "--demo",
+         "--self-check"], env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        cwd=str(ROOT), capture_output=True, text=True, timeout=300)
+    families = ("repro_controller_decisions_total",
+                "repro_tune_resweep_total",
+                "repro_serve_request_latency_seconds",
+                "repro_serve_batches_total",
+                "repro_serve_rows_completed_total")
+    checks = {
+        "metrics_valid": code_metrics == 200
+        and exposition["samples"] > 0,
+        "metrics_families": all(f in exposition["families"]
+                                for f in families),
+        "healthz_live_200": live == 200
+        and json.loads(live_body)["queues"] == {"adaptive": True},
+        "healthz_dead_503": dead == 503
+        and "queue:adaptive" in json.loads(dead_body)["critical"],
+        "varz_parses": set(keys.values())
+        <= set(varz["queues"]["adaptive"]["keys"]),
+        "tracez_parses": "events" in tracez,
+        "report_quantiles": report_rc == 0 and len(latency_rows) >= 2
+        and all(r["p50"] is not None and r["p99"] is not None
+                for r in latency_rows),
+        "demo_self_check": demo.returncode == 0
+        and "self-check ok" in demo.stdout,
+    }
+    emit("control_slice", part="endpoint",
+         samples=exposition["samples"],
+         families=len(exposition["families"]),
+         healthz={"live": live, "dead": dead},
+         dead_critical=json.loads(dead_body)["critical"],
+         report_latency_quantiles=[
+             {k: r[k] for k in ("labels", "count", "p50", "p90", "p99")}
+             for r in latency_rows],
+         demo=demo.stdout.strip().splitlines()[-1:] or demo.stderr[-2000:],
+         **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"control slice endpoint checks: {checks}")
+    emit("control_slice", part="total",
+         seconds=time.perf_counter() - t_phase, launches=launches,
+         nvidia_smi=smi)
     return launches
 
 
@@ -2659,7 +3112,8 @@ def main():
     int8_launches = sum(run_int8_slice(app, key, hidden, dev, work)
                         for app, key, hidden in INT8_SLICES)
     train_launches = run_train_slice(dev, smi, work / "train")
-    serve_launches = run_serve_slice(dev, smi, work)
+    serve_launches, serve_static = run_serve_slice(dev, smi, work)
+    control_launches = run_control_slice(dev, smi, work, serve_static)
 
     timings = time_kernel(bude, BUDE_ACTS, dev, smi)[INFER_POSES]
     timings8_all = time_int8(bude8, dev, smi)
@@ -2695,10 +3149,11 @@ def main():
         "name": "fused_mlp", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES,
         "launches": launches["fused_mlp"] + train_launches
-        + serve_launches["fused_mlp"],
+        + serve_launches["fused_mlp"] + control_launches["fused_mlp"],
         "launches_by_path": {"slice": launches["fused_mlp"],
                              "train_slice": train_launches,
-                             "serve_slice": serve_launches["fused_mlp"]},
+                             "serve_slice": serve_launches["fused_mlp"],
+                             "control_slice": control_launches["fused_mlp"]},
         "max_abs_err": errs[INFER_POSES], "rtol": SPEC.tol[0],
         "atol": SPEC.tol[1],
         "batch": INFER_POSES, "ms": timings["ms"],
@@ -2709,9 +3164,12 @@ def main():
         "library_ms": timings["library_ms"]}, {
         "name": "fused_mlp_int8", "route": "cuda", "source": int8.SOURCE,
         "replaces": int8.REPLACES,
-        "launches": int8_launches + serve_launches["fused_mlp_int8"],
-        "launches_by_path": {"int8_slice": int8_launches,
-                             "serve_slice": serve_launches["fused_mlp_int8"]},
+        "launches": int8_launches + serve_launches["fused_mlp_int8"]
+        + control_launches["fused_mlp_int8"],
+        "launches_by_path": {
+            "int8_slice": int8_launches,
+            "serve_slice": serve_launches["fused_mlp_int8"],
+            "control_slice": control_launches["fused_mlp_int8"]},
         "max_abs_err": errs8[INFER_POSES], "rtol": int8.SPEC.tol[0],
         "atol": int8.SPEC.tol[1],
         "batch": INFER_POSES, "ms": timings8["ms"],

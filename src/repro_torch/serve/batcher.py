@@ -34,10 +34,11 @@ What the port does differently:
   the landing: a ``raise`` there is retried like any landing failure,
   where the reference lets it escape ``dispatch``.
 
-Left out until the pod paths are ported (ROADMAP queue 1 item 9):
+After each served batch the drift re-sweep hook reports the bucket to
+:mod:`repro_torch.tune.resweep` (a no-op unless ``REPRO_RESWEEP`` is
+on).  Left out until the pod paths are ported (ROADMAP queue 1 item 9):
 ``dispatch_pod``/``_slab_layout`` and the mesh contexts of the
-submitters.  The drift re-sweep hook waits for ``tune/resweep.py``
-(item 6).
+submitters.
 """
 from __future__ import annotations
 
@@ -406,3 +407,11 @@ class Batcher:
             stats.on_batch(requests=len(requests) - len(bad),
                            rows=n - bad_rows, bucket=bucket, reason=reason,
                            busy_s=t1 - t0, latencies_s=lats)
+            # drift re-sweep trigger: a sustained bucket with no tune
+            # entry enqueues a background sweep of that exact cell.
+            # Lazy import + disabled fast path keep this a no-op unless
+            # REPRO_RESWEEP is on.
+            from repro_torch.tune.resweep import get_resweeper
+            rs = get_resweeper()
+            if rs.enabled:
+                rs.observe(eng, bucket, stats)

@@ -43,7 +43,8 @@ tensors, row views of the batch landed on the host.
 Left out until the pod paths are ported (ROADMAP queue 1 item 9):
 ``pod_flush``, its cross-host key agreement and watchdog.  The
 ``controller=`` hook takes any object with ``delay_for``/
-``batch_rows_for`` (the adaptive flush controller is item 6); a
+``batch_rows_for``, such as
+:class:`~repro_torch.tune.controller.AdaptiveFlushController`; a
 controller failure serves the static policy through
 :func:`~repro_torch.obs.metrics.note_static_fallback`.
 """

@@ -845,3 +845,114 @@ def test_corrupt_fault_reaches_the_packed_weights(dev, tmp_path,
     finally:
         FAULTS.clear()
         InferenceEngine.invalidate()
+
+
+# ------------------------------------------------ the control plane -------
+@pytest.mark.parametrize("gated", [False, True], ids=["f32", "int8"])
+def test_controller_driven_queue_bit_identical_to_sync(dev, tmp_path,
+                                                       monkeypatch, gated):
+    """The adaptive flush controller (H100 defaults) drives a threaded
+    queue on the card: every request equals its synchronous call bit for
+    bit, and every decision's deadline lies within its bounds."""
+    import threading
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.serve import FlushPolicy, ServeQueue
+    from repro_torch.tune import AdaptiveFlushController
+    path, eng = _serve_bundle(tmp_path, monkeypatch, gated=gated)
+    pol = FlushPolicy(max_batch_rows=4096, max_delay_s=0.002,
+                      max_pending_rows=1 << 16)
+    ctrl = AdaptiveFlushController(pol, measured_min_batches=1)
+    q = ServeQueue(pol, controller=ctrl).start()
+    rng = np.random.default_rng(7)
+    xs = [torch.from_numpy(rng.standard_normal((n, 6)).astype(np.float32))
+          for n in rng.choice([1, 7, 64, 300], size=64)]
+    outs = [None] * len(xs)
+
+    def submitter(lane):
+        for i in range(lane, len(xs), 4):
+            outs[i] = q.submit(path, xs[i]).result(30)
+
+    threads = [threading.Thread(target=submitter, args=(k,))
+               for k in range(4)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        q.close()
+    for x, y in zip(xs, outs):
+        assert torch.equal(y, eng(x.to(dev)).cpu())
+    dec = ctrl.last_decision[path]
+    assert ctrl.min_delay_s <= dec["delay_s"] <= pol.max_delay_s
+    assert q.stats(path).snapshot()["requests_completed"] == len(xs)
+    InferenceEngine.invalidate()
+
+
+def test_resweep_on_its_own_stream_ends_tuned(dev, tmp_path, monkeypatch):
+    """A sustained untuned bucket triggers a background sweep of both
+    tiers' cells on a side stream; the records are exact, and the next
+    dispatch at that bucket resolves ``tuned`` with the untuned rows."""
+    import repro_torch.tune.cache as tcache
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.kernels import registry
+    from repro_torch.obs import metrics
+    from repro_torch.serve import FlushPolicy, ServeQueue
+    from repro_torch.tune.resweep import ResweepWorker
+    import repro_torch.tune.resweep as resweep
+    path, eng = _serve_bundle(tmp_path, monkeypatch, gated=True)
+    for k in ("fused_mlp", "fused_mlp_int8"):
+        tcache._default[k] = tcache.TuneCache(k, path=tmp_path / f"{k}.json")
+    worker = ResweepWorker(after=2).enable()
+    monkeypatch.setattr(resweep, "get_resweeper", lambda: worker)
+    import repro_torch.tune.kernel_tuner as kt
+    streams = []
+    real_sweep = kt.sweep
+
+    def watched(kernel, problem, **kw):  # the stream the sweep runs on
+        streams.append(torch.cuda.current_stream(kw["device"]))
+        return real_sweep(kernel, problem, **kw)
+
+    monkeypatch.setattr(kt, "sweep", watched)
+    dispatches = metrics.counter(
+        "repro_kernel_dispatch_total",
+        "kernel dispatches by resolved-params provenance and precision tier",
+        ("kernel", "provenance", "tier"))
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (300, 6)).astype(np.float32))
+    q = ServeQueue(FlushPolicy(max_batch_rows=1 << 20))
+    try:
+        untuned = [q.submit(path, x).result(30) for _ in range(3)]
+        assert worker.flush(120)
+        before = dispatches.value(kernel="fused_mlp_int8",
+                                  provenance="tuned", tier="int8")
+        tuned = q.submit(path, x).result(30)
+    finally:
+        q.close()
+    assert dispatches.value(kernel="fused_mlp_int8", provenance="tuned",
+                            tier="int8") == before + 1
+    for kernel in ("fused_mlp", "fused_mlp_int8"):
+        entries = tcache._default[kernel].entries()
+        assert len(entries) == 1
+        (key, rec), = entries.items()
+        assert rec["exact"] and key.endswith("|cuda|b512")
+    assert len(streams) == 2
+    assert all(s != torch.cuda.default_stream(dev) for s in streams)
+    assert all(torch.equal(u, untuned[0]) for u in untuned)
+    assert torch.equal(tuned, untuned[0])
+    InferenceEngine.invalidate()
+
+
+def test_obs_demo_self_check_on_the_card(dev):
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.server", "--demo",
+         "--self-check"], env=dict(os.environ, PYTHONPATH=str(root / "src")),
+        cwd=str(root), capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "self-check ok" in out.stdout

@@ -46,7 +46,11 @@ def test_port_imports_with_jax_and_repro_blocked():
         "        'repro_torch.resilience.breaker',\n"
         "        'repro_torch.serve.stats', 'repro_torch.serve.scratch',\n"
         "        'repro_torch.serve.batcher', 'repro_torch.serve.residency',\n"
-        "        'repro_torch.serve.tenancy'\n"
+        "        'repro_torch.serve.tenancy',\n"
+        "        'repro_torch.dist.hlo_analysis',\n"
+        "        'repro_torch.tune.controller', 'repro_torch.tune.resweep',\n"
+        "        'repro_torch.obs.server', 'repro_torch.obs.metrics_report',\n"
+        "        'repro_torch.obs.pod'\n"
         "        } <= set(names)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n")

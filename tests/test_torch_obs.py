@@ -4,8 +4,8 @@ rings, trace ids, Chrome export, coverage, NVTX ranges in place of
 scorer and its alert machine, and SLO burn rates, against ``repro.obs``.
 
 The cases are those of tests/test_obs.py and tests/test_quality.py minus
-the HTTP endpoint, the pod snapshots and the metrics report (not ported
-yet).  Framework-free pieces are held to the reference on the same
+the HTTP endpoint, the pod snapshots and the metrics report (those are
+in tests/test_torch_obs_server.py).  Framework-free pieces are held to the reference on the same
 scripted inputs: the same numbers or states, exactly.
 """
 import json

@@ -4,8 +4,8 @@ queue's DRR flush order under overload, and the residency manager's LRU
 with the engine's one reload path, against ``repro.serve``.
 
 The cases are those of tests/test_tenancy.py (the hypothesis properties
-included) minus the adaptive controller's QoS bounds (the controller is
-not ported yet).  On top of them the same scripts run through both
+included) minus the adaptive controller's QoS bounds (those are in
+tests/test_torch_controller.py).  On top of them the same scripts run through both
 packages: the same DRR arrival script gives the same flush order, the
 same clock script the same bucket levels, the same loads the same
 eviction victims.
