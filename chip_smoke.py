@@ -149,8 +149,23 @@ source, all started together), and prints one JSON line per phase:
    step); the same comparisons on an f32 copy of the weights (within
    ``LM_TOL_F32``); host times and the kernel's times at the prefill
    shape and at T = 1;
-9. the ``kernels`` line, the ``nvidia-smi`` line and, last,
-   ``{"ok": true, "device": {...}}``.
+9. ``gqa_lm_slice`` -- the GQA LM's serving path at the full width of
+   llama3.2-3b (28 layers, d_model 3,072, 24 q and 8 kv heads of 128,
+   d_ff 8,192, vocab 128,256, tied embeddings, bf16, seeded random
+   weights on the card), attention on ``flash_attention``: ``prefill``
+   of the same 4 prompts of 2,048 tokens (exactly 28 launches), the
+   same prefill with ``blocks.flash_attention_op`` patched to the plain
+   version (no launch; logits and every layer's K/V cache within
+   ``LM_TOL_BF16`` of the largest magnitude), the cache handoff, the
+   same handoff through an int8 KV cache with the kernel against the
+   plain version, then ``generate`` for 33 tokens (28 launches per call)
+   and the same decode loop traced for the card's busy share; the same
+   comparisons on an f32 copy of the weights (``LM_TOL_F32``); the
+   kernel's times at the path's two shapes (the causal prefill, and one
+   decode step over 2,081 cached positions with 2,049 valid) beside its
+   plain version, ``scaled_dot_product_attention`` and the bound;
+10. the ``kernels`` line, the ``nvidia-smi`` line and, last,
+    ``{"ok": true, "device": {...}}``.
 
 Before the slices, the ``kernel`` lines also hold stencil_gather (bit
 for bit: every candidate tile of its default problem in f32 and bf16, a
@@ -171,7 +186,7 @@ rwkv6_chunk's timing lines also give its device time from a CUDA graph
 Launch counts are set to 0 just before each main path (the f32 slice's
 region calls, each int8 slice's infer region, the train slice's infer
 regions, the serve slice's traced coalesced run, the control slice's
-adaptive run, the ``run_tune`` call, the LM's prefill and its generate
+adaptive run, the ``run_tune`` call, each LM's prefill and its generate
 loop) and read just after.  Any failure raises, so the script exits
 non-zero and prints no result.  Outside the train slice the bundle weights are
 random: nothing there measures surrogate accuracy.
@@ -398,6 +413,17 @@ RWKV_PREFILL = {"b": LM_BATCH, "t": LM_PROMPT, "h": 32, "hd": 64,
 # H100, so 0.1.  On an f32 copy of the weights only the recurrence's own
 # f32 rounding (about 1e-7 of its terms) is amplified: 1e-3
 LM_TOL_F32, LM_TOL_BF16 = 1e-3, 0.1
+# the GQA LM slice: llama3.2-3b (src/repro/configs/archs.py:39-44) serving
+# the same 4 prompts of 2,048 tokens and 33 tokens, attention on
+# flash_attention; the kernel at its two shapes there: the causal
+# prefill, and one decode step over the 2,081-position cache with 2,049
+# valid keys (the first decode step of generate)
+GQA_ARCH = "llama3.2-3b"
+GQA_PREFILL = dict(b=LM_BATCH, sq=LM_PROMPT, skv=LM_PROMPT, causal=True,
+                   q_offset=0, **LLAMA)
+GQA_DECODE = dict(b=LM_BATCH, sq=1, skv=LM_PROMPT + LM_GEN, causal=False,
+                  q_offset=0, **LLAMA)
+GQA_DECODE_VALID = LM_PROMPT + 1
 PEAK_F32_FLOPS = 67e12   # H100 SXM f32 outside the tensor cores
 # H100 SXM TF32 tensor cores, dense: the fused_mlp and flash_attention
 # kernels form each f32 product as three TF32 products (3xTF32), so their
@@ -3037,6 +3063,310 @@ def run_lm_slice(dev, smi, rwkv_arrays):
     return gen_launches, timing
 
 
+def gqa_kv(caches, layer):
+    """One layer's K and V cache in f32 (an int8 cache dequantized)."""
+    c = caches["stack"][0][layer]["mixer"]
+    out = []
+    for key in ("k", "v"):
+        t = c[key].float()
+        if key + "_scale" in c:
+            t = t * c[key + "_scale"].float()[..., None]
+        out.append(t)
+    return out
+
+
+def gqa_compare_kv(caches, want):
+    """Every layer's K and V against ``want``'s, one layer at a time:
+    ``{"k": (max abs error, largest |want|, worst), "v": ...}`` over all
+    layers, and each layer's largest K/V error."""
+    acc = {"k": [0.0, 0.0, 0.0], "v": [0.0, 0.0, 0.0]}
+    by_layer = []
+    for layer in range(len(caches["stack"][0])):
+        worst_layer = 0.0
+        for key, got, ref in zip(("k", "v"), gqa_kv(caches, layer),
+                                 gqa_kv(want, layer)):
+            c = lm_compare(got, ref)
+            acc[key] = [max(a, b) for a, b in zip(acc[key], c)]
+            worst_layer = max(worst_layer, c[0])
+        by_layer.append(worst_layer)
+    return {k: tuple(v) for k, v in acc.items()}, by_layer
+
+
+def gqa_handoff(cfg, params, prompts):
+    """``serve_step`` on the last prompt token after a prefill of the
+    others (into a cache of the prompt's length): the step's logits."""
+    from repro_torch.models import lm
+    S = prompts.shape[1]
+    _, short = lm.prefill(cfg, params, prompts[:, :-1], cache_len=S)
+    return lm.serve_step(cfg, params, short, prompts[:, -1:], S - 1)[0]
+
+
+def gqa_against_plain(cfg, params, prompts, logits, caches):
+    """The prefill that gave ``logits``/``caches`` run again with attention
+    computed by the kernel's plain version (which must launch nothing),
+    then the cache handoff against ``logits``, and the same handoff
+    through an int8 KV cache, with the kernel and with the plain
+    version."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import blocks, lm
+
+    cfg8 = cfg.replace(kv_cache_dtype="int8")
+    before = ops.SPEC.launches
+    step8 = gqa_handoff(cfg8, params, prompts)
+    torch.cuda.synchronize()
+    int8_launches = ops.SPEC.launches - before
+    before = ops.SPEC.launches
+    with mock.patch.object(blocks, "flash_attention_op", flash_attention_ref):
+        t0 = time.perf_counter()
+        logits_p, caches_p = lm.prefill(cfg, params, prompts)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        step8_p = gqa_handoff(cfg8, params, prompts)
+        torch.cuda.synchronize()
+    plain_launches = ops.SPEC.launches - before
+    kv, by_layer = gqa_compare_kv(caches, caches_p)
+    del caches_p
+    step = gqa_handoff(cfg, params, prompts)
+
+    def real(t):  # logits of the vocabulary (padding reads -1e30)
+        return t[..., :cfg.vocab_size]
+
+    def named(got, want):
+        return dict(zip(("max_abs_err", "max_abs", "worst"),
+                        lm_compare(real(got), real(want))))
+    vs = {"logits": named(logits, logits_p),
+          **{k: dict(zip(("max_abs_err", "max_abs", "worst"), v))
+             for k, v in kv.items()}}
+    return {
+        "plain_attention_prefill_s": seconds,
+        "plain_path_launches": plain_launches,
+        "int8_handoff_launches": int8_launches,
+        "vs_plain_attention": vs,
+        "kv_max_abs_err_by_layer": by_layer,
+        "handoff": named(step, logits),
+        "int8_handoff_vs_plain": named(step8, step8_p),
+        # not a check: the int8 cache's own quantization error
+        "int8_handoff_vs_prefill": named(step8, logits)}
+
+
+def gqa_within(res, tol):
+    """Every comparison of :func:`gqa_against_plain` but the int8 cache's
+    quantization error within ``tol`` of the largest magnitude."""
+    cmp = list(res["vs_plain_attention"].values()) + [
+        res["handoff"], res["int8_handoff_vs_plain"]]
+    return all(c["max_abs_err"] <= tol * (1 + c["max_abs"]) for c in cmp)
+
+
+def gqa_attention_cell(shape, valid, dev, seed):
+    """flash_attention at one of the GQA LM's shapes (bf16): its inputs,
+    problem, plain version, one SDPA call computing the same function
+    (K/V repeated per group and cut to the valid keys beforehand), and
+    the bound: each input read once and the output written once (only
+    the ``valid`` keys of K/V), against the operations (4 hd per visible
+    query-key pair) at the bf16 tensor-core peak; ``bound_tc_ms`` prices
+    the operations as the kernel runs them on bf16 inputs, two TF32
+    products, at the TF32 peak."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    q, k, v = attention_inputs(shape, dev, seed, dtype=torch.bfloat16)
+    kw = {"causal": shape["causal"], "q_offset": shape["q_offset"],
+          "kv_valid_len": valid}
+    b, sq, h, kvh, hd = (shape[n] for n in ("b", "sq", "h", "kv", "hd"))
+    seen = valid if valid is not None else shape["skv"]
+    group = h // kvh
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t[:, :seen].repeat_interleave(group, dim=2).transpose(1, 2)
+              .contiguous() for t in (k, v))
+    if shape["causal"]:
+        pairs = b * h * sq * (sq + 1) // 2   # q_offset 0, Sq = Skv
+    else:
+        pairs = b * h * sq * seen
+    flops = 4 * hd * pairs
+    nbytes = 2 * (2 * q.numel() + 2 * b * seen * kvh * hd)
+    t_ops, t_bytes = flops / PEAK_F16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return dict(
+        arrays=(q, k, v), problem=ops.inspect_call(q, k, v, **kw),
+        plain=lambda: flash_attention_ref(q, k, v, **kw),
+        library=lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=shape["causal"]),
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bound_tc_ms=max(2 * flops / PEAK_TF32_FLOPS, t_bytes) * 1e3,
+        flops=flops, bytes=nbytes)
+
+
+def time_gqa_attention(dev, smi):
+    """CUDA-event times of flash_attention at the GQA LM's prefill and
+    decode-step shapes (bf16, at the tile dispatch resolves), beside the
+    plain version, ``scaled_dot_product_attention`` and the bound; the
+    decode step also from a CUDA graph (a loop of one-row launches is
+    paced by the host).  Each launch is held against the plain version
+    first (bf16 outputs within one ulp)."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention import ops
+
+    out = {}
+    for label, shape, valid, iters in (
+            ("prefill", GQA_PREFILL, None, 10),
+            ("decode", GQA_DECODE, GQA_DECODE_VALID, 200)):
+        cell = gqa_attention_cell(shape, valid, dev, seed=90 + len(out))
+        problem, arrays = cell.pop("problem"), cell.pop("arrays")
+        plain, library = cell.pop("plain"), cell.pop("library")
+        params = registry.resolve_params(ops.SPEC, problem)
+
+        def kernel():
+            return ops.SPEC.run_call(problem, arrays, params)
+        got, want = kernel().float(), plain().float()
+        torch.cuda.synchronize()
+        max_abs, worst = compare(got, want, BF16_RTOL, ops.TOL[1])
+        if not worst <= 1.0:
+            raise AssertionError(f"flash_attention at the GQA LM's {label} "
+                                 f"shape: max abs error {max_abs}, {worst}x "
+                                 f"the tolerance")
+        ms = cuda_ms(kernel, iters)
+        out[label] = dict(
+            cell, problem=problem, params=params, max_abs_err=max_abs,
+            ms=ms, graph_ms=graph_ms(kernel) if label == "decode" else None,
+            plain_ms=cuda_ms(plain, 3 if label == "prefill" else iters),
+            library_ms=cuda_ms(library, iters),
+            library_call="torch.nn.functional.scaled_dot_product_attention"
+                         ", bf16, K/V repeated per group"
+                         + (" and cut to kv_valid_len" if valid else "")
+                         + " beforehand",
+            share_of_bound=cell["bound_ms"] / ms,
+            tc_share_of_bound=cell["bound_tc_ms"] / ms)
+        emit("timing", kernel="flash_attention", case=f"gqa_lm {label}",
+             nvidia_smi=smi, **out[label])
+    return out
+
+
+def run_gqa_lm_slice(dev, smi):
+    """prefill -> serve_step of llama3.2-3b at full width through the
+    port's entry points, attention on flash_attention, held against the
+    same model with attention computed by the kernel's plain version,
+    in its bf16 and as an f32 copy, with bf16 and int8 KV caches; then
+    the kernel's times at this path's two shapes.  Returns the generate
+    loop's flash_attention launches and the kernel's times."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import lm
+
+    cfg = get_config(GQA_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    seconds = {}
+    t_phase = t0 = time.perf_counter()
+    params = lm.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    seconds["init_params"] = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=g, device=dev)
+    lm.prefill(cfg, params, prompts)  # warm-up: cuBLAS handles, allocator
+
+    registry.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = lm.prefill(cfg, params, prompts)
+    torch.cuda.synchronize()
+    seconds["prefill"] = time.perf_counter() - t0
+    prefill_launches = (ops.SPEC.launches, ops.SPEC.plain_calls)
+    bf16 = gqa_against_plain(cfg, params, prompts, logits, caches)
+    del caches
+
+    registry.reset_counts()
+    res = serve_lm.generate(cfg, params, prompts, LM_GEN)
+    gen_launches = ops.SPEC.launches
+    tokens = res["tokens"]
+    finite = bool(torch.isfinite(logits).all()
+                  and torch.isfinite(res["logits"]).all())
+
+    # the card's busy share over the same decode loop, traced
+    steps = LM_GEN - 1
+    first, caches = lm.prefill(cfg, params, prompts,
+                               cache_len=LM_PROMPT + LM_GEN)
+
+    def decode_loop():
+        tok = first.argmax(-1)[:, None]
+        for i in range(steps):
+            out, _ = lm.serve_step(cfg, params, caches, tok, LM_PROMPT + i)
+            tok = out.argmax(-1)[:, None]
+        return tok
+    _, traced_s, busy_s = device_busy(decode_loop)
+    del caches
+
+    # the same weights in f32: the kernel's own differences, without
+    # bf16 rounding of the activations to amplify them layer by layer
+    cfg32 = cfg.replace(dtype="float32")
+    params32 = _cast(params, torch.float32)
+    del params
+    registry.reset_counts()
+    logits32, caches32 = lm.prefill(cfg32, params32, prompts)
+    torch.cuda.synchronize()
+    f32_launches = ops.SPEC.launches
+    f32 = gqa_against_plain(cfg32, params32, prompts, logits32, caches32)
+    finite = finite and bool(torch.isfinite(logits32).all())
+    del params32, caches32
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    timing = time_gqa_attention(dev, smi)
+    seconds["phase"] = time.perf_counter() - t_phase
+    L = cfg.n_layers
+    checks = {
+        "prefill_launches_one_per_layer":
+        prefill_launches == (L, 0) and f32_launches == L,
+        "plain_path_launched_nothing": bf16["plain_path_launches"] == 0
+        and f32["plain_path_launches"] == 0,
+        "int8_handoff_launches_one_per_layer_per_call":
+        bf16["int8_handoff_launches"] == 2 * L
+        and f32["int8_handoff_launches"] == 2 * L,
+        "generate_launches_one_per_layer_per_call": gen_launches == L * LM_GEN,
+        "logits_finite": finite,
+        "logits_shape": tuple(logits.shape) == (LM_BATCH, cfg.padded_vocab),
+        "bf16_matches_plain_attention_and_handoffs":
+        gqa_within(bf16, LM_TOL_BF16),
+        "f32_matches_plain_attention_and_handoffs":
+        gqa_within(f32, LM_TOL_F32),
+        "tokens": tuple(tokens.shape) == (LM_BATCH, LM_GEN)
+        and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+    }
+    numbers = dict(
+        prefill_s=seconds["prefill"], decode_s=res["decode_s"],
+        generate_prefill_s=res["prefill_s"],
+        decode_ms_per_step=res["decode_s"] / steps * 1e3,
+        tokens_per_s=LM_BATCH * steps / res["decode_s"],
+        decode_traced_s=traced_s, decode_busy_s=busy_s,
+        decode_busy_share=busy_s / traced_s if busy_s else None,
+        kernel_ms_prefill=timing["prefill"]["ms"],
+        kernel_ms_decode=timing["decode"]["ms"],
+        kernel_graph_ms_decode=timing["decode"]["graph_ms"],
+        kernel_share_of_prefill=L * timing["prefill"]["ms"]
+        / (seconds["prefill"] * 1e3), peak_gib=peak_gib)
+    emit("gqa_lm_slice", arch=cfg.name, n_layers=L, d_model=cfg.d_model,
+         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, dtype=cfg.dtype,
+         params=n_params, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
+         seconds=seconds,
+         launches={"prefill": prefill_launches[0], "generate": gen_launches,
+                   "f32_prefill": f32_launches},
+         bf16=bf16, f32=f32, tol_bf16=LM_TOL_BF16, tol_f32=LM_TOL_F32,
+         sample=tokens[0, :8].tolist(), nvidia_smi=smi, **numbers, **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"gqa lm slice checks failed: {checks}")
+    return gen_launches, timing
+
+
 def _cast(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast(v, dtype) for k, v in tree.items()}
@@ -3123,6 +3453,7 @@ def main():
     tune_launches = run_tune_phase(work / "bundle", dev, work)
     shutil.rmtree(work)
     lm_launches, rwkv_timing = run_lm_slice(dev, smi, rwkv_arrays)
+    gqa_launches, gqa_timing = run_gqa_lm_slice(dev, smi)
     if rwkv_failures:
         raise AssertionError("; ".join(rwkv_failures))
     new_rows = []
@@ -3139,6 +3470,26 @@ def main():
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         if "bound_tc_ms" in t:
             new_rows[-1]["bound_tc_ms"] = t["bound_tc_ms"]
+        if name == "flash_attention":
+            lm_p, lm_d = gqa_timing["prefill"], gqa_timing["decode"]
+            new_rows[-1].update(
+                launches=tune_launches[name] + gqa_launches,
+                launches_by_path={"run_tune": tune_launches[name],
+                                  "gqa_lm_slice": gqa_launches},
+                lm_prefill_shape=lm_p["problem"], lm_prefill_ms=lm_p["ms"],
+                lm_prefill_plain_ms=lm_p["plain_ms"],
+                lm_prefill_bound_ms=lm_p["bound_ms"],
+                lm_prefill_bound_by=lm_p["bound_by"],
+                lm_prefill_bound_tc_ms=lm_p["bound_tc_ms"],
+                lm_prefill_library_ms=lm_p["library_ms"],
+                lm_prefill_max_abs_err=lm_p["max_abs_err"],
+                lm_decode_shape=lm_d["problem"], lm_decode_ms=lm_d["ms"],
+                lm_decode_graph_ms=lm_d["graph_ms"],
+                lm_decode_plain_ms=lm_d["plain_ms"],
+                lm_decode_bound_ms=lm_d["bound_ms"],
+                lm_decode_bound_by=lm_d["bound_by"],
+                lm_decode_library_ms=lm_d["library_ms"],
+                lm_decode_max_abs_err=lm_d["max_abs_err"])
         if "step_ms" in t:
             new_rows[-1].update(step_ms=t["step_ms"],
                                 tuned_step_ms=t["tuned_step_ms"],

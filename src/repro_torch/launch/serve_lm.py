@@ -1,15 +1,18 @@
 """Batched LM serving: prefill a batch of prompts, then decode greedily
 (the loop of ``examples/serve_lm.py`` as a function).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve_lm
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm [--arch NAME]
 
-serves ``rwkv6-1.6b`` at full width with seeded random weights on the
-card (4 random prompts of 2,048 tokens, 33 generated tokens) and prints
-one JSON line of host times.  The example's own small
-GQA model waits for the port of the attention blocks.
+serves ``rwkv6-1.6b`` (or ``--arch``, e.g. ``llama3.2-3b``, whose
+attention runs on the ``flash_attention`` kernel) at full width with
+seeded random weights on the card (4 random prompts of 2,048 tokens, 33
+generated tokens) and prints one JSON line of host times.  Any config
+the port builds serves unchanged; ``repro_torch.examples.serve_lm`` is
+the small GQA demo.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
@@ -27,15 +30,19 @@ def _sync(device):
 def generate(cfg, params, prompts, gen):
     """``prefill`` over ``prompts`` ``[B, S]``, then ``gen - 1`` greedy
     ``serve_step`` calls: ``gen`` new tokens per prompt, the first from
-    the prefill's logits.  Returns a dict with ``tokens`` ``[B, gen]``,
-    the last ``logits`` ``[B, Vp]``, and host seconds ``prefill_s`` and
-    ``decode_s``, each ended by a device synchronize."""
+    the prefill's logits.  Text prompts under mrope take position ``t``
+    in all three components.  Returns a dict with ``tokens`` ``[B,
+    gen]``, the last ``logits`` ``[B, Vp]``, and host seconds
+    ``prefill_s`` and ``decode_s``, each ended by a device synchronize."""
     dev = params["tok_embed"].device
     prompts = prompts.to(dev)
-    S = prompts.shape[1]
+    B, S = prompts.shape
+    pid = (torch.arange(S, device=dev).expand(3, B, S)
+           if cfg.rope == "mrope" else None)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = lm.prefill(cfg, params, prompts, cache_len=S + gen)
+    logits, caches = lm.prefill(cfg, params, prompts, position_ids=pid,
+                                cache_len=S + gen)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     tok = logits.argmax(-1)[:, None]
@@ -50,8 +57,11 @@ def generate(cfg, params, prompts, gen):
             "prefill_s": t_prefill, "decode_s": time.perf_counter() - t0}
 
 
-def main(batch=4, prompt_len=2048, gen=33, seed=0):
-    cfg = get_config("rwkv6-1.6b")
+def main(argv=None, batch=4, prompt_len=2048, gen=33, seed=0):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="rwkv6-1.6b",
+                    help="a registered config the port builds")
+    cfg = get_config(ap.parse_args(argv).arch)
     params = lm.init_params(seed, cfg)
     dev = params["tok_embed"].device
     g = torch.Generator(device=dev).manual_seed(seed + 1)

@@ -1,32 +1,43 @@
 """Layer blocks of the LM (counterpart of ``repro/models/blocks.py``):
-so far the norms, the RWKV6 mixer and the RWKV channel-mix MLP.
+the norms, the GQA and RWKV6 mixers, and the swiglu, gelu and RWKV
+channel-mix MLPs.
 
 Each mixer exposes, as in the reference:
   ``<name>_init(gen, cfg)``                   -> param dict
-  ``<name>_seq(cfg, p, x, ...)``              -> (y, final_state)
-  ``<name>_step(cfg, p, x, state, pos)``      -> (y, new_state)
+  ``<name>_seq(cfg, p, x, *, positions, position_ids)`` -> (y, cache)
+  ``<name>_step(cfg, p, x, state, pos, *, position_ids)`` -> (y, state)
   ``<name>_init_cache(cfg, batch, cache_len, dtype, device)``
 with parameters and states as dicts of tensors under the reference's
 key names.  Randomness comes from the ``torch.Generator`` passed in, on
 the device the parameters are made on.
 
-The reference computes RWKV6's WKV recurrence over a sequence with its
-own chunked associative scan (``lax.scan`` over chunks, blocks.py:457-479)
-and the one-token update with einsums; the port runs both through
-:func:`~repro_torch.kernels.rwkv6_chunk.ops.rwkv6_chunk_op`, the
-hand-written kernel on the card.  It is the same function: the
-reference's own test holds its scan equal to the kernel's oracle.
-The reference's sharding hints (``constrain``) are no-ops without a mesh
-and are dropped: the port runs on one device.
+The reference computes GQA attention in jnp (``full_attention``, or
+``chunked_attention`` past 2,048 x 2,048 scores, over K/V repeated to
+the padded head count); the port runs it through
+:func:`~repro_torch.kernels.flash_attention.ops.flash_attention_op`,
+the hand-written kernel on the card, with K/V at their own head count
+(the kernel reads kv head ``h // (H / KV)``).  It computes RWKV6's WKV
+recurrence over a sequence with its own chunked associative scan
+(``lax.scan`` over chunks, blocks.py:457-479) and the one-token update
+with einsums; the port runs both through
+:func:`~repro_torch.kernels.rwkv6_chunk.ops.rwkv6_chunk_op`.  Each is
+the same function: the reference's own tests hold its jnp code equal to
+the kernel's oracle.  The reference's sharding hints (``constrain``)
+are no-ops without a mesh and are dropped: the port runs on one device,
+so it pads no query heads either (:func:`_padded_heads`).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.kernels.rwkv6_chunk.ops import rwkv6_chunk_op
+from repro_torch.models import rope as rope_lib
+from repro_torch.models.attention import NEG_INF, repeat_kv
 
 
 def _dense_init(gen, shape, dtype, scale=None):
@@ -57,6 +68,190 @@ def apply_norm(cfg, p, x, eps=1e-6):
         ms = (xf * xf).mean(-1, keepdim=True)
         y = xf * torch.rsqrt(ms + eps) * p["scale"].to(torch.float32)
     return y.to(x.dtype)
+
+
+def rms_head(x, scale, eps=1e-6):
+    """Per-head RMS norm over the last axis (qwen3's qk_norm), in f32,
+    cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    ms = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)
+            * scale.to(torch.float32)).to(x.dtype)
+
+
+def _act(name):
+    """silu, or gelu in its tanh form (``jax.nn.gelu``'s default)."""
+    if name == "silu":
+        return F.silu
+    return functools.partial(F.gelu, approximate="tanh")
+
+
+# ------------------------------------------------------------- GQA mixer ---
+def gqa_init(gen, cfg):
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt, dev = cfg.torch_dtype, gen.device
+    p = {"wq": _dense_init(gen, (d, H * hd), dt),
+         "wk": _dense_init(gen, (d, KV * hd), dt),
+         "wv": _dense_init(gen, (d, KV * hd), dt),
+         "wo": _dense_init(gen, (H * hd, d), dt)}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H * hd,), dtype=dt, device=dev)
+        p["bk"] = torch.zeros((KV * hd,), dtype=dt, device=dev)
+        p["bv"] = torch.zeros((KV * hd,), dtype=dt, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dt, device=dev)
+        p["k_norm"] = torch.ones((hd,), dtype=dt, device=dev)
+    return p
+
+
+def _padded_heads(cfg, tp=16):
+    """The reference's query head count padded to a multiple of ``tp``
+    for tensor parallelism (llama3.2-3b: 24 -> 32).  The port runs on
+    one card and pads nothing: the padded heads' outputs are sliced off
+    in the reference, so the result is the same (pinned in
+    tests/test_torch_gqa.py)."""
+    H = cfg.n_heads
+    return ((H + tp - 1) // tp) * tp if H % tp else H
+
+
+def _project_qkv(cfg, p, x, positions, position_ids=None):
+    """q ``[B, S, H, hd]`` and k, v ``[B, S, KV, hd]`` of x ``[B, S, d]``,
+    with bias, qk-norm and the rotary embedding at ``positions`` ``[S]``
+    (``position_ids`` ``[3, B, S]`` for mrope)."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
+    if cfg.qk_norm and "q_norm" in p:
+        q = rms_head(q, p["q_norm"])
+        k = rms_head(k, p["k_norm"])
+    if cfg.rope == "rope":
+        q = rope_lib.apply_rope(q, positions, cfg.rope_theta)
+        k = rope_lib.apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        if position_ids is None:
+            raise ValueError(f"{cfg.name}: mrope needs position_ids "
+                             f"[3, B, S]")
+        q = rope_lib.apply_mrope(q, position_ids, cfg.rope_theta,
+                                 cfg.mrope_sections)
+        k = rope_lib.apply_mrope(k, position_ids, cfg.rope_theta,
+                                 cfg.mrope_sections)
+    return q, k, v
+
+
+def gqa_seq(cfg, p, x, *, positions, position_ids=None, causal=True):
+    """Attention over a sequence x ``[B, S, d]`` at ``positions``
+    ``[S]``.  Returns ``(y, (k, v))``, k and v ``[B, S, KV, hd]`` for the
+    cache."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(cfg, p, x, positions, position_ids)
+    o = flash_attention_op(q, k, v, causal=causal, q_offset=0)
+    return o.reshape(B, S, -1) @ p["wo"], (k, v)
+
+
+def gqa_init_cache(cfg, batch, cache_len, dtype, device):
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    shape = (batch, cache_len, KV, hd)
+    if cfg.kv_cache_dtype == "int8":
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:3], dtype=torch.bfloat16,
+                                   device=device),
+            "v_scale": torch.zeros(shape[:3], dtype=torch.bfloat16,
+                                   device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _quantize_kv(t):
+    """Per-(token, head) symmetric int8 of t ``[B, S, KV, hd]``: the f32
+    scale ``max(absmax, 1e-6) / 127`` (a true division by a tensor, which
+    a CUDA tensor divided by a Python number is not), values rounded
+    half to even and clipped to [-127, 127]; returns the int8 values and
+    the scale ``[B, S, KV]`` in bf16."""
+    tf = t.to(torch.float32)
+    scale = torch.clamp(tf.abs().amax(-1), min=1e-6) / tf.new_tensor(127.0)
+    q = torch.clamp(torch.round(tf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _dequantize_kv(tq, scale):
+    """int8 ``[B, S, KV, hd]`` times its bf16 scale, in bf16."""
+    return tq.to(torch.bfloat16) * scale[..., None].to(torch.bfloat16)
+
+
+def _int8_decode_attention(cfg, q, kq, vq, ks, vs, valid, *, chunk=2048):
+    """Online-softmax decode attention that dequantizes the int8 cache a
+    chunk at a time (``blocks.py:172-216`` of the reference, which has
+    no caller there either; the decode step attends over the whole
+    dequantized cache instead).  q ``[B, 1, H, hd]``; kq, vq ``[B, S, KV,
+    hd]`` int8; ks, vs ``[B, S, KV]``; ``valid`` keys are seen."""
+    B, _, H, hd = q.shape
+    S, KV = kq.shape[1], kq.shape[2]
+    n_rep = max(1, H // KV)
+    scale = 1.0 / (hd ** 0.5)
+    nchunk = max(1, S // chunk)
+    chunk = S // nchunk
+    f32 = torch.float32
+    qf = q.to(f32)
+    acc = torch.zeros((B, H, 1, hd), dtype=f32, device=q.device)
+    m = torch.full((B, H, 1), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, H, 1), dtype=f32, device=q.device)
+    for ci in range(nchunk):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        kd = repeat_kv(_dequantize_kv(kq[:, sl], ks[:, sl]), n_rep, H)
+        vd = repeat_kv(_dequantize_kv(vq[:, sl], vs[:, sl]), n_rep, H)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kd.to(f32)) * scale
+        pos = ci * chunk + torch.arange(chunk, device=q.device)
+        s = torch.where((pos < valid)[None, None, None, :], s,
+                        s.new_tensor(NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(torch.bfloat16).to(f32), vd.to(f32))
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def gqa_step(cfg, p, x, cache, pos, *, position_ids=None):
+    """One token x ``[B, 1, d]`` at position ``pos`` against the cache
+    (k, v ``[B, S, KV, hd]``; int8 with per-token scales when
+    ``cfg.kv_cache_dtype == "int8"``).  The token's K/V are written into
+    the cache's buffers in place (the reference returns updated copies),
+    and attention runs over the whole cache with ``kv_valid_len = pos +
+    1``; an int8 cache is dequantized to bf16 first, as the reference
+    does, then cast to q's dtype for the kernel.  For mrope without
+    ``position_ids``, every component is ``pos``."""
+    B = x.shape[0]
+    pid = position_ids
+    if cfg.rope == "mrope" and pid is None:
+        pid = torch.full((3, B, 1), int(pos), dtype=torch.int64,
+                         device=x.device)
+    positions = torch.full((1,), int(pos), dtype=torch.int64,
+                           device=x.device)
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions, pid)
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks_new = _quantize_kv(k_new)
+        vq, vs_new = _quantize_kv(v_new)
+        for key, val in (("k", kq), ("v", vq), ("k_scale", ks_new),
+                         ("v_scale", vs_new)):
+            cache[key][:, pos] = val[:, 0]
+        k = _dequantize_kv(cache["k"], cache["k_scale"]).to(q.dtype)
+        v = _dequantize_kv(cache["v"], cache["v_scale"]).to(q.dtype)
+    else:
+        cache["k"][:, pos] = k_new[:, 0]
+        cache["v"][:, pos] = v_new[:, 0]
+        k, v = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
+    o = flash_attention_op(q, k, v, causal=False, kv_valid_len=pos + 1)
+    return o.reshape(B, 1, -1) @ p["wo"], cache
 
 
 # ----------------------------------------------------------- RWKV6 mixer ---
@@ -135,12 +330,14 @@ def _rwkv_out(cfg, p, x, r, k, v, g, w, S):
     return y.to(x.dtype) @ p["wo"], S_fin
 
 
-def rwkv6_seq(cfg, p, x, *, chunk=64, x_prev0=None, S0=None):
+def rwkv6_seq(cfg, p, x, *, positions=None, position_ids=None, chunk=64,
+              x_prev0=None, S0=None):
     """The mixer over a sequence x ``[B, S, d]``, from token-shift input
     ``x_prev0`` ``[B, d]`` and state ``S0`` (zeros when None).  Returns
     ``(y, {"S", "x_last"})``.  ``chunk`` is the reference's scan chunk;
-    the kernel walks the whole sequence, so it changes nothing."""
-    del chunk
+    the kernel walks the whole sequence, so it changes nothing.  A
+    recurrent mixer takes no positions."""
+    del positions, position_ids, chunk
     B, S, d = x.shape
     H, hd = cfg.n_rwkv_heads, cfg.rwkv_head_size
     first = (x_prev0[:, None] if x_prev0 is not None
@@ -164,9 +361,9 @@ def rwkv6_init_cache(cfg, batch, cache_len, dtype, device):
     }
 
 
-def rwkv6_step(cfg, p, x, state, pos):
+def rwkv6_step(cfg, p, x, state, pos, *, position_ids=None):
     """One token x ``[B, 1, d]``: the recurrence at T = 1."""
-    del pos  # recurrent: the state carries the position
+    del pos, position_ids  # recurrent: the state carries the position
     r, k, v, g, w = _rwkv_wkvrg(cfg, p, x, state["x_last"][:, None])
     y, S_new = _rwkv_out(cfg, p, x, r, k, v, g, w, state["S"])
     return y, {"S": S_new, "x_last": x[:, 0]}
@@ -174,26 +371,51 @@ def rwkv6_step(cfg, p, x, state, pos):
 
 # -------------------------------------------------------------- MLPs -------
 def mlp_init(gen, cfg, kind):
-    d, dt = cfg.d_model, cfg.torch_dtype
-    if kind != "rwkv_cm":
-        raise NotImplementedError(
-            f"mlp {kind!r} is not in the port yet (ROADMAP queue 1 item 14)")
-    return {
-        "cm_mu_k": torch.full((d,), 0.5, dtype=dt, device=gen.device),
-        "cm_mu_r": torch.full((d,), 0.5, dtype=dt, device=gen.device),
-        "wk_cm": _dense_init(gen, (d, cfg.d_ff), dt),
-        "wv_cm": _dense_init(gen, (cfg.d_ff, d), dt),
-        "wr_cm": _dense_init(gen, (d, d), dt),
-    }
+    d, ff, dt, dev = cfg.d_model, cfg.d_ff, cfg.torch_dtype, gen.device
+    if kind == "swiglu":
+        return {"w1": _dense_init(gen, (d, ff), dt),
+                "w3": _dense_init(gen, (d, ff), dt),
+                "w2": _dense_init(gen, (ff, d), dt)}
+    if kind == "gelu":
+        p = {"w_up": _dense_init(gen, (d, ff), dt),
+             "w_down": _dense_init(gen, (ff, d), dt)}
+        if cfg.qkv_bias:
+            p["b_up"] = torch.zeros((ff,), dtype=dt, device=dev)
+            p["b_down"] = torch.zeros((d,), dtype=dt, device=dev)
+        return p
+    if kind == "rwkv_cm":
+        return {
+            "cm_mu_k": torch.full((d,), 0.5, dtype=dt, device=dev),
+            "cm_mu_r": torch.full((d,), 0.5, dtype=dt, device=dev),
+            "wk_cm": _dense_init(gen, (d, ff), dt),
+            "wv_cm": _dense_init(gen, (ff, d), dt),
+            "wr_cm": _dense_init(gen, (d, d), dt),
+        }
+    raise _unported_mlp(kind)
+
+
+def _unported_mlp(kind):
+    if kind == "moe":
+        return NotImplementedError("mlp 'moe' is not in the port yet "
+                                   "(ROADMAP queue 1 item 10.3)")
+    return ValueError(f"unknown mlp {kind!r}")
 
 
 def mlp_apply(cfg, p, x, kind, cm_prev=None):
-    """The RWKV channel mix over x ``[B, S, d]`` with token-shift input
-    ``cm_prev`` ``[B, 1, d]`` (zeros when None).  Returns ``(y, x[:, -1:])``,
-    the second being the next call's ``cm_prev``."""
+    """The MLP over x ``[B, S, d]``.  Returns ``(y, cm)``: for the RWKV
+    channel mix, ``cm`` is ``x[:, -1:]``, the next call's token-shift
+    input ``cm_prev`` (zeros when None); for the others it is None."""
+    if kind == "swiglu":
+        h = _act(cfg.act)(x @ p["w1"]) * (x @ p["w3"])
+        return h @ p["w2"], None
+    if kind == "gelu":
+        h = x @ p["w_up"]
+        if "b_up" in p:
+            h = h + p["b_up"]
+        y = F.gelu(h, approximate="tanh") @ p["w_down"]
+        return (y + p["b_down"] if "b_down" in p else y), None
     if kind != "rwkv_cm":
-        raise NotImplementedError(
-            f"mlp {kind!r} is not in the port yet (ROADMAP queue 1 item 14)")
+        raise _unported_mlp(kind)
     B, S, d = x.shape
     prev = cm_prev if cm_prev is not None else x.new_zeros((B, 1, d))
     x_prev = torch.cat([prev, x[:, :-1]], dim=1) if S > 1 else prev
@@ -203,10 +425,11 @@ def mlp_apply(cfg, p, x, kind, cm_prev=None):
     return torch.sigmoid(xr @ p["wr_cm"]) * (h @ p["wv_cm"]), x[:, -1:]
 
 
-MIXER_INIT = {"rwkv6": rwkv6_init}
-MIXER_SEQ = {"rwkv6": rwkv6_seq}
-MIXER_STEP = {"rwkv6": rwkv6_step}
-MIXER_CACHE = {"rwkv6": rwkv6_init_cache}
+MIXER_INIT = {"gqa": gqa_init, "rwkv6": rwkv6_init}
+MIXER_SEQ = {"gqa": gqa_seq, "rwkv6": rwkv6_seq}
+MIXER_STEP = {"gqa": gqa_step, "rwkv6": rwkv6_step}
+MIXER_CACHE = {"gqa": gqa_init_cache, "rwkv6": rwkv6_init_cache}
+_UNPORTED_MIXERS = {"mla": "10.1: MLA", "mamba": "10.2: Mamba"}
 
 
 def mixer(table, name):
@@ -214,6 +437,8 @@ def mixer(table, name):
     try:
         return table[name]
     except KeyError:
-        raise NotImplementedError(
-            f"mixer {name!r} is not in the port yet (ROADMAP queue 1 item "
-            f"14: the GQA, MLA and Mamba blocks)") from None
+        if name in _UNPORTED_MIXERS:
+            raise NotImplementedError(
+                f"mixer {name!r} is not in the port yet (ROADMAP queue 1 "
+                f"item {_UNPORTED_MIXERS[name]})") from None
+        raise ValueError(f"unknown mixer {name!r}") from None

@@ -13,8 +13,11 @@ reference stacks each pattern slot's ``R`` repeats on a leading axis
 (built by ``vmap``, walked by ``lax.scan``); the port keeps a list of
 ``R`` per-layer dicts instead, ``params["stack"][slot][r]``, and walks
 the layers in an unrolled loop.  Caches are laid out the same way.
-The port runs recurrent-only configurations (RWKV6 mixers): no
-attention, positional table or encoder yet.
+The port runs the GQA decoders (llama, qwen1.5, qwen3, qwen2-vl with
+``position_ids``) with bf16 or int8 KV caches, and the RWKV6 model; MLA,
+Mamba, MoE, cross attention, the encoder and learned positions wait for
+ROADMAP queue 1 item 10.  A decode step writes its token's K/V into the
+cache buffers it is given.
 """
 from __future__ import annotations
 
@@ -24,8 +27,10 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import (MIXER_CACHE, MIXER_INIT, MIXER_SEQ,
-                                       MIXER_STEP, _dense_init, apply_norm,
-                                       mixer, mlp_apply, mlp_init, norm_init)
+                                       MIXER_STEP, _dense_init,
+                                       _quantize_kv, _unported_mlp,
+                                       apply_norm, mixer, mlp_apply,
+                                       mlp_init, norm_init)
 from repro_torch.models.loss import embed_lookup
 
 
@@ -38,16 +43,27 @@ def _layers(cfg):
     return out
 
 
+_MLPS = ("swiglu", "gelu", "rwkv_cm")
+
+
 def _check_supported(cfg):
+    """Raise ``NotImplementedError`` naming the ROADMAP item that ports
+    what ``cfg`` needs and the port lacks."""
     specs = list(cfg.prefix) + list(cfg.pattern)
     for s in specs:
         mixer(MIXER_INIT, s.mixer)
+        if s.mlp not in _MLPS:
+            raise _unported_mlp(s.mlp)
         if s.cross_attn:
             raise NotImplementedError("cross attention is not in the port "
-                                      "yet (ROADMAP queue 1 item 14)")
+                                      "yet (ROADMAP queue 1 item 10.4)")
     if cfg.enc_dec:
         raise NotImplementedError("encoder-decoder models are not in the "
-                                  "port yet (ROADMAP queue 1 item 14)")
+                                  "port yet (ROADMAP queue 1 item 10.4)")
+    if cfg.rope == "none" and any(s.mixer not in ("rwkv6", "mamba")
+                                  for s in specs):
+        raise NotImplementedError("learned positions (pos_embed) are not in "
+                                  "the port yet (ROADMAP queue 1 item 10.4)")
 
 
 def _get(tree, slot, r):
@@ -133,9 +149,10 @@ def params_from_jax(cfg, tree, *, device=None):
 # ------------------------------------------------------------- forward -----
 
 
-def _apply_layer_seq(cfg, p, spec, x):
-    h, mc = mixer(MIXER_SEQ, spec.mixer)(cfg, p["mixer"],
-                                          apply_norm(cfg, p["ln1"], x))
+def _apply_layer_seq(cfg, p, spec, x, *, positions, position_ids):
+    h, mc = mixer(MIXER_SEQ, spec.mixer)(
+        cfg, p["mixer"], apply_norm(cfg, p["ln1"], x), positions=positions,
+        position_ids=position_ids)
     x = x + h
     h, cm_new = mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x),
                           spec.mlp)
@@ -146,12 +163,17 @@ def _apply_layer_seq(cfg, p, spec, x):
     return x, cache
 
 
-def hidden_states(cfg, params, tokens, *, collect_caches=False):
-    """tokens [B,S] -> (final-normed hidden [B,S,D], caches or None)."""
+def hidden_states(cfg, params, tokens, *, position_ids=None,
+                  collect_caches=False):
+    """tokens [B,S] (and, for mrope, position_ids [3,B,S]) ->
+    (final-normed hidden [B,S,D], caches or None)."""
     x = embed_lookup(params["tok_embed"], tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)
     caches = {"prefix": [], "stack": tuple([] for _ in cfg.pattern)}
     for slot, r, spec in _layers(cfg):
-        x, c = _apply_layer_seq(cfg, _get(params, slot, r), spec, x)
+        x, c = _apply_layer_seq(cfg, _get(params, slot, r), spec, x,
+                                positions=positions,
+                                position_ids=position_ids)
         if collect_caches:
             (caches["prefix"] if slot is None
              else caches["stack"][slot]).append(c)
@@ -173,10 +195,11 @@ def _logits_from_hidden(cfg, params, x):
     return logits
 
 
-def forward(cfg, params, tokens, *, collect_caches=False, last_only=False):
+def forward(cfg, params, tokens, *, position_ids=None, collect_caches=False,
+            last_only=False):
     """tokens [B,S] -> logits [B,S,Vp] (or [B,1,Vp] with last_only), and
     the caches with ``collect_caches``."""
-    x, caches = hidden_states(cfg, params, tokens,
+    x, caches = hidden_states(cfg, params, tokens, position_ids=position_ids,
                               collect_caches=collect_caches)
     if last_only:
         x = x[:, -1:]
@@ -207,9 +230,10 @@ def init_caches(cfg, batch, cache_len, dtype=None, *, device=None):
     return caches
 
 
-def _apply_layer_step(cfg, p, spec, x, cache, pos):
+def _apply_layer_step(cfg, p, spec, x, cache, pos, *, position_ids):
     h, mc = mixer(MIXER_STEP, spec.mixer)(
-        cfg, p["mixer"], apply_norm(cfg, p["ln1"], x), cache["mixer"], pos)
+        cfg, p["mixer"], apply_norm(cfg, p["ln1"], x), cache["mixer"], pos,
+        position_ids=position_ids)
     x = x + h
     cm_prev = cache.get("cm_x_last")
     cm_new = cm_prev
@@ -229,22 +253,25 @@ def _apply_layer_step(cfg, p, spec, x, cache, pos):
     return x, new_cache
 
 
-def serve_step(cfg, params, caches, tokens, pos):
-    """One decode step. tokens [B,1] -> (logits [B,Vp], new caches)."""
+def serve_step(cfg, params, caches, tokens, pos, *, position_ids=None):
+    """One decode step at position ``pos``. tokens [B,1] (and, for mrope,
+    position_ids [3,B,1]) -> (logits [B,Vp], new caches)."""
     x = embed_lookup(params["tok_embed"], tokens)
     new = {"prefix": [], "stack": tuple([] for _ in cfg.pattern)}
     for slot, r, spec in _layers(cfg):
         x, c = _apply_layer_step(cfg, _get(params, slot, r), spec, x,
-                                 _get(caches, slot, r), pos)
+                                 _get(caches, slot, r), pos,
+                                 position_ids=position_ids)
         (new["prefix"] if slot is None else new["stack"][slot]).append(c)
     x = apply_norm(cfg, params["final_norm"], x)
     return _logits_from_hidden(cfg, params, x[:, 0]), new
 
 
-def prefill(cfg, params, tokens, *, cache_len=None):
-    """Forward over the prompt; returns (last-token logits, decode caches)."""
-    logits, caches = forward(cfg, params, tokens, collect_caches=True,
-                             last_only=True)
+def prefill(cfg, params, tokens, *, position_ids=None, cache_len=None):
+    """Forward over the prompt; returns (last-token logits, decode caches
+    of ``cache_len`` positions, the prompt's length when None)."""
+    logits, caches = forward(cfg, params, tokens, position_ids=position_ids,
+                             collect_caches=True, last_only=True)
     B, S = tokens.shape
     out = init_caches(cfg, B, cache_len or S, cfg.torch_dtype,
                       device=params["tok_embed"].device)
@@ -257,5 +284,16 @@ def prefill(cfg, params, tokens, *, cache_len=None):
 
 
 def _fill_mixer(cfg, spec, dst, src):
-    """A recurrent mixer's prefill state in its cache's dtypes."""
-    return {k: src[k].to(dst[k].dtype) for k in dst}
+    """The prefill's K/V written into the first positions of the cache
+    (quantized per token and head for an int8 cache), or a recurrent
+    mixer's state in its cache's dtypes."""
+    if spec.mixer != "gqa":
+        return {k: src[k].to(dst[k].dtype) for k in dst}
+    k, v = src
+    S = k.shape[1]
+    for name, t in (("k", k), ("v", v)):
+        if name + "_scale" in dst:
+            t, scale = _quantize_kv(t)
+            dst[name + "_scale"][:, :S] = scale
+        dst[name][:, :S] = t
+    return dst

@@ -3,8 +3,8 @@
 buffers, weight residency and tenancy.
 
 Still to be ported: the cross-host pod paths (``pod_flush``,
-``dispatch_pod``; ROADMAP queue 1 item 9) and the adaptive flush
-controller (item 6).
+``dispatch_pod``; ROADMAP queue 1 item 9).  The adaptive flush
+controller is :mod:`repro_torch.tune.controller`.
 """
 from repro_torch.serve.batcher import Batcher, bucket_for, bucket_size
 from repro_torch.serve.queue import (Backpressure, FlushPolicy, ServeFuture,

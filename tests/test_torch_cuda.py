@@ -692,6 +692,99 @@ def test_lm_prefill_and_serve_step_launch_the_kernel(dev):
     assert err <= 2e-2 * (1 + logits.float().abs().max().item())
 
 
+@pytest.mark.parametrize("valid", [1, 100, 2049, 2081])
+def test_flash_attention_at_the_lm_decode_shape(dev, valid):
+    """The llama3.2-3b decode step's call: bf16, one query row, GQA group
+    3 at hd 128, over a 2,081-key cache that no ``block_kv`` divides,
+    with ``kv_valid_len`` moving; through the op and at every tile that
+    fits, against the plain version (bf16 outputs within one ulp)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        BLOCK_KV, BLOCK_Q, fits, flash_attention)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    q, k, v = _attn((4, 1, 2081, 24, 8, 128), dev, seed=valid,
+                    dtype=torch.bfloat16)
+    kw = {"causal": False, "kv_valid_len": valid}
+    want = flash_attention_ref(q, k, v, **kw).float()
+    tol = dict(rtol=2 ** -7, atol=ops.TOL[1])
+    ops.SPEC.reset_counts()
+    got = ops.flash_attention_op(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.SPEC.launches == 1 and ops.SPEC.plain_calls == 0
+    torch.testing.assert_close(got.float(), want, **tol)
+    for bq, bkv in [(bq, bkv) for bq in BLOCK_Q for bkv in BLOCK_KV
+                    if fits(128, bq, bkv, True)]:
+        got = flash_attention(q, k, v, block_q=bq, block_kv=bkv, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want, **tol,
+                                   msg=lambda m: f"tile {bq}x{bkv}: {m}")
+
+
+@pytest.mark.parametrize("cache", ["bfloat16", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["llama3.2-3b", "qwen2-vl-7b"])
+def test_gqa_lm_on_the_card_matches_the_cpu(dev, name, dtype, cache):
+    """Reduced llama3.2-3b and qwen2-vl-7b (mrope with position_ids):
+    prefill and three serve_steps on the card, one flash_attention launch
+    per layer and call, against the same weights and tokens on the CPU
+    (plain attention): f32 within 1e-4, bf16 and the int8 cache within
+    2e-2 of the largest magnitude."""
+    from repro_torch.configs.archs import reduced
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import lm
+    cfg = reduced(get_config(name)).replace(dtype=dtype,
+                                            kv_cache_dtype=cache)
+    cpu = lm.init_params(0, cfg, device="cpu")
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(to(v, device) for v in tree)
+        return tree.to(device)
+    card = to(cpu, dev)
+    B, S = 2, 13
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 3),
+                           generator=torch.Generator().manual_seed(2))
+    pid = torch.stack([torch.arange(S + 3).expand(B, -1),
+                       torch.arange(S + 3).expand(B, -1) // 2,
+                       torch.arange(S + 3).expand(B, -1) % 5])
+    mrope = cfg.rope == "mrope"
+
+    def close(got, want):
+        got, want = got.float().cpu(), want.float()
+        if dtype == "float32" and cache != "int8":
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        else:
+            err = (got - want).abs().max().item()
+            assert err <= 2e-2 * (1 + want.abs().max().item()), err
+
+    def run(params, device):
+        p = pid.to(device) if mrope else None
+        out = []
+        logits, caches = lm.prefill(cfg, params, tokens[:, :S].to(device),
+                                    cache_len=S + 3,
+                                    position_ids=None if p is None
+                                    else p[:, :, :S])
+        out.append(logits)
+        for t in range(S, S + 3):
+            logits, caches = lm.serve_step(
+                cfg, params, caches, tokens[:, t:t + 1].to(device), t,
+                position_ids=None if p is None else p[:, :, t:t + 1])
+            out.append(logits)
+        return out
+
+    want = run(cpu, torch.device("cpu"))
+    ops.SPEC.reset_counts()
+    got = run(card, dev)
+    torch.cuda.synchronize()
+    assert ops.SPEC.launches == 4 * cfg.n_layers
+    assert ops.SPEC.plain_calls == 0
+    for g, w in zip(got, want):
+        close(g, w)
+
+
 # ------------------------------------------------ the serving layer -------
 def _serve_bundle(tmp_path, monkeypatch, hidden=(64, 32), gated=False):
     """A seeded minibude-shaped bundle on the card, through the gate when

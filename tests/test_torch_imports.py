@@ -36,6 +36,8 @@ def test_port_imports_with_jax_and_repro_blocked():
         "        'repro_torch.kernels.flash_attention.int8',\n"
         "        'repro_torch.kernels.rwkv6_chunk.ops',\n"
         "        'repro_torch.models.lm', 'repro_torch.launch.serve_lm',\n"
+        "        'repro_torch.models.rope', 'repro_torch.models.attention',\n"
+        "        'repro_torch.examples.serve_lm',\n"
         "        'repro_torch.nas.nested', 'repro_torch.nas.train_surrogate',\n"
         "        'repro_torch.apps.miniweather',\n"
         "        'repro_torch.apps.particlefilter',\n"

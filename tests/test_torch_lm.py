@@ -119,11 +119,17 @@ def test_registry_and_shapes_equal_reference():
 
 
 def test_unported_mixers_raise_naming_the_queue_item():
-    for name in ("llama3.2-3b", "deepseek-v2-lite-16b", "jamba-v0.1-52b",
-                 "whisper-medium"):
+    for name, item in (("deepseek-v2-lite-16b", r"item 10\.1"),
+                       ("jamba-v0.1-52b", r"item 10\.2"),
+                       ("grok-1-314b", r"item 10\.3"),
+                       ("whisper-medium", r"item 10\.4")):
         cfg = archs.reduced(base.get_config(name))
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+        with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
             lm.init_params(0, cfg, device="cpu")
+    # a GQA decoder without positions would need the learned table
+    cfg = archs.reduced(base.get_config("llama3.2-3b")).replace(rope="none")
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 10\.4"):
+        lm.init_params(0, cfg, device="cpu")
 
 
 # ----------------------------------------------------------- parameters ----
