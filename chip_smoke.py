@@ -164,7 +164,27 @@ source, all started together), and prints one JSON line per phase:
    kernel's times at the path's two shapes (the causal prefill, and one
    decode step over 2,081 cached positions with 2,049 valid) beside its
    plain version, ``scaled_dot_product_attention`` and the bound;
-10. the ``kernels`` line, the ``nvidia-smi`` line and, last,
+10. ``lm_train_slice`` -- LM training on the card: the
+    ``flash_attention_bwd`` kernel at the training shape (B 2, S 2,048,
+    24/8 heads of 128, causal) in f32 and bf16 against the plain backward
+    and autograd of the plain version, two launches bit for bit, its time
+    beside the plain backward's, SDPA's backward and the bound
+    (``kernel`` lines); every leaf's gradient of llama3.2-3b at full
+    width and depth 2 through the kernels against the same with
+    ``blocks.flash_attention_op`` patched to the plain version
+    (``LMT_GRAD_TOL_*``, part ``grads``); 4 ``train_step``s of
+    llama3.2-3b at full width and depth (seeded weights, policy full, one
+    TokenPipeline batch of 2 x 2,048 tokens, ``step`` past the warmup):
+    loss, grad norm, seconds, the device spans of the gradients, the clip
+    and AdamW (CUDA events), 56 flash_attention and 28
+    flash_attention_bwd launches a step (remat runs each forward twice),
+    the last step traced for the card's busy share, ``peak_gib`` (part
+    ``train``); the train_lm example's resume drill on the 20m preset (60
+    steps; the simulated failure after 36 exits 17, its checkpoint
+    restored bit for bit, the run resumed; the last losses of both runs
+    and whether they agree bit for bit; the gradient leaves that differ
+    between two evaluations of one batch; part ``resume_drill``);
+11. the ``kernels`` line, the ``nvidia-smi`` line and, last,
     ``{"ok": true, "device": {...}}``.
 
 Before the slices, the ``kernel`` lines also hold stencil_gather (bit
@@ -187,7 +207,8 @@ Launch counts are set to 0 just before each main path (the f32 slice's
 region calls, each int8 slice's infer region, the train slice's infer
 regions, the serve slice's traced coalesced run, the control slice's
 adaptive run, the ``run_tune`` call, each LM's prefill and its generate
-loop) and read just after.  Any failure raises, so the script exits
+loop, the training steps) and read just after.  Any failure raises, so
+the script exits
 non-zero and prints no result.  Outside the train slice the bundle weights are
 random: nothing there measures surrogate accuracy.
 """
@@ -424,6 +445,33 @@ GQA_PREFILL = dict(b=LM_BATCH, sq=LM_PROMPT, skv=LM_PROMPT, causal=True,
 GQA_DECODE = dict(b=LM_BATCH, sq=1, skv=LM_PROMPT + LM_GEN, causal=False,
                   q_offset=0, **LLAMA)
 GQA_DECODE_VALID = LM_PROMPT + 1
+# the LM training slice: llama3.2-3b at full width and depth trained on
+# one repeated TokenPipeline batch of 2 x 2,048 tokens, 4 steps past the
+# warmup (policy full); attention's backward at that shape
+LMT_ARCH, LMT_BATCH, LMT_SEQ, LMT_STEPS = "llama3.2-3b", 2, 2048, 4
+LMT_AT_STEP = 1000
+LMT_ATTN = dict(b=LMT_BATCH, sq=LMT_SEQ, skv=LMT_SEQ, causal=True,
+                q_offset=0, **LLAMA)
+# every leaf's gradient at full width and depth 2 with attention on the
+# kernels against attention by the plain version (autograd of
+# flash_attention_ref), each error over the leaf's largest magnitude:
+# f32, the kernels' own differences (3xTF32 forward, f32 backward, about
+# 1e-6 relative) through two layers and the loss: 1e-3; bf16, as the CPU
+# tests hold the port's bf16 gradients to the reference's
+# (tests/test_torch_train.py BF16_GRAD_TOL)
+LMT_GRAD_TOL_F32, LMT_GRAD_TOL_BF16 = 1e-3, 5e-2
+# the traced training step's kernels by kind (the first match of a
+# substring of the kernel's name): attention's forward and backward
+# kernels, cuBLAS's matrix products, and the rest (elementwise work of the
+# model, the loss, the clip and AdamW)
+STEP_KERNEL_GROUPS = {
+    "attention_forward": ("flash_attention_kernel",),
+    "attention_backward": ("bwd_dq_kernel", "bwd_dkdv_kernel"),
+    "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet"),
+}
+# the resume drill: the train_lm example's 20m preset, 60 steps, the
+# simulated failure after 36 (60%)
+DRILL_STEPS, DRILL_FAIL_AT = 60, 36
 PEAK_F32_FLOPS = 67e12   # H100 SXM f32 outside the tensor cores
 # H100 SXM TF32 tensor cores, dense: the fused_mlp and flash_attention
 # kernels form each f32 product as three TF32 products (3xTF32), so their
@@ -807,10 +855,12 @@ def _first_batch_grads(X, Y, stats, dev):
     return [g.cpu() for g in torch.autograd.grad(loss, params)]
 
 
-def device_busy(fn):
+def device_busy(fn, groups=None):
     """fn's result, its host seconds (ended by a sync) and the seconds of
     kernel time torch.profiler's CUDA activity records in them (None
-    where the trace holds no device time)."""
+    where the trace holds no device time).  With ``groups`` ({name:
+    substrings}), also the kernel seconds by the first group one of whose
+    substrings the kernel's name holds ("other" for none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -819,8 +869,19 @@ def device_busy(fn):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = sum(e.self_device_time_total for e in prof.key_averages()) * 1e-6
-    return out, wall, busy or None
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events) * 1e-6
+    if groups is None:
+        return out, wall, busy or None
+    by = dict.fromkeys(list(groups) + ["other"], 0.0)
+    for e in events:
+        name = next((g for g, subs in groups.items()
+                     if any(x in e.key for x in subs)), "other")
+        by[name] += e.self_device_time_total * 1e-6
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    by["top_kernels"] = [(e.key[:80], e.self_device_time_total * 1e-6,
+                          e.count) for e in top]
+    return out, wall, busy or None, by
 
 
 def run_train_slice(dev, smi, work):
@@ -3367,6 +3428,400 @@ def run_gqa_lm_slice(dev, smi):
     return gen_launches, timing
 
 
+def attention_bwd_cell(shape, dtype, dev, seed):
+    """flash_attention_bwd at the training shape: its inputs (o from the
+    plain version, a seeded cotangent), the bound (each of q, k, v, o, dO
+    read once and dq, dk, dv written once, against the five causal
+    products of the gradient, 2 hd operations per visible pair each, at
+    the bf16 tensor-core peak for bf16 inputs, the f32 CUDA-core peak for
+    f32; ``bound_cuda_core_ms`` prices them at the f32 CUDA-core peak the
+    kernel runs them on), and one PyTorch call for the same function:
+    ``scaled_dot_product_attention``'s forward and backward (K/V repeated
+    per group), minus its forward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    q, k, v = attention_inputs(shape, dev, seed, dtype=dtype)
+    o = flash_attention_ref(q, k, v, causal=True)
+    g = torch.Generator().manual_seed(seed + 1)
+    do = torch.randn(o.shape, generator=g).to(device=dev, dtype=dtype)
+    b, sq, h, kvh, hd = (shape[n] for n in ("b", "sq", "h", "kv", "hd"))
+    pairs = b * h * sq * (sq + 1) // 2
+    flops = 5 * 2 * hd * pairs
+    nbytes = q.element_size() * (3 * q.numel() + 4 * k.numel())
+    peak = PEAK_F16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
+    group = h // kvh
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt, vt = (t.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+              .requires_grad_() for t in (k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return torch.autograd.grad(out, (qt, kt, vt), dot)
+    return dict(arrays=(q, k, v, o, do), sdpa_fwd=sdpa_fwd,
+                sdpa_fwd_bwd=sdpa_fwd_bwd,
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_cuda_core_ms=max(flops / PEAK_F32_FLOPS, t_bytes) * 1e3,
+                flops=flops, bytes=nbytes)
+
+
+def check_flash_bwd(dev, smi):
+    """flash_attention_bwd at the training shape in f32 and bf16 against
+    the plain backward (``TOL_BWD``) and autograd of the plain version
+    (``bwd_autograd_tol``), two launches bit for bit, then its CUDA-event
+    time beside the plain backward's, SDPA's backward and the bound.
+    Returns the bf16 line (the training path's dtype)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cell = attention_bwd_cell(LMT_ATTN, dtype, dev, seed=120)
+        q, k, v, o, do = cell.pop("arrays")
+        sdpa_fwd, sdpa_fwd_bwd = cell.pop("sdpa_fwd"), cell.pop("sdpa_fwd_bwd")
+
+        def kernel():
+            return flash_attention_bwd(q, k, v, o, do, causal=True)
+
+        def plain():
+            return flash_attention_bwd_ref(q, k, v, o, do, causal=True)
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        want = plain()
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        auto = torch.autograd.grad(flash_attention_ref(qq, kk, vv),
+                                   (qq, kk, vv), do)
+        del qq, kk, vv
+        group = LMT_ATTN["h"] // LMT_ATTN["kv"]
+        names = ("dq", "dk", "dv")
+
+        def rel(a, b):
+            return ((a.float() - b.float()).abs().max()
+                    / b.float().abs().max()).item()
+        vs_plain = {n: rel(a, b) for n, a, b in zip(names, got, want)}
+        vs_auto = {n: rel(a, b) for n, a, b in zip(names, got, auto)}
+        max_abs = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got, auto))
+        del got, want, auto
+        tol, tol_auto = ops.TOL_BWD[dtype], ops.bwd_autograd_tol(dtype, group)
+        ok = (same_bits and max(vs_plain.values()) <= tol
+              and max(vs_auto.values()) <= tol_auto)
+        line = dict(
+            cell, dtype=str(dtype).removeprefix("torch."),
+            shape=LMT_ATTN, vs_plain_backward=vs_plain, tol=tol,
+            vs_autograd_of_plain=vs_auto, tol_autograd=tol_auto,
+            max_abs_err=max_abs, bit_identical_relaunch=same_bits,
+            ms=cuda_ms(kernel, 5), plain_ms=cuda_ms(plain, 2))
+        fwd_ms, fwd_bwd_ms = cuda_ms(sdpa_fwd, 10), cuda_ms(sdpa_fwd_bwd, 10)
+        line.update(
+            library_ms=fwd_bwd_ms - fwd_ms, library_fwd_bwd_ms=fwd_bwd_ms,
+            library_call="torch.nn.functional.scaled_dot_product_attention "
+                         "forward + backward minus its forward, K/V "
+                         "repeated per group",
+            share_of_bound=cell["bound_ms"] / line["ms"],
+            cuda_core_share_of_bound=cell["bound_cuda_core_ms"] / line["ms"])
+        emit("kernel", kernel="flash_attention_bwd", nvidia_smi=smi, **line)
+        if not ok:
+            raise AssertionError(f"flash_attention_bwd at the training shape "
+                                 f"({dtype}): {vs_plain} (tol {tol}), "
+                                 f"{vs_auto} (tol {tol_auto}), bit-identical "
+                                 f"relaunch {same_bits}")
+        out[line["dtype"]] = line
+        del q, k, v, o, do
+    return out["bfloat16"]
+
+
+def grads_against_plain(cfg, dev):
+    """Every leaf's gradient of one TokenPipeline batch, attention on the
+    kernels, against the same with ``blocks.flash_attention_op`` patched
+    to the plain version (autograd of it): (worst error over the leaf's
+    largest magnitude, its leaf, the leaf count, the backward launches of
+    each run)."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.ckpt.checkpoint import leaf_paths
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import blocks, lm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import trainer
+
+    params = lm.init_params(0, cfg, device=dev)
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    batch = trainer.to_device(TokenPipeline(
+        cfg.vocab_size, LMT_SEQ, LMT_BATCH, seed=11).batch_at(0), dev)
+    before = flash_attention_bwd.launches
+    loss, got = trainer.compute_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    kernel_launches = flash_attention_bwd.launches - before
+    got = [g.detach() for g in tree_leaves(got)]
+    with mock.patch.object(blocks, "flash_attention_op", flash_attention_ref):
+        before = flash_attention_bwd.launches
+        loss_p, want = trainer.compute_grads(cfg, params, batch)
+        torch.cuda.synchronize()
+        plain_launches = flash_attention_bwd.launches - before
+    worst, where = 0.0, None
+    for key, g, w in zip(leaf_paths(want), got, tree_leaves(want)):
+        err = ((g.float() - w.float()).abs().max()
+               / w.float().abs().max().clamp_min(1e-30)).item()
+        if err > worst:
+            worst, where = err, key
+    return dict(loss=loss.item(), loss_plain=loss_p.item(), worst=worst,
+                worst_leaf=where, leaves=len(got),
+                kernel_launches=kernel_launches,
+                plain_launches=plain_launches)
+
+
+def _host_copy(state):
+    from repro_torch.optim.adamw import tree_map
+    return tree_map(lambda t: t.detach().to("cpu", copy=True), state)
+
+
+def _same_bits(a, b):
+    import torch
+    from repro_torch.optim.adamw import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x.detach().cpu(), y.detach().cpu())
+        for x, y in zip(la, lb))
+
+
+def resume_drill(dev, work):
+    """The train_lm example's resume path on the card (20m preset): an
+    uninterrupted run of ``DRILL_STEPS``; a run that fails after
+    ``DRILL_FAIL_AT`` steps (exit 17, its checkpoint at that step), the
+    checkpoint restored into a fresh state and held bit for bit against
+    the failing run's state, then resumed to the end; the two runs' last
+    losses, and whether they agree bit for bit.  Two gradient
+    evaluations of one batch name the leaves whose gradient differs from
+    run to run (the ops that are not deterministic)."""
+    import torch
+    from repro_torch.ckpt.checkpoint import CheckpointManager, leaf_paths
+    from repro_torch.examples import train_lm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import trainer
+
+    def args(ckpt_dir, fail=False):
+        argv = ["--steps", str(DRILL_STEPS), "--ckpt-dir", str(ckpt_dir),
+                "--device", str(dev)]
+        return train_lm.parser().parse_args(
+            argv + (["--simulate-failure"] if fail else []))
+    quiet = lambda s: None  # noqa: E731
+    t0 = time.perf_counter()
+    full = train_lm.train(args(work / "full"), log=quiet)
+    seconds_full = time.perf_counter() - t0
+    saved = {}
+
+    def capture(step, state, metrics):
+        if step + 1 == DRILL_FAIL_AT:
+            saved["state"] = _host_copy(state)
+    exit_code = None
+    try:
+        train_lm.train(args(work / "failing", fail=True), on_step=capture,
+                       log=quiet)
+    except SystemExit as exc:  # the drill's expected crash
+        exit_code = exc.code
+    cfg = train_lm.preset_config("20m")
+    mgr = CheckpointManager(work / "failing", keep=2)
+    restored, at = trainer.restore_train_state(
+        mgr, cfg, trainer.make_train_state(1, cfg, device=dev))
+    restored_exact = _same_bits(restored, saved["state"])
+    resumed = train_lm.train(args(work / "failing"), log=quiet)
+    last = DRILL_STEPS - 1
+    # run-to-run determinism of one gradient evaluation
+    batch = trainer.to_device(train_lm.TokenPipeline(
+        cfg.vocab_size, 256, 8, seed=7).batch_at(0), dev)
+    _, g1 = trainer.compute_grads(cfg, resumed["state"]["params"], batch)
+    _, g2 = trainer.compute_grads(cfg, resumed["state"]["params"], batch)
+    return dict(exit_code=exit_code, checkpoint_step=at,
+                restored_bit_identical=restored_exact,
+                resumed_from=resumed["start"],
+                loss_first=full["losses"][0], loss_last=full["losses"][last],
+                resumed_loss_last=resumed["losses"][last],
+                resumed_equals_uninterrupted_bits=(
+                    resumed["losses"][last] == full["losses"][last]
+                    and _same_bits(resumed["state"], full["state"])),
+                seconds_full_run=seconds_full,
+                median_step_ms=float(sorted(full["times"])[
+                    len(full["times"]) // 2] * 1e3),
+                grads_not_deterministic=[
+                    key for key, a, b in zip(leaf_paths(g1), tree_leaves(g1),
+                                             tree_leaves(g2))
+                    if not torch.equal(a, b)])
+
+
+def run_lm_train_slice(dev, smi, work):
+    """LM training on the card: the backward kernel at the training
+    shape, the full-width gradients against plain attention at depth 2,
+    4 steps of llama3.2-3b at full width and depth, and the train_lm
+    example's resume drill.  Returns the backward kernel's line and the
+    launches of the training steps."""
+    import gc
+
+    import torch
+    from repro_torch.configs.base import get_config, with_repeats
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd)
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    bwd_line = check_flash_bwd(dev, smi)
+
+    cfg = get_config(LMT_ARCH)
+    grads = {}
+    for dtype, tol in (("bfloat16", LMT_GRAD_TOL_BF16),
+                       ("float32", LMT_GRAD_TOL_F32)):
+        res = grads_against_plain(with_repeats(cfg, 2).replace(dtype=dtype),
+                                  dev)
+        res["tol"] = tol
+        grads[dtype] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("lm_train_slice", part="grads", arch=cfg.name, n_layers=2,
+         batch=LMT_BATCH, seq=LMT_SEQ, nvidia_smi=smi, **grads)
+
+    # training at full width and depth
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.make_train_state(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    batch = trainer.to_device(TokenPipeline(
+        cfg.vocab_size, LMT_SEQ, LMT_BATCH, seed=5).batch_at(0), dev)
+    spans = {"grads": [], "clip": [], "adamw": []}
+    originals = {n: getattr(trainer, f) for n, f in (
+        ("grads", "compute_grads"), ("clip", "clip_by_global_norm"),
+        ("adamw", "adamw_update"))}
+
+    def timed(name):  # CUDA events on the stream: no sync, no change
+        fn = originals[name]
+
+        def wrapper(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            stop.record()
+            spans[name].append((start, stop))
+            return out
+        return wrapper
+    for name, attr in (("grads", "compute_grads"),
+                       ("clip", "clip_by_global_norm"),
+                       ("adamw", "adamw_update")):
+        setattr(trainer, attr, timed(name))
+    steps = []
+    try:
+        registry.reset_counts()
+        for i in range(LMT_STEPS):
+            fwd0, bwd0 = ops.SPEC.launches, flash_attention_bwd.launches
+            t0 = time.perf_counter()
+            if i < LMT_STEPS - 1:
+                state, m = trainer.train_step(cfg, state, batch,
+                                              step=LMT_AT_STEP + i)
+                loss = m["loss"].item()
+                wall, busy = time.perf_counter() - t0, None
+            else:  # the last step traced: the card's busy share, and
+                # its kernel time by kind
+                (state, m), wall, busy, by_kind = device_busy(
+                    lambda: trainer.train_step(cfg, state, batch,
+                                               step=LMT_AT_STEP + i),
+                    groups=STEP_KERNEL_GROUPS)
+                loss = m["loss"].item()
+            torch.cuda.synchronize()
+            steps.append(dict(
+                step=i, loss=loss, grad_norm=m["grad_norm"].item(),
+                lr=m["lr"].item(), seconds=wall, busy_s=busy,
+                flash_attention_launches=ops.SPEC.launches - fwd0,
+                flash_attention_bwd_launches=(flash_attention_bwd.launches
+                                              - bwd0)))
+        launches = (ops.SPEC.launches, flash_attention_bwd.launches)
+    finally:
+        for name, attr in (("grads", "compute_grads"),
+                           ("clip", "clip_by_global_norm"),
+                           ("adamw", "adamw_update")):
+            setattr(trainer, attr, originals[name])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for name, evs in spans.items():
+        for rec, (a, b) in zip(steps, evs):
+            rec[f"{name}_ms"] = a.elapsed_time(b)
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    L = cfg.n_layers
+    steady = sorted(r["seconds"] for r in steps[1:])
+    step_s = steady[len(steady) // 2]
+    losses = [r["loss"] for r in steps]
+    last = steps[-1]
+    numbers = dict(
+        seconds_per_step=step_s, tokens_per_s=LMT_BATCH * LMT_SEQ / step_s,
+        busy_share=last["busy_s"] / last["seconds"] if last["busy_s"]
+        else None, kernel_s_by_kind=by_kind, peak_gib=peak_gib,
+        init_s=init_s, params=n_params)
+    emit("lm_train_slice", part="train", arch=cfg.name, n_layers=L,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+         dtype=cfg.dtype, policy=cfg.opt_policy, batch=LMT_BATCH,
+         seq=LMT_SEQ, at_step=LMT_AT_STEP, steps=steps,
+         nvidia_smi=smi, **numbers)
+
+    drill = resume_drill(dev, work)
+    emit("lm_train_slice", part="resume_drill", preset="20m",
+         steps=DRILL_STEPS, fail_at=DRILL_FAIL_AT, nvidia_smi=smi, **drill)
+
+    checks = {
+        "grads_bf16_match_plain_attention":
+        grads["bfloat16"]["worst"] <= LMT_GRAD_TOL_BF16,
+        "grads_f32_match_plain_attention":
+        grads["float32"]["worst"] <= LMT_GRAD_TOL_F32,
+        "grads_one_backward_launch_per_layer":
+        all(g["kernel_launches"] == 2 and g["plain_launches"] == 0
+            for g in grads.values()),
+        "loss_finite": all(x == x and abs(x) < float("inf") for x in losses),
+        "loss_falling": losses[-1] < losses[0],
+        "launches_per_step": all(
+            r["flash_attention_launches"] == 2 * L
+            and r["flash_attention_bwd_launches"] == L for r in steps),
+        "peak_under_80_gib": peak_gib < 80,
+        "drill_exit_17": drill["exit_code"] == 17,
+        "drill_checkpoint_at_fail_step":
+        drill["checkpoint_step"] == DRILL_FAIL_AT
+        and drill["resumed_from"] == DRILL_FAIL_AT,
+        "drill_restore_bit_identical": drill["restored_bit_identical"],
+        "drill_loss_falls": drill["loss_last"] < drill["loss_first"],
+    }
+    emit("lm_train_slice", part="total",
+         seconds=time.perf_counter() - t_phase, launches={
+             "flash_attention": launches[0],
+             "flash_attention_bwd": launches[1]}, **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"lm train slice checks failed: {checks}")
+    return bwd_line, launches
+
+
 def _cast(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast(v, dtype) for k, v in tree.items()}
@@ -3454,6 +3909,11 @@ def main():
     shutil.rmtree(work)
     lm_launches, rwkv_timing = run_lm_slice(dev, smi, rwkv_arrays)
     gqa_launches, gqa_timing = run_gqa_lm_slice(dev, smi)
+    train_work = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(train_work, ignore_errors=True)
+    train_work.mkdir(parents=True)
+    bwd, lm_train_launches = run_lm_train_slice(dev, smi, train_work)
+    shutil.rmtree(train_work)
     if rwkv_failures:
         raise AssertionError("; ".join(rwkv_failures))
     new_rows = []
@@ -3473,9 +3933,11 @@ def main():
         if name == "flash_attention":
             lm_p, lm_d = gqa_timing["prefill"], gqa_timing["decode"]
             new_rows[-1].update(
-                launches=tune_launches[name] + gqa_launches,
+                launches=tune_launches[name] + gqa_launches
+                + lm_train_launches[0],
                 launches_by_path={"run_tune": tune_launches[name],
-                                  "gqa_lm_slice": gqa_launches},
+                                  "gqa_lm_slice": gqa_launches,
+                                  "lm_train_slice": lm_train_launches[0]},
                 lm_prefill_shape=lm_p["problem"], lm_prefill_ms=lm_p["ms"],
                 lm_prefill_plain_ms=lm_p["plain_ms"],
                 lm_prefill_bound_ms=lm_p["bound_ms"],
@@ -3545,7 +4007,18 @@ def main():
         "decode_ms": rwkv_timing["decode"]["ms"],
         "decode_graph_ms": rwkv_timing["decode"]["graph_ms"],
         "decode_plain_ms": rwkv_timing["decode"]["plain_ms"],
-        "decode_bound_ms": rwkv_timing["decode"]["bound_ms"]}]}),
+        "decode_bound_ms": rwkv_timing["decode"]["bound_ms"]}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": flash.BWD_SOURCE, "replaces": flash.BWD_REPLACES,
+        "replaces_note": "no Pallas kernel: jax.grad of full_attention",
+        "launches": lm_train_launches[1],
+        "launches_by_path": {"lm_train_slice": lm_train_launches[1]},
+        "max_abs_err": bwd["max_abs_err"], "tol": bwd["tol"],
+        "tol_autograd": bwd["tol_autograd"], "shape": bwd["shape"],
+        "dtype": bwd["dtype"], "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+        "bound_cuda_core_ms": bwd["bound_cuda_core_ms"],
+        "library_ms": bwd["library_ms"]}]}),
         flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

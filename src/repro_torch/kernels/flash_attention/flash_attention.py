@@ -29,6 +29,14 @@ The plain version is
 :func:`repro_torch.kernels.flash_attention.ref.flash_attention_ref`;
 :func:`flash_attention` counts its launches in
 ``flash_attention.launches``.
+
+:func:`flash_attention_bwd` launches the backward,
+``csrc/flash_attention_bwd.cu`` (two kernels: dQ with each row's
+log-sum-exp, then dK and dV summed over each kv head's q heads, f32 on
+the CUDA cores, no atomics); it has no Pallas source, the JAX package
+differentiating its jnp attention instead.  Its plain version is
+:func:`repro_torch.kernels.flash_attention.ref.flash_attention_bwd_ref`
+and it counts its calls in ``flash_attention_bwd.launches``.
 """
 from __future__ import annotations
 
@@ -48,6 +56,11 @@ MAX_HEAD_DIM = 128
 DTYPES = (torch.float32, torch.bfloat16)
 SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:73"
+BWD_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+              "flash_attention_bwd.cu")
+# no Pallas source: the reference's gradient is XLA's autodiff of this
+BWD_REPLACES = "src/repro/models/attention.py:82"
+BWD_TILE = 64              # query rows and keys of a backward tile
 
 
 def head_tile(hd: int) -> int:
@@ -156,3 +169,80 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def bwd_smem_bytes(hd: int, kernel: int) -> int:
+    """Dynamic shared memory of a backward block (``dq_smem_floats`` and
+    ``dkdv_smem_floats`` in the source): four f32 tiles of 64 rows of the
+    head tile (64 or 128) padded by 4 words, one (dq, ``kernel`` 0) or
+    two (dkdv, 1) 64 x 68 score tiles, and 128 words of row statistics."""
+    hdt = 64 if hd <= 64 else 128
+    tiles = 4 * BWD_TILE * (hdt + 4) + (1 + kernel) * BWD_TILE * 68
+    return 4 * (tiles + 2 * BWD_TILE)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    lib = _build.load("flash_attention_bwd")
+    lib.flash_attention_bwd.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float]
+        + [ctypes.c_void_p])
+    lib.flash_attention_bwd.restype = ctypes.c_int
+    lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_size_t
+    if any(lib.flash_attention_bwd_smem_bytes(hd, kern)
+           != bwd_smem_bytes(hd, kern) for hd in (40, 128) for kern in (0, 1)):
+        raise RuntimeError("csrc/flash_attention_bwd.cu and "
+                           "flash_attention.py disagree on the shared-memory "
+                           "layout")
+    return lib
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
+                        q_offset: int = 0, kv_valid_len=None):
+    """Launch the backward: q, o and do ``[B, Sq, H, hd]``, k and v ``[B,
+    Skv, KV, hd]``, all f32 or all bf16 on one card, ``o`` the forward's
+    output and ``do`` its cotangent; returns ``(dq, dk, dv)`` in the
+    inputs' shapes and dtype."""
+    ts = (q, k, v, o, do)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd kernel needs a CUDA tensor, "
+                         f"got {q.device}")
+    if any(t.device != q.device for t in ts):
+        raise ValueError(f"inputs on {[str(t.device) for t in ts]}")
+    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in ts):
+        raise ValueError(f"q, k, v, o, do must all be f32 or all bf16, got "
+                         f"{[t.dtype for t in ts]}")
+    check_shapes(q, k, v)
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    B, Sq, H, hd = (int(s) for s in q.shape)
+    Skv, KV = int(k.shape[1]), int(k.shape[2])
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_bwd takes hd 1-{MAX_HEAD_DIM}, "
+                         f"got {hd}")
+    q, k, v, o, do = (t.contiguous() for t in ts)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or Skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    valid = Skv if kv_valid_len is None else min(max(int(kv_valid_len), 0),
+                                                 Skv)
+    stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats[0].data_ptr(), stats[1].data_ptr(), B, Sq, Skv, H, KV, hd,
+            int(bool(causal)), int(q_offset), valid,
+            int(q.dtype == torch.bfloat16), softmax_scale(hd), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError "
+                           f"{err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -11,6 +11,11 @@ scales q before the dot where the oracle divides the scores, and its
 products are 3xTF32 on the tensor cores (about 2^-22 relative per
 product, summed in f32), so candidates must match the naive-softmax plain
 version to f32 tolerance.
+
+The op is differentiable: the spec's ``backward`` makes
+``registry.dispatch`` wrap the call in an autograd function whose
+backward is :func:`~.flash_attention.flash_attention_bwd` on the card and
+:func:`~.ref.flash_attention_bwd_ref` on the CPU.
 """
 from __future__ import annotations
 
@@ -18,8 +23,10 @@ import torch
 
 from repro_torch.kernels import registry
 from repro_torch.kernels.flash_attention.flash_attention import (
-    BLOCK_KV, BLOCK_Q, check_shapes, fits, flash_attention)
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    BLOCK_KV, BLOCK_Q, check_shapes, fits, flash_attention,
+    flash_attention_bwd)
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_ref)
 
 DEFAULT_BLOCK_Q, DEFAULT_BLOCK_KV = 128, 32
 #: (rtol, atol) against the plain version on the card, the reference's
@@ -28,6 +35,31 @@ DEFAULT_BLOCK_Q, DEFAULT_BLOCK_KV = 128, 32
 #: each product (tests/test_torch_flash_attention.py emulates it at the
 #: llama3.2-3b shape: far inside).
 TOL = (2e-5, 2e-5)
+#: the backward kernel against the plain backward, each gradient's
+#: largest error over its largest magnitude, by input dtype.  The two
+#: share their rounding points (D from the o given, group sums in f32,
+#: one rounding of each output).  f32: they sum f32 products in another
+#: order over up to Skv keys and Sq rows (times the group), and the kernel
+#: forms P from the row's log-sum-exp where the plain version normalises
+#: exp of the scores: 1e-4.  bf16: f32 results that agree that closely
+#: round at most one bf16 step apart, and one ulp of the largest
+#: magnitude is at most 2**-7 of it.
+TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
+
+
+def bwd_autograd_tol(dtype, group: int) -> float:
+    """The backward (kernel or plain) against autograd of the plain
+    version, or jax.grad of the reference's attention, which round
+    elsewhere.  f32: ``TOL_BWD``.  bf16, in units of 2**-8 of the largest
+    magnitude (at least half an ulp of it): the backward's own rounding
+    (1); autograd's rounding of each of the ``group`` q heads' dK and dV
+    before their sum and of the ``group - 1`` bf16 additions (2 * group -
+    1, each part taken no larger than the sum's largest magnitude); and
+    D, which autograd reads from the f32 output and the backward from
+    the bf16-rounded o, 2**-8 of each product dO o (2)."""
+    if dtype == torch.float32:
+        return TOL_BWD[torch.float32]
+    return (2 * group + 2) * 2 ** -8
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -110,12 +142,27 @@ def block_params(block_q=(DEFAULT_BLOCK_Q, BLOCK_Q),
             registry.TunableParam("block_kv", *block_kv))
 
 
+def _kwargs(problem):
+    return dict(causal=problem["causal"], q_offset=problem["q_offset"],
+                kv_valid_len=problem.get("kv_valid_len"))
+
+
+def _bwd_run(problem, arrays, out, grad):
+    return flash_attention_bwd(*arrays, out, grad, **_kwargs(problem))
+
+
+def _bwd_ref(problem, arrays, out, grad):
+    return flash_attention_bwd_ref(*arrays, out, grad, **_kwargs(problem))
+
+
 SPEC = registry.register(registry.KernelSpec(
     name="flash_attention", params=block_params(),
     kernel=flash_attention, run_call=_run, ref_call=_ref, make_call=_make,
     cache_key=cache_key,
     candidates=lambda problem: candidates(SPEC, problem, _fits),
     fits=_fits, supports=_supports, tol=TOL,
+    backward=registry.Backward(kernel=flash_attention_bwd, run_call=_bwd_run,
+                               ref_call=_bwd_ref),
     default_problems=(
         # the reference's: prefill-shaped, square causal, GQA group of 4
         {"b": 1, "sq": 256, "skv": 256, "h": 8, "kv": 2, "hd": 64,
@@ -130,7 +177,8 @@ def flash_attention_op(q, k, v, *, causal=True, q_offset=0,
                        kv_valid_len=None, block_q=None, block_kv=None):
     """Attention of q ``[B, Sq, H, hd]`` over k, v ``[B, Skv, KV, hd]``:
     the plain version on the CPU, the kernel on the card with its tiles
-    resolved explicit > tuned > default."""
+    resolved explicit > tuned > default; differentiable in q, k and v on
+    both (the backward kernel on the card)."""
     check_shapes(q, k, v)
     problem = inspect_call(q, k, v, causal=causal, q_offset=q_offset,
                            kv_valid_len=kv_valid_len)

@@ -7,6 +7,14 @@ Dispatch is decided by where the data lies:
 * a CUDA tensor takes the kernel, or raises.  No failure is caught and
   answered with the plain version.
 
+Gradients: a spec with a ``backward`` is differentiable on both devices
+(:class:`_Differentiable`): when grad mode is on and an input requires
+grad, its backward runs the backward kernel on the card and the plain
+backward on the CPU.  On the card a spec without one raises
+``NotImplementedError`` for such inputs rather than return an output
+that autograd cannot see past (the kernel's output has no ``grad_fn``);
+on the CPU its plain version differentiates through autograd as before.
+
 ``supports(problem)`` keeps its JAX meaning: a shape the kernel cannot
 take is routed by the caller (the inference engine) to the torch
 ``Sequential``, decided from shapes before any launch and counted in
@@ -31,6 +39,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import torch
+
 from repro_torch.obs import TRACER
 from repro_torch.obs import metrics as _m
 from repro_torch.resilience.faults import FAULTS
@@ -54,6 +64,17 @@ class TunableParam:
     name: str
     default: int
     ladder: Tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class Backward:
+    """The backward of a kernel: ``run_call(problem, arrays, out, grad)``
+    launches ``kernel`` (the wrapper, with its plain-integer count
+    ``kernel.launches``) and ``ref_call`` with the same arguments is the
+    plain backward; both return one gradient (or None) per array."""
+    kernel: Callable
+    run_call: Callable
+    ref_call: Callable
 
 
 @dataclasses.dataclass
@@ -83,7 +104,9 @@ class KernelSpec:
     * ``tier`` is the precision tier, ``"f32"`` or ``"int8"``.  An int8
       variant is held against its own int8-simulating plain version;
       accuracy against f32 is the quant gate's concern
-      (:mod:`repro_torch.quant.gate`).
+      (:mod:`repro_torch.quant.gate`);
+    * ``backward``, where the kernel has one, makes dispatch
+      differentiable (:class:`Backward`).
     """
     name: str
     params: Tuple[TunableParam, ...]
@@ -99,6 +122,7 @@ class KernelSpec:
     tol: Optional[Tuple[float, float]] = None
     tier: str = "f32"
     default_problems: Tuple[dict, ...] = ()
+    backward: Optional[Backward] = None
     plain_calls: int = 0
     unsupported: int = 0
 
@@ -108,6 +132,8 @@ class KernelSpec:
 
     def reset_counts(self) -> None:
         self.kernel.launches = 0
+        if self.backward is not None:
+            self.backward.kernel.launches = 0
         self.plain_calls = 0
         self.unsupported = 0
 
@@ -284,16 +310,60 @@ def select_tier_spec(spec: KernelSpec, problem: Optional[dict] = None, *,
     return q, q.tier
 
 
+class _Differentiable(torch.autograd.Function):
+    """A dispatch whose backward is the spec's: the kernel's backward on
+    the card, the plain backward on the CPU."""
+
+    @staticmethod
+    def forward(ctx, spec, problem, device, overrides, *arrays):
+        out = _dispatch(spec, problem, arrays, device, overrides)
+        ctx.spec, ctx.problem, ctx.device = spec, problem, device
+        ctx.save_for_backward(*arrays, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        *arrays, out = ctx.saved_tensors
+        bwd = ctx.spec.backward
+        call = bwd.ref_call if ctx.device.type == "cpu" else bwd.run_call
+        grads = call(ctx.problem, tuple(arrays), out, grad.contiguous())
+        return (None, None, None, None, *grads)
+
+
+def _needs_grad(arrays) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(a, torch.Tensor) and a.requires_grad for a in arrays)
+
+
 def dispatch(spec: KernelSpec, problem: dict, arrays: tuple, device, *,
              overrides: Optional[dict] = None):
     """Run ``spec`` on ``arrays``, which lie on ``device``: the plain
     version on the CPU (counted under provenance ``ref``), the kernel
     with resolved parameters on CUDA (or raise).
 
+    Where grad mode is on and an input requires grad, a spec with a
+    ``backward`` runs under :class:`_Differentiable`; on CUDA a spec
+    without one raises ``NotImplementedError``.
+
     The ``kernel.dispatch`` fault site fires first, and a
     ``kernel.dispatch`` instant marks the call in a trace, as in the
     reference; dispatch is eager here, so both happen once per call
     (the reference's once per jit trace)."""
+    if _needs_grad(arrays):
+        if spec.backward is not None:
+            return _Differentiable.apply(spec, problem, device, overrides,
+                                         *arrays)
+        if device.type == "cuda":
+            raise NotImplementedError(
+                f"{spec.name}: the kernel has no backward on the card yet "
+                f"(ROADMAP queue 1, 'Backward kernels'), and an input "
+                f"requires grad; call it under torch.no_grad(), or on the "
+                f"CPU, where its plain version differentiates")
+    return _dispatch(spec, problem, arrays, device, overrides)
+
+
+def _dispatch(spec: KernelSpec, problem: dict, arrays: tuple, device,
+              overrides: Optional[dict]):
     if FAULTS.enabled:
         FAULTS.fire("kernel.dispatch", key=spec.name)
     if device.type == "cpu":

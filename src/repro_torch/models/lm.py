@@ -1,9 +1,10 @@
-"""The LM's serving surface (counterpart of ``repro/models/lm.py``).
+"""The LM (counterpart of ``repro/models/lm.py``).
 
 Public surface, under the reference's names:
   init_params(seed, cfg, device=None)    -> params
   params_from_jax(cfg, tree, device=None) -> params
   forward(cfg, params, tokens, ...)      -> logits
+  train_loss(cfg, params, batch)         -> scalar loss
   init_caches(cfg, batch, cache_len)     -> decode caches
   prefill(cfg, params, tokens)           -> (logits_last, caches)
   serve_step(cfg, params, caches, tokens, pos) -> (logits, caches)
@@ -17,13 +18,17 @@ The port runs the GQA decoders (llama, qwen1.5, qwen3, qwen2-vl with
 ``position_ids``) with bf16 or int8 KV caches, and the RWKV6 model; MLA,
 Mamba, MoE, cross attention, the encoder and learned positions wait for
 ROADMAP queue 1 item 10.  A decode step writes its token's K/V into the
-cache buffers it is given.
+cache buffers it is given.  With ``cfg.remat`` each pattern layer of a
+differentiated forward runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` of its scan body): only the layer inputs
+are kept, and each layer runs again in the backward.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import (MIXER_CACHE, MIXER_INIT, MIXER_SEQ,
@@ -31,6 +36,7 @@ from repro_torch.models.blocks import (MIXER_CACHE, MIXER_INIT, MIXER_SEQ,
                                        _quantize_kv, _unported_mlp,
                                        apply_norm, mixer, mlp_apply,
                                        mlp_init, norm_init)
+from repro_torch.models import loss as loss_lib
 from repro_torch.models.loss import embed_lookup
 
 
@@ -163,6 +169,14 @@ def _apply_layer_seq(cfg, p, spec, x, *, positions, position_ids):
     return x, cache
 
 
+def _remat_layer(cfg, p, spec, x, positions, position_ids):
+    """One layer's output, its activations recomputed in the backward."""
+    def body(h, lp):
+        return _apply_layer_seq(cfg, lp, spec, h, positions=positions,
+                                position_ids=position_ids)[0]
+    return checkpoint(body, x, p, use_reentrant=False), None
+
+
 def hidden_states(cfg, params, tokens, *, position_ids=None,
                   collect_caches=False):
     """tokens [B,S] (and, for mrope, position_ids [3,B,S]) ->
@@ -170,9 +184,13 @@ def hidden_states(cfg, params, tokens, *, position_ids=None,
     x = embed_lookup(params["tok_embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     caches = {"prefix": [], "stack": tuple([] for _ in cfg.pattern)}
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_caches
     for slot, r, spec in _layers(cfg):
-        x, c = _apply_layer_seq(cfg, _get(params, slot, r), spec, x,
-                                positions=positions,
+        p = _get(params, slot, r)
+        if remat and slot is not None:  # the reference remats the scan body
+            x, c = _remat_layer(cfg, p, spec, x, positions, position_ids)
+            continue
+        x, c = _apply_layer_seq(cfg, p, spec, x, positions=positions,
                                 position_ids=position_ids)
         if collect_caches:
             (caches["prefix"] if slot is None
@@ -205,6 +223,24 @@ def forward(cfg, params, tokens, *, position_ids=None, collect_caches=False,
         x = x[:, -1:]
     logits = _logits_from_hidden(cfg, params, x)
     return (logits, caches) if collect_caches else logits
+
+
+def train_loss(cfg, params, batch, *, fused: bool = True):
+    """Mean next-token cross-entropy of ``batch`` (``tokens`` and
+    ``targets`` ``[B, S]``, and ``position_ids`` ``[3, B, S]`` for mrope),
+    through :func:`~repro_torch.models.loss.fused_linear_xent` or, with
+    ``fused=False``, the naive loss."""
+    if batch.get("enc_embeds") is not None:
+        raise NotImplementedError("encoder inputs are not in the port yet "
+                                  "(ROADMAP queue 1 item 10.4)")
+    x, _ = hidden_states(cfg, params, batch["tokens"],
+                         position_ids=batch.get("position_ids"))
+    W = _head_matrix(cfg, params, x.dtype)
+    if fused:
+        return loss_lib.fused_linear_xent(x, W, batch["targets"],
+                                          cfg.vocab_size,
+                                          unroll=cfg.unroll_inner)
+    return loss_lib.naive_xent(x, W, batch["targets"], cfg.vocab_size)
 
 
 # -------------------------------------------------------------- decode -----

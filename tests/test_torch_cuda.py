@@ -1049,3 +1049,137 @@ def test_obs_demo_self_check_on_the_card(dev):
         cwd=str(root), capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "self-check ok" in out.stdout
+
+
+# ------------------------------------------- flash_attention backward ---
+BWD_CASES = [
+    ((1, 130, 130, 4, 2, 24), {"causal": True}),
+    ((2, 70, 200, 3, 1, 64), {"causal": True, "q_offset": -70}),
+    ((1, 130, 130, 4, 4, 128), {"causal": False, "kv_valid_len": 0}),
+    ((1, 130, 200, 8, 2, 100), {"causal": True, "q_offset": 30,
+                                "kv_valid_len": 100}),
+    ((2, 257, 257, 8, 2, 128), {"causal": True}),
+    ((1, 1, 300, 4, 1, 128), {"causal": False, "kv_valid_len": 290}),
+]
+
+
+def _bwd_inputs(dev, shape, dtype, seed=0):
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    B, Sq, Skv, H, KV, hd = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def t(*s):
+        return torch.randn(s, generator=g, device=dev).to(dtype)
+    q, k, v = t(B, Sq, H, hd), t(B, Skv, KV, hd), t(B, Skv, KV, hd)
+    return q, k, v, t(B, Sq, H, hd), flash_attention_ref
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kw", BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain_backward(dev, dtype,
+                                                           shape, kw):
+    """The backward kernel against the plain backward (``TOL_BWD``) and
+    autograd of the plain version (``bwd_autograd_tol``); two launches
+    give the same bits."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref)
+    q, k, v, do, ref = _bwd_inputs(dev, shape, dtype)
+    o = ref(q, k, v, **kw)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+    auto = torch.autograd.grad(ref(qq, kk, vv, **kw), (qq, kk, vv), do)
+    group = shape[3] // shape[4]
+    for g, w, a in zip(got, want, auto):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _rel(g, w) <= ops.TOL_BWD[dtype]
+        assert _rel(g, a) <= ops.bwd_autograd_tol(dtype, group)
+
+
+def test_flash_attention_op_differentiates_on_the_card(dev):
+    """flash_attention_op's gradient on the card launches the forward and
+    the backward kernel once each and matches autograd of the plain
+    version; no_grad leaves the output detached and launches no
+    backward."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd)
+    q, k, v, do, ref = _bwd_inputs(dev, (2, 96, 96, 6, 2, 64),
+                                   torch.float32, seed=3)
+    qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+    fwd, bwd = ops.SPEC.launches, flash_attention_bwd.launches
+    out = ops.flash_attention_op(qq, kk, vv)
+    got = torch.autograd.grad(out, (qq, kk, vv), do)
+    torch.cuda.synchronize()
+    assert (ops.SPEC.launches, flash_attention_bwd.launches) == (fwd + 1,
+                                                                 bwd + 1)
+    q2, k2, v2 = (x.clone().requires_grad_() for x in (q, k, v))
+    want = torch.autograd.grad(ref(q2, k2, v2), (q2, k2, v2), do)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= ops.TOL_BWD[torch.float32]
+    with torch.no_grad():
+        assert ops.flash_attention_op(qq, kk, vv).grad_fn is None
+    assert flash_attention_bwd.launches == bwd + 1
+
+
+def test_kernel_without_backward_raises_on_the_card(dev):
+    from repro_torch.kernels.rwkv6_chunk.ops import rwkv6_chunk_op
+    g = torch.Generator(device=dev).manual_seed(0)
+    r, k, v = (torch.randn(1, 8, 2, 16, generator=g, device=dev)
+               for _ in range(3))
+    w = torch.rand(1, 8, 2, 16, generator=g, device=dev) * 0.5 + 0.4
+    u = torch.randn(2, 16, generator=g, device=dev)
+    s0 = torch.zeros(1, 2, 16, 16, device=dev)
+    r.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="Backward kernels"):
+        rwkv6_chunk_op(r, k, v, w, u, s0)
+    with torch.no_grad():
+        rwkv6_chunk_op(r, k, v, w, u, s0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gqa_seq_gradient_matches_plain_attention(dev, dtype):
+    """Every gradient of reduced llama3.2-3b's loss through the kernels
+    against the same loss with attention computed by the plain version
+    (differentiated by autograd) on the card: f32 within 1e-4 of each
+    leaf's largest magnitude, bf16 within 5e-2 (test_torch_train.py's
+    bf16 gradient tolerance)."""
+    from unittest import mock
+
+    from repro_torch.configs import archs, base
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import blocks
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import trainer
+    cfg = archs.reduced(base.get_config("llama3.2-3b")).replace(dtype=dtype)
+    st = trainer.make_train_state(0, cfg, device=dev)
+    batch = trainer.to_device(TokenPipeline(cfg.vocab_size, 96, 2,
+                                            seed=1).batch_at(0), dev)
+    before = flash_attention_bwd.launches
+    loss, got = trainer.compute_grads(cfg, st["params"], batch)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + cfg.n_layers
+    with mock.patch.object(blocks, "flash_attention_op",
+                           flash_attention_ref):
+        loss_p, want = trainer.compute_grads(cfg, st["params"], batch)
+    assert flash_attention_bwd.launches == before + cfg.n_layers
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    assert abs(loss.item() - loss_p.item()) <= tol * abs(loss_p.item())
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert _rel(g, w) <= tol

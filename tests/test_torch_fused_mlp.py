@@ -245,7 +245,8 @@ def test_build_raises_without_nvcc(monkeypatch):
     monkeypatch.setattr(_build.os, "access", lambda path, mode: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
-    assert set(_build.sources()) == {"flash_attention", "flash_attention_int8",
+    assert set(_build.sources()) == {"flash_attention", "flash_attention_bwd",
+                                     "flash_attention_int8",
                                      "fused_mlp", "fused_mlp_int8",
                                      "rwkv6_chunk", "stencil_gather"}
 

@@ -52,7 +52,13 @@ def test_port_imports_with_jax_and_repro_blocked():
         "        'repro_torch.dist.hlo_analysis',\n"
         "        'repro_torch.tune.controller', 'repro_torch.tune.resweep',\n"
         "        'repro_torch.obs.server', 'repro_torch.obs.metrics_report',\n"
-        "        'repro_torch.obs.pod'\n"
+        "        'repro_torch.obs.pod',\n"
+        "        'repro_torch.models.loss', 'repro_torch.optim.adamw',\n"
+        "        'repro_torch.train.trainer',\n"
+        "        'repro_torch.train.compression',\n"
+        "        'repro_torch.data.pipeline', 'repro_torch.ckpt.checkpoint',\n"
+        "        'repro_torch.examples.train_lm',\n"
+        "        'repro_torch.kernels.flash_attention.flash_attention'\n"
         "        } <= set(names)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n")
