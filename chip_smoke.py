@@ -480,6 +480,9 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_INT8_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
 PEAK_F16_FLOPS = 989e12  # H100 SXM f16 tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12
+# the products flash_attention_bwd.cu does: S for lse, then S, dO V^T and
+# dS K in the dq kernel, S^T, dP^T, P^T dO and dS^T Q in the dkdv kernel
+BWD_PRODUCTS = 8
 # what each redesigned kernel's timing line names
 INT8_DESIGN = ("mma.sync m16n8k32 s8 (16-64 rows a block, 8 warps), "
                "weights by a TMA ring of k64 slabs refilled by the last "
@@ -3434,10 +3437,11 @@ def attention_bwd_cell(shape, dtype, dev, seed):
     read once and dq, dk, dv written once, against the five causal
     products of the gradient, 2 hd operations per visible pair each, at
     the bf16 tensor-core peak for bf16 inputs, the f32 CUDA-core peak for
-    f32; ``bound_cuda_core_ms`` prices them at the f32 CUDA-core peak the
-    kernel runs them on), and one PyTorch call for the same function:
-    ``scaled_dot_product_attention``'s forward and backward (K/V repeated
-    per group), minus its forward."""
+    f32), the bound of the ``BWD_PRODUCTS`` products the kernel does as
+    it does them (``bound_ms_design``: bf16 ``mma.sync`` at the bf16
+    peak, or 3xTF32, three TF32 products each, at the TF32 peak), and one
+    PyTorch call for the same function: ``scaled_dot_product_attention``'s
+    forward and backward (K/V repeated per group), minus its forward."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -3451,6 +3455,9 @@ def attention_bwd_cell(shape, dtype, dev, seed):
     nbytes = q.element_size() * (3 * q.numel() + 4 * k.numel())
     peak = PEAK_F16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
+    design_flops = BWD_PRODUCTS * 2 * hd * pairs
+    t_design = (design_flops / PEAK_F16_FLOPS if dtype == torch.bfloat16
+                else 3 * design_flops / PEAK_TF32_FLOPS)
     group = h // kvh
     qt = q.transpose(1, 2).contiguous().requires_grad_()
     kt, vt = (t.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
@@ -3468,7 +3475,8 @@ def attention_bwd_cell(shape, dtype, dev, seed):
                 sdpa_fwd_bwd=sdpa_fwd_bwd,
                 bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                bound_cuda_core_ms=max(flops / PEAK_F32_FLOPS, t_bytes) * 1e3,
+                products_design=BWD_PRODUCTS,
+                bound_ms_design=max(t_design, t_bytes) * 1e3,
                 flops=flops, bytes=nbytes)
 
 
@@ -3476,7 +3484,8 @@ def check_flash_bwd(dev, smi):
     """flash_attention_bwd at the training shape in f32 and bf16 against
     the plain backward (``TOL_BWD``) and autograd of the plain version
     (``bwd_autograd_tol``), two launches bit for bit, then its CUDA-event
-    time beside the plain backward's, SDPA's backward and the bound.
+    time beside the plain backward's, SDPA's backward, the bound of the
+    five products the gradient needs and that of the ones it does.
     Returns the bf16 line (the training path's dtype)."""
     import torch
     from repro_torch.kernels.flash_attention import ops
@@ -3532,7 +3541,7 @@ def check_flash_bwd(dev, smi):
                          "forward + backward minus its forward, K/V "
                          "repeated per group",
             share_of_bound=cell["bound_ms"] / line["ms"],
-            cuda_core_share_of_bound=cell["bound_cuda_core_ms"] / line["ms"])
+            design_share_of_bound=cell["bound_ms_design"] / line["ms"])
         emit("kernel", kernel="flash_attention_bwd", nvidia_smi=smi, **line)
         if not ok:
             raise AssertionError(f"flash_attention_bwd at the training shape "
@@ -4017,7 +4026,8 @@ def main():
         "tol_autograd": bwd["tol_autograd"], "shape": bwd["shape"],
         "dtype": bwd["dtype"], "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
-        "bound_cuda_core_ms": bwd["bound_cuda_core_ms"],
+        "products_design": bwd["products_design"],
+        "bound_ms_design": bwd["bound_ms_design"],
         "library_ms": bwd["library_ms"]}]}),
         flush=True)
     emit("done", seconds=time.perf_counter() - t_start)

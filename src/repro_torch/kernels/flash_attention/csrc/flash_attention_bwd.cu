@@ -1,5 +1,5 @@
 // The backward of flash attention (GQA, causal on absolute positions,
-// kv_valid_len) on Hopper (sm_90a), products in f32 on the CUDA cores.
+// kv_valid_len) on Hopper (sm_90a), products on the tensor cores.
 //
 // Replaces: no Pallas kernel.  The JAX package has no backward kernel
 // (src/repro/kernels has no custom_vjp); its training differentiates the
@@ -31,341 +31,609 @@
 //
 // What bounds it on the card: the products.  Five are needed (S, dO V^T,
 // P^T dO, dS K, dS^T Q); this design does eight (lse's pass, and S and
-// dO V^T again in each kernel), 4 * hd operations per seen (query, key)
+// dO V^T again in each kernel), 2 * hd operations per seen (query, key)
 // pair each.  At the llama3.2-3b training shape (B 2, S 2,048, 24 q and 8
-// kv heads of 128, causal) five products are 1.29e11 operations, 1.9 ms
-// at the f32 CUDA-core peak (67 TFLOP/s).
+// kv heads of 128, causal; 1.007e8 seen pairs) five products are 1.29e11
+// operations: 0.130 ms at the bf16 tensor-core peak (989 TFLOP/s), and
+// as 3xTF32 (three TF32 products each, 495 TFLOP/s) 0.781 ms.  The eight
+// this design does are 2.06e11: 0.209 ms in bf16, 1.250 ms in 3xTF32.
 //
-// What the design does about it (simple, no float atomics, deterministic):
-// - Two kernels on the caller's stream.  dq: one block per (64 query rows,
+// What the design does about it (FlashAttention-2's backward on mma.sync,
+// no float atomics, deterministic):
+// - bf16 inputs: mma.sync m16n8k16 bf16 with f32 accumulators.  Q, K, V
+//   and dO sit in shared memory as bf16 (rows padded by 8 halves so that
+//   the 8 rows an ldmatrix reads hit distinct banks); fragments come by
+//   ldmatrix, and by ldmatrix.trans for the operands read along their
+//   rows' other axis.  P and dS are rounded to bf16 (to nearest) only as
+//   the A operands of dV += P^T dO, dQ += dS K and dK += dS^T Q; the
+//   softmax statistics, D and every accumulator stay f32.
+// - f32 inputs: 3xTF32 m16n8k8 (../../csrc/tf32x3.cuh), every operand
+//   split into TF32 hi and lo as its fragment is loaded; tiles in shared
+//   memory as f32, rows padded by 4 words.
+// - Each product is computed in the layout that needs no transpose in
+//   shared memory: a warp owns 16 rows of the block's tile (query rows in
+//   the dq kernel, keys in the dkdv kernel), and its score tile (S, or
+//   S^T = K Q^T in the dkdv kernel) comes out of the accumulators in the
+//   A-operand layout of the product that follows (two n8 accumulator
+//   tiles are one k16 bf16 A fragment; for TF32, key 2t and 2t + 1 of an
+//   n8 tile stand in A columns t and t + 4, and the B fragment is read
+//   with the same permutation), so P^T and dS^T never leave registers.
+// - Two kernels on the caller's stream.  dq: one block per (query rows,
 //   q head, batch) walks the keys twice, first for each row's max and sum
 //   (lse, written for the second kernel, with D), then for dS and
-//   dQ += dS K.  dkdv: one block per (64 keys, kv head, batch) keeps its
-//   K and V tiles and loops over the group's q heads and the query chunks
-//   that see its keys, recomputing S, P and dS, with dK and dV in
+//   dQ += dS K.  dkdv: one block per (64 keys, kv head, batch) keeps its K
+//   and V tiles and loops over the group's q heads and the query chunks
+//   that see its keys, recomputing S^T, P^T and dS^T, with dK and dV in
 //   registers.  Every output element is written by one thread, and every
 //   sum runs in a fixed order: two runs give the same bits.
-// - 256 threads a block.  Tiles sit in shared memory in f32 (bf16 inputs
-//   widened as they are staged), rows padded by 4 words so that the
-//   16-byte loads of a quarter warp hit distinct banks.  Each thread holds
-//   a 4 x 4 block of a 64 x 64 score tile (rows ty + 16a, columns
-//   tx + 16b: a row's 16 threads are one half warp, which reduces it by
-//   shuffles) and a 4 x (hd tile / 16) block of a 64-row output tile.
-//   Every product reads its operands four at a time (float4).
-// - The dq blocks run longest first (the last causal block walks every
-//   key); a dkdv block skips the query chunks that see none of its keys
-//   (only when every row sees some key).
+// - The streamed tiles (K and V chunks in dq; Q, dO, lse and D chunks in
+//   dkdv) go through two shared-memory stages filled by cp.async, chunk
+//   j + 1 in flight while chunk j computes.  bf16: 4 warps (64 rows) a
+//   block and chunks of 64 rows in both kernels, 103 KB of shared memory,
+//   two blocks an SM.  f32 (twice the bytes a row): dq 8 warps (128 rows)
+//   and chunks of 32 keys, 199 KB, one block an SM; dkdv 4 warps and
+//   chunks of 16 rows, 99 KB, two blocks an SM.  At the training shape
+//   the grids are 1,536 (dq) and 512 (dkdv) blocks in bf16, 768 and 512
+//   in f32.
+// - The blocks launch in order of cost, every head's longest first (the
+//   last query rows walk every key; the first keys are seen by every
+//   row): the head is the grid's fast index.  With the head slow, the
+//   longest blocks of the last heads would start late and run alone at
+//   the end of the grid.
+// - Accumulation.  The tensor cores' f32 accumulation truncates (about
+//   2^-23 of the running sum per mma, toward zero).  f32: dQ, dK and dV
+//   take each chunk's contribution in a fresh partial and add it rounded
+//   to nearest.  bf16: the mma accumulate into the running sums, which
+//   leaves the HDT / 8 tiles of a sum independent and needs no partial
+//   registers; at most (Sq / 16) * (H / KV) mma reach one sum, 384 at the
+//   training shape, a bias of at most 4.6e-5 of its magnitude, 170 times
+//   under TOL_BWD's 2^-7.
+// - exp by the SFU (ex2.approx, scores in log2 units); the masks only on
+//   the chunks that cross a mask boundary; a warp skips the chunks past
+//   its rows' causal horizon, a dkdv block the query chunks that see none
+//   of its keys, and a dkdv warp those that see none of its 16 (only when
+//   every row sees some key).
+//
+// Registers (nvcc -Xptxas -v, sm_90a) at head tile 128 / 64: bf16 dq 210
+// / 179, dkdv 255 / 240; f32 dq 215 / 255, dkdv 255 / 191.  No spills but
+// 4 bytes in the f32 dq kernel at head tile 64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
-#define NTHREADS 256
-#define TILE 64          // query rows and keys per tile
-#define PAD 4            // words of padding per shared-memory row
-#define LDT (TILE + PAD) // row stride of a score tile
+#include "../../csrc/tf32x3.cuh"
+
+#define LOG2E 1.4426950408889634f
+#define NEG_INF (__int_as_float(0xff800000))
+#define POS_INF (__int_as_float(0x7f800000))
 
 struct BwdProblem {
   int B, Sq, Skv, H, KV, hd;
   int causal, q_offset, kv_valid;
+  int vec;  // every row is whole, aligned 16-byte chunks: cp.async them
   float scale;
 };
+
+template <typename T>
+__host__ __device__ constexpr bool is_bf16() {
+  return std::is_same<T, __nv_bfloat16>::value;
+}
+// Warps of a block (each owns 16 rows of the block's tile) and rows of a
+// streamed chunk (keys in dq, query rows in dkdv), by kernel and input
+// type: bf16 4 warps and 64 rows in both kernels; f32, twice the bytes a
+// row, 8 warps and 32 keys in dq, 4 warps and 16 query rows in dkdv.
+template <bool DKDV, typename T>
+__host__ __device__ constexpr int warps() {
+  return is_bf16<T>() || DKDV ? 4 : 8;
+}
+template <bool DKDV, typename T>
+__host__ __device__ constexpr int chunk_rows() {
+  return is_bf16<T>() ? 64 : DKDV ? 16 : 32;
+}
+// Row stride, in elements, of every tile: 16 bytes of padding.
+template <typename T>
+__host__ __device__ constexpr int row_stride(int hdt) {
+  return hdt + 16 / (int)sizeof(T);
+}
+// Dynamic shared memory of a block.  dq: the Q and dO tiles, two stages
+// of {K, V} chunks, D of the tile's rows.  dkdv: the K and V tiles, two
+// stages of {Q, dO, lse, D} chunks.
+template <int HDT, typename T>
+__host__ __device__ constexpr size_t dq_smem_bytes() {
+  return sizeof(T) * (size_t)row_stride<T>(HDT) *
+             (2 * 16 * warps<false, T>() + 4 * chunk_rows<false, T>()) +
+         sizeof(float) * 16 * warps<false, T>();
+}
+template <int HDT, typename T>
+__host__ __device__ constexpr size_t dkdv_smem_bytes() {
+  return sizeof(T) * (size_t)row_stride<T>(HDT) *
+             (2 * 16 * warps<true, T>() + 4 * chunk_rows<true, T>()) +
+         sizeof(float) * 4 * chunk_rows<true, T>();
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+// 2^x by the SFU (ex2.approx: about 2^-22 relative; 2^-inf = 0, and
+// results below 2^-126 flush to 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// Rows [r0, r0 + 64) of a tensor whose row r starts at base + r * rs
-// into an f32 tile [64][HDT + PAD]: zero at rows >= n_rows and at
-// columns >= hd.
-template <int HDT, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* base,
-                                          size_t rs, int r0, int n_rows,
-                                          int hd) {
-  constexpr int LD = HDT + PAD;
-  for (int idx = threadIdx.x; idx < TILE * HDT; idx += NTHREADS) {
-    const int r = idx / HDT, d = idx - r * HDT;
-    const int gr = r0 + r;
-    dst[r * LD + d] = gr < n_rows && d < hd
-                          ? to_f32(base[(size_t)gr * rs + d])
-                          : 0.0f;
-  }
+// ------------------------------------------------ bf16 mma fragments ---
+// m16n8k16 bf16 (g = lane / 4, t = lane % 4; each register two bf16, the
+// lower column in the low half):
+//   A (16 x 16): a0 (g, 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t+8..),
+//                a3 (g + 8, 2t+8..)
+//   B (16 x 8):  b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
+//   C (16 x 8):  the layout of the TF32 mma (tf32x3.cuh)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// c[a][b] += sum_{d < HDT} A[ty + 16a][d] * Bm[tx + 16b][d]; A and Bm
-// are [64][HDT + PAD] row-major tiles.
-template <int HDT>
-__device__ __forceinline__ void mm_nt(const float* A, const float* Bm,
-                                      float (&c)[4][4], int ty, int tx) {
-  constexpr int LD = HDT + PAD;
-#pragma unroll 2
-  for (int d = 0; d < HDT; d += 4) {
-    float4 a[4], b[4];
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
+  ldmatrix_x4(r[0], r[1], r[2], r[3], row);
+}
+
+// Four 8 x 8 b16 matrices, each transposed on the way: lane l receives
+// elements (2 (l % 4), l / 4) and (2 (l % 4) + 1, l / 4) of matrix i in
+// register i -- the B fragment of m16n8k16 from a [k][n] tile.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(row)));
+}
+
+// Two floats rounded to bf16 (to nearest), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 4 bytes global -> shared, asynchronously.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// ----------------------------------------------------------- products ---
+// c[n][*] = A . Bm^T for one warp: A the warp's 16 rows and Bm N rows,
+// both [rows][HDT] tiles in shared memory (row stride row_stride<T>);
+// c[n] is the C fragment of Bm's rows 8n .. 8n + 7.
+template <int HDT, int N, typename T>
+__device__ __forceinline__ void nt_product(float (&c)[N / 8][4], const T* A,
+                                           const T* Bm, int lane) {
+  constexpr int LS = row_stride<T>(HDT);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * LD + d);
-      b[i] = *reinterpret_cast<const float4*>(Bm + (tx + 16 * i) * LD + d);
-    }
+  for (int n = 0; n < N / 8; ++n)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.0f;
+  // ldmatrix rows: A's matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15); Bm's
+  // (n 0-7, k lo), (n 0-7, k hi), (n 8-15, k lo), (n 8-15, k hi)
+  const T* const a_row = A + (lane & 15) * LS;
+  const T* const b_row = Bm + ((lane & 7) + ((lane >> 4) << 3)) * LS;
+  if constexpr (is_bf16<T>()) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        c[i][j] = fmaf(a[i].x, b[j].x, c[i][j]);
-        c[i][j] = fmaf(a[i].y, b[j].y, c[i][j]);
-        c[i][j] = fmaf(a[i].z, b[j].z, c[i][j]);
-        c[i][j] = fmaf(a[i].w, b[j].w, c[i][j]);
+    for (int kt = 0; kt < HDT / 16; ++kt) {
+      uint32_t a[4];
+      ldsm_x4(a, a_row + kt * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < N / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, b_row + np * 16 * LS + kt * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(c[2 * np], a, b[0], b[1]);
+        mma_bf16(c[2 * np + 1], a, b[2], b[3]);
       }
+    }
+  } else {
+#pragma unroll
+    for (int kt = 0; kt < HDT / 8; ++kt) {
+      uint32_t a[4], a_hi[4], a_lo[4];
+      ldsm_x4(a, a_row + kt * 8 + (lane >> 4) * 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        tf32_split(__uint_as_float(a[i]), a_hi[i], a_lo[i]);
+#pragma unroll
+      for (int np = 0; np < N / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, b_row + np * 16 * LS + kt * 8 + ((lane >> 3) & 1) * 4);
+        BFrags<2> bf;
+        bf.split(0, __uint_as_float(b[0]), __uint_as_float(b[1]));
+        bf.split(1, __uint_as_float(b[2]), __uint_as_float(b[3]));
+        mma_3xtf32<2, false>(
+            [&](int i) -> float (&)[4] { return c[2 * np + i]; }, a_hi, a_lo,
+            bf);
+      }
+    }
   }
 }
 
-// c[a][n][e] += sum_{k < 64} A[ty + 16a][k] * Bm[k][tx * 4 + 64n + e];
-// A is a [64][LDT] score tile, Bm a [64][HDT + PAD] tile.
-template <int HDT>
-__device__ __forceinline__ void mm_nn(const float* A, const float* Bm,
-                                      float (&c)[4][HDT / 64][4], int ty,
-                                      int tx) {
-  constexpr int LD = HDT + PAD, NC = HDT / 64;
-#pragma unroll 2
-  for (int k = 0; k < TILE; k += 4) {
-    float4 a[4];
+// The A operand of nn_product, made from a [16][N] tile in the
+// C-fragment layout nt_product leaves (x[n] holds columns 8n .. 8n + 7),
+// so that the tile's floats die before the product.  bf16: the values
+// rounded to bf16 (to nearest), two n8 tiles to one k16 fragment.  f32:
+// TF32 hi and lo, A column t of a k8 fragment standing for column 2t of
+// an n8 tile and column t + 4 for column 2t + 1.
+template <int N, typename T>
+struct AOperand;
+template <int N>
+struct AOperand<N, __nv_bfloat16> {
+  uint32_t a[N / 16][4];
+  __device__ __forceinline__ explicit AOperand(const float (&x)[N / 8][4]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * LDT + k);
+    for (int kk = 0; kk < N / 16; ++kk) {
+      a[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+      a[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+      a[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+      a[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+    }
+  }
+};
+template <int N>
+struct AOperand<N, float> {
+  uint32_t hi[N / 8][4], lo[N / 8][4];
+  __device__ __forceinline__ explicit AOperand(const float (&x)[N / 8][4]) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      float4 b[NC];
+    for (int kk = 0; kk < N / 8; ++kk) {
+      tf32_split(x[kk][0], hi[kk][0], lo[kk][0]);
+      tf32_split(x[kk][2], hi[kk][1], lo[kk][1]);
+      tf32_split(x[kk][1], hi[kk][2], lo[kk][2]);
+      tf32_split(x[kk][3], hi[kk][3], lo[kk][3]);
+    }
+  }
+};
+
+// acc += X . Bm for one warp: X [16][N] given as its A operand, Bm an
+// [N][HDT] tile in shared memory (for TF32, read in X's column order).
+// bf16: every mma accumulates into acc, the k-steps outermost, so that
+// the HDT / 8 tiles of acc are independent chains.  f32: each n8 tile of
+// acc takes the N columns' sum in a fresh partial and adds it rounded to
+// nearest (the tensor cores' f32 accumulation truncates).
+template <int HDT, int N, typename T>
+__device__ __forceinline__ void nn_product(float (&acc)[HDT / 8][4],
+                                           const AOperand<N, T>& x,
+                                           const T* Bm, int lane) {
+  constexpr int LS = row_stride<T>(HDT);
+  if constexpr (is_bf16<T>()) {
+    // ldmatrix.trans rows: (k 0-7, n lo), (k 8-15, n lo), (k 0-7, n hi),
+    // (k 8-15, n hi)
+    const T* const b_row = Bm + (lane & 15) * LS + (lane >> 4) * 8;
 #pragma unroll
-      for (int n = 0; n < NC; ++n)
-        b[n] = *reinterpret_cast<const float4*>(Bm + (k + kk) * LD + tx * 4 +
-                                                64 * n);
+    for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y
-                         : kk == 2 ? a[i].z : a[i].w;
+      for (int dp = 0; dp < HDT / 16; ++dp) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, b_row + kk * 16 * LS + dp * 16);
+        mma_bf16(acc[2 * dp], x.a[kk], b[0], b[1]);
+        mma_bf16(acc[2 * dp + 1], x.a[kk], b[2], b[3]);
+      }
+  } else {
+    constexpr int G = 2;  // n8 tiles whose mma interleave
+    const int gid = lane >> 2, tig = lane & 3;
+    const T* const b_col = Bm + 2 * tig * LS + gid;
 #pragma unroll
-        for (int n = 0; n < NC; ++n) {
-          c[i][n][0] = fmaf(av, b[n].x, c[i][n][0]);
-          c[i][n][1] = fmaf(av, b[n].y, c[i][n][1]);
-          c[i][n][2] = fmaf(av, b[n].z, c[i][n][2]);
-          c[i][n][3] = fmaf(av, b[n].w, c[i][n][3]);
+    for (int n0 = 0; n0 < HDT / 8; n0 += G) {
+      float part[G][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < N / 8; ++kk) {
+        BFrags<G> bf;
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          const T* const at = b_col + kk * 8 * LS + (n0 + i) * 8;
+          bf.split(i, at[0], at[LS]);
         }
+        mma_3xtf32<G, false>(
+            [&](int i) -> float (&)[4] { return part[i]; }, x.hi[kk],
+            x.lo[kk], bf);
       }
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n0 + i][e] += part[i][e];
     }
   }
 }
 
-__device__ __forceinline__ float halfwarp_max(float x) {
-#pragma unroll
-  for (int off = 8; off; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float halfwarp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Whether query position qpos sees key c below the block's key bound
-// kv_end (which is at most kv_valid and Skv).
-__device__ __forceinline__ bool seen(int c, int kv_end, int qpos,
-                                     int causal) {
-  return c < kv_end && (!causal || c <= qpos);
-}
-
-template <int HDT>
-__host__ __device__ constexpr size_t dq_smem_floats() {
-  return 4 * TILE * (HDT + PAD) + TILE * LDT + 2 * TILE;
-}
-template <int HDT>
-__host__ __device__ constexpr size_t dkdv_smem_floats() {
-  return 4 * TILE * (HDT + PAD) + 2 * TILE * LDT + 2 * TILE;
-}
-
-// dQ, and each row's lse and D for the dkdv kernel.
+// Rows [r0, r0 + n) of a tensor whose row r starts at base + r * rs into
+// rows 0 .. n - 1 of a [rows][HDT] tile (columns < hd; the rest of the
+// tile keeps what it holds).  Asynchronous (cp.async, committed by the
+// caller) when p.vec, else plain copies.
 template <int HDT, typename T>
-__global__ void __launch_bounds__(NTHREADS)
+__device__ __forceinline__ void stage_rows(T* dst, const T* base, size_t rs,
+                                           int r0, int n,
+                                           const BwdProblem& p) {
+  constexpr int LS = row_stride<T>(HDT);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  if (p.vec) {
+    constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
+    const int cpr = p.hd / EPC;
+    for (int i = tid; i < n * cpr; i += nthreads) {
+      const int r = i / cpr, j = (i - r * cpr) * EPC;
+      cp_async16(dst + r * LS + j, base + (size_t)(r0 + r) * rs + j);
+    }
+  } else {
+    for (int i = tid; i < n * p.hd; i += nthreads) {
+      const int r = i / p.hd, d = i - r * p.hd;
+      dst[r * LS + d] = base[(size_t)(r0 + r) * rs + d];
+    }
+  }
+}
+
+// Zero a block's shared memory: the head-dim padding and the rows past a
+// tensor's end stay zero, and stale stage rows are finite.
+__device__ __forceinline__ void zero_smem(void* sm, size_t bytes) {
+  float4* z = reinterpret_cast<float4*>(sm);
+  for (int i = threadIdx.x; i < (int)(bytes / 16); i += blockDim.x)
+    z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// dQ, and each row's lse (in log2 units) and D for the dkdv kernel.
+template <int HDT, typename T>
+__global__ void __launch_bounds__(32 * warps<false, T>(),
+                                  warps<false, T>() > 4 ? 1 : 2)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ o,
               const T* __restrict__ dout, T* __restrict__ dq,
               float* __restrict__ lse_out, float* __restrict__ delta_out,
               BwdProblem p) {
-  constexpr int LD = HDT + PAD, NC = HDT / 64;
-  extern __shared__ __align__(16) float sm[];
-  float* const Qs = sm;
-  float* const dOs = Qs + TILE * LD;
-  float* const Ks = dOs + TILE * LD;
-  float* const Vs = Ks + TILE * LD;
-  float* const Ss = Vs + TILE * LD;   // dS, [query][key]
-  float* const lse_s = Ss + TILE * LDT;
-  float* const D_s = lse_s + TILE;
+  constexpr int LS = row_stride<T>(HDT), CH = chunk_rows<false, T>();
+  constexpr int NT = CH / 8, DT = HDT / 8, TILE = 16 * warps<false, T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const Qs = reinterpret_cast<T*>(smem_raw);
+  T* const dOs = Qs + TILE * LS;
+  T* const KVs = dOs + TILE * LS;  // stage i: K at 2i, V at 2i + 1
+  float* const D_s = reinterpret_cast<float*>(KVs + 4 * CH * LS);
 
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;  // longest first
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  // blocks launch in order of cost, every head's longest first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TILE;
+  const int h = blockIdx.x % p.H, b = blockIdx.x / p.H;
   const int g = h / (p.H / p.KV);
   const size_t qrs = (size_t)p.H * p.hd, krs = (size_t)p.KV * p.hd;
   const size_t qoff = ((size_t)b * p.Sq * p.H + h) * p.hd;
   const size_t koff = ((size_t)b * p.Skv * p.KV + g) * p.hd;
+  const float sl2 = p.scale * LOG2E;  // scores in log2 units
 
-  load_tile<HDT>(Qs, q + qoff, qrs, q0, p.Sq, p.hd);
-  load_tile<HDT>(dOs, dout + qoff, qrs, q0, p.Sq, p.hd);
-  load_tile<HDT>(Ks, o + qoff, qrs, q0, p.Sq, p.hd);  // o, for D only
+  zero_smem(smem_raw, dq_smem_bytes<HDT, T>());
   __syncthreads();
-  {
-    const int warp = tid >> 5, lane = tid & 31;
-    for (int r = warp; r < TILE; r += NTHREADS / 32) {
-      float acc = 0.0f;
-      for (int d = lane; d < HDT; d += 32)
-        acc = fmaf(dOs[r * LD + d], Ks[r * LD + d], acc);
-#pragma unroll
-      for (int off = 16; off; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) D_s[r] = acc;
-    }
-  }
-  __syncthreads();  // D_s is visible; Ks is read no more
 
   // the keys any row of this block sees
-  const int q_last = min(q0 + TILE, p.Sq) - 1;
+  const int n_rows = min(TILE, p.Sq - q0);
+  const int q_last = q0 + n_rows - 1;
   int kv_end = min(p.Skv, p.kv_valid);
   if (p.causal) kv_end = min(kv_end, p.q_offset + q_last + 1);
   kv_end = max(kv_end, 0);
-  const int n_chunks = (kv_end + TILE - 1) / TILE;
+  const int n_chunks = (kv_end + CH - 1) / CH;
 
-  // pass 1: each row's max m and sum l of exp(s - m) over its seen keys
-  float m[4], l[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = -INFINITY;
-    l[a] = 0.0f;
-  }
-  for (int j = 0; j < n_chunks; ++j) {
-    const int kv0 = j * TILE;
-    if (j) __syncthreads();  // Ks is free
-    load_tile<HDT>(Ks, k + koff, krs, kv0, kv_end, p.hd);
-    __syncthreads();
-    float s[4][4] = {};
-    mm_nt<HDT>(Qs, Ks, s, ty, tx);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int qpos = q0 + ty + 16 * a + p.q_offset;
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        const int c = kv0 + tx + 16 * bb;
-        s[a][bb] = seen(c, kv_end, qpos, p.causal) ? s[a][bb] * p.scale
-                                                   : -INFINITY;
-        cmax = fmaxf(cmax, s[a][bb]);
-      }
-      const float mn = fmaxf(m[a], halfwarp_max(cmax));
-      // a row that has seen no key yet keeps m = -inf and l = 0; the
-      // shuffles run on every lane (the two rows of a warp may differ)
-      const bool any = mn != -INFINITY;
-      float sum = 0.0f;
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb)
-        sum += any ? expf(s[a][bb] - mn) : 0.0f;
-      sum = halfwarp_sum(sum);
-      if (any) {
-        l[a] = l[a] * expf(m[a] - mn) + sum;
-        m[a] = mn;
-      }
+  stage_rows<HDT>(Qs, q + qoff, qrs, q0, n_rows, p);
+  stage_rows<HDT>(dOs, dout + qoff, qrs, q0, n_rows, p);
+  cp_async_commit();
+  // step s < n_chunks: chunk s of K (pass 1); else chunk s - n_chunks of
+  // K and V (pass 2)
+  auto load_step = [&](int s) {
+    const int pass2 = s >= n_chunks, kv0 = (s - pass2 * n_chunks) * CH;
+    const int nk = min(CH, kv_end - kv0);
+    T* const Kd = KVs + (size_t)(2 * (s & 1)) * CH * LS;
+    stage_rows<HDT>(Kd, k + koff, krs, kv0, nk, p);
+    if (pass2) stage_rows<HDT>(Kd + CH * LS, v + koff, krs, kv0, nk, p);
+    cp_async_commit();
+  };
+  if (n_chunks) load_step(0);
+
+  // D of the warp's rows, in a fixed order: two lanes a row, the even
+  // and the odd columns
+  const int wr0 = warp * 16, wq0 = q0 + wr0;
+  {
+    const int r = wr0 + (lane >> 1);
+    float acc = 0.0f;
+    if (r < n_rows) {
+      const T* const orow = o + qoff + (size_t)(q0 + r) * qrs;
+      const T* const drow = dout + qoff + (size_t)(q0 + r) * qrs;
+#pragma unroll 8
+      for (int d = lane & 1; d < p.hd; d += 2)
+        acc = fmaf(to_f32(drow[d]), to_f32(orow[d]), acc);
     }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (!(lane & 1)) D_s[r] = acc;
   }
-  if (tx == 0) {
+  __syncwarp();
+  const float Drow[2] = {D_s[wr0 + gid], D_s[wr0 + gid + 8]};
+
+  // the keys this warp's rows see
+  const bool live = wq0 < p.Sq;
+  int w_end = kv_end;
+  if (p.causal)
+    w_end = max(0, min(w_end, p.q_offset + min(wq0 + 15, p.Sq - 1) + 1));
+  const T* const Qw = Qs + wr0 * LS;
+  const T* const dOw = dOs + wr0 * LS;
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f}, lse2[2];
+  auto finish_pass1 = [&]() {  // each row's lse, written with its D
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty + 16 * a, qi = q0 + r;
-      const float lse = l[a] > 0.0f ? m[a] + logf(l[a]) : INFINITY;
-      lse_s[r] = lse;
-      if (qi < p.Sq) {
+    for (int r = 0; r < 2; ++r) {
+      lse2[r] = l[r] > 0.0f ? m[r] + log2f(l[r]) : POS_INF;
+      const int qi = wq0 + gid + 8 * r;
+      if (tig == 0 && qi < p.Sq) {
         const size_t at = ((size_t)b * p.H + h) * p.Sq + qi;
-        lse_out[at] = lse;
-        delta_out[at] = D_s[r];
+        lse_out[at] = lse2[r];
+        delta_out[at] = Drow[r];
       }
     }
-  }
+  };
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
 
-  // pass 2: dS = P (dO V^T - D) and dQ += dS K
-  float acc[4][NC][4] = {};
-  for (int j = 0; j < n_chunks; ++j) {
-    const int kv0 = j * TILE;
-    __syncthreads();  // Ks, Vs and Ss are free; lse_s is visible
-    load_tile<HDT>(Ks, k + koff, krs, kv0, kv_end, p.hd);
-    load_tile<HDT>(Vs, v + koff, krs, kv0, kv_end, p.hd);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    mm_nt<HDT>(Qs, Ks, s, ty, tx);
-    mm_nt<HDT>(dOs, Vs, dp, ty, tx);
+  for (int s = 0; s < 2 * n_chunks; ++s) {
+    const int pass2 = s >= n_chunks, kv0 = (s - pass2 * n_chunks) * CH;
+    const T* const Ks = KVs + (size_t)(2 * (s & 1)) * CH * LS;
+    const T* const Vs = Ks + CH * LS;
+    cp_async_wait<0>();
+    __syncthreads();  // step s landed; every warp is done with step s - 1
+    if (s + 1 < 2 * n_chunks) load_step(s + 1);
+    if (s == n_chunks) finish_pass1();
+    if (!live || kv0 >= w_end) continue;
+
+    float sc[NT][4];
+    nt_product<HDT, CH>(sc, Qw, Ks, lane);
+    // every score of the chunk is seen by every row of the warp, or the
+    // masks apply: score (n, e) is key kv0 + 8n + 2t + (e & 1) of row
+    // wq0 + g + 8 (e >> 1)
+    const bool clean = kv0 + CH <= kv_end &&
+                       (!p.causal || kv0 + CH - 1 <= p.q_offset + wq0);
+    auto seen = [&](int n, int e) {
+      const int c = kv0 + n * 8 + 2 * tig + (e & 1);
+      const int qpos = wq0 + gid + 8 * (e >> 1) + p.q_offset;
+      return c < kv_end && (!p.causal || c <= qpos);
+    };
+    if (!pass2) {
+      // each row's max m and sum l of exp(s - m) over its seen keys; a
+      // row that has seen no key yet keeps m = -inf and l = 0 (the
+      // shuffles run on every lane: the rows of a warp may differ)
+      if (clean) {
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty + 16 * a, qpos = q0 + r + p.q_offset;
-      const float lse = lse_s[r], D = D_s[r];
+        for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        const int c = kv0 + tx + 16 * bb;
-        float ds = 0.0f;
-        if (seen(c, kv_end, qpos, p.causal))
-          ds = expf(s[a][bb] * p.scale - lse) * (dp[a][bb] - D);
-        Ss[r * LDT + tx + 16 * bb] = ds;
+          for (int e = 0; e < 4; ++e) sc[n][e] *= sl2;
+      } else {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[n][e] = seen(n, e) ? sc[n][e] * sl2 : NEG_INF;
       }
+      float cmax[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          cmax[e >> 1] = fmaxf(cmax[e >> 1], sc[n][e]);
+      float mn[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(0xffffffffu, cmax[r], 1));
+        cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(0xffffffffu, cmax[r], 2));
+        mn[r] = fmaxf(m[r], cmax[r]);
+      }
+      // exp2(-inf - -inf) would be NaN: a row with no key yet adds 0
+      const float base[2] = {mn[0] == NEG_INF ? 0.0f : mn[0],
+                             mn[1] == NEG_INF ? 0.0f : mn[1]};
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sum[e >> 1] += exp2_approx(sc[n][e] - base[e >> 1]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[r] = l[r] * exp2_approx(m[r] - base[r]) + sum[r];
+        m[r] = mn[r];
+      }
+      continue;
     }
-    __syncthreads();
-    mm_nn<HDT>(Ss, Ks, acc, ty, tx);
+
+    // pass 2: dS = P (dO V^T - D) and dQ += dS K
+    float dp[NT][4];
+    nt_product<HDT, CH>(dp, dOw, Vs, lane);
+    if (clean) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          sc[n][e] = exp2_approx(fmaf(sc[n][e], sl2, -lse2[r])) *
+                     (dp[n][e] - Drow[r]);
+        }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float pr = seen(n, e)
+                               ? exp2_approx(fmaf(sc[n][e], sl2, -lse2[r]))
+                               : 0.0f;
+          sc[n][e] = pr * (dp[n][e] - Drow[r]);
+        }
+    }
+    nn_product<HDT, CH>(acc, AOperand<CH, T>(sc), Ks, lane);
+  }
+  if (!n_chunks) {  // no row of the block sees a key
+    finish_pass1();
+    cp_async_wait<0>();
   }
 
+  if (!live) return;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int qi = q0 + ty + 16 * a;
+  for (int r = 0; r < 2; ++r) {
+    const int qi = wq0 + gid + 8 * r;
     if (qi >= p.Sq) continue;
     T* const row = dq + qoff + (size_t)qi * qrs;
 #pragma unroll
-    for (int n = 0; n < NC; ++n)
+    for (int n = 0; n < DT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = tx * 4 + 64 * n + e;
-        if (d < p.hd) put(row + d, acc[a][n][e] * p.scale);
+      for (int e = 0; e < 2; ++e) {
+        const int d = n * 8 + 2 * tig + e;
+        if (d < p.hd) put(row + d, acc[n][2 * r + e] * p.scale);
       }
   }
 }
 
 // dK and dV of 64 keys of one kv head, summed over its q heads.
 template <int HDT, typename T>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(32 * warps<true, T>(),
+                                  warps<true, T>() > 4 ? 1 : 2)
 bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse_in,
                 const float* __restrict__ delta_in, T* __restrict__ dk,
                 T* __restrict__ dv, BwdProblem p) {
-  constexpr int LD = HDT + PAD, NC = HDT / 64;
-  extern __shared__ __align__(16) float sm[];
-  float* const Ks = sm;
-  float* const Vs = Ks + TILE * LD;
-  float* const Qs = Vs + TILE * LD;
-  float* const dOs = Qs + TILE * LD;
-  float* const Pt = dOs + TILE * LD;  // P, [key][query]
-  float* const dSt = Pt + TILE * LDT;  // dS, [key][query]
-  float* const lse_s = dSt + TILE * LDT;
-  float* const D_s = lse_s + TILE;
+  constexpr int LS = row_stride<T>(HDT), CH = chunk_rows<true, T>();
+  constexpr int NT = CH / 8, DT = HDT / 8, TILE = 16 * warps<true, T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const Ks = reinterpret_cast<T*>(smem_raw);
+  T* const Vs = Ks + TILE * LS;
+  T* const QDs = Vs + TILE * LS;  // stage i: Q at 2i, dO at 2i + 1
+  float* const stats = reinterpret_cast<float*>(QDs + 4 * CH * LS);
+  // stage i: lse at stats + 2i CH, D at stats + (2i + 1) CH
 
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int k0 = blockIdx.x * TILE;  // the first blocks see the most rows
-  const int g = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  // blocks launch in order of cost (the first keys see the most rows)
+  const int k0 = blockIdx.y * TILE;
+  const int g = blockIdx.x % p.KV, b = blockIdx.x / p.KV;
   const int group = p.H / p.KV;
   const size_t qrs = (size_t)p.H * p.hd, krs = (size_t)p.KV * p.hd;
   const size_t koff = ((size_t)b * p.Skv * p.KV + g) * p.hd;
+  const float sl2 = p.scale * LOG2E;
 
-  load_tile<HDT>(Ks, k + koff, krs, k0, p.Skv, p.hd);
-  load_tile<HDT>(Vs, v + koff, krs, k0, p.Skv, p.hd);
+  zero_smem(smem_raw, dkdv_smem_bytes<HDT, T>());
+  __syncthreads();
+  stage_rows<HDT>(Ks, k + koff, krs, k0, min(TILE, p.Skv - k0), p);
+  stage_rows<HDT>(Vs, v + koff, krs, k0, min(TILE, p.Skv - k0), p);
+  cp_async_commit();
 
   // the query chunks to visit: every one if some row sees no key (it
   // adds dO / Skv to every key), else those that see a key of this block
@@ -377,67 +645,121 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     else if (p.causal)
       q_lo = max(0, k0 - p.q_offset);
   }
-  q_lo = min(q_lo, p.Sq) / TILE * TILE;
+  q_lo = min(q_lo, p.Sq) / CH * CH;
+  const int per_head = (p.Sq - q_lo + CH - 1) / CH;
+  const int n_steps = group * per_head;
   const float inv_skv = 1.0f / (float)p.Skv;
 
-  float dk_acc[4][NC][4] = {}, dv_acc[4][NC][4] = {};
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = g * group + hh;
+  // step s: q head g * group + s / per_head, rows q_lo + (s % per_head) CH
+  auto load_step = [&](int s) {
+    const int h = g * group + s / per_head;
+    const int q0 = q_lo + (s % per_head) * CH, nq = min(CH, p.Sq - q0);
     const size_t qoff = ((size_t)b * p.Sq * p.H + h) * p.hd;
-    for (int q0 = q_lo; q0 < p.Sq; q0 += TILE) {
-      __syncthreads();  // Qs, dOs, Pt, dSt, lse_s and D_s are free
-      load_tile<HDT>(Qs, q + qoff, qrs, q0, p.Sq, p.hd);
-      load_tile<HDT>(dOs, dout + qoff, qrs, q0, p.Sq, p.hd);
-      if (tid < TILE) {
-        const int qi = q0 + tid;
-        const size_t at = ((size_t)b * p.H + h) * p.Sq + qi;
-        lse_s[tid] = qi < p.Sq ? lse_in[at] : INFINITY;
-        D_s[tid] = qi < p.Sq ? delta_in[at] : 0.0f;
+    T* const Qd = QDs + (size_t)(2 * (s & 1)) * CH * LS;
+    stage_rows<HDT>(Qd, q + qoff, qrs, q0, nq, p);
+    stage_rows<HDT>(Qd + CH * LS, dout + qoff, qrs, q0, nq, p);
+    float* const st = stats + 2 * (s & 1) * CH;
+    if (tid < CH) {
+      const size_t at = ((size_t)b * p.H + h) * p.Sq + q0 + tid;
+      if (tid < nq) {
+        cp_async4(st + tid, lse_in + at);
+        cp_async4(st + CH + tid, delta_in + at);
+      } else {
+        st[tid] = POS_INF;
+        st[CH + tid] = 0.0f;
       }
-      __syncthreads();
-      float st[4][4] = {}, dpt[4][4] = {};
-      mm_nt<HDT>(Ks, Qs, st, ty, tx);   // [key][query]
-      mm_nt<HDT>(Vs, dOs, dpt, ty, tx);
+    }
+    cp_async_commit();
+  };
+  if (n_steps) load_step(0);
+
+  const int wk0 = k0 + warp * 16;  // this warp's keys
+  const T* const Kw = Ks + warp * 16 * LS;
+  const T* const Vw = Vs + warp * 16 * LS;
+  float dk_acc[DT][4], dv_acc[DT][4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int r = ty + 16 * a, c = k0 + r;
+  for (int n = 0; n < DT; ++n)
 #pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
-          const int i = tx + 16 * bb, qi = q0 + i;
-          const int qpos = qi + p.q_offset;
-          const bool row = qi < p.Sq && c < p.Skv;
-          const bool dead = p.kv_valid == 0 || (p.causal && qpos < 0);
-          float pr = 0.0f, ds = 0.0f;
-          if (row && !dead && seen(c, p.kv_valid, qpos, p.causal)) {
-            pr = expf(st[a][bb] * p.scale - lse_s[i]);
-            ds = pr * (dpt[a][bb] - D_s[i]);
-          } else if (row && dead) {
-            pr = inv_skv;
-          }
-          Pt[r * LDT + i] = pr;
-          dSt[r * LDT + i] = ds;
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.0f;
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int q0 = q_lo + (s % per_head) * CH;
+    const T* const Qs = QDs + (size_t)(2 * (s & 1)) * CH * LS;
+    const T* const dOs = Qs + CH * LS;
+    const float* const lse_s = stats + 2 * (s & 1) * CH;
+    const float* const D_s = lse_s + CH;
+    cp_async_wait<0>();
+    __syncthreads();  // step s landed; every warp is done with step s - 1
+    if (s + 1 < n_steps) load_step(s + 1);
+    // a chunk that sees none of this warp's keys adds nothing
+    if (wk0 >= p.Skv ||
+        (!any_dead && (wk0 >= p.kv_valid ||
+                       (p.causal && q0 + CH - 1 + p.q_offset < wk0))))
+      continue;
+
+    float st[NT][4], dpt[NT][4];  // [key][query]
+    nt_product<HDT, CH>(st, Kw, Qs, lane);
+    nt_product<HDT, CH>(dpt, Vw, dOs, lane);
+    // score (n, e) is query q0 + 8n + 2t + (e & 1) of key wk0 + g +
+    // 8 (e >> 1); clean: every row is live and sees every key of the warp
+    const bool clean = !any_dead && q0 + CH <= p.Sq &&
+                       wk0 + 16 <= p.kv_valid &&
+                       (!p.causal || wk0 + 15 <= q0 + p.q_offset);
+    if (clean) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 ls =
+            *reinterpret_cast<const float2*>(lse_s + n * 8 + 2 * tig);
+        const float2 dd =
+            *reinterpret_cast<const float2*>(D_s + n * 8 + 2 * tig);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pr =
+              exp2_approx(fmaf(st[n][e], sl2, -(e & 1 ? ls.y : ls.x)));
+          dpt[n][e] = pr * (dpt[n][e] - (e & 1 ? dd.y : dd.x));
+          st[n][e] = pr;
         }
       }
-      __syncthreads();
-      mm_nn<HDT>(Pt, dOs, dv_acc, ty, tx);
-      mm_nn<HDT>(dSt, Qs, dk_acc, ty, tx);
+    } else {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = n * 8 + 2 * tig + (e & 1);  // query in the chunk
+          const int c = wk0 + gid + 8 * (e >> 1), qi = q0 + i;
+          const int qpos = qi + p.q_offset;
+          const bool live = qi < p.Sq;
+          const bool dead = p.kv_valid == 0 || (p.causal && qpos < 0);
+          const bool seen = live && !dead && c < p.kv_valid &&
+                            (!p.causal || c <= qpos);
+          const float pr =
+              seen           ? exp2_approx(fmaf(st[n][e], sl2, -lse_s[i]))
+              : live && dead ? inv_skv
+                             : 0.0f;
+          dpt[n][e] = seen ? pr * (dpt[n][e] - D_s[i]) : 0.0f;
+          st[n][e] = pr;
+        }
     }
+    const AOperand<CH, T> pa(st), dsa(dpt);
+    nn_product<HDT, CH>(dv_acc, pa, dOs, lane);
+    nn_product<HDT, CH>(dk_acc, dsa, Qs, lane);
   }
+  cp_async_wait<0>();  // nothing in flight at exit, even with no step
 
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int c = k0 + ty + 16 * a;
+  for (int r = 0; r < 2; ++r) {
+    const int c = wk0 + gid + 8 * r;
     if (c >= p.Skv) continue;
     T* const krow = dk + koff + (size_t)c * krs;
     T* const vrow = dv + koff + (size_t)c * krs;
 #pragma unroll
-    for (int n = 0; n < NC; ++n)
+    for (int n = 0; n < DT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = tx * 4 + 64 * n + e;
+      for (int e = 0; e < 2; ++e) {
+        const int d = n * 8 + 2 * tig + e;
         if (d < p.hd) {
-          put(krow + d, dk_acc[a][n][e] * p.scale);
-          put(vrow + d, dv_acc[a][n][e]);
+          put(krow + d, dk_acc[n][2 * r + e] * p.scale);
+          put(vrow + d, dv_acc[n][2 * r + e]);
         }
       }
   }
@@ -448,8 +770,8 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
                           const void* o, const void* dout, void* dq,
                           void* dk, void* dv, float* lse, float* delta,
                           const BwdProblem& p, cudaStream_t stream) {
-  const size_t dq_smem = sizeof(float) * dq_smem_floats<HDT>();
-  const size_t kv_smem = sizeof(float) * dkdv_smem_floats<HDT>();
+  const size_t dq_smem = dq_smem_bytes<HDT, T>();
+  const size_t kv_smem = dkdv_smem_bytes<HDT, T>();
   cudaError_t err = cudaFuncSetAttribute(
       bwd_dq_kernel<HDT, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)dq_smem);
@@ -462,16 +784,15 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  const dim3 gq((unsigned)((p.Sq + TILE - 1) / TILE), (unsigned)p.H,
-                (unsigned)p.B);
-  bwd_dq_kernel<HDT, T><<<gq, NTHREADS, dq_smem, stream>>>(
+  constexpr int TQ = 16 * warps<false, T>(), TK = 16 * warps<true, T>();
+  const dim3 gq((unsigned)(p.H * p.B), (unsigned)((p.Sq + TQ - 1) / TQ));
+  bwd_dq_kernel<HDT, T><<<gq, 2 * TQ, dq_smem, stream>>>(
       qt, kt, vt, static_cast<const T*>(o), dot, static_cast<T*>(dq), lse,
       delta, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 gk((unsigned)((p.Skv + TILE - 1) / TILE), (unsigned)p.KV,
-                (unsigned)p.B);
-  bwd_dkdv_kernel<HDT, T><<<gk, NTHREADS, kv_smem, stream>>>(
+  const dim3 gk((unsigned)(p.KV * p.B), (unsigned)((p.Skv + TK - 1) / TK));
+  bwd_dkdv_kernel<HDT, T><<<gk, 2 * TK, kv_smem, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
       p);
   return cudaGetLastError();
@@ -488,13 +809,19 @@ static cudaError_t launch_hd(const void* q, const void* k, const void* v,
 }
 
 // Dynamic shared memory of the dq (kernel 0) and dkdv (kernel 1) blocks at
-// head dim hd; flash_attention.py's bwd_smem_bytes computes the same.
-extern "C" size_t flash_attention_bwd_smem_bytes(int hd, int kernel) {
-  const bool wide = hd > 64;
-  const size_t floats =
-      kernel == 0 ? (wide ? dq_smem_floats<128>() : dq_smem_floats<64>())
-                  : (wide ? dkdv_smem_floats<128>() : dkdv_smem_floats<64>());
-  return sizeof(float) * floats;
+// head dim hd for f32 (bf16 = 0) or bf16 (1) inputs; flash_attention.py's
+// bwd_smem_bytes computes the same.
+extern "C" size_t flash_attention_bwd_smem_bytes(int hd, int kernel,
+                                                 int bf16) {
+  using bf = __nv_bfloat16;
+  if (hd <= 64) {
+    if (bf16)
+      return kernel ? dkdv_smem_bytes<64, bf>() : dq_smem_bytes<64, bf>();
+    return kernel ? dkdv_smem_bytes<64, float>() : dq_smem_bytes<64, float>();
+  }
+  if (bf16)
+    return kernel ? dkdv_smem_bytes<128, bf>() : dq_smem_bytes<128, bf>();
+  return kernel ? dkdv_smem_bytes<128, float>() : dq_smem_bytes<128, float>();
 }
 
 // q, o, dout, dq [B, Sq, H, hd] and k, v, dk, dv [B, Skv, KV, hd] are
@@ -517,6 +844,12 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   p.B = B; p.Sq = Sq; p.Skv = Skv; p.H = H; p.KV = KV; p.hd = hd;
   p.causal = causal; p.q_offset = q_offset; p.kv_valid = kv_valid;
   p.scale = scale;
+  const int elem = bf16 ? 2 : 4;
+  auto aligned = [](const void* x) {
+    return reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  };
+  p.vec = (hd * elem) % 16 == 0 && aligned(q) && aligned(k) && aligned(v) &&
+          aligned(dout);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return (int)launch_hd<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, lse,

@@ -32,9 +32,11 @@ The plain version is
 
 :func:`flash_attention_bwd` launches the backward,
 ``csrc/flash_attention_bwd.cu`` (two kernels: dQ with each row's
-log-sum-exp, then dK and dV summed over each kv head's q heads, f32 on
-the CUDA cores, no atomics); it has no Pallas source, the JAX package
-differentiating its jnp attention instead.  Its plain version is
+log-sum-exp, then dK and dV summed over each kv head's q heads; products
+on the tensor cores, bf16 ``mma.sync`` for bf16 inputs with P and dS
+rounded to bf16 as operands, 3xTF32 for f32; no atomics); it has no
+Pallas source, the JAX package differentiating its jnp attention
+instead.  Its plain version is
 :func:`repro_torch.kernels.flash_attention.ref.flash_attention_bwd_ref`
 and it counts its calls in ``flash_attention_bwd.launches``.
 """
@@ -60,7 +62,11 @@ BWD_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention_bwd.cu")
 # no Pallas source: the reference's gradient is XLA's autodiff of this
 BWD_REPLACES = "src/repro/models/attention.py:82"
-BWD_TILE = 64              # query rows and keys of a backward tile
+# (warps, chunk rows) of the backward's dq and dkdv kernels by input
+# dtype: a warp owns 16 of its block's query rows (dq) or keys (dkdv); a
+# chunk is the keys (dq) or query rows (dkdv) streamed through shared memory
+BWD_SHAPE = {torch.bfloat16: ((4, 64), (4, 64)),
+             torch.float32: ((8, 32), (4, 16))}
 
 
 def head_tile(hd: int) -> int:
@@ -171,14 +177,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 
 
-def bwd_smem_bytes(hd: int, kernel: int) -> int:
-    """Dynamic shared memory of a backward block (``dq_smem_floats`` and
-    ``dkdv_smem_floats`` in the source): four f32 tiles of 64 rows of the
-    head tile (64 or 128) padded by 4 words, one (dq, ``kernel`` 0) or
-    two (dkdv, 1) 64 x 68 score tiles, and 128 words of row statistics."""
+def bwd_smem_bytes(hd: int, kernel: int, dtype) -> int:
+    """Dynamic shared memory of a backward block (``dq_smem_bytes`` and
+    ``dkdv_smem_bytes`` in the source): two tiles of 16 rows a warp (Q and
+    dO for dq, ``kernel`` 0; K and V for dkdv, 1) and two stages of two
+    chunks (K and V; Q and dO), ``BWD_SHAPE``, in the inputs' dtype, each
+    row the head tile (64 or 128) padded by 16 bytes; then f32 row
+    statistics: D of the block's rows (dq), or lse and D of each stage's
+    chunk (dkdv)."""
     hdt = 64 if hd <= 64 else 128
-    tiles = 4 * BWD_TILE * (hdt + 4) + (1 + kernel) * BWD_TILE * 68
-    return 4 * (tiles + 2 * BWD_TILE)
+    warps, chunk = BWD_SHAPE[dtype][kernel]
+    elem = 2 if dtype == torch.bfloat16 else 4
+    tiles = elem * (hdt + 16 // elem) * (2 * 16 * warps + 4 * chunk)
+    return tiles + 4 * (4 * chunk if kernel else 16 * warps)
 
 
 @functools.lru_cache(maxsize=None)
@@ -188,10 +199,11 @@ def _bwd_lib():
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float]
         + [ctypes.c_void_p])
     lib.flash_attention_bwd.restype = ctypes.c_int
-    lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_size_t
-    if any(lib.flash_attention_bwd_smem_bytes(hd, kern)
-           != bwd_smem_bytes(hd, kern) for hd in (40, 128) for kern in (0, 1)):
+    if any(lib.flash_attention_bwd_smem_bytes(
+            hd, kern, int(dt == torch.bfloat16)) != bwd_smem_bytes(hd, kern, dt)
+           for hd in (40, 128) for kern in (0, 1) for dt in DTYPES):
         raise RuntimeError("csrc/flash_attention_bwd.cu and "
                            "flash_attention.py disagree on the shared-memory "
                            "layout")

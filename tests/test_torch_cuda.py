@@ -1060,6 +1060,12 @@ BWD_CASES = [
                                 "kv_valid_len": 100}),
     ((2, 257, 257, 8, 2, 128), {"causal": True}),
     ((1, 1, 300, 4, 1, 128), {"causal": False, "kv_valid_len": 290}),
+    # a group of 8 q heads on one kv head
+    ((1, 130, 130, 8, 1, 64), {"causal": True}),
+    # hd not a multiple of the bf16 mma's k (16), 160 rows
+    ((1, 160, 160, 4, 2, 120), {"causal": True}),
+    # every tile and chunk whole, no mask
+    ((1, 64, 64, 2, 1, 64), {"causal": False}),
 ]
 
 

@@ -12,10 +12,12 @@ Both packages get the same seeded numpy inputs.  Tolerances:
   where the two differ (see ops.py).
 
 ``_kernel_model`` is the CPU model of the backward kernel's partition
-(csrc/flash_attention_bwd.cu: dq blocks of 64 rows with their key range,
-dkdv blocks of 64 keys with the query chunks they visit, and the rows
-that see no key) held to the plain backward; the kernel itself is held
-to the plain backward on the card (tests/test_torch_cuda.py).
+(csrc/flash_attention_bwd.cu: dq blocks of 16 rows a warp with their key
+range, dkdv blocks of 64 keys with the query chunks they visit, and the
+rows that see no key) held to the plain backward, in f32 and with P and
+dS rounded to bf16 where the kernel's bf16 products round them; the
+kernel itself is held to the plain backward on the card
+(tests/test_torch_cuda.py).
 """
 import pytest
 
@@ -28,7 +30,7 @@ from repro.models import attention as jattn  # noqa: E402
 from repro.models import loss as jloss  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    softmax_scale)
+    BWD_SHAPE, softmax_scale)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_bwd_ref, flash_attention_ref)
 from repro_torch.models import loss  # noqa: E402
@@ -212,16 +214,25 @@ def test_plain_backward_matches_autograd_of_plain_version(case, dtype):
 
 
 def _kernel_model(q, k, v, o, do, causal=True, q_offset=0,
-                  kv_valid_len=None, tile=64):
-    """The backward kernel's partition in f64: the dq kernel's blocks of
-    ``tile`` rows with their key bound and log-sum-exp, the dkdv
-    kernel's blocks of ``tile`` keys visiting only the query chunks that
-    can see them (all of them when some row sees no key), such rows
-    adding dO / Skv to every key's dV."""
+                  kv_valid_len=None, dtype=torch.float32):
+    """The backward kernel's partition in f64, at its shape for ``dtype``
+    (``BWD_SHAPE``): the dq kernel's blocks of 16 rows a warp with their
+    key bound and log-sum-exp, the dkdv kernel's blocks of 64 keys
+    visiting only the query chunks that can see them (all of them when
+    some row sees no key), such rows adding dO / Skv to every key's dV.
+    bf16: P and dS rounded to bf16 (to nearest, from f32) as the operands
+    of dV += P^T dO, dQ += dS K and dK += dS^T Q, and dq, dk, dv rounded
+    to bf16, where the kernel rounds them."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     group = H // KV
     sc = softmax_scale(hd)
+    (dq_warps, _), (kv_warps, chunk) = BWD_SHAPE[dtype]
+    tq, tk = 16 * dq_warps, 16 * kv_warps
+    bf16 = dtype == torch.bfloat16
+
+    def operand(t):
+        return t.float().to(torch.bfloat16).double() if bf16 else t
     valid = Skv if kv_valid_len is None else min(max(kv_valid_len, 0), Skv)
     q, k, v, o, do = (t.double() for t in (q, k, v, o, do))
     dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
@@ -230,8 +241,8 @@ def _kernel_model(q, k, v, o, do, causal=True, q_offset=0,
     for b in range(B):
         for h in range(H):
             g = h // group
-            for q0 in range(0, Sq, tile):
-                rows = torch.arange(q0, min(q0 + tile, Sq))
+            for q0 in range(0, Sq, tq):
+                rows = torch.arange(q0, min(q0 + tq, Sq))
                 kv_end = min(Skv, valid)
                 if causal:
                     kv_end = min(kv_end, q_offset + int(rows[-1]) + 1)
@@ -249,19 +260,20 @@ def _kernel_model(q, k, v, o, do, causal=True, q_offset=0,
                                 0.0)
                 dp = do[b, rows, h] @ v[b, :kv_end, g].T
                 ds = torch.where(seen, p * (dp - D[b, h, rows, None]), 0.0)
-                dq[b, rows, h] = sc * ds @ k[b, :kv_end, g]
+                dq[b, rows, h] = sc * operand(ds) @ k[b, :kv_end, g]
     any_dead = valid == 0 or (causal and q_offset < 0)
     for b in range(B):
         for g in range(KV):
-            for k0 in range(0, Skv, tile):
+            for k0 in range(0, Skv, tk):
                 q_lo = 0
                 if not any_dead:
                     q_lo = Sq if k0 >= valid else (
                         max(0, k0 - q_offset) if causal else 0)
-                cs = torch.arange(k0, min(k0 + tile, Skv))
+                cs = torch.arange(k0, min(k0 + tk, Skv))
                 for h in range(g * group, (g + 1) * group):
-                    for q0 in range(min(q_lo, Sq) // tile * tile, Sq, tile):
-                        rows = torch.arange(q0, min(q0 + tile, Sq))
+                    for q0 in range(min(q_lo, Sq) // chunk * chunk, Sq,
+                                    chunk):
+                        rows = torch.arange(q0, min(q0 + chunk, Sq))
                         qpos = rows + q_offset
                         dead = (qpos < 0) & causal | (valid == 0)
                         seen = (~dead[:, None]) & (cs[None] < valid)
@@ -274,8 +286,10 @@ def _kernel_model(q, k, v, o, do, causal=True, q_offset=0,
                         dp = do[b, rows, h] @ v[b, cs, g].T
                         ds = torch.where(seen, p * (dp - D[b, h, rows, None]),
                                          0.0)
-                        dv[b, cs, g] += p.T @ do[b, rows, h]
-                        dk[b, cs, g] += sc * ds.T @ q[b, rows, h]
+                        dv[b, cs, g] += operand(p).T @ do[b, rows, h]
+                        dk[b, cs, g] += sc * operand(ds).T @ q[b, rows, h]
+    if bf16:
+        return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -296,6 +310,36 @@ def test_kernel_partition_model_matches_plain_backward(shape, kw):
     got = _kernel_model(q, k, v, o, do, **kw)
     for g, w in zip(got, want):
         assert _rel(g, w) <= 1e-5
+
+
+@pytest.mark.parametrize("shape,kw", [
+    # one kv head's group at the llama3.2-3b training shape's widths
+    ((1, 1024, 1024, 3, 1, 128), {"causal": True}),
+    ((1, 130, 150, 2, 2, 8), {"causal": False, "kv_valid_len": 0}),
+    ((1, 70, 200, 3, 1, 16), {"causal": True, "q_offset": -70}),
+    ((1, 130, 200, 4, 2, 16), {"causal": True, "q_offset": 30,
+                                "kv_valid_len": 100}),
+    ((1, 160, 160, 4, 2, 120), {"causal": True}),
+    ((1, 64, 64, 8, 1, 64), {"causal": False}),
+])
+def test_kernel_model_bf16_rounding_within_backward_tolerances(shape, kw):
+    """P and dS rounded to bf16 as the kernel rounds them, against the
+    plain backward (``TOL_BWD``) and autograd of the plain version
+    (``bwd_autograd_tol``), both on the same bf16 inputs."""
+    bf = torch.bfloat16
+    q, k, v, do = (torch.from_numpy(a).to(bf) for a in _attn_inputs(
+        shape, "bfloat16", seed=20))
+    o = flash_attention_ref(q, k, v, **kw)
+    want = flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    auto = torch.autograd.grad(flash_attention_ref(qq, kk, vv, **kw),
+                               (qq, kk, vv), do)
+    got = _kernel_model(q, k, v, o, do, dtype=bf, **kw)
+    tol_auto = ops.bwd_autograd_tol(bf, shape[3] // shape[4])
+    for g, w, a in zip(got, want, auto):
+        assert g.dtype == bf
+        assert _rel(g, w) <= ops.TOL_BWD[bf]
+        assert _rel(g, a) <= tol_auto
 
 
 def test_backward_tolerances_are_declared():
