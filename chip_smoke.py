@@ -164,6 +164,25 @@ source, all started together), and prints one JSON line per phase:
    kernel's times at the path's two shapes (the causal prefill, and one
    decode step over 2,081 cached positions with 2,049 valid) beside its
    plain version, ``scaled_dot_product_attention`` and the bound;
+   ``mla_lm_slice`` -- the MLA + MoE LM's serving path at the full width
+   and depth of deepseek-v2-lite-16b (27 layers, d_model 2,048, 16 heads
+   of q.k 192 and v 128 over a 512-wide latent, a dense first layer, 26
+   MoE layers of 64 experts top-6 with 2 shared, vocab 102,400, bf16,
+   15.7 B seeded parameters made on the card; the llama weights freed
+   first), prefill attention on ``flash_attention`` at q.k 192 / v 128:
+   ``prefill`` of the same prompts (exactly 27 launches), the same
+   prefill with ``blocks.flash_attention_op`` patched to the plain
+   version (no launch; logits and every layer's ``ckv``/``kr`` cache),
+   each MoE layer's share of (token, slot) routes the two runs agree on,
+   every layer held from the plain run's own input with the kernel and
+   with the plain version, the cache handoff with each (and its gap to
+   the prefill's logits beside the routes its step dropped at C = 1);
+   within ``LM_TOL_BF16`` end to end, or, where a route flipped, layer
+   by layer; then ``generate`` for 33 tokens (27 launches, none a decode
+   step: the absorbed form) and the decode loop traced for the card's
+   busy share; the same comparisons on an f32 copy of the weights at
+   depth 3 (``LM_TOL_F32``); the kernel's time at the prefill shape
+   beside its plain version, SDPA (its backend named) and the bound;
 10. ``lm_train_slice`` -- LM training on the card: the
     ``flash_attention_bwd`` kernel at the training shape (B 2, S 2,048,
     24/8 heads of 128, causal) in f32 and bf16 against the plain backward
@@ -191,7 +210,8 @@ Before the slices, the ``kernel`` lines also hold stencil_gather (bit
 for bit: every candidate tile of its default problem in f32 and bf16, a
 grid no tile divides, 4096x4096), flash_attention (its tolerance: both
 default problems, non-causal, GQA groups 1 and 3, ``kv_valid_len`` 0 and
-150, ``q_offset``, bf16 inputs, the llama3.2-3b prefill) and
+150, ``q_offset``, bf16 inputs, the llama3.2-3b prefill, q.k 192 and 256
+over v 128 in f32 and bf16) and
 flash_attention_int8 (its default problem, the decode window, one decode
 step, GQA groups 1 and 4, hd 4, 36 and 64, 8,191 keys non-causal,
 ``q_offset`` -16, ``kv_valid_len`` 0 and 5,000, all at the decode
@@ -212,6 +232,7 @@ the script exits
 non-zero and prints no result.  Outside the train slice the bundle weights are
 random: nothing there measures surrogate accuracy.
 """
+import contextlib
 import functools
 import importlib
 import json
@@ -445,6 +466,25 @@ GQA_PREFILL = dict(b=LM_BATCH, sq=LM_PROMPT, skv=LM_PROMPT, causal=True,
 GQA_DECODE = dict(b=LM_BATCH, sq=1, skv=LM_PROMPT + LM_GEN, causal=False,
                   q_offset=0, **LLAMA)
 GQA_DECODE_VALID = LM_PROMPT + 1
+# the MLA LM slice: deepseek-v2-lite-16b (src/repro/configs/archs.py:86-94)
+# at full width and depth serving the same prompts, its prefill attention
+# on flash_attention at q.k 192 / v 128 (16 heads, no GQA); an f32 copy of
+# its weights at depth 3, the dense prefix layer and 2 MoE layers (the
+# whole model in f32 is 63 GB beside the bf16 one)
+MLA_ARCH, MLA_F32_REPEATS = "deepseek-v2-lite-16b", 2
+MLA_PREFILL = dict(b=LM_BATCH, sq=LM_PROMPT, skv=LM_PROMPT, causal=True,
+                   q_offset=0, h=16, kv=16, hd=192, hdv=128)
+# the MLA prefill's kernels by kind in its trace (the first match of a
+# substring of the kernel's name)
+PREFILL_KERNEL_GROUPS = {
+    "attention": ("flash_attention_kernel",),
+    "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet"),
+    "routing": ("index", "scatter", "gather", "scan", "topk", "sort",
+                "radix", "one_hot"),
+}
+# the widened kernel against its plain version, f32 and bf16, at q.k 192
+# and 256 over v 128 (MLA's head, and the widest tile)
+WIDE_HEADS = ((192, 128), (256, 128))
 # the LM training slice: llama3.2-3b at full width and depth trained on
 # one repeated TokenPipeline batch of 2 x 2,048 tokens, 4 steps past the
 # warmup (policy full); attention's backward at that shape
@@ -2370,7 +2410,8 @@ def time_int8(packed, dev, smi):
 
 
 def attention_inputs(shape, dev, seed, dtype=None):
-    """Seeded q [B, Sq, H, hd] and k, v [B, Skv, KV, hd] on the card."""
+    """Seeded q [B, Sq, H, hd], k [B, Skv, KV, hd] and v [B, Skv, KV,
+    hdv] (hdv = hd unless the shape names it) on the card."""
     import torch
     g = torch.Generator().manual_seed(seed)
     dtype = dtype or torch.float32
@@ -2379,7 +2420,8 @@ def attention_inputs(shape, dev, seed, dtype=None):
         return torch.randn(dims, generator=g).to(device=dev, dtype=dtype)
     return (t(shape["b"], shape["sq"], shape["h"], shape["hd"]),
             t(shape["b"], shape["skv"], shape["kv"], shape["hd"]),
-            t(shape["b"], shape["skv"], shape["kv"], shape["hd"]))
+            t(shape["b"], shape["skv"], shape["kv"],
+              shape.get("hdv", shape["hd"])))
 
 
 def check_stencil(dev):
@@ -2427,7 +2469,9 @@ def check_flash(dev):
     """flash_attention (through its op) against its plain version at the
     spec's tolerance (bf16 outputs one bf16 ulp): both default problems,
     non-causal, GQA groups 1 and 3, kv_valid_len including 0, bf16
-    inputs and the llama3.2-3b prefill."""
+    inputs, the llama3.2-3b prefill, and the widened kernel at q.k 192
+    and 256 over v 128 (``WIDE_HEADS``) in f32 and bf16, causal over 512
+    keys with 16 heads, and at 192 / 128 with ``kv_valid_len`` 300."""
     import torch
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -2449,6 +2493,14 @@ def check_flash(dev):
         ("bf16", d0, {}, torch.bfloat16),
         ("llama3.2-3b prefill 4096", PREFILL, {}, None),
     ]
+    wide = dict(b=2, sq=512, skv=512, h=16, kv=16)
+    for hd, hdv in WIDE_HEADS:
+        for dtype in (None, torch.bfloat16):
+            cases.append((f"q.k {hd} / v {hdv} {'bf16' if dtype else 'f32'}",
+                          dict(wide, hd=hd, hdv=hdv), {}, dtype))
+    cases.append(("q.k 192 / v 128 kv_valid_len 300, non-causal",
+                  dict(wide, hd=192, hdv=128),
+                  {"kv_valid_len": 300, "causal": False}, None))
     errs = {}
     for i, (label, shape, kw, dtype) in enumerate(cases):
         kw = dict({"causal": shape.get("causal", True),
@@ -3226,14 +3278,15 @@ def gqa_within(res, tol):
 
 
 def gqa_attention_cell(shape, valid, dev, seed):
-    """flash_attention at one of the GQA LM's shapes (bf16): its inputs,
+    """flash_attention at one of an LM's shapes (bf16): its inputs,
     problem, plain version, one SDPA call computing the same function
-    (K/V repeated per group and cut to the valid keys beforehand), and
-    the bound: each input read once and the output written once (only
-    the ``valid`` keys of K/V), against the operations (4 hd per visible
-    query-key pair) at the bf16 tensor-core peak; ``bound_tc_ms`` prices
-    the operations as the kernel runs them on bf16 inputs, two TF32
-    products, at the TF32 peak."""
+    (K/V repeated per group and cut to the valid keys beforehand; the
+    backend PyTorch picks for it named), and the bound: each input read
+    once and the output written once (only the ``valid`` keys of K/V),
+    against the operations (2 (hd + hdv) per visible query-key pair) at
+    the bf16 tensor-core peak; ``bound_tc_ms`` prices the operations as
+    the kernel runs them on bf16 inputs, two TF32 products, at the TF32
+    peak."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -3243,6 +3296,7 @@ def gqa_attention_cell(shape, valid, dev, seed):
     kw = {"causal": shape["causal"], "q_offset": shape["q_offset"],
           "kv_valid_len": valid}
     b, sq, h, kvh, hd = (shape[n] for n in ("b", "sq", "h", "kv", "hd"))
+    hdv = shape.get("hdv", hd)
     seen = valid if valid is not None else shape["skv"]
     group = h // kvh
     qt = q.transpose(1, 2).contiguous()
@@ -3252,18 +3306,33 @@ def gqa_attention_cell(shape, valid, dev, seed):
         pairs = b * h * sq * (sq + 1) // 2   # q_offset 0, Sq = Skv
     else:
         pairs = b * h * sq * seen
-    flops = 4 * hd * pairs
-    nbytes = 2 * (2 * q.numel() + 2 * b * seen * kvh * hd)
+    flops = 2 * (hd + hdv) * pairs
+    nbytes = 2 * (q.numel() + b * sq * h * hdv + b * seen * kvh * (hd + hdv))
     t_ops, t_bytes = flops / PEAK_F16_FLOPS, nbytes / PEAK_HBM_BYTES
     return dict(
         arrays=(q, k, v), problem=ops.inspect_call(q, k, v, **kw),
         plain=lambda: flash_attention_ref(q, k, v, **kw),
         library=lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=shape["causal"]),
+        library_backend=sdpa_backend(qt, kt, vt, shape["causal"]),
         bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         bound_tc_ms=max(2 * flops / PEAK_TF32_FLOPS, t_bytes) * 1e3,
         flops=flops, bytes=nbytes)
+
+
+def sdpa_backend(q, k, v, causal):
+    """The backend ``scaled_dot_product_attention`` picks for these
+    inputs (``torch._fused_sdp_choice``), by name, or None where this
+    PyTorch does not say."""
+    import torch
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, is_causal=causal)).name
+    except (AttributeError, ImportError, RuntimeError, TypeError,
+            ValueError):
+        return None
 
 
 def time_gqa_attention(dev, smi):
@@ -3273,15 +3342,23 @@ def time_gqa_attention(dev, smi):
     decode step also from a CUDA graph (a loop of one-row launches is
     paced by the host).  Each launch is held against the plain version
     first (bf16 outputs within one ulp)."""
+    return time_lm_attention(dev, smi, "gqa_lm", (
+        ("prefill", GQA_PREFILL, None, 10),
+        ("decode", GQA_DECODE, GQA_DECODE_VALID, 200)), seed=90)
+
+
+def time_lm_attention(dev, smi, case, shapes, seed):
+    """flash_attention's times at an LM's ``shapes`` ((label, shape,
+    valid keys, iterations); a ``decode`` label also from a CUDA graph),
+    each launch held against the plain version first; one ``timing`` line
+    each, under ``case``."""
     import torch
     from repro_torch.kernels import registry
     from repro_torch.kernels.flash_attention import ops
 
     out = {}
-    for label, shape, valid, iters in (
-            ("prefill", GQA_PREFILL, None, 10),
-            ("decode", GQA_DECODE, GQA_DECODE_VALID, 200)):
-        cell = gqa_attention_cell(shape, valid, dev, seed=90 + len(out))
+    for label, shape, valid, iters in shapes:
+        cell = gqa_attention_cell(shape, valid, dev, seed=seed + len(out))
         problem, arrays = cell.pop("problem"), cell.pop("arrays")
         plain, library = cell.pop("plain"), cell.pop("library")
         params = registry.resolve_params(ops.SPEC, problem)
@@ -3292,7 +3369,7 @@ def time_gqa_attention(dev, smi):
         torch.cuda.synchronize()
         max_abs, worst = compare(got, want, BF16_RTOL, ops.TOL[1])
         if not worst <= 1.0:
-            raise AssertionError(f"flash_attention at the GQA LM's {label} "
+            raise AssertionError(f"flash_attention at {case}'s {label} "
                                  f"shape: max abs error {max_abs}, {worst}x "
                                  f"the tolerance")
         ms = cuda_ms(kernel, iters)
@@ -3307,7 +3384,7 @@ def time_gqa_attention(dev, smi):
                          + " beforehand",
             share_of_bound=cell["bound_ms"] / ms,
             tc_share_of_bound=cell["bound_tc_ms"] / ms)
-        emit("timing", kernel="flash_attention", case=f"gqa_lm {label}",
+        emit("timing", kernel="flash_attention", case=f"{case} {label}",
              nvidia_smi=smi, **out[label])
     return out
 
@@ -3428,6 +3505,406 @@ def run_gqa_lm_slice(dev, smi):
          sample=tokens[0, :8].tolist(), nvidia_smi=smi, **numbers, **checks)
     if not all(checks.values()):
         raise AssertionError(f"gqa lm slice checks failed: {checks}")
+    return gen_launches, timing
+
+
+@contextlib.contextmanager
+def record_routes(probs=False):
+    """Every ``blocks.moe_route`` call in the block, in order: a list of
+    (experts ``[T, k]``, keep ``[T, k]``), one per MoE layer a forward or
+    step walks, and with ``probs`` the router's probabilities ``[T,
+    E]``."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.models import blocks
+    calls, route = [], blocks.moe_route
+
+    def recorded(cfg, p, x):
+        out = route(cfg, p, x)
+        calls.append((out[1].reshape(-1, cfg.top_k),
+                      out[3].reshape(-1, cfg.top_k))
+                     + ((torch.softmax(x.float() @ p["w_router"], -1)
+                         .reshape(-1, cfg.n_experts),) if probs else ()))
+        return out
+    with mock.patch.object(blocks, "moe_route", recorded):
+        yield calls
+
+
+def route_agreement(a, b):
+    """Each MoE layer's share of the (token, slot) routes of ``a`` whose
+    expert ``b`` also chose for that token."""
+    return [(ra[0][:, :, None] == rb[0][:, None, :]).any(-1).float().mean()
+            .item() for ra, rb in zip(a, b)]
+
+
+def routes_dropped(routes):
+    return sum(int((~r[1]).sum()) for r in routes)
+
+
+def layer_flips(mine, ref, k):
+    """One MoE layer's routes with the kernel (``mine``) against the plain
+    version (``ref``), from the same input: the tokens whose experts (as
+    a set: two near-tied experts may swap slots) and kept routes agree (a
+    bool ``[T]``), and what explains the rest.  A
+    flipped route is a near-tie when its token's top-k margin (the k-th
+    router probability less the next, with the kernel) is within twice
+    the largest change of a probability between the two runs over the
+    tokens that agree; a flip into an expert at its capacity moves that
+    expert's later rows, so it may change whether one later route is
+    kept, and a flip out of one another: at most two such changes a
+    flipped route."""
+    (ea, ka, pa), (eb, kb, pb) = mine, ref
+    # a token's experts as a set, each with whether its route is kept
+    (ea, oa), (eb, ob) = ea.sort(-1), eb.sort(-1)
+    ka, kb = ka.gather(-1, oa), kb.gather(-1, ob)
+    same_experts = (ea == eb).all(-1)
+    same = same_experts & (ka == kb).all(-1)
+    flipped_routes = int((~(ea[:, :, None] == eb[:, None, :]).any(-1))
+                         .sum())
+    top = pa.topk(k + 1, dim=-1).values
+    margin = top[:, k - 1] - top[:, k]
+    drift = (pa - pb).abs().amax(-1)
+    margin_max = margin[~same_experts].max().item() if flipped_routes else 0.0
+    drift_max = drift[same].max().item() if bool(same.any()) else 0.0
+    keep_only = int((same_experts & ~same).sum())
+    return same, {
+        "tokens_differing": int((~same).sum()),
+        "routes_flipped": flipped_routes,
+        "keep_changed_tokens": keep_only,
+        "flip_margin_max": margin_max,
+        "prob_drift_max_agreeing": drift_max,
+        "explained": margin_max <= 2 * drift_max
+        and keep_only <= 2 * flipped_routes}
+
+
+def mla_latents(caches):
+    """Every layer's (ckv, kr) cache, the prefix layer first."""
+    return [(c["mixer"]["ckv"], c["mixer"]["kr"])
+            for c in caches["prefix"] + caches["stack"][0]]
+
+
+def mla_compare_latents(caches, want):
+    """Every layer's ckv and kr against ``want``'s: ``{"ckv": (max abs
+    error, largest |want|, worst), "kr": ...}`` over all layers, and each
+    layer's largest error."""
+    acc = {"ckv": [0.0, 0.0, 0.0], "kr": [0.0, 0.0, 0.0]}
+    by_layer = []
+    for got, ref in zip(mla_latents(caches), mla_latents(want)):
+        worst_layer = 0.0
+        for key, g, r in zip(("ckv", "kr"), got, ref):
+            c = lm_compare(g, r)
+            acc[key] = [max(x, y) for x, y in zip(acc[key], c)]
+            worst_layer = max(worst_layer, c[0])
+        by_layer.append(worst_layer)
+    return {k: tuple(v) for k, v in acc.items()}, by_layer
+
+
+def mla_handoff(cfg, params, prompts):
+    """``serve_step`` on the last prompt token after a prefill of the
+    others (into a cache of the prompt's length): the step's logits and
+    the routes its MoE layers dropped (C = 1 for 4 sequences)."""
+    from repro_torch.models import lm
+    S = prompts.shape[1]
+    _, short = lm.prefill(cfg, params, prompts[:, :-1], cache_len=S)
+    with record_routes() as routes:
+        step = lm.serve_step(cfg, params, short, prompts[:, -1:], S - 1)[0]
+    return step, routes_dropped(routes)
+
+
+def mla_layers_from_plain(cfg, params, inputs):
+    """Each layer run from the plain-attention prefill's own input to it,
+    with the kernel and with the plain version: the gap between the two
+    outputs (the residual stream after the layer) over all tokens and
+    over the tokens whose routes agree (:func:`layer_flips`), and what
+    explains the others."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import blocks, lm
+
+    def named(got, want):
+        return dict(zip(("max_abs_err", "max_abs", "worst"),
+                        lm_compare(got, want)))
+    out = []
+    for (slot, r, spec), x in zip(lm._layers(cfg), inputs):
+        p = lm._get(params, slot, r)
+        kw = {"positions": torch.arange(x.shape[1], device=x.device),
+              "position_ids": None}
+        with record_routes(probs=True) as mine:
+            y = lm._apply_layer_seq(cfg, p, spec, x, **kw)[0]
+        with record_routes(probs=True) as ref, mock.patch.object(
+                blocks, "flash_attention_op", flash_attention_ref):
+            y_p = lm._apply_layer_seq(cfg, p, spec, x, **kw)[0]
+        y, y_p = y.reshape(-1, y.shape[-1]), y_p.reshape(-1, y.shape[-1])
+        row = {"all_tokens": named(y, y_p)}
+        if mine:
+            same, flips = layer_flips(mine[0], ref[0], cfg.top_k)
+            row.update(flips, agreeing_tokens=named(y[same], y_p[same]),
+                       route_agreement=route_agreement(mine, ref)[0])
+        else:
+            row["agreeing_tokens"] = row["all_tokens"]
+        out.append(row)
+    return out
+
+
+def mla_against_plain(cfg, params, prompts, logits, caches, routes):
+    """The prefill that gave ``logits``/``caches`` (its MoE ``routes``)
+    run again with attention computed by the kernel's plain version
+    (which must launch nothing), keeping each layer's input: logits and
+    every layer's latent cache, each MoE layer's route agreement between
+    the two runs, every layer held from the plain run's input, and the
+    cache handoff, with the kernel and with the plain version, beside its
+    gap to ``logits`` and the routes its step dropped."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import blocks, lm
+
+    inputs, layer = [], lm._apply_layer_seq
+
+    def keep_input(cfg_, p, spec, x, **kw):
+        inputs.append(x)
+        return layer(cfg_, p, spec, x, **kw)
+    before = ops.SPEC.launches
+    with mock.patch.object(blocks, "flash_attention_op",
+                           flash_attention_ref), \
+            mock.patch.object(lm, "_apply_layer_seq", keep_input), \
+            record_routes() as routes_p:
+        t0 = time.perf_counter()
+        logits_p, caches_p = lm.prefill(cfg, params, prompts)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    plain_launches = ops.SPEC.launches - before
+    latents, by_layer = mla_compare_latents(caches, caches_p)
+    del caches_p
+    layers = mla_layers_from_plain(cfg, params, inputs)
+    del inputs
+    before = ops.SPEC.launches
+    step, step_drops = mla_handoff(cfg, params, prompts)
+    with mock.patch.object(blocks, "flash_attention_op", flash_attention_ref):
+        step_p, _ = mla_handoff(cfg, params, prompts)
+    torch.cuda.synchronize()
+    handoff_launches = ops.SPEC.launches - before
+
+    def real(t):  # logits of the vocabulary (padding reads -1e30)
+        return t[..., :cfg.vocab_size]
+
+    def named(got, want):
+        return dict(zip(("max_abs_err", "max_abs", "worst"),
+                        lm_compare(real(got), real(want))))
+    agreement = route_agreement(routes, routes_p)
+    return {
+        "plain_attention_prefill_s": seconds,
+        "plain_path_launches": plain_launches,
+        "handoff_launches": handoff_launches,
+        "vs_plain_attention": {
+            "logits": named(logits, logits_p),
+            **{k: dict(zip(("max_abs_err", "max_abs", "worst"), v))
+               for k, v in latents.items()}},
+        "latent_max_abs_err_by_layer": by_layer,
+        "route_agreement_by_layer": agreement,
+        "routes": len(routes) and int(routes[0][0].numel()),
+        "prefill_routes_dropped": routes_dropped(routes),
+        "layers_from_plain_input": layers,
+        "handoff_vs_plain": named(step, step_p),
+        # not a check: the step's capacity (C = 1) drops routes the
+        # prefill keeps
+        "handoff_vs_prefill": named(step, logits),
+        "handoff_step_routes_dropped": step_drops}
+
+
+def mla_within(res, tol):
+    """Every comparison of :func:`mla_against_plain` but the handoff's
+    gap to the prefill within ``tol`` of the largest magnitude; or, where
+    a route flipped between the two runs, every layer held from the plain
+    run's own input within it over the tokens whose routes agree, each
+    other token explained by a near-tied flip (:func:`layer_flips`).
+    Returns (ok, how)."""
+    def ok(cmp):
+        return all(c["max_abs_err"] <= tol * (1 + c["max_abs"])
+                   for c in cmp)
+    if ok(list(res["vs_plain_attention"].values())
+          + [res["handoff_vs_plain"]]):
+        return True, "end_to_end"
+    layers = res["layers_from_plain_input"]
+    flips = min(res["route_agreement_by_layer"], default=1.0) < 1.0
+    if (flips and ok([c["agreeing_tokens"] for c in layers])
+            and all(c.get("explained", True) for c in layers)):
+        return True, "per_layer_after_route_flips"
+    return False, "failed"
+
+
+def mla_handoff_without_drops(cfg, params, prompts):
+    """The cache handoff at a capacity that drops no route (``E / k``:
+    C = 4 for the step's 24 routes, every token's route kept in the
+    prefill): the step's gap to the whole prompt's prefill at that
+    capacity, and the routes dropped (none)."""
+    from repro_torch.models import lm
+    wide = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+    with record_routes() as routes:
+        logits, _ = lm.prefill(wide, params, prompts)
+    step, step_drops = mla_handoff(wide, params, prompts)
+
+    def real(t):
+        return t[..., :cfg.vocab_size]
+    return {"capacity_factor": wide.capacity_factor,
+            "routes_dropped": routes_dropped(routes) + step_drops,
+            "handoff_vs_prefill": dict(zip(
+                ("max_abs_err", "max_abs", "worst"),
+                lm_compare(real(step), real(logits))))}
+
+
+def _mla_f32_copy(cfg, params):
+    """The first ``MLA_F32_REPEATS`` pattern layers, the prefix and the
+    embeddings of ``params`` in f32 (the router stays f32), and their
+    config."""
+    import torch
+    from repro_torch.configs.base import with_repeats
+    keep = {k: v for k, v in params.items() if k != "stack"}
+    keep["stack"] = tuple(s[:MLA_F32_REPEATS] for s in params["stack"])
+    return (with_repeats(cfg, MLA_F32_REPEATS).replace(dtype="float32"),
+            _cast(keep, torch.float32))
+
+
+def run_mla_lm_slice(dev, smi):
+    """prefill -> serve_step of deepseek-v2-lite-16b (MLA + MoE) at full
+    width and depth through the port's entry points, its prefill
+    attention on flash_attention at q.k 192 / v 128, held against the
+    same model with attention computed by the kernel's plain version (the
+    MoE routes compared too), in bf16 and as an f32 copy at depth 3; then
+    the kernel's times at the prefill shape.  Returns the generate loop's
+    flash_attention launches and the kernel's times."""
+    import gc
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import lm
+
+    gc.collect()  # the llama weights of the slice before
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(MLA_ARCH)
+    seconds = {}
+    t_phase = t0 = time.perf_counter()
+    params = lm.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    seconds["init_params"] = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=g, device=dev)
+    lm.prefill(cfg, params, prompts)  # warm-up: cuBLAS handles, allocator
+
+    registry.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with record_routes() as routes:
+        logits, caches = lm.prefill(cfg, params, prompts)
+        torch.cuda.synchronize()
+    seconds["prefill"] = time.perf_counter() - t0
+    prefill_launches = (ops.SPEC.launches, ops.SPEC.plain_calls)
+    bf16 = mla_against_plain(cfg, params, prompts, logits, caches, routes)
+    del caches, routes
+    bf16["without_drops"] = mla_handoff_without_drops(cfg, params, prompts)
+    _, traced_prefill_s, prefill_busy_s, prefill_kernels = device_busy(
+        lambda: lm.prefill(cfg, params, prompts), PREFILL_KERNEL_GROUPS)
+
+    registry.reset_counts()
+    res = serve_lm.generate(cfg, params, prompts, LM_GEN)
+    gen_launches = ops.SPEC.launches
+    tokens = res["tokens"]
+    finite = bool(torch.isfinite(logits).all()
+                  and torch.isfinite(res["logits"]).all())
+
+    # the card's busy share over the same decode loop, traced
+    steps = LM_GEN - 1
+    first, caches = lm.prefill(cfg, params, prompts,
+                               cache_len=LM_PROMPT + LM_GEN)
+
+    def decode_loop():
+        tok = first.argmax(-1)[:, None]
+        for i in range(steps):
+            out, _ = lm.serve_step(cfg, params, caches, tok, LM_PROMPT + i)
+            tok = out.argmax(-1)[:, None]
+        return tok
+    _, traced_s, busy_s = device_busy(decode_loop)
+    del caches
+
+    # the same weights in f32 at depth 3: the kernel's own differences,
+    # without bf16 rounding of the activations to amplify them
+    cfg32, params32 = _mla_f32_copy(cfg, params)
+    del params
+    registry.reset_counts()
+    with record_routes() as routes32:
+        logits32, caches32 = lm.prefill(cfg32, params32, prompts)
+    torch.cuda.synchronize()
+    f32_launches = ops.SPEC.launches
+    f32 = mla_against_plain(cfg32, params32, prompts, logits32, caches32,
+                            routes32)
+    f32["without_drops"] = mla_handoff_without_drops(cfg32, params32,
+                                                     prompts)
+    finite = finite and bool(torch.isfinite(logits32).all())
+    del params32, caches32, routes32
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    timing = time_lm_attention(dev, smi, "mla_lm", (
+        ("prefill", MLA_PREFILL, None, 10),), seed=95)
+    seconds["phase"] = time.perf_counter() - t_phase
+    L, L32 = cfg.n_layers, cfg32.n_layers
+    bf16_ok, bf16_how = mla_within(bf16, LM_TOL_BF16)
+    f32_ok, f32_how = mla_within(f32, LM_TOL_F32)
+    checks = {
+        "prefill_launches_one_per_layer":
+        prefill_launches == (L, 0) and f32_launches == L32,
+        "plain_path_launched_nothing": bf16["plain_path_launches"] == 0
+        and f32["plain_path_launches"] == 0,
+        # two prefills of 2,047 tokens (kernel, then plain) and two steps
+        "handoff_launches_one_per_layer_of_its_prefill":
+        bf16["handoff_launches"] == L and f32["handoff_launches"] == L32,
+        "generate_launches_one_per_layer_of_the_prefill": gen_launches == L,
+        "logits_finite": finite,
+        "logits_shape": tuple(logits.shape) == (LM_BATCH, cfg.padded_vocab),
+        "bf16_matches_plain_attention_and_handoff": bf16_ok,
+        "f32_matches_plain_attention_and_handoff": f32_ok,
+        "tokens": tuple(tokens.shape) == (LM_BATCH, LM_GEN)
+        and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+    }
+    numbers = dict(
+        prefill_s=seconds["prefill"], decode_s=res["decode_s"],
+        generate_prefill_s=res["prefill_s"],
+        decode_ms_per_step=res["decode_s"] / steps * 1e3,
+        tokens_per_s=LM_BATCH * steps / res["decode_s"],
+        decode_traced_s=traced_s, decode_busy_s=busy_s,
+        decode_busy_share=busy_s / traced_s if busy_s else None,
+        kernel_ms_prefill=timing["prefill"]["ms"],
+        kernel_share_of_prefill=L * timing["prefill"]["ms"]
+        / (seconds["prefill"] * 1e3), peak_gib=peak_gib,
+        prefill_traced_s=traced_prefill_s, prefill_busy_s=prefill_busy_s,
+        prefill_kernel_s=prefill_kernels)
+    emit("mla_lm_slice", arch=cfg.name, n_layers=L, d_model=cfg.d_model,
+         heads=cfg.n_heads, qk_head=cfg.qk_nope_dim + cfg.qk_rope_dim,
+         v_head=cfg.v_head_dim, kv_lora_rank=cfg.kv_lora_rank,
+         experts=cfg.n_experts, top_k=cfg.top_k,
+         shared_experts=cfg.n_shared_experts, expert_ff=cfg.moe_d_ff,
+         capacity_factor=cfg.capacity_factor, vocab=cfg.vocab_size,
+         dtype=cfg.dtype, params=n_params, batch=LM_BATCH, prompt=LM_PROMPT,
+         gen=LM_GEN, f32_layers=L32, seconds=seconds,
+         launches={"prefill": prefill_launches[0], "generate": gen_launches,
+                   "f32_prefill": f32_launches},
+         bf16=bf16, f32=f32, bf16_held=bf16_how, f32_held=f32_how,
+         tol_bf16=LM_TOL_BF16, tol_f32=LM_TOL_F32,
+         sample=tokens[0, :8].tolist(), nvidia_smi=smi, **numbers, **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"mla lm slice checks failed: {checks}")
     return gen_launches, timing
 
 
@@ -3918,6 +4395,7 @@ def main():
     shutil.rmtree(work)
     lm_launches, rwkv_timing = run_lm_slice(dev, smi, rwkv_arrays)
     gqa_launches, gqa_timing = run_gqa_lm_slice(dev, smi)
+    mla_launches, mla_timing = run_mla_lm_slice(dev, smi)
     train_work = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(train_work, ignore_errors=True)
     train_work.mkdir(parents=True)
@@ -3941,12 +4419,23 @@ def main():
             new_rows[-1]["bound_tc_ms"] = t["bound_tc_ms"]
         if name == "flash_attention":
             lm_p, lm_d = gqa_timing["prefill"], gqa_timing["decode"]
+            mla_p = mla_timing["prefill"]
             new_rows[-1].update(
-                launches=tune_launches[name] + gqa_launches
+                launches=tune_launches[name] + gqa_launches + mla_launches
                 + lm_train_launches[0],
                 launches_by_path={"run_tune": tune_launches[name],
                                   "gqa_lm_slice": gqa_launches,
+                                  "mla_lm_slice": mla_launches,
                                   "lm_train_slice": lm_train_launches[0]},
+                mla_prefill_shape=mla_p["problem"],
+                mla_prefill_ms=mla_p["ms"],
+                mla_prefill_plain_ms=mla_p["plain_ms"],
+                mla_prefill_bound_ms=mla_p["bound_ms"],
+                mla_prefill_bound_by=mla_p["bound_by"],
+                mla_prefill_bound_tc_ms=mla_p["bound_tc_ms"],
+                mla_prefill_library_ms=mla_p["library_ms"],
+                mla_prefill_library_backend=mla_p["library_backend"],
+                mla_prefill_max_abs_err=mla_p["max_abs_err"],
                 lm_prefill_shape=lm_p["problem"], lm_prefill_ms=lm_p["ms"],
                 lm_prefill_plain_ms=lm_p["plain_ms"],
                 lm_prefill_bound_ms=lm_p["bound_ms"],

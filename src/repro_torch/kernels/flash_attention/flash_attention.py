@@ -2,7 +2,11 @@
 absolute-position causal mask), and its wrapper.
 
 Replaces ``src/repro/kernels/flash_attention/flash_attention.py::
-flash_attention`` (the Pallas TPU kernel).  The kernel,
+flash_attention`` (the Pallas TPU kernel), widened past it: the q.k head
+takes up to 256, and V may be narrower than q and K (MLA's 192-wide q.k
+head over a 128-wide v head): past a q.k tile of 128 V has a head tile
+(128) and a width of its own; up to 128 the wrapper pads a narrower V to
+hd and cuts the output back.  The kernel,
 ``csrc/flash_attention.cu``, gives each block ``block_q`` query rows of
 one (batch, head), one warp per 16 rows, keeps their scaled q tile in
 shared memory and streams K/V through a two-stage ring of shared memory
@@ -54,7 +58,8 @@ from repro_torch.kernels.registry import SMEM_PER_BLOCK, round_up
 BLOCK_Q = (64, 128)        # rows per block the source launches: 4 or 8 warps
 BLOCK_KV = (32, 64, 128)   # the chunk sizes the source instantiates
 STAGES = 2                 # K/V chunks in flight (STAGES in the source)
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256         # q and k
+MAX_V_HEAD_DIM = 128       # v, at most hd
 DTYPES = (torch.float32, torch.bfloat16)
 SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:73"
@@ -67,34 +72,55 @@ BWD_REPLACES = "src/repro/models/attention.py:82"
 # chunk is the keys (dq) or query rows (dkdv) streamed through shared memory
 BWD_SHAPE = {torch.bfloat16: ((4, 64), (4, 64)),
              torch.float32: ((8, 32), (4, 16))}
+BWD_MAX_HEAD_DIM = 128     # the backward: hd = hdv up to this
 
 
 def head_tile(hd: int) -> int:
-    """hd rounded up to the head tile the source is built for (32, 64, 96
-    or 128); the columns past hd are zeros in shared memory."""
-    return round_up(hd, 32)
+    """hd rounded up to the q.k head tile the source is built for (32, 64,
+    96 or 128, then 160, 192 or 256); the columns past hd are zeros in
+    shared memory."""
+    if hd <= 128:
+        return round_up(hd, 32)
+    return next(t for t in (160, 192, MAX_HEAD_DIM) if hd <= t)
+
+
+def v_tile(hd: int) -> int:
+    """V's head tile beside q.k width ``hd`` (``v_tile`` in the source):
+    the q.k tile up to 128, then 128."""
+    return min(head_tile(hd), MAX_V_HEAD_DIM)
+
+
+def stages(hd: int, bf16: bool = False) -> int:
+    """K/V chunks in flight: ``STAGES``, or one for f32 q.k tiles past 128
+    (the TF32 split already frees the raw stage once a chunk is split)."""
+    return STAGES if bf16 or head_tile(hd) <= 128 else 1
 
 
 def smem_bytes(block_q: int, block_kv: int, hd: int,
                bf16: bool = False) -> int:
     """Dynamic shared memory of one block (``smem_size`` in the source):
-    the f32 q tile (rows padded by 4 words), ``STAGES`` K and V chunks in
-    the input dtype as they arrive (rows padded by 4 f32 words or 8 bf16
-    halves, so a warp's fragment loads hit 32 distinct banks), and for f32
-    inputs one chunk split into TF32 K hi, K lo, V hi and V lo."""
-    hdt = head_tile(hd)
+    the f32 q tile (rows padded by 4 words), :func:`stages` K and V chunks
+    in the input dtype as they arrive (rows padded by 4 f32 words or 8
+    bf16 halves, so a warp's fragment loads hit 32 distinct banks; V rows
+    :func:`v_tile` wide), and for f32 inputs one chunk split into TF32 K
+    hi, K lo, V hi and V lo."""
+    hdt, hdvt, n = head_tile(hd), v_tile(hd), stages(hd, bf16)
     if bf16:
-        return 4 * block_q * (hdt + 4) + STAGES * 2 * block_kv * 2 * (hdt + 8)
+        return 4 * block_q * (hdt + 4) + n * block_kv * 2 * (hdt + hdvt + 16)
     return (4 * block_q * (hdt + 4)
-            + (STAGES * 2 + 4) * block_kv * 4 * (hdt + 4))
+            + (n + 2) * block_kv * 4 * (hdt + hdvt + 8))
 
 
-def fits(hd: int, block_q: int, block_kv: int, bf16: bool = False) -> bool:
-    """Whether the kernel takes this tile at head dim ``hd``: a launched
-    ``block_q`` and ``block_kv``, and its shared memory within a block's
-    227 KB (at hd 128 in f32 only ``block_kv`` 32 fits)."""
+def fits(hd: int, block_q: int, block_kv: int, bf16: bool = False,
+         hdv: int = None) -> bool:
+    """Whether the kernel takes this tile at q.k head dim ``hd`` and v head
+    dim ``hdv`` (``hd`` when None): a launched ``block_q`` and
+    ``block_kv``, ``hdv`` at most ``hd`` and within V's head tile, and the
+    shared memory within a block's 227 KB (at hd 128 in f32 only
+    ``block_kv`` 32 fits; past 128 in f32 only ``block_q`` 64 with it)."""
+    hdv = hd if hdv is None else hdv
     return (block_q in BLOCK_Q and block_kv in BLOCK_KV
-            and 1 <= hd <= MAX_HEAD_DIM
+            and 1 <= hd <= MAX_HEAD_DIM and 1 <= hdv <= min(hd, v_tile(hd))
             and smem_bytes(block_q, block_kv, hd, bf16) <= SMEM_PER_BLOCK)
 
 
@@ -104,10 +130,16 @@ def softmax_scale(hd: int) -> float:
     return float(np.float32(1.0 / (hd ** 0.5)))
 
 
-def check_shapes(q, k, v) -> None:
-    if q.ndim != 4 or k.ndim != 4 or tuple(k.shape) != tuple(v.shape):
-        raise ValueError(f"need q [B, Sq, H, hd] and k, v [B, Skv, KV, hd],"
-                         f" got {tuple(q.shape)}, {tuple(k.shape)}, "
+def check_shapes(q, k, v, *, same_width: bool = False) -> None:
+    """q ``[B, Sq, H, hd]``, k ``[B, Skv, KV, hd]`` and v ``[B, Skv, KV,
+    hdv]``: k and v agree in B, Skv and KV (and hd, with
+    ``same_width``), and KV divides H."""
+    if (q.ndim != 4 or k.ndim != 4 or v.ndim != 4
+            or tuple(k.shape[:3]) != tuple(v.shape[:3])
+            or (same_width and k.shape[3] != v.shape[3])):
+        raise ValueError(f"need q [B, Sq, H, hd], k [B, Skv, KV, hd] and v "
+                         f"[B, Skv, KV, {'hd' if same_width else 'hdv'}], "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, Sq, H, hd = q.shape
     if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2] != 0:
@@ -119,14 +151,14 @@ def check_shapes(q, k, v) -> None:
 def _lib():
     lib = _build.load("flash_attention")
     lib.flash_attention.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float]
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_float]
         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.flash_attention.restype = ctypes.c_int
     lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
     if any(lib.flash_attention_smem_bytes(128, 64, hd, bf16)
            != smem_bytes(128, 64, hd, bool(bf16))
-           for hd in (40, 128) for bf16 in (0, 1)):
+           for hd in (40, 128, 192, 256) for bf16 in (0, 1)):
         raise RuntimeError("csrc/flash_attention.cu and flash_attention.py "
                            "disagree on the shared-memory layout")
     return lib
@@ -136,9 +168,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
                     kv_valid_len=None, block_q: int,
                     block_kv: int) -> torch.Tensor:
-    """Launch the kernel: q ``[B, Sq, H, hd]``, k and v ``[B, Skv, KV,
-    hd]``, all f32 or all bf16 on one card; returns ``[B, Sq, H, hd]`` of
-    q's dtype."""
+    """Launch the kernel: q ``[B, Sq, H, hd]``, k ``[B, Skv, KV, hd]`` and
+    v ``[B, Skv, KV, hdv]``, all f32 or all bf16 on one card; returns
+    ``[B, Sq, H, hdv]`` of q's dtype.  A shape or tile the kernel does not
+    take raises."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel needs a CUDA tensor, got "
                          f"{q.device}")
@@ -150,14 +183,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     check_shapes(q, k, v)
     B, Sq, H, hd = (int(s) for s in q.shape)
-    Skv, KV = int(k.shape[1]), int(k.shape[2])
-    if not fits(hd, block_q, block_kv, q.dtype == torch.bfloat16):
+    Skv, KV, hdv = int(k.shape[1]), int(k.shape[2]), int(v.shape[3])
+    if not fits(hd, block_q, block_kv, q.dtype == torch.bfloat16, hdv):
         raise ValueError(f"block_q={block_q}, block_kv={block_kv} does not "
-                         f"fit hd={hd}")
+                         f"fit hd={hd}, hdv={hdv}")
+    # up to a q.k tile of 128 the kernel's V is as wide as K: a narrower
+    # V is padded with zeros to hd, and the output cut back to hdv
+    narrow = hdv != hd and head_tile(hd) <= 128
+    if narrow:
+        v = torch.nn.functional.pad(v, (0, hd - hdv))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Sq, H, hd if narrow else hdv))
     if out.numel() == 0 or Skv == 0:
-        return out.zero_()
+        return q.new_zeros((B, Sq, H, hdv))
     valid = Skv if kv_valid_len is None else min(max(int(kv_valid_len), 0),
                                                  Skv)
     lib = _lib()
@@ -165,13 +203,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-            Skv, H, KV, hd, int(bool(causal)), int(q_offset), valid,
+            Skv, H, KV, hd, int(v.shape[3]), int(bool(causal)),
+            int(q_offset), valid,
             int(q.dtype == torch.bfloat16), softmax_scale(hd), int(block_q),
             int(block_kv), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     flash_attention.launches += 1
-    return out
+    return out[..., :hdv].contiguous() if narrow else out
 
 
 flash_attention.launches = 0
@@ -215,8 +254,16 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
     """Launch the backward: q, o and do ``[B, Sq, H, hd]``, k and v ``[B,
     Skv, KV, hd]``, all f32 or all bf16 on one card, ``o`` the forward's
     output and ``do`` its cotangent; returns ``(dq, dk, dv)`` in the
-    inputs' shapes and dtype."""
+    inputs' shapes and dtype.  The forward's wider shapes, a v head of
+    its own width or a q.k head past 128 (MLA's 192 / 128), raise
+    ``NotImplementedError`` on any device: their backward kernel waits in
+    ROADMAP's backward kernels list."""
     ts = (q, k, v, o, do)
+    if v.shape[-1] != k.shape[-1] or k.shape[-1] > BWD_MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"flash_attention_bwd takes hd = hdv up to {BWD_MAX_HEAD_DIM}, "
+            f"got q.k {k.shape[-1]} and v {v.shape[-1]}: the MLA backward "
+            f"is not written yet (ROADMAP queue 1, 'Backward kernels')")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd kernel needs a CUDA tensor, "
                          f"got {q.device}")
@@ -225,15 +272,15 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
     if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in ts):
         raise ValueError(f"q, k, v, o, do must all be f32 or all bf16, got "
                          f"{[t.dtype for t in ts]}")
-    check_shapes(q, k, v)
+    check_shapes(q, k, v, same_width=True)
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
                          f"have q's shape {tuple(q.shape)}")
     B, Sq, H, hd = (int(s) for s in q.shape)
     Skv, KV = int(k.shape[1]), int(k.shape[2])
-    if not 1 <= hd <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention_bwd takes hd 1-{MAX_HEAD_DIM}, "
-                         f"got {hd}")
+    if hd < 1:
+        raise ValueError(f"flash_attention_bwd takes hd 1-"
+                         f"{BWD_MAX_HEAD_DIM}, got {hd}")
     q, k, v, o, do = (t.contiguous() for t in ts)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or Skv == 0:

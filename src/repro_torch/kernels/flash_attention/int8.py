@@ -40,7 +40,7 @@ import torch
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.flash_attention import ops as f32_ops
 from repro_torch.kernels.flash_attention.flash_attention import (
-    MAX_HEAD_DIM, check_shapes, softmax_scale)
+    check_shapes, softmax_scale)
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_mask
 from repro_torch.quant.quantize import _scale, quantize_kv
 
@@ -61,6 +61,7 @@ LADDER, DEFAULT_BLOCK = (16, 32, 64, 128, 256), 128
 MAX_WARPS, MIN_WARPS = 6, 4    # warps a block
 STAGES = 2                     # K/V chunks in flight (STAGES in the source)
 XCHG_ROWS = 48                 # rows of partials key groups exchange, at most
+MAX_HEAD_DIM = 128             # hd a multiple of 4 up to this
 #: the split count: about BLOCKS_PER_SM blocks an SM (two of 6 warps fit
 #: at once; more splits start a second round of blocks), at least
 #: MIN_SPLIT_KEYS keys a split, at most MAX_SPLITS splits
@@ -194,7 +195,7 @@ def flash_attention_int8(q, kq, ks, vq, vs, *, causal=True, q_offset=0,
                          f"got {q.device}")
     if any(a.device != q.device for a in arrays):
         raise ValueError("q, kq, ks, vq and vs must lie on one card")
-    check_shapes(q, kq, vq)
+    check_shapes(q, kq, vq, same_width=True)
     B, Sq, H, hd = (int(s) for s in q.shape)
     Skv, KV = int(kq.shape[1]), int(kq.shape[2])
     if (q.dtype, kq.dtype, ks.dtype, vq.dtype, vs.dtype) != (
@@ -308,7 +309,7 @@ def flash_attention_int8_op(q, kq, ks, vq, vs, *, causal=True, q_offset=0,
     """Attention over a pre-quantized KV cache (layout of
     :func:`repro_torch.quant.quantize.quantize_kv`): the plain version on
     the CPU, the kernel on the card."""
-    check_shapes(q, kq, vq)
+    check_shapes(q, kq, vq, same_width=True)
     problem = inspect_call(q, kq, ks, vq, vs, causal=causal,
                            q_offset=q_offset, kv_valid_len=kv_valid_len)
     return registry.dispatch(SPEC, problem, (q, kq, ks, vq, vs), q.device,

@@ -65,9 +65,12 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def inspect_call(q, k, v, *, causal=True, q_offset=0,
                  kv_valid_len=None) -> dict:
+    """The reference's problem, and ``hdv``, v's head dim, where it
+    differs from ``hd`` (MLA)."""
     B, Sq, H, hd = q.shape
+    wide = {} if v.shape[3] == hd else {"hdv": int(v.shape[3])}
     return {"b": int(B), "sq": int(Sq), "skv": int(k.shape[1]),
-            "h": int(H), "kv": int(k.shape[2]), "hd": int(hd),
+            "h": int(H), "kv": int(k.shape[2]), "hd": int(hd), **wide,
             "causal": bool(causal), "q_offset": int(q_offset),
             "kv_valid_len": None if kv_valid_len is None
             else int(kv_valid_len),
@@ -97,15 +100,17 @@ def _make(problem, generator, device):
     p = problem
     return (t(p["b"], p["sq"], p["h"], p["hd"]),
             t(p["b"], p["skv"], p["kv"], p["hd"]),
-            t(p["b"], p["skv"], p["kv"], p["hd"]))
+            t(p["b"], p["skv"], p["kv"], p.get("hdv", p["hd"])))
 
 
 def cache_key(problem, backend):
     """The reference's key (q_offset and kv_valid_len leave the tile
-    choice correctness-neutral and are not in it)."""
+    choice correctness-neutral and are not in it), with ``-hdv`` where v's
+    head dim differs."""
     p = problem
+    hdv = f"-hdv{p['hdv']}" if "hdv" in p else ""
     shape = (f"b{p['b']}-sq{p['sq']}-skv{p['skv']}-h{p['h']}-kv{p['kv']}-"
-             f"hd{p['hd']}-c{int(p['causal'])}")
+             f"hd{p['hd']}{hdv}-c{int(p['causal'])}")
     return f"{shape}|{p['dtype']}|{backend}"
 
 
@@ -115,13 +120,13 @@ def _fits(problem, params):
     shared memory
     (:func:`~repro_torch.kernels.flash_attention.flash_attention.fits`)."""
     return fits(problem["hd"], params["block_q"], params["block_kv"],
-                problem["dtype"] == "bfloat16")
+                problem["dtype"] == "bfloat16", problem.get("hdv"))
 
 
 def _supports(problem):
     return (problem["dtype"] in _DTYPES and problem["h"] % problem["kv"] == 0
             and fits(problem["hd"], BLOCK_Q[0], BLOCK_KV[0],
-                     problem["dtype"] == "bfloat16"))
+                     problem["dtype"] == "bfloat16", problem.get("hdv")))
 
 
 def candidates(spec, problem, fits_fn):
@@ -175,10 +180,12 @@ SPEC = registry.register(registry.KernelSpec(
 
 def flash_attention_op(q, k, v, *, causal=True, q_offset=0,
                        kv_valid_len=None, block_q=None, block_kv=None):
-    """Attention of q ``[B, Sq, H, hd]`` over k, v ``[B, Skv, KV, hd]``:
-    the plain version on the CPU, the kernel on the card with its tiles
-    resolved explicit > tuned > default; differentiable in q, k and v on
-    both (the backward kernel on the card)."""
+    """Attention of q ``[B, Sq, H, hd]`` over k ``[B, Skv, KV, hd]`` and v
+    ``[B, Skv, KV, hdv]`` (``hdv`` at most ``hd``: MLA's 128 under its
+    192): the plain version on the CPU, the kernel on the card with its
+    tiles resolved explicit > tuned > default, and a shape the kernel does
+    not take raises there; differentiable in q, k and v on both (the
+    backward kernel on the card, for ``hdv == hd`` up to 128)."""
     check_shapes(q, k, v)
     problem = inspect_call(q, k, v, causal=causal, q_offset=q_offset,
                            kv_valid_len=kv_valid_len)

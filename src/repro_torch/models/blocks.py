@@ -1,6 +1,6 @@
 """Layer blocks of the LM (counterpart of ``repro/models/blocks.py``):
-the norms, the GQA and RWKV6 mixers, and the swiglu, gelu and RWKV
-channel-mix MLPs.
+the norms, the GQA, MLA and RWKV6 mixers, and the swiglu, gelu, MoE and
+RWKV channel-mix MLPs.
 
 Each mixer exposes, as in the reference:
   ``<name>_init(gen, cfg)``                   -> param dict
@@ -22,9 +22,15 @@ recurrence over a sequence with its own chunked associative scan
 with einsums; the port runs both through
 :func:`~repro_torch.kernels.rwkv6_chunk.ops.rwkv6_chunk_op`.  Each is
 the same function: the reference's own tests hold its jnp code equal to
-the kernel's oracle.  The reference's sharding hints (``constrain``)
-are no-ops without a mesh and are dropped: the port runs on one device,
-so it pads no query heads either (:func:`_padded_heads`).
+the kernel's oracle.  MLA's prefill attention (q.k heads of 192 over v
+heads of 128) runs through the same kernel, which takes a v head of its
+own width; its absorbed decode step and the MoE MLP (router, capacity
+dispatch, expert products, combine) have no Pallas kernel in the
+reference and stay torch einsums and indexing here, their products on
+cuBLAS.  The reference's sharding hints (``constrain``) are no-ops
+without a mesh and are dropped: the port runs on one device, so it pads
+no query heads either (:func:`_padded_heads`) and routes MoE tokens in
+one group (:func:`_moe_groups`).
 """
 from __future__ import annotations
 
@@ -254,6 +260,105 @@ def gqa_step(cfg, p, x, cache, pos, *, position_ids=None):
     return o.reshape(B, 1, -1) @ p["wo"], cache
 
 
+# ------------------------------------------------------------- MLA mixer ---
+def mla_init(gen, cfg):
+    d, H, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    nope, rdim, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dt = cfg.torch_dtype
+    return {"w_q": _dense_init(gen, (d, H * (nope + rdim)), dt),
+            "w_dkv": _dense_init(gen, (d, r), dt),
+            "w_kr": _dense_init(gen, (d, rdim), dt),
+            "w_ukv": _dense_init(gen, (r, H * (nope + vd)), dt),
+            "wo": _dense_init(gen, (H * vd, d), dt),
+            "ckv_norm": torch.ones((r,), dtype=dt, device=gen.device)}
+
+
+def _mla_q(cfg, p, x, positions):
+    """The query's no-position part ``[B, S, H, nope]`` and its rotated
+    part ``[B, S, H, rdim]``."""
+    B, S, _ = x.shape
+    nope, rdim = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = (x @ p["w_q"]).reshape(B, S, cfg.n_heads, nope + rdim)
+    return (q[..., :nope],
+            rope_lib.apply_rope(q[..., nope:], positions, cfg.rope_theta))
+
+
+def _rms_vec(x, scale, eps=1e-6):
+    """RMS norm of MLA's latent over its last axis, in f32 with an f32
+    scale, cast back to x's dtype (:func:`rms_head`'s function)."""
+    return rms_head(x, scale, eps)
+
+
+def _mla_latent(cfg, p, x, positions):
+    """The normed latent ``ckv`` ``[B, S, r]`` and the one rotated key
+    head ``kr`` ``[B, S, 1, rdim]`` that every head shares."""
+    ckv = _rms_vec(x @ p["w_dkv"], p["ckv_norm"])
+    kr = rope_lib.apply_rope((x @ p["w_kr"])[:, :, None, :], positions,
+                             cfg.rope_theta)
+    return ckv, kr
+
+
+def mla_seq(cfg, p, x, *, positions, position_ids=None, causal=True):
+    """MLA over a sequence x ``[B, S, d]``: q and k of ``nope + rdim``
+    (192) per head, v of ``v_head_dim`` (128), through the kernel, which
+    takes v at its own width.  The reference switches to its chunked
+    attention above 2,048 x 2,048 scores, which rounds p to bf16 before
+    ``p @ v``; the kernel keeps p in f32 at every length.  Returns ``(y,
+    (ckv, kr))``, ``ckv`` ``[B, S, r]`` and ``kr`` ``[B, S, rdim]`` for
+    the cache."""
+    del position_ids
+    B, S, _ = x.shape
+    H, nope, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    qn, qr = _mla_q(cfg, p, x, positions)
+    ckv, kr = _mla_latent(cfg, p, x, positions)
+    kv = (ckv @ p["w_ukv"]).reshape(B, S, H, nope + vd)
+    q = torch.cat([qn, qr], dim=-1)
+    k = torch.cat([kv[..., :nope], kr.expand(B, S, H, kr.shape[-1])],
+                  dim=-1)
+    o = flash_attention_op(q, k, kv[..., nope:], causal=causal)
+    return o.reshape(B, S, H * vd) @ p["wo"], (ckv, kr[:, :, 0])
+
+
+def mla_init_cache(cfg, batch, cache_len, dtype, device):
+    """The latent cache: ``ckv`` ``[B, L, r]`` and ``kr`` ``[B, L,
+    rdim]`` (no int8 form, as in the reference)."""
+    return {"ckv": torch.zeros((batch, cache_len, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "kr": torch.zeros((batch, cache_len, cfg.qk_rope_dim),
+                              dtype=dtype, device=device)}
+
+
+def mla_step(cfg, p, x, cache, pos, *, position_ids=None):
+    """One token x ``[B, 1, d]`` at position ``pos`` in the absorbed form:
+    q's no-position part taken into the latent space through ``w_uk``,
+    scores against the cached latent and rotated keys in f32, divided by
+    ``sqrt(nope + rdim)``, ``pos + 1`` keys seen, and the context taken
+    out through ``w_uv``.  The token's ``ckv``/``kr`` are written into the
+    cache's buffers in place (the reference returns updated copies)."""
+    del position_ids
+    B = x.shape[0]
+    H, r = cfg.n_heads, cfg.kv_lora_rank
+    nope, rdim, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    f32 = torch.float32
+    positions = torch.full((1,), int(pos), dtype=torch.int64,
+                           device=x.device)
+    qn, qr = _mla_q(cfg, p, x, positions)
+    ckv_new, kr_new = _mla_latent(cfg, p, x, positions)
+    cache["ckv"][:, pos] = ckv_new[:, 0]
+    cache["kr"][:, pos] = kr_new[:, 0, 0]
+    ckv, kr = cache["ckv"].to(f32), cache["kr"].to(f32)
+    w_ukv = p["w_ukv"].reshape(r, H, nope + vd).to(f32)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", qn.to(f32), w_ukv[..., :nope])
+    s = torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
+    s = s + torch.einsum("bqhn,bsn->bhqs", qr.to(f32), kr)
+    s = s / s.new_tensor(math.sqrt(nope + rdim))  # a true division
+    valid = torch.arange(ckv.shape[1], device=x.device) < pos + 1
+    s = torch.where(valid[None, None, None, :], s, s.new_tensor(NEG_INF))
+    ctx = torch.einsum("bhqs,bsr->bqhr", torch.softmax(s, dim=-1), ckv)
+    o = torch.einsum("bqhr,rhv->bqhv", ctx, w_ukv[..., nope:]).to(x.dtype)
+    return o.reshape(B, 1, H * vd) @ p["wo"], cache
+
+
 # ----------------------------------------------------------- RWKV6 mixer ---
 def rwkv6_init(gen, cfg):
     d, ld = cfg.d_model, cfg.rwkv_lora_dim
@@ -391,14 +496,92 @@ def mlp_init(gen, cfg, kind):
             "wv_cm": _dense_init(gen, (ff, d), dt),
             "wr_cm": _dense_init(gen, (d, d), dt),
         }
-    raise _unported_mlp(kind)
-
-
-def _unported_mlp(kind):
     if kind == "moe":
-        return NotImplementedError("mlp 'moe' is not in the port yet "
-                                   "(ROADMAP queue 1 item 10.3)")
-    return ValueError(f"unknown mlp {kind!r}")
+        e_ff, E = cfg.moe_d_ff or cfg.d_ff, cfg.n_experts
+        # the router is f32 in every model, as in the reference; an
+        # expert's init scale is 1/sqrt(E), the reference's leading axis
+        p = {"w_router": _dense_init(gen, (d, E), torch.float32),
+             "we1": _dense_init(gen, (E, d, e_ff), dt),
+             "we3": _dense_init(gen, (E, d, e_ff), dt),
+             "we2": _dense_init(gen, (E, e_ff, d), dt)}
+        if cfg.n_shared_experts:
+            sf = e_ff * cfg.n_shared_experts
+            p["ws1"] = _dense_init(gen, (d, sf), dt)
+            p["ws3"] = _dense_init(gen, (d, sf), dt)
+            p["ws2"] = _dense_init(gen, (sf, d), dt)
+        return p
+    raise ValueError(f"unknown mlp {kind!r}")
+
+
+# --------------------------------------------------------------- MoE -------
+def _moe_groups(T: int) -> int:
+    """Routing groups: 1.  The reference aligns its groups to a mesh's
+    data shards (GShard-style local dispatch) and takes 1 without a mesh;
+    the port has no mesh until ROADMAP queue 1 item 9 brings one, so every
+    token routes in one group."""
+    del T
+    return 1
+
+
+def moe_route(cfg, p, x):
+    """The router over x ``[G, Tg, d]``: f32 logits against the f32
+    ``w_router``, softmax, ``top_k`` experts a token, their gates
+    renormalised by ``max(sum, 1e-9)``; then each ``(token, slot)`` route
+    in token-major order takes the next row of its expert's ``C = max(1,
+    ceil(capacity_factor * k * Tg / E))``, and a route past ``C`` is
+    dropped (row ``C``, zero weight).  Returns ``(gates [G, Tg, k],
+    experts [G, Tg * k], rows [G, Tg * k], keep [G, Tg * k], C)``."""
+    G, Tg, _ = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(x.to(torch.float32) @ p["w_router"], dim=-1)
+    gates, idx = torch.topk(probs, k, dim=-1)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    C = max(1, -(-int(cfg.capacity_factor * k * Tg) // E))
+    experts = idx.reshape(G, Tg * k)
+    # each expert's running count of routes, scanned along the routes
+    # laid out innermost ([G, E, Tg * k]): a scan along the outer axis of
+    # [G, Tg * k, E] took 13 ms a layer at 49,152 routes on an H100
+    seen = torch.cumsum(F.one_hot(experts, E).transpose(1, 2).contiguous(),
+                        dim=2) - 1
+    rows = seen.gather(1, experts[:, None, :])[:, 0]
+    keep = rows < C
+    return gates, experts, torch.where(keep, rows, C), keep, C
+
+
+def moe_apply(cfg, p, x):
+    """Capacity-based top-k MoE over x ``[B, S, d]`` (the reference's
+    ``moe_apply``): :func:`moe_route`, each kept route's token written to
+    its expert's row (a dropped one to the spare row ``C``, with a zero
+    update), the experts' swiglu as batched products ``[G, E, C, d]``,
+    each route's output gathered back and summed over its token's slots
+    by gate weight, then the shared experts' swiglu added.  Drops are
+    part of the function: a decode step of few tokens has a small ``C``
+    and drops routes a prefill keeps, as in the reference."""
+    B, S, d = x.shape
+    T = B * S
+    E, k = cfg.n_experts, cfg.top_k
+    G = _moe_groups(T)
+    Tg = T // G
+    xg = x.reshape(G, Tg, d)
+    gates, experts, rows, keep, C = moe_route(cfg, p, xg)
+    group = torch.arange(G, device=x.device)[:, None].expand(G, Tg * k)
+    upd = xg.repeat_interleave(k, dim=1) * keep[..., None].to(x.dtype)
+    # kept routes land on distinct rows; only the spare row takes several
+    # (zero) updates, and it is dropped
+    buf = x.new_zeros((G, E, C + 1, d)).index_put_((group, experts, rows),
+                                                   upd)
+    xin = buf[:, :, :C]
+    act = _act(cfg.act)
+    h = act(torch.einsum("gecd,edf->gecf", xin, p["we1"])) * \
+        torch.einsum("gecd,edf->gecf", xin, p["we3"])
+    out_e = F.pad(torch.einsum("gecf,efd->gecd", h, p["we2"]),
+                  (0, 0, 0, 1))
+    w = (gates.reshape(G, Tg * k) * keep.to(torch.float32)).to(x.dtype)
+    y = (out_e[group, experts, rows] * w[..., None]).reshape(
+        G, Tg, k, d).sum(dim=2)
+    if cfg.n_shared_experts:
+        y = y + (act(xg @ p["ws1"]) * (xg @ p["ws3"])) @ p["ws2"]
+    return y.reshape(B, S, d), None
 
 
 def mlp_apply(cfg, p, x, kind, cm_prev=None):
@@ -414,8 +597,10 @@ def mlp_apply(cfg, p, x, kind, cm_prev=None):
             h = h + p["b_up"]
         y = F.gelu(h, approximate="tanh") @ p["w_down"]
         return (y + p["b_down"] if "b_down" in p else y), None
+    if kind == "moe":
+        return moe_apply(cfg, p, x)
     if kind != "rwkv_cm":
-        raise _unported_mlp(kind)
+        raise ValueError(f"unknown mlp {kind!r}")
     B, S, d = x.shape
     prev = cm_prev if cm_prev is not None else x.new_zeros((B, 1, d))
     x_prev = torch.cat([prev, x[:, :-1]], dim=1) if S > 1 else prev
@@ -425,11 +610,12 @@ def mlp_apply(cfg, p, x, kind, cm_prev=None):
     return torch.sigmoid(xr @ p["wr_cm"]) * (h @ p["wv_cm"]), x[:, -1:]
 
 
-MIXER_INIT = {"gqa": gqa_init, "rwkv6": rwkv6_init}
-MIXER_SEQ = {"gqa": gqa_seq, "rwkv6": rwkv6_seq}
-MIXER_STEP = {"gqa": gqa_step, "rwkv6": rwkv6_step}
-MIXER_CACHE = {"gqa": gqa_init_cache, "rwkv6": rwkv6_init_cache}
-_UNPORTED_MIXERS = {"mla": "10.1: MLA", "mamba": "10.2: Mamba"}
+MIXER_INIT = {"gqa": gqa_init, "mla": mla_init, "rwkv6": rwkv6_init}
+MIXER_SEQ = {"gqa": gqa_seq, "mla": mla_seq, "rwkv6": rwkv6_seq}
+MIXER_STEP = {"gqa": gqa_step, "mla": mla_step, "rwkv6": rwkv6_step}
+MIXER_CACHE = {"gqa": gqa_init_cache, "mla": mla_init_cache,
+               "rwkv6": rwkv6_init_cache}
+_UNPORTED_MIXERS = {"mamba": "10.2: Mamba"}
 
 
 def mixer(table, name):

@@ -15,10 +15,12 @@ reference stacks each pattern slot's ``R`` repeats on a leading axis
 ``R`` per-layer dicts instead, ``params["stack"][slot][r]``, and walks
 the layers in an unrolled loop.  Caches are laid out the same way.
 The port runs the GQA decoders (llama, qwen1.5, qwen3, qwen2-vl with
-``position_ids``) with bf16 or int8 KV caches, and the RWKV6 model; MLA,
-Mamba, MoE, cross attention, the encoder and learned positions wait for
-ROADMAP queue 1 item 10.  A decode step writes its token's K/V into the
-cache buffers it is given.  With ``cfg.remat`` each pattern layer of a
+``position_ids``) with bf16 or int8 KV caches, the RWKV6 model, and the
+MoE models: deepseek-v2-lite (MLA, with its latent cache) and grok-1
+(GQA); Mamba, cross attention, the encoder and learned positions wait
+for ROADMAP queue 1 item 10.  A decode step writes its token's K/V (or
+MLA's latent and rotated key) into the cache buffers it is given.
+With ``cfg.remat`` each pattern layer of a
 differentiated forward runs under ``torch.utils.checkpoint`` (the
 reference's ``jax.checkpoint`` of its scan body): only the layer inputs
 are kept, and each layer runs again in the backward.
@@ -33,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import (MIXER_CACHE, MIXER_INIT, MIXER_SEQ,
                                        MIXER_STEP, _dense_init,
-                                       _quantize_kv, _unported_mlp,
+                                       _quantize_kv,
                                        apply_norm, mixer, mlp_apply,
                                        mlp_init, norm_init)
 from repro_torch.models import loss as loss_lib
@@ -49,7 +51,7 @@ def _layers(cfg):
     return out
 
 
-_MLPS = ("swiglu", "gelu", "rwkv_cm")
+_MLPS = ("swiglu", "gelu", "rwkv_cm", "moe")
 
 
 def _check_supported(cfg):
@@ -59,7 +61,7 @@ def _check_supported(cfg):
     for s in specs:
         mixer(MIXER_INIT, s.mixer)
         if s.mlp not in _MLPS:
-            raise _unported_mlp(s.mlp)
+            raise ValueError(f"unknown mlp {s.mlp!r}")
         if s.cross_attn:
             raise NotImplementedError("cross attention is not in the port "
                                       "yet (ROADMAP queue 1 item 10.4)")
@@ -136,7 +138,9 @@ def _map(tree, fn):
 def params_from_jax(cfg, tree, *, device=None):
     """The port's parameters from the reference's ``init_params`` pytree
     given as numpy arrays: the stacked ``R`` axis of ``tree["stack"]``
-    unstacked into per-layer dicts, every leaf carried bit for bit."""
+    unstacked into per-layer dicts (an MoE layer's ``[R, E, d, f]``
+    experts into its ``[E, d, f]``), every leaf carried bit for bit in
+    its own dtype (the router stays f32 in a bf16 model)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     R = cfg.pattern_repeats
@@ -320,9 +324,14 @@ def prefill(cfg, params, tokens, *, position_ids=None, cache_len=None):
 
 
 def _fill_mixer(cfg, spec, dst, src):
-    """The prefill's K/V written into the first positions of the cache
-    (quantized per token and head for an int8 cache), or a recurrent
-    mixer's state in its cache's dtypes."""
+    """The prefill's K/V (MLA: its latent ``ckv`` and rotated key ``kr``)
+    written into the first positions of the cache (K/V quantized per
+    token and head for an int8 cache), or a recurrent mixer's state in its
+    cache's dtypes."""
+    if spec.mixer == "mla":
+        for name, t in zip(("ckv", "kr"), src):
+            dst[name][:, :t.shape[1]] = t
+        return dst
     if spec.mixer != "gqa":
         return {k: src[k].to(dst[k].dtype) for k in dst}
     k, v = src

@@ -1189,3 +1189,114 @@ def test_gqa_seq_gradient_matches_plain_attention(dev, dtype):
     assert abs(loss.item() - loss_p.item()) <= tol * abs(loss_p.item())
     for g, w in zip(tree_leaves(got), tree_leaves(want)):
         assert _rel(g, w) <= tol
+
+
+def _attn_wide(shape, dev, seed=0, dtype=torch.float32):
+    """q, k [.., hd] and v [.., hdv] of ``shape`` (b, sq, skv, h, kv, hd,
+    hdv)."""
+    rng = np.random.default_rng(seed)
+    b, sq, skv, h, kv, hd, hdv = shape
+
+    def t(*dims):
+        return torch.from_numpy(rng.standard_normal(dims).astype(
+            np.float32)).to(dev, dtype)
+    return t(b, sq, h, hd), t(b, skv, kv, hd), t(b, skv, kv, hdv)
+
+
+WIDE_CASES = [
+    ((2, 200, 200, 16, 16, 192, 128), {}),             # MLA, cut in length
+    ((1, 150, 333, 4, 1, 256, 128), {"q_offset": 183}),
+    ((1, 77, 133, 6, 2, 192, 128), {"kv_valid_len": 90, "causal": False}),
+    ((1, 64, 100, 2, 2, 192, 128), {"kv_valid_len": 0}),
+    ((1, 40, 70, 4, 4, 160, 96), {}),                  # v under its tile
+    ((2, 33, 65, 4, 2, 24, 16), {"q_offset": 32}),     # both under 32
+    ((1, 20, 50, 2, 1, 200, 7), {}),                   # v: plain copies
+]
+
+
+@pytest.mark.parametrize("shape,kw", WIDE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_wide_heads_match_plain_version(dev, shape, kw,
+                                                        dtype):
+    """The widened kernel: q.k heads past 128 and v heads of their own
+    width, at every tile that fits, against the plain version at the
+    kernel's tolerance (bf16 outputs within one ulp); a second launch
+    gives the same bits."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        BLOCK_KV, BLOCK_Q, fits, flash_attention)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    q, k, v = _attn_wide(shape, dev, dtype=getattr(torch, dtype))
+    hd, hdv = shape[-2:]
+    want = flash_attention_ref(q, k, v, **kw)
+    assert want.shape == q.shape[:3] + (hdv,)
+    rtol, atol = ops.TOL
+    tiles = [(bq, bkv) for bq in BLOCK_Q for bkv in BLOCK_KV
+             if fits(hd, bq, bkv, dtype == "bfloat16", hdv)]
+    assert tiles
+    for bq, bkv in tiles:
+        before = ops.SPEC.launches
+        got = flash_attention(q, k, v, block_q=bq, block_kv=bkv, **kw)
+        again = flash_attention(q, k, v, block_q=bq, block_kv=bkv, **kw)
+        torch.cuda.synchronize()
+        assert ops.SPEC.launches == before + 2 and got.dtype == q.dtype
+        assert got.shape == want.shape and torch.equal(got, again)
+        torch.testing.assert_close(
+            got.float(), want.float(), atol=atol,
+            rtol=rtol if dtype == "float32" else 2 ** -7,
+            msg=lambda m: f"tile {bq}x{bkv}: {m}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [192, 256])
+def test_flash_attention_op_at_the_mla_prefill_shape(dev, hd, dtype):
+    """deepseek-v2-lite's prefill call, q.k ``hd`` over v 128, 16 heads,
+    B 4 x 2,048 causal (256: the widest tile), through the op: one
+    launch, within the kernel's tolerance of the plain version, the same
+    bits again."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    dt = getattr(torch, dtype)
+    q, k, v = _attn_wide((4, 2048, 2048, 16, 16, hd, 128), dev, seed=hd,
+                         dtype=dt)
+    ops.SPEC.reset_counts()
+    got = ops.flash_attention_op(q, k, v, causal=True)
+    again = ops.flash_attention_op(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.SPEC.launches == 2 and ops.SPEC.plain_calls == 0
+    assert torch.equal(got, again)
+    want = flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(
+        got.float(), want.float(), atol=ops.TOL[1],
+        rtol=ops.TOL[0] if dtype == "float32" else 2 ** -7)
+
+
+def test_flash_attention_refuses_what_it_does_not_take(dev):
+    """On the card a shape the kernel does not take raises: no fallback
+    to the plain version."""
+    from repro_torch.kernels.flash_attention import ops
+    q, k, v = _attn_wide((1, 8, 8, 2, 2, 192, 160), dev)   # v past 128
+    ops.SPEC.reset_counts()
+    with pytest.raises(ValueError, match="does not take"):
+        ops.flash_attention_op(q, k, v)
+    q, k, v = _attn_wide((1, 8, 8, 2, 2, 264, 128), dev)   # q.k past 256
+    with pytest.raises(ValueError, match="does not take"):
+        ops.flash_attention_op(q, k, v)
+    assert ops.SPEC.launches == 0 and ops.SPEC.plain_calls == 0
+
+
+def test_flash_attention_backward_refuses_the_mla_shape_on_the_card(dev):
+    """The forward at MLA's 192 / 128 launches; its backward raises
+    NotImplementedError naming ROADMAP's backward kernels list, not a
+    bare ValueError."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd)
+    q, k, v = (x.requires_grad_() for x in _attn_wide(
+        (1, 64, 64, 4, 4, 192, 128), dev, dtype=torch.bfloat16))
+    before = (ops.SPEC.launches, flash_attention_bwd.launches)
+    out = ops.flash_attention_op(q, k, v)
+    assert ops.SPEC.launches == before[0] + 1
+    with pytest.raises(NotImplementedError, match="Backward kernels"):
+        out.float().sum().backward()
+    assert flash_attention_bwd.launches == before[1]

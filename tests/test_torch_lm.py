@@ -119,9 +119,11 @@ def test_registry_and_shapes_equal_reference():
 
 
 def test_unported_mixers_raise_naming_the_queue_item():
-    for name, item in (("deepseek-v2-lite-16b", r"item 10\.1"),
-                       ("jamba-v0.1-52b", r"item 10\.2"),
-                       ("grok-1-314b", r"item 10\.3"),
+    """The models whose parts the port lacks raise naming the ROADMAP item
+    that ports them; deepseek-v2-lite (10.1, MLA) and grok-1 (10.3, MoE)
+    build since MLA and MoE are in (tests/test_torch_mla.py and
+    tests/test_torch_moe.py hold them to the reference)."""
+    for name, item in (("jamba-v0.1-52b", r"item 10\.2"),
                        ("whisper-medium", r"item 10\.4")):
         cfg = archs.reduced(base.get_config(name))
         with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
