@@ -183,6 +183,25 @@ source, all started together), and prints one JSON line per phase:
    busy share; the same comparisons on an f32 copy of the weights at
    depth 3 (``LM_TOL_F32``); the kernel's time at the prefill shape
    beside its plain version, SDPA (its backend named) and the bound;
+   ``jamba_lm_slice`` -- the hybrid LM's serving path at the full width
+   of jamba-v0.1-52b and one period of its pattern (8 layers: 7 Mamba
+   layers of d_inner 8,192 and d_state 16, 1 GQA layer of 32 q and 8 kv
+   heads of 128 without rope, MoE of 16 experts top-2 on every other
+   layer, learned positions, vocab 65,536, bf16, 13.4 B seeded
+   parameters made on the card; the deepseek weights freed first), its
+   selective scan on ``mamba_scan`` and its attention on
+   ``flash_attention``: ``prefill`` of the same prompts (exactly 7 scan
+   and 1 attention launches), the same prefill with both ops patched to
+   their plain versions (no launch; logits and every layer's cache:
+   conv and h, K and V), each MoE layer's route agreement, every layer
+   held from the plain run's own input, the cache handoff with both
+   (and without drops); within ``LM_TOL_BF16`` end to end, or, where a
+   route flipped, layer by layer; then ``generate`` for 33 tokens (one
+   attention launch a step, no scan: the step is plain torch), the
+   prefill and the decode loop traced (kernel time by kind, busy share);
+   the same comparisons on an f32 copy of the weights made leaf by leaf
+   as the bf16 ones are freed (``LM_TOL_F32``); the scan's time at the
+   prefill shape beside its plain version and the bound;
 10. ``lm_train_slice`` -- LM training on the card: the
     ``flash_attention_bwd`` kernel at the training shape (B 2, S 2,048,
     24/8 heads of 128, causal) in f32 and bf16 against the plain backward
@@ -218,7 +237,10 @@ step, GQA groups 1 and 4, hd 4, 36 and 64, 8,191 keys non-causal,
 window's size; a second launch bit-identical; the count of elements that
 differ at all) and rwkv6_chunk (its default problem, T 1 and 33, head sizes 8, 16, 24, 64
 and 128, bf16 inputs, the rwkv6-1.6b prefill shape; the final state bit
-for bit) against their plain versions.  fused_mlp_int8's rows are held
+for bit) and mamba_scan (jamba's prefill shape in bf16 and f32, one
+step, S 70 at d_inner 200, d_state 5; y and the final state against the
+scale of their terms, a second launch bit for bit) against their plain
+versions.  fused_mlp_int8's rows are held
 bit-identical across every ``block_rows`` that fits;
 rwkv6_chunk's timing lines also give its device time from a CUDA graph
 (at T = 1 a loop of launches is paced by the host).
@@ -242,6 +264,7 @@ import shutil
 import subprocess
 import sys
 import time
+from unittest import mock
 
 ROOT = pathlib.Path(__file__).resolve().parent
 BUDE_HIDDEN = (1024, 819, 655, 524, 419, 335)  # nas/space.py at n_hidden=6,
@@ -485,6 +508,35 @@ PREFILL_KERNEL_GROUPS = {
 # the widened kernel against its plain version, f32 and bf16, at q.k 192
 # and 256 over v 128 (MLA's head, and the widest tile)
 WIDE_HEADS = ((192, 128), (256, 128))
+# the jamba LM slice: jamba-v0.1-52b (src/repro/configs/archs.py:62-75)
+# at full width and one period of its 8-layer pattern (7 Mamba layers, 1
+# GQA layer, 4 MoE and 4 swiglu MLPs: 13.4 B parameters, where its 4
+# periods would be 52 B, 104 GB in bf16), serving the same prompts; its
+# selective scan at the prefill shape (B 4, S 2,048, d_inner 8,192,
+# d_state 16); an f32 copy of the same weights, made leaf by leaf once the
+# bf16 ones are freed (54 GB)
+JAMBA_ARCH, JAMBA_REPEATS = "jamba-v0.1-52b", 1
+JAMBA_SCAN = {"b": LM_BATCH, "s": LM_PROMPT, "di": 8192, "ds": 16,
+              "dtype": "bfloat16"}
+# the jamba prefill's kernels by kind in its trace
+JAMBA_KERNEL_GROUPS = {
+    "mamba_scan": ("mamba_scan_kernel",),
+    "attention": ("flash_attention_kernel",),
+    "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet"),
+    "routing": ("index", "scatter", "gather", "scan", "topk", "sort",
+                "radix", "one_hot"),
+}
+# the kernel ops each MoE slice holds against their plain versions
+MLA_PLAIN = ("flash_attention_op",)
+JAMBA_PLAIN = ("flash_attention_op", "mamba_scan_op")
+# exp2 on the SFUs: 16 a clock an SM on Hopper (the CUDA programming
+# guide's throughput table, compute capability 9.0); the rate is this
+# times the SMs times the SM clock nvidia-smi reports as its maximum
+SFU_EXP2_PER_CLOCK_SM = 16
+MAMBA_DESIGN = ("one thread a channel, its d_state states in registers, "
+                "A*log2(e) kept for one exp2f a state and step; blocks of "
+                "128 channels of one batch row; dt/x tiles and Bm/Cm rows "
+                "of 32 steps staged by cp.async, double-buffered")
 # the LM training slice: llama3.2-3b at full width and depth trained on
 # one repeated TokenPipeline batch of 2 x 2,048 tokens, 4 steps past the
 # warmup (policy full); attention's backward at that shape
@@ -3012,6 +3064,115 @@ def time_rwkv6(dev, prefill_arrays, smi):
     return out
 
 
+def sm_clock_hz():
+    """The SM clock the card runs at its limit: ``nvidia-smi``'s
+    ``clocks.max.sm``, in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def mamba_bound(problem):
+    """(bound_ms, bound_by, bytes, operations) of one selective scan: dt,
+    x, Bm, Cm read once in the problem's dtype and y written once in f32,
+    A, D, h0 and hT in f32; its operations are one exp2 a state and step
+    on the SFUs (``SFU_EXP2_PER_CLOCK_SM`` x SMs x ``sm_clock_hz``) and,
+    beside them, two products and two fused multiply-adds (6 f32
+    operations) at the f32 peak; the slower of the two is the operations'
+    time."""
+    import torch
+    b, s, di, ds = (problem[k] for k in ("b", "s", "di", "ds"))
+    el = 4 if problem["dtype"] == "float32" else 2
+    nbytes = el * 2 * b * s * (di + ds) + 4 * b * s * di \
+        + 4 * (di * ds + di + 2 * b * di * ds)
+    exps = b * s * di * ds
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu = SFU_EXP2_PER_CLOCK_SM * sms * sm_clock_hz()
+    t_ops = max(exps / sfu, 6 * exps / PEAK_F32_FLOPS)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", nbytes,
+            {"exp2": exps, "f32": 6 * exps, "sfu_per_s": sfu, "sms": sms})
+
+
+def check_mamba_scan(dev):
+    """mamba_scan (through its op) against its plain version, y and the
+    final state each within the spec's (1e-5, 1e-5) with the relative
+    part taken against the scale of their terms (``ops.term_scale``):
+    jamba's prefill shape in bf16 and f32, one step (S 1) at jamba's
+    width, S 70 (a partial chunk of 64) at di 200 (a partial block of
+    128 channels) in f32 and bf16, d_state 5 in both (rows the wrapper
+    pads to 16 states); every case from a nonzero state; a second launch
+    bit for bit.  Returns ``(errors, failures, bf16 prefill arrays)``;
+    the caller raises on failures after the LM slices have run."""
+    import torch
+    from repro_torch.kernels.mamba_scan import mamba_scan as scan
+    from repro_torch.kernels.mamba_scan import ops
+
+    rtol, atol = ops.SPEC.tol
+    small = ops.SPEC.default_problems[0]
+    cases = [
+        ("jamba prefill bf16", JAMBA_SCAN),
+        ("jamba prefill f32", dict(JAMBA_SCAN, dtype="float32")),
+        ("S 1", dict(JAMBA_SCAN, s=1)),
+        ("S 70, di 200", small),
+        ("S 70, di 200 bf16", dict(small, dtype="bfloat16")),
+        ("ds 5", dict(small, ds=5)),
+        ("ds 5 bf16", dict(small, ds=5, dtype="bfloat16")),
+    ]
+    results, failures, prefill = {}, [], None
+    for i, (label, problem) in enumerate(cases):
+        arrays = ops.SPEC.make_call(
+            problem, torch.Generator().manual_seed(110 + i), dev)
+        y, hT = ops.mamba_scan_op(*arrays)
+        y2, hT2 = ops.SPEC.run_call(problem, arrays, {})
+        res = dict(ops.held_to_plain(arrays, y, hT),
+                   relaunch_bit_identical=bool(torch.equal(y, y2)
+                                               and torch.equal(hT, hT2)),
+                   finite=bool(torch.isfinite(y).all()
+                               and torch.isfinite(hT).all()),
+                   launch=scan.launch_shape(problem["b"], problem["di"]))
+        results[label] = res
+        if label == "jamba prefill bf16":
+            prefill = arrays
+        del arrays
+        if not (max(res["worst_vs_terms"].values()) <= 1.0
+                and res["relaunch_bit_identical"]
+                and res["finite"] and y.dtype == torch.float32):
+            failures.append(f"mamba_scan {label}: {res}")
+    emit("kernel", kernel="mamba_scan", cases=results, rtol=rtol, atol=atol,
+         ok=not failures)
+    return results, failures, prefill
+
+
+def time_mamba_scan(dev, arrays, smi):
+    """CUDA-event times of mamba_scan and its plain version at jamba's
+    prefill shape, beside the bound.  No one PyTorch call computes this
+    scan: no library time."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as scan
+    from repro_torch.kernels.mamba_scan import ops
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+
+    problem = JAMBA_SCAN
+    bound_ms, bound_by, nbytes, operations = mamba_bound(problem)
+
+    def kernel():
+        return ops.SPEC.run_call(problem, arrays, {})
+    ms = cuda_ms(kernel, 20)
+    out = dict(problem=problem, ms=ms,
+               plain_ms=cuda_ms(lambda: mamba_scan_ref(*arrays), 3,
+                                warmup=1),
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+               share_of_bound=bound_ms / ms, bytes=nbytes,
+               operations=operations,
+               launch=scan.launch_shape(problem["b"], problem["di"]))
+    emit("timing", kernel="mamba_scan", case="jamba prefill",
+         design=MAMBA_DESIGN, nvidia_smi=smi, **out)
+    return out
+
+
 def lm_states(caches):
     """Every layer's S, x_last and cm_x_last, stacked."""
     import torch
@@ -3578,29 +3739,7 @@ def layer_flips(mine, ref, k):
         and keep_only <= 2 * flipped_routes}
 
 
-def mla_latents(caches):
-    """Every layer's (ckv, kr) cache, the prefix layer first."""
-    return [(c["mixer"]["ckv"], c["mixer"]["kr"])
-            for c in caches["prefix"] + caches["stack"][0]]
-
-
-def mla_compare_latents(caches, want):
-    """Every layer's ckv and kr against ``want``'s: ``{"ckv": (max abs
-    error, largest |want|, worst), "kr": ...}`` over all layers, and each
-    layer's largest error."""
-    acc = {"ckv": [0.0, 0.0, 0.0], "kr": [0.0, 0.0, 0.0]}
-    by_layer = []
-    for got, ref in zip(mla_latents(caches), mla_latents(want)):
-        worst_layer = 0.0
-        for key, g, r in zip(("ckv", "kr"), got, ref):
-            c = lm_compare(g, r)
-            acc[key] = [max(x, y) for x, y in zip(acc[key], c)]
-            worst_layer = max(worst_layer, c[0])
-        by_layer.append(worst_layer)
-    return {k: tuple(v) for k, v in acc.items()}, by_layer
-
-
-def mla_handoff(cfg, params, prompts):
+def moe_handoff(cfg, params, prompts):
     """``serve_step`` on the last prompt token after a prefill of the
     others (into a cache of the prompt's length): the step's logits and
     the routes its MoE layers dropped (C = 1 for 4 sequences)."""
@@ -3612,17 +3751,29 @@ def mla_handoff(cfg, params, prompts):
     return step, routes_dropped(routes)
 
 
-def mla_layers_from_plain(cfg, params, inputs):
-    """Each layer run from the plain-attention prefill's own input to it,
-    with the kernel and with the plain version: the gap between the two
-    outputs (the residual stream after the layer) over all tokens and
-    over the tokens whose routes agree (:func:`layer_flips`), and what
-    explains the others."""
-    from unittest import mock
-
-    import torch
+@contextlib.contextmanager
+def plain_ops(*names):
+    """The model's kernel ops named (``blocks.<name>``) patched to their
+    plain versions inside the block."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.models import blocks, lm
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    from repro_torch.models import blocks
+    plain = {"flash_attention_op": flash_attention_ref,
+             "mamba_scan_op": mamba_scan_ref}
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            stack.enter_context(mock.patch.object(blocks, name, plain[name]))
+        yield
+
+
+def layers_from_plain(cfg, params, inputs, plain):
+    """Each layer run from the plain prefill's own input to it, with the
+    kernels and with the ops ``plain`` names on their plain versions: the
+    gap between the two outputs (the residual stream after the layer)
+    over all tokens and over the tokens whose routes agree
+    (:func:`layer_flips`), and what explains the others."""
+    import torch
+    from repro_torch.models import lm
 
     def named(got, want):
         return dict(zip(("max_abs_err", "max_abs", "worst"),
@@ -3634,8 +3785,7 @@ def mla_layers_from_plain(cfg, params, inputs):
               "position_ids": None}
         with record_routes(probs=True) as mine:
             y = lm._apply_layer_seq(cfg, p, spec, x, **kw)[0]
-        with record_routes(probs=True) as ref, mock.patch.object(
-                blocks, "flash_attention_op", flash_attention_ref):
+        with record_routes(probs=True) as ref, plain_ops(*plain):
             y_p = lm._apply_layer_seq(cfg, p, spec, x, **kw)[0]
         y, y_p = y.reshape(-1, y.shape[-1]), y_p.reshape(-1, y.shape[-1])
         row = {"all_tokens": named(y, y_p)}
@@ -3649,86 +3799,17 @@ def mla_layers_from_plain(cfg, params, inputs):
     return out
 
 
-def mla_against_plain(cfg, params, prompts, logits, caches, routes):
-    """The prefill that gave ``logits``/``caches`` (its MoE ``routes``)
-    run again with attention computed by the kernel's plain version
-    (which must launch nothing), keeping each layer's input: logits and
-    every layer's latent cache, each MoE layer's route agreement between
-    the two runs, every layer held from the plain run's input, and the
-    cache handoff, with the kernel and with the plain version, beside its
-    gap to ``logits`` and the routes its step dropped."""
-    from unittest import mock
-
-    import torch
-    from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.models import blocks, lm
-
-    inputs, layer = [], lm._apply_layer_seq
-
-    def keep_input(cfg_, p, spec, x, **kw):
-        inputs.append(x)
-        return layer(cfg_, p, spec, x, **kw)
-    before = ops.SPEC.launches
-    with mock.patch.object(blocks, "flash_attention_op",
-                           flash_attention_ref), \
-            mock.patch.object(lm, "_apply_layer_seq", keep_input), \
-            record_routes() as routes_p:
-        t0 = time.perf_counter()
-        logits_p, caches_p = lm.prefill(cfg, params, prompts)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-    plain_launches = ops.SPEC.launches - before
-    latents, by_layer = mla_compare_latents(caches, caches_p)
-    del caches_p
-    layers = mla_layers_from_plain(cfg, params, inputs)
-    del inputs
-    before = ops.SPEC.launches
-    step, step_drops = mla_handoff(cfg, params, prompts)
-    with mock.patch.object(blocks, "flash_attention_op", flash_attention_ref):
-        step_p, _ = mla_handoff(cfg, params, prompts)
-    torch.cuda.synchronize()
-    handoff_launches = ops.SPEC.launches - before
-
-    def real(t):  # logits of the vocabulary (padding reads -1e30)
-        return t[..., :cfg.vocab_size]
-
-    def named(got, want):
-        return dict(zip(("max_abs_err", "max_abs", "worst"),
-                        lm_compare(real(got), real(want))))
-    agreement = route_agreement(routes, routes_p)
-    return {
-        "plain_attention_prefill_s": seconds,
-        "plain_path_launches": plain_launches,
-        "handoff_launches": handoff_launches,
-        "vs_plain_attention": {
-            "logits": named(logits, logits_p),
-            **{k: dict(zip(("max_abs_err", "max_abs", "worst"), v))
-               for k, v in latents.items()}},
-        "latent_max_abs_err_by_layer": by_layer,
-        "route_agreement_by_layer": agreement,
-        "routes": len(routes) and int(routes[0][0].numel()),
-        "prefill_routes_dropped": routes_dropped(routes),
-        "layers_from_plain_input": layers,
-        "handoff_vs_plain": named(step, step_p),
-        # not a check: the step's capacity (C = 1) drops routes the
-        # prefill keeps
-        "handoff_vs_prefill": named(step, logits),
-        "handoff_step_routes_dropped": step_drops}
-
-
-def mla_within(res, tol):
-    """Every comparison of :func:`mla_against_plain` but the handoff's
-    gap to the prefill within ``tol`` of the largest magnitude; or, where
-    a route flipped between the two runs, every layer held from the plain
-    run's own input within it over the tokens whose routes agree, each
-    other token explained by a near-tied flip (:func:`layer_flips`).
-    Returns (ok, how)."""
+def moe_within(res, tol):
+    """Every comparison of :func:`against_plain` but the handoff's gap to
+    the prefill within ``tol`` of the largest magnitude; or, where a route
+    flipped between the two runs, every layer held from the plain run's
+    own input within it over the tokens whose routes agree, each other
+    token explained by a near-tied flip (:func:`layer_flips`).  Returns
+    (ok, how)."""
     def ok(cmp):
         return all(c["max_abs_err"] <= tol * (1 + c["max_abs"])
                    for c in cmp)
-    if ok(list(res["vs_plain_attention"].values())
-          + [res["handoff_vs_plain"]]):
+    if ok(list(res["vs_plain"].values()) + [res["handoff_vs_plain"]]):
         return True, "end_to_end"
     layers = res["layers_from_plain_input"]
     flips = min(res["route_agreement_by_layer"], default=1.0) < 1.0
@@ -3738,7 +3819,7 @@ def mla_within(res, tol):
     return False, "failed"
 
 
-def mla_handoff_without_drops(cfg, params, prompts):
+def handoff_without_drops(cfg, params, prompts):
     """The cache handoff at a capacity that drops no route (``E / k``:
     C = 4 for the step's 24 routes, every token's route kept in the
     prefill): the step's gap to the whole prompt's prefill at that
@@ -3747,7 +3828,7 @@ def mla_handoff_without_drops(cfg, params, prompts):
     wide = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
     with record_routes() as routes:
         logits, _ = lm.prefill(wide, params, prompts)
-    step, step_drops = mla_handoff(wide, params, prompts)
+    step, step_drops = moe_handoff(wide, params, prompts)
 
     def real(t):
         return t[..., :cfg.vocab_size]
@@ -3810,9 +3891,10 @@ def run_mla_lm_slice(dev, smi):
         torch.cuda.synchronize()
     seconds["prefill"] = time.perf_counter() - t0
     prefill_launches = (ops.SPEC.launches, ops.SPEC.plain_calls)
-    bf16 = mla_against_plain(cfg, params, prompts, logits, caches, routes)
+    bf16 = against_plain(cfg, params, prompts, logits, caches, routes,
+                         MLA_PLAIN)
     del caches, routes
-    bf16["without_drops"] = mla_handoff_without_drops(cfg, params, prompts)
+    bf16["without_drops"] = handoff_without_drops(cfg, params, prompts)
     _, traced_prefill_s, prefill_busy_s, prefill_kernels = device_busy(
         lambda: lm.prefill(cfg, params, prompts), PREFILL_KERNEL_GROUPS)
 
@@ -3846,9 +3928,9 @@ def run_mla_lm_slice(dev, smi):
         logits32, caches32 = lm.prefill(cfg32, params32, prompts)
     torch.cuda.synchronize()
     f32_launches = ops.SPEC.launches
-    f32 = mla_against_plain(cfg32, params32, prompts, logits32, caches32,
-                            routes32)
-    f32["without_drops"] = mla_handoff_without_drops(cfg32, params32,
+    f32 = against_plain(cfg32, params32, prompts, logits32, caches32,
+                        routes32, MLA_PLAIN)
+    f32["without_drops"] = handoff_without_drops(cfg32, params32,
                                                      prompts)
     finite = finite and bool(torch.isfinite(logits32).all())
     del params32, caches32, routes32
@@ -3860,8 +3942,8 @@ def run_mla_lm_slice(dev, smi):
         ("prefill", MLA_PREFILL, None, 10),), seed=95)
     seconds["phase"] = time.perf_counter() - t_phase
     L, L32 = cfg.n_layers, cfg32.n_layers
-    bf16_ok, bf16_how = mla_within(bf16, LM_TOL_BF16)
-    f32_ok, f32_how = mla_within(f32, LM_TOL_F32)
+    bf16_ok, bf16_how = moe_within(bf16, LM_TOL_BF16)
+    f32_ok, f32_how = moe_within(f32, LM_TOL_F32)
     checks = {
         "prefill_launches_one_per_layer":
         prefill_launches == (L, 0) and f32_launches == L32,
@@ -3869,7 +3951,9 @@ def run_mla_lm_slice(dev, smi):
         and f32["plain_path_launches"] == 0,
         # two prefills of 2,047 tokens (kernel, then plain) and two steps
         "handoff_launches_one_per_layer_of_its_prefill":
-        bf16["handoff_launches"] == L and f32["handoff_launches"] == L32,
+        bf16["handoff_launches"] == {"mamba_scan": 0, "flash_attention": L}
+        and f32["handoff_launches"] == {"mamba_scan": 0,
+                                        "flash_attention": L32},
         "generate_launches_one_per_layer_of_the_prefill": gen_launches == L,
         "logits_finite": finite,
         "logits_shape": tuple(logits.shape) == (LM_BATCH, cfg.padded_vocab),
@@ -3905,6 +3989,293 @@ def run_mla_lm_slice(dev, smi):
          sample=tokens[0, :8].tolist(), nvidia_smi=smi, **numbers, **checks)
     if not all(checks.values()):
         raise AssertionError(f"mla lm slice checks failed: {checks}")
+    return gen_launches, timing
+
+
+def scan_attention_launches():
+    """(mamba_scan, flash_attention) launches so far."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    return scan_ops.SPEC.launches, flash_ops.SPEC.launches
+
+
+@contextlib.contextmanager
+def record_scans():
+    """Each call of the model's ``mamba_scan_op`` inside the block, in
+    order: ``(inputs, (y, hT))``, kept on the card."""
+    from repro_torch.models import blocks
+    calls, op = [], blocks.mamba_scan_op
+
+    def recorded(*args):
+        out = op(*args)
+        calls.append((args, out))
+        return out
+    with mock.patch.object(blocks, "mamba_scan_op", recorded):
+        yield calls
+
+
+def scans_held_to_plain(calls):
+    """Each recorded scan (:func:`record_scans`, one a Mamba layer) held
+    to the plain version on its own inputs, within the op's TOL of the
+    terms' scale (``ops.held_to_plain``), so that the check sees the
+    recurrence at the model's own inputs (next to the D skip, the states
+    add about 1% to y there).  Empties ``calls``; returns a row a
+    layer."""
+    from repro_torch.kernels.mamba_scan import ops
+    rows = [ops.held_to_plain(args, *out) for args, out in calls]
+    calls.clear()
+    return rows
+
+
+def compare_caches(cfg, caches, want):
+    """Every layer's cache against ``want``'s (MLA's ``ckv`` and ``kr``, a
+    Mamba layer's ``conv`` and ``h``, a GQA layer's K and V): ``{name:
+    (max abs error, largest |want|, worst)}`` over the layers, and each
+    layer's largest error."""
+    from repro_torch.models import lm
+    acc, by_layer = {}, []
+    for slot, r, _ in lm._layers(cfg):
+        got, ref = (lm._get(c, slot, r)["mixer"] for c in (caches, want))
+        worst_layer = 0.0
+        for key in got:
+            c = lm_compare(got[key], ref[key])
+            acc[key] = [max(x, y) for x, y in zip(acc.get(key, c), c)]
+            worst_layer = max(worst_layer, c[0])
+        by_layer.append(worst_layer)
+    return {k: tuple(v) for k, v in acc.items()}, by_layer
+
+
+def against_plain(cfg, params, prompts, logits, caches, routes, plain):
+    """The prefill that gave ``logits``/``caches`` (its MoE ``routes``)
+    run again with the ops ``plain`` names on their plain versions (which
+    must launch nothing), keeping each layer's input: logits and every
+    layer's cache, each MoE layer's route agreement between the two runs,
+    every layer held from the plain run's input, and the cache handoff
+    with the kernels and with the plain versions, beside its gap to
+    ``logits`` and the routes its step dropped."""
+    import torch
+    from repro_torch.models import lm
+
+    inputs, layer = [], lm._apply_layer_seq
+
+    def keep_input(cfg_, p, spec, x, **kw):
+        inputs.append(x)
+        return layer(cfg_, p, spec, x, **kw)
+    before = scan_attention_launches()
+    with plain_ops(*plain), \
+            mock.patch.object(lm, "_apply_layer_seq", keep_input), \
+            record_routes() as routes_p:
+        t0 = time.perf_counter()
+        logits_p, caches_p = lm.prefill(cfg, params, prompts)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    plain_launches = sum(scan_attention_launches()) - sum(before)
+    cache_cmp, by_layer = compare_caches(cfg, caches, caches_p)
+    del caches_p
+    layers = layers_from_plain(cfg, params, inputs, plain)
+    del inputs
+    before = scan_attention_launches()
+    step, step_drops = moe_handoff(cfg, params, prompts)
+    with plain_ops(*plain):
+        step_p, _ = moe_handoff(cfg, params, prompts)
+    torch.cuda.synchronize()
+    handoff = [a - b for a, b in zip(scan_attention_launches(), before)]
+
+    def named(got, want):
+        return dict(zip(("max_abs_err", "max_abs", "worst"),
+                        lm_compare(got[..., :cfg.vocab_size],
+                                   want[..., :cfg.vocab_size])))
+    return {
+        "plain_prefill_s": seconds,
+        "plain_path_launches": plain_launches,
+        "handoff_launches": {"mamba_scan": handoff[0],
+                             "flash_attention": handoff[1]},
+        "vs_plain": {
+            "logits": named(logits, logits_p),
+            **{k: dict(zip(("max_abs_err", "max_abs", "worst"), v))
+               for k, v in cache_cmp.items()}},
+        "cache_max_abs_err_by_layer": by_layer,
+        "route_agreement_by_layer": route_agreement(routes, routes_p),
+        "routes": len(routes) and int(routes[0][0].numel()),
+        "prefill_routes_dropped": routes_dropped(routes),
+        "layers_from_plain_input": layers,
+        "handoff_vs_plain": named(step, step_p),
+        # not a check: the step's capacity (C = 1) drops routes the
+        # prefill keeps
+        "handoff_vs_prefill": named(step, logits),
+        "handoff_step_routes_dropped": step_drops}
+
+
+def _f32_in_place(tree):
+    """Each tensor of ``tree`` (dicts and lists, in tuples too) replaced
+    by its f32 copy one at a time, so that each bf16 leaf is freed as its
+    copy is made (an f32 leaf stays as it is)."""
+    import torch
+    keys = (range(len(tree)) if isinstance(tree, (list, tuple))
+            else list(tree))
+    for k in keys:
+        v = tree[k]
+        if isinstance(v, torch.Tensor):
+            tree[k] = v.float()
+        else:
+            _f32_in_place(v)
+
+
+def run_jamba_lm_slice(dev, smi, scan_arrays):
+    """prefill -> serve_step of jamba-v0.1-52b at full width and one
+    period of its pattern (7 Mamba layers on mamba_scan, 1 GQA layer on
+    flash_attention, MoE on every other layer) through the port's entry
+    points, held against the same model with both ops on their plain
+    versions (the MoE routes compared too), in bf16 and as an f32 copy of
+    the same weights; then the scan's time at the prefill shape
+    (``scan_arrays``: its inputs there).  Returns the generate loop's
+    (mamba_scan, flash_attention) launches and the kernel's times."""
+    import gc
+
+    import torch
+    from repro_torch.configs.base import get_config, with_repeats
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import lm
+
+    gc.collect()  # the weights of the slices before
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = with_repeats(get_config(JAMBA_ARCH), JAMBA_REPEATS)
+    seconds = {}
+    t_phase = t0 = time.perf_counter()
+    params = lm.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    seconds["init_params"] = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=g, device=dev)
+    lm.prefill(cfg, params, prompts)  # warm-up: cuBLAS handles, allocator
+
+    registry.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with record_routes() as routes, record_scans() as scans:
+        logits, caches = lm.prefill(cfg, params, prompts)
+        torch.cuda.synchronize()
+    seconds["prefill"] = time.perf_counter() - t0
+    plain_calls = sum(s.plain_calls for s in registry.all_specs())
+    prefill_launches = scan_attention_launches()
+    scans_bf16 = scans_held_to_plain(scans)
+    bf16 = against_plain(cfg, params, prompts, logits, caches, routes,
+                         JAMBA_PLAIN)
+    del caches, routes
+    bf16["without_drops"] = handoff_without_drops(cfg, params, prompts)
+    _, traced_prefill_s, prefill_busy_s, prefill_kernels = device_busy(
+        lambda: lm.prefill(cfg, params, prompts), JAMBA_KERNEL_GROUPS)
+
+    registry.reset_counts()
+    res = serve_lm.generate(cfg, params, prompts, LM_GEN)
+    gen_launches = scan_attention_launches()
+    tokens = res["tokens"]
+    finite = bool(torch.isfinite(logits).all()
+                  and torch.isfinite(res["logits"]).all())
+
+    # the card's busy share over the same decode loop, traced
+    steps = LM_GEN - 1
+    first, caches = lm.prefill(cfg, params, prompts,
+                               cache_len=LM_PROMPT + LM_GEN)
+
+    def decode_loop():
+        tok = first.argmax(-1)[:, None]
+        for i in range(steps):
+            out, _ = lm.serve_step(cfg, params, caches, tok, LM_PROMPT + i)
+            tok = out.argmax(-1)[:, None]
+        return tok
+    _, traced_s, busy_s = device_busy(decode_loop)
+    del caches, first
+    bf16_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # the same weights in f32, each leaf copied as its bf16 one is freed
+    # (54 GB; a capacity that drops nothing would need 22 GB more)
+    cfg32 = cfg.replace(dtype="float32")
+    _f32_in_place(params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    registry.reset_counts()
+    with record_routes() as routes32, record_scans() as scans:
+        logits32, caches32 = lm.prefill(cfg32, params, prompts)
+    torch.cuda.synchronize()
+    f32_launches = scan_attention_launches()
+    scans_f32 = scans_held_to_plain(scans)
+    f32 = against_plain(cfg32, params, prompts, logits32, caches32,
+                        routes32, JAMBA_PLAIN)
+    finite = finite and bool(torch.isfinite(logits32).all())
+    del params, caches32, routes32
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    timing = time_mamba_scan(dev, scan_arrays, smi)
+    seconds["phase"] = time.perf_counter() - t_phase
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.pattern) * JAMBA_REPEATS
+    n_gqa = cfg.n_layers - n_mamba
+    bf16_ok, bf16_how = moe_within(bf16, LM_TOL_BF16)
+    f32_ok, f32_how = moe_within(f32, LM_TOL_F32)
+    checks = {
+        "prefill_launches_one_per_layer":
+        prefill_launches == (n_mamba, n_gqa) and plain_calls == 0
+        and f32_launches == (n_mamba, n_gqa),
+        "plain_path_launched_nothing": bf16["plain_path_launches"] == 0
+        and f32["plain_path_launches"] == 0,
+        # two prefills of 2,047 tokens (kernels, then plain) and two steps:
+        # the step attends through the kernel and scans in plain torch
+        "handoff_launches": all(
+            r["handoff_launches"] == {"mamba_scan": n_mamba,
+                                      "flash_attention": 2 * n_gqa}
+            for r in (bf16, f32)),
+        "generate_launches_scan_in_prefill_attention_every_call":
+        gen_launches == (n_mamba, n_gqa * LM_GEN),
+        "logits_finite": finite,
+        "logits_shape": tuple(logits.shape) == (LM_BATCH, cfg.padded_vocab),
+        "bf16_matches_plain_and_handoff": bf16_ok,
+        "f32_matches_plain_and_handoff": f32_ok,
+        # each layer's scan at the model's own inputs, at the kernel's
+        # tolerance: the logits and caches above barely see the states
+        "scans_within_tol_every_layer": all(
+            len(rows) == n_mamba
+            and all(max(r["worst_vs_terms"].values()) <= 1.0 for r in rows)
+            for rows in (scans_bf16, scans_f32)),
+        "tokens": tuple(tokens.shape) == (LM_BATCH, LM_GEN)
+        and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+    }
+    numbers = dict(
+        prefill_s=seconds["prefill"], decode_s=res["decode_s"],
+        generate_prefill_s=res["prefill_s"],
+        decode_ms_per_step=res["decode_s"] / steps * 1e3,
+        tokens_per_s=LM_BATCH * steps / res["decode_s"],
+        decode_traced_s=traced_s, decode_busy_s=busy_s,
+        decode_busy_share=busy_s / traced_s if busy_s else None,
+        kernel_ms_prefill=timing["ms"],
+        kernel_share_of_prefill=n_mamba * timing["ms"]
+        / (seconds["prefill"] * 1e3), bf16_peak_gib=bf16_peak_gib,
+        peak_gib=peak_gib, prefill_traced_s=traced_prefill_s,
+        prefill_busy_s=prefill_busy_s, prefill_kernel_s=prefill_kernels)
+    emit("jamba_lm_slice", arch=cfg.name, n_layers=cfg.n_layers,
+         pattern_repeats=JAMBA_REPEATS, mamba_layers=n_mamba,
+         gqa_layers=n_gqa, d_model=cfg.d_model, d_inner=cfg.mamba_d_inner,
+         d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv,
+         dt_rank=cfg.dt_rank, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.head_dim, experts=cfg.n_experts, top_k=cfg.top_k,
+         expert_ff=cfg.moe_d_ff, d_ff=cfg.d_ff,
+         capacity_factor=cfg.capacity_factor, vocab=cfg.vocab_size,
+         max_pos=cfg.max_pos, dtype=cfg.dtype, params=n_params,
+         batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN, seconds=seconds,
+         launches={"prefill": prefill_launches, "generate": gen_launches,
+                   "f32_prefill": f32_launches,
+                   "order": ["mamba_scan", "flash_attention"]},
+         bf16=bf16, f32=f32, bf16_held=bf16_how, f32_held=f32_how,
+         scans_vs_plain={"bf16": scans_bf16, "f32": scans_f32},
+         tol_bf16=LM_TOL_BF16, tol_f32=LM_TOL_F32, timing=timing,
+         sample=tokens[0, :8].tolist(), nvidia_smi=smi, **numbers, **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"jamba lm slice checks failed: {checks}")
     return gen_launches, timing
 
 
@@ -4340,6 +4711,8 @@ def main():
     from repro_torch.kernels.flash_attention import flash_attention as flash
     from repro_torch.kernels.flash_attention import int8 as flash8
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mamba_scan import mamba_scan as mamba
+    from repro_torch.kernels.mamba_scan import ops as mamba_ops
     from repro_torch.kernels.rwkv6_chunk import ops as rwkv_ops
     from repro_torch.kernels.rwkv6_chunk import rwkv6_chunk as rwkv
     from repro_torch.kernels.stencil_gather import ops as stencil_ops
@@ -4378,6 +4751,7 @@ def main():
                 "flash_attention": check_flash(dev),
                 "flash_attention_int8": check_flash8(dev)}
     rwkv_errs, rwkv_failures, rwkv_arrays = check_rwkv6(dev)
+    mamba_errs, mamba_failures, mamba_arrays = check_mamba_scan(dev)
 
     launches = run_slice(dev, work)
     int8_launches = sum(run_int8_slice(app, key, hidden, dev, work)
@@ -4396,13 +4770,16 @@ def main():
     lm_launches, rwkv_timing = run_lm_slice(dev, smi, rwkv_arrays)
     gqa_launches, gqa_timing = run_gqa_lm_slice(dev, smi)
     mla_launches, mla_timing = run_mla_lm_slice(dev, smi)
+    jamba_launches, mamba_timing = run_jamba_lm_slice(dev, smi,
+                                                       mamba_arrays)
+    del mamba_arrays
     train_work = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(train_work, ignore_errors=True)
     train_work.mkdir(parents=True)
     bwd, lm_train_launches = run_lm_train_slice(dev, smi, train_work)
     shutil.rmtree(train_work)
-    if rwkv_failures:
-        raise AssertionError("; ".join(rwkv_failures))
+    if rwkv_failures or mamba_failures:
+        raise AssertionError("; ".join(rwkv_failures + mamba_failures))
     new_rows = []
     for spec, mod in ((stencil_ops.SPEC, stencil), (flash_ops.SPEC, flash),
                       (flash8.SPEC, flash8)):
@@ -4422,10 +4799,11 @@ def main():
             mla_p = mla_timing["prefill"]
             new_rows[-1].update(
                 launches=tune_launches[name] + gqa_launches + mla_launches
-                + lm_train_launches[0],
+                + jamba_launches[1] + lm_train_launches[0],
                 launches_by_path={"run_tune": tune_launches[name],
                                   "gqa_lm_slice": gqa_launches,
                                   "mla_lm_slice": mla_launches,
+                                  "jamba_lm_slice": jamba_launches[1],
                                   "lm_train_slice": lm_train_launches[0]},
                 mla_prefill_shape=mla_p["problem"],
                 mla_prefill_ms=mla_p["ms"],
@@ -4506,6 +4884,20 @@ def main():
         "decode_graph_ms": rwkv_timing["decode"]["graph_ms"],
         "decode_plain_ms": rwkv_timing["decode"]["plain_ms"],
         "decode_bound_ms": rwkv_timing["decode"]["bound_ms"]}, {
+        "name": "mamba_scan", "route": "cuda", "source": mamba.SOURCE,
+        "replaces": mamba.REPLACES,
+        "replaces_note": "no Pallas kernel: the jnp associative scan of "
+                         "mamba_seq",
+        "launches": jamba_launches[0],
+        "launches_by_path": {"jamba_lm_slice": jamba_launches[0]},
+        "max_abs_err": mamba_errs["jamba prefill bf16"]["max_abs_err"],
+        "worst_vs_terms": mamba_errs["jamba prefill bf16"]["worst_vs_terms"],
+        "rtol": mamba_ops.SPEC.tol[0], "atol": mamba_ops.SPEC.tol[1],
+        "shape": JAMBA_SCAN, "ms": mamba_timing["ms"],
+        "plain_ms": mamba_timing["plain_ms"],
+        "bound_ms": mamba_timing["bound_ms"],
+        "bound_by": mamba_timing["bound_by"], "library_ms": None,
+        "launch": mamba_timing["launch"]}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": flash.BWD_SOURCE, "replaces": flash.BWD_REPLACES,
         "replaces_note": "no Pallas kernel: jax.grad of full_attention",

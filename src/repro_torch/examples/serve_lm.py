@@ -3,11 +3,13 @@ prefill + decode with KV caches.
 
 Runs a small llama-style model (GQA + swiglu), or with ``--arch`` the
 reduced form of a registered config (``archs.reduced``: e.g.
-deepseek-v2-lite-16b's MLA + MoE, or grok-1-314b's GQA + MoE, which at
-full size fits no single card), prefills a batch of prompts, then
-decodes tokens greedily through ``serve_step``; attention runs on the
-``flash_attention`` kernel on the card.  The reference jits its decode
-step; the port's runs eagerly.
+deepseek-v2-lite-16b's MLA + MoE, grok-1-314b's GQA + MoE, which at
+full size fits no single card, or jamba-v0.1-52b's Mamba + GQA + MoE
+with learned positions), prefills a batch of prompts, then decodes
+tokens greedily through ``serve_step``; attention runs on the
+``flash_attention`` kernel on the card, and Mamba's prefill scan on
+``mamba_scan``.  The reference jits its decode step; the port's runs
+eagerly.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.serve_lm \
           [--device cpu] [--arch grok-1-314b]

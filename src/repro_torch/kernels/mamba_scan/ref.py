@@ -1,0 +1,115 @@
+"""Plain PyTorch version of the Mamba selective scan, and the shape check
+every path shares.
+
+The reference has no Pallas kernel for this scan: its Mamba mixer
+computes it in jnp (``repro/models/blocks.py:538-588``), an inclusive
+``lax.associative_scan`` over chunks of 64 steps inside a ``lax.scan``
+that carries the state across chunks.  :func:`mamba_scan_ref` is that
+form, its tree of combines in the order ``associative_scan`` takes
+(:func:`associative_scan`: equal to it bit for bit op by op; compiled,
+XLA fuses ``a2 * b1 + b2`` into one rounding, so the reference's own
+jitted scan differs from both by an f32 ulp here and there).
+"""
+from __future__ import annotations
+
+import torch
+
+#: Steps a chunk of the scan: the default ``chunk`` of the reference's
+#: ``mamba_seq`` (blocks.py:537).
+CHUNK = 64
+
+
+def check_shapes(dt, x, Bm, Cm, A, D, h0) -> None:
+    """Raise ``ValueError`` unless dt and x are ``[B, S, di]``, Bm and Cm
+    ``[B, S, ds]``, A ``[di, ds]``, D ``[di]`` and h0 ``[B, di, ds]``."""
+    if dt.ndim != 3 or Bm.ndim != 3:
+        raise ValueError(f"dt must be [B, S, di] and Bm [B, S, ds], got "
+                         f"{tuple(dt.shape)} and {tuple(Bm.shape)}")
+    B, S, di = dt.shape
+    ds = Bm.shape[2]
+    for name, t, want in (("x", x, (B, S, di)), ("Bm", Bm, (B, S, ds)),
+                          ("Cm", Cm, (B, S, ds)), ("A", A, (di, ds)),
+                          ("D", D, (di,)), ("h0", h0, (B, di, ds))):
+        if tuple(t.shape) != tuple(want):
+            raise ValueError(f"{name} must be {tuple(want)}, got "
+                             f"{tuple(t.shape)}")
+
+
+def _interleave(even, odd, axis):
+    """``even`` at the even indices of ``axis`` and ``odd`` at the odd
+    ones (``lax``'s ``_interleave``)."""
+    shape = list(even.shape)
+    shape[axis] = even.shape[axis] + odd.shape[axis]
+    out = even.new_empty(shape)
+    idx = [slice(None)] * len(shape)
+    idx[axis] = slice(0, None, 2)
+    out[tuple(idx)] = even
+    idx[axis] = slice(1, None, 2)
+    out[tuple(idx)] = odd
+    return out
+
+
+def associative_scan(combine, elems, axis):
+    """The inclusive scan of ``elems`` (a list of tensors) along ``axis``
+    by ``combine(earlier, later)``, in the order of
+    ``jax.lax.associative_scan``: adjacent pairs combined, the half-sized
+    scan recursively, then each even element combined with the odd
+    result before it."""
+    def take(t, start, stop=None, step=1):
+        idx = [slice(None)] * t.ndim
+        idx[axis] = slice(start, stop, step)
+        return t[tuple(idx)]
+
+    def scan(elems):
+        n = elems[0].shape[axis]
+        if n < 2:
+            return elems
+        odd = scan(combine([take(e, 0, n - 1, 2) for e in elems],
+                           [take(e, 1, None, 2) for e in elems]))
+        tail = [take(e, 2, None, 2) for e in elems]
+        even = combine([take(e, 0, -1) for e in odd] if n % 2 == 0 else odd,
+                       tail)
+        even = [torch.cat([take(e, 0, 1), r], dim=axis)
+                for e, r in zip(elems, even)]
+        return [_interleave(e, o, axis) for e, o in zip(even, odd)]
+    return scan(list(elems))
+
+
+def _combine(e1, e2):
+    (a1, b1), (a2, b2) = e1, e2
+    return [a1 * a2, a2 * b1 + b2]
+
+
+def mamba_scan_ref(dt, x, Bm, Cm, A, D, h0):
+    """The selective scan in f32, chunk by chunk, per batch ``b`` and
+    channel ``d``::
+
+        a_t = exp(dt_t A),  h_t = a_t h_{t-1} + (dt_t x_t) Bm_t
+        y_t = sum_s h_t[s] Cm_t[s] + D x_t
+
+    dt, x: ``[B, S, di]``; Bm, Cm: ``[B, S, ds]`` (any float dtype, cast
+    to f32); A: ``[di, ds]``; D: ``[di]``; h0: ``[B, di, ds]``.  Within a
+    chunk of :data:`CHUNK` steps the states come from an inclusive
+    :func:`associative_scan` of ``(a, b)``, applied to the chunk's
+    incoming state; the last chunk is padded with zero steps (a = 1,
+    b = 0), as the reference pads it.  Returns ``(y [B, S, di] f32,
+    hT [B, di, ds] f32)``."""
+    check_shapes(dt, x, Bm, Cm, A, D, h0)
+    f32 = torch.float32
+    B, S, di = dt.shape
+    Af = A.to(f32)
+    h = h0.to(f32, copy=True)
+    pad = -S % CHUNK
+    dtp, xp, Bp, Cp = (torch.nn.functional.pad(t.to(f32), (0, 0, 0, pad))
+                       for t in (dt, x, Bm, Cm))
+    y = torch.empty((B, S + pad, di), dtype=f32, device=dt.device)
+    for t0 in range(0, S + pad, CHUNK):
+        sl = slice(t0, t0 + CHUNK)
+        dtb = dtp[:, sl]
+        a = torch.exp(dtb[..., None] * Af)                    # [B, c, di, ds]
+        b = (dtb * xp[:, sl])[..., None] * Bp[:, sl, None, :]
+        Ac, Bc = associative_scan(_combine, [a, b], axis=1)
+        hs = Ac * h[:, None] + Bc                             # inclusive
+        y[:, sl] = torch.einsum("bcds,bcs->bcd", hs, Cp[:, sl])
+        h = hs[:, -1]
+    return y[:, :S] + x.to(f32) * D.to(f32), h

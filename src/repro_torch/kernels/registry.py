@@ -151,6 +151,7 @@ _BUILTIN_OPS = ("repro_torch.kernels.fused_mlp.ops",
                 "repro_torch.kernels.fused_mlp.int8",
                 "repro_torch.kernels.flash_attention.ops",
                 "repro_torch.kernels.flash_attention.int8",
+                "repro_torch.kernels.mamba_scan.ops",
                 "repro_torch.kernels.rwkv6_chunk.ops",
                 "repro_torch.kernels.stencil_gather.ops")
 

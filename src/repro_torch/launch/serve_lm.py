@@ -4,12 +4,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve_lm [--arch NAME]
 
 serves ``rwkv6-1.6b`` (or ``--arch``, e.g. ``llama3.2-3b``, whose
-attention runs on the ``flash_attention`` kernel, or
+attention runs on the ``flash_attention`` kernel,
 ``deepseek-v2-lite-16b``, MLA + MoE, 15.7 B parameters, whose prefill
-attention runs on it at q.k 192 / v 128) at full width with seeded
-random weights on the card (4 random prompts of 2,048 tokens, 33
-generated tokens) and prints one JSON line of host times.  Any config
-the port builds and the card holds serves unchanged;
+attention runs on it at q.k 192 / v 128, or ``jamba-v0.1-52b``, Mamba +
+GQA + MoE, whose prefill scans run on the ``mamba_scan`` kernel) at full
+width with seeded random weights on the card (4 random prompts of 2,048
+tokens, 33 generated tokens) and prints one JSON line of host times.
+Any config the port builds and the card holds serves unchanged: jamba's
+four periods (52 B parameters, 104 GB in bf16) exceed one card, and
+``chip_smoke.py`` serves one period of its pattern
+(``configs.base.with_repeats``) through :func:`generate`;
 ``repro_torch.examples.serve_lm`` is the small demo, and serves a
 reduced config with ``--arch``.
 """

@@ -1,6 +1,6 @@
 """Layer blocks of the LM (counterpart of ``repro/models/blocks.py``):
-the norms, the GQA, MLA and RWKV6 mixers, and the swiglu, gelu, MoE and
-RWKV channel-mix MLPs.
+the norms, the GQA, MLA, RWKV6 and Mamba mixers, and the swiglu, gelu,
+MoE and RWKV channel-mix MLPs.
 
 Each mixer exposes, as in the reference:
   ``<name>_init(gen, cfg)``                   -> param dict
@@ -27,7 +27,12 @@ heads of 128) runs through the same kernel, which takes a v head of its
 own width; its absorbed decode step and the MoE MLP (router, capacity
 dispatch, expert products, combine) have no Pallas kernel in the
 reference and stay torch einsums and indexing here, their products on
-cuBLAS.  The reference's sharding hints (``constrain``) are no-ops
+cuBLAS.  Mamba's selective scan over a sequence (the reference's
+chunked associative scan in jnp, blocks.py:563-586) runs through
+:func:`~repro_torch.kernels.mamba_scan.ops.mamba_scan_op`, a kernel the
+port adds; its one-token step stays plain torch, which rounds where the
+reference's step rounds (it rounds ``dt * x`` to the model dtype, where
+the sequence form takes both in f32).  The reference's sharding hints (``constrain``) are no-ops
 without a mesh and are dropped: the port runs on one device, so it pads
 no query heads either (:func:`_padded_heads`) and routes MoE tokens in
 one group (:func:`_moe_groups`).
@@ -41,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
+from repro_torch.kernels.mamba_scan.ops import mamba_scan_op
 from repro_torch.kernels.rwkv6_chunk.ops import rwkv6_chunk_op
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.attention import NEG_INF, repeat_kv
@@ -474,6 +480,119 @@ def rwkv6_step(cfg, p, x, state, pos, *, position_ids=None):
     return y, {"S": S_new, "x_last": x[:, 0]}
 
 
+# ----------------------------------------------------------- Mamba mixer ---
+def mamba_init(gen, cfg):
+    """The reference's leaves and layouts: ``w_in [d, 2 di]``, ``conv_w
+    [dc, di]`` (normal x 0.1), ``conv_b``, ``w_x [di, dt_rank + 2 ds]``,
+    ``w_dt``, ``b_dt`` = -4.6 (softplus^-1(0.01)), ``A_log`` = log(1 ..
+    ds) per channel, ``D_skip`` ones and ``w_out``, all in the model dtype,
+    drawn in the order of the reference's keys."""
+    d, di = cfg.d_model, cfg.mamba_d_inner
+    ds, dc, dr = cfg.mamba_d_state, cfg.mamba_d_conv, cfg.dt_rank
+    dt, dev = cfg.torch_dtype, gen.device
+    p = {"w_in": _dense_init(gen, (d, 2 * di), dt),
+         "conv_w": (torch.randn((dc, di), generator=gen, device=dev)
+                    * 0.1).to(dt),
+         "conv_b": torch.zeros((di,), dtype=dt, device=dev),
+         "w_x": _dense_init(gen, (di, dr + 2 * ds), dt),
+         "w_dt": _dense_init(gen, (dr, di), dt),
+         "b_dt": torch.full((di,), -4.6, dtype=dt, device=dev)}
+    A = torch.arange(1, ds + 1, dtype=torch.float32, device=dev)
+    p["A_log"] = torch.log(A).repeat(di, 1).to(dt)
+    p["D_skip"] = torch.ones((di,), dtype=dt, device=dev)
+    p["w_out"] = _dense_init(gen, (di, d), dt)
+    return p
+
+
+def _mamba_ssm_inputs(cfg, p, xc):
+    """xc: the conv'd activation ``[B, S, di]`` -> (dt ``[B, S, di]``, Bm,
+    Cm ``[B, S, ds]``), dt = softplus(... @ w_dt + b_dt) written as
+    ``jax.nn.softplus`` computes it (``logaddexp(s, 0) = max(s, 0) +
+    log1p(exp(-|s|))``), each op in the model dtype as XLA rounds it."""
+    ds, dr = cfg.mamba_d_state, cfg.dt_rank
+    proj = xc @ p["w_x"]
+    dt, Bm, Cm = torch.split(proj, [dr, ds, ds], dim=-1)
+    s = dt @ p["w_dt"] + p["b_dt"]
+    dt = torch.clamp(s, min=0) + torch.log1p(torch.exp(-s.abs()))
+    return dt, Bm, Cm
+
+
+def _mamba_decays(p):
+    """``A = -exp(A_log)`` ``[di, ds]`` in f32."""
+    return -torch.exp(p["A_log"].to(torch.float32))
+
+
+def _mamba_conv(cfg, p, xin, conv0=None):
+    """The causal depthwise conv of xin ``[B, S, di]`` after the window
+    ``conv0`` ``[B, dc - 1, di]`` (zeros when None), as the reference's
+    shifted sum ``sum_i xp[:, i:i + S] * conv_w[i] + conv_b`` in the model
+    dtype (each product and sum rounded); returns it and the window the
+    next call starts from."""
+    B, S, di = xin.shape
+    dc = cfg.mamba_d_conv
+    prev = conv0 if conv0 is not None else xin.new_zeros((B, dc - 1, di))
+    xp = torch.cat([prev, xin], dim=1)
+    conv = sum(xp[:, i:i + S] * p["conv_w"][i] for i in range(dc)) \
+        + p["conv_b"]
+    return conv, xp[:, xp.shape[1] - (dc - 1):].clone()  # frees xp
+
+
+def mamba_seq(cfg, p, x, *, positions=None, position_ids=None, conv0=None,
+              h0=None):
+    """The mixer over a sequence x ``[B, S, d]``, from the conv window
+    ``conv0`` ``[B, dc - 1, di]`` and state ``h0`` ``[B, di, ds]`` (zeros
+    when None): the causal depthwise conv as the reference's shifted sum
+    in the model dtype, silu, the selective scan through the op (its f32
+    D skip included), the silu(z) gate and ``w_out``.  Returns ``(y,
+    {"conv", "h"})``.  A recurrent mixer takes no positions."""
+    del positions, position_ids
+    B = x.shape[0]
+    di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
+    xin, z = torch.chunk(x @ p["w_in"], 2, dim=-1)
+    conv, conv_state = _mamba_conv(cfg, p, xin, conv0)
+    xc = F.silu(conv)
+    dt, Bm, Cm = _mamba_ssm_inputs(cfg, p, xc)
+    if h0 is None:
+        h0 = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
+    y, h = mamba_scan_op(dt, xc, Bm, Cm, _mamba_decays(p), p["D_skip"], h0)
+    y = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
+    return y, {"conv": conv_state, "h": h}
+
+
+def mamba_init_cache(cfg, batch, cache_len, dtype, device):
+    """The conv window ``[B, dc - 1, di]`` in the model dtype and the
+    state ``[B, di, ds]`` in f32."""
+    di, ds, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+    return {"conv": torch.zeros((batch, dc - 1, di), dtype=dtype,
+                                device=device),
+            "h": torch.zeros((batch, di, ds), dtype=torch.float32,
+                             device=device)}
+
+
+def mamba_step(cfg, p, x, state, pos, *, position_ids=None):
+    """One token x ``[B, 1, d]`` in plain torch, line by line the
+    reference's step (blocks.py:599-618): the conv as a sum over the
+    window in f32 cast back (``jnp.sum`` upcasts), ``dt * xc`` rounded to
+    the model dtype before the f32 update, y in f32 with the D skip.
+    Returns new ``{"conv", "h"}``."""
+    del pos, position_ids  # recurrent: the state carries the position
+    f32 = torch.float32
+    xin, z = torch.chunk(x @ p["w_in"], 2, dim=-1)              # [B, 1, di]
+    xp = torch.cat([state["conv"], xin], dim=1)                  # [B, dc, di]
+    conv = (xp * p["conv_w"]).to(f32).sum(1, keepdim=True).to(x.dtype) \
+        + p["conv_b"]
+    xc = F.silu(conv)
+    dt, Bm, Cm = _mamba_ssm_inputs(cfg, p, xc)
+    a = torch.exp(dt[:, 0, :, None].to(f32) * _mamba_decays(p))
+    b = (dt[:, 0] * xc[:, 0]).to(f32)[..., None] * \
+        Bm[:, 0, None, :].to(f32)
+    h = a * state["h"] + b
+    y = torch.einsum("bds,bs->bd", h, Cm[:, 0].to(f32))
+    y = y + xc[:, 0].to(f32) * p["D_skip"].to(f32)
+    y = (y[:, None].to(x.dtype) * F.silu(z)) @ p["w_out"]
+    return y, {"conv": xp[:, 1:], "h": h}
+
+
 # -------------------------------------------------------------- MLPs -------
 def mlp_init(gen, cfg, kind):
     d, ff, dt, dev = cfg.d_model, cfg.d_ff, cfg.torch_dtype, gen.device
@@ -610,21 +729,20 @@ def mlp_apply(cfg, p, x, kind, cm_prev=None):
     return torch.sigmoid(xr @ p["wr_cm"]) * (h @ p["wv_cm"]), x[:, -1:]
 
 
-MIXER_INIT = {"gqa": gqa_init, "mla": mla_init, "rwkv6": rwkv6_init}
-MIXER_SEQ = {"gqa": gqa_seq, "mla": mla_seq, "rwkv6": rwkv6_seq}
-MIXER_STEP = {"gqa": gqa_step, "mla": mla_step, "rwkv6": rwkv6_step}
+MIXER_INIT = {"gqa": gqa_init, "mla": mla_init, "rwkv6": rwkv6_init,
+              "mamba": mamba_init}
+MIXER_SEQ = {"gqa": gqa_seq, "mla": mla_seq, "rwkv6": rwkv6_seq,
+             "mamba": mamba_seq}
+MIXER_STEP = {"gqa": gqa_step, "mla": mla_step, "rwkv6": rwkv6_step,
+              "mamba": mamba_step}
 MIXER_CACHE = {"gqa": gqa_init_cache, "mla": mla_init_cache,
-               "rwkv6": rwkv6_init_cache}
-_UNPORTED_MIXERS = {"mamba": "10.2: Mamba"}
+               "rwkv6": rwkv6_init_cache, "mamba": mamba_init_cache}
 
 
 def mixer(table, name):
-    """``table[name]``, or raise for a mixer the port has not reached."""
+    """``table[name]``, or raise for a mixer the config names and no
+    table holds."""
     try:
         return table[name]
     except KeyError:
-        if name in _UNPORTED_MIXERS:
-            raise NotImplementedError(
-                f"mixer {name!r} is not in the port yet (ROADMAP queue 1 "
-                f"item {_UNPORTED_MIXERS[name]})") from None
         raise ValueError(f"unknown mixer {name!r}") from None

@@ -15,11 +15,13 @@ reference stacks each pattern slot's ``R`` repeats on a leading axis
 ``R`` per-layer dicts instead, ``params["stack"][slot][r]``, and walks
 the layers in an unrolled loop.  Caches are laid out the same way.
 The port runs the GQA decoders (llama, qwen1.5, qwen3, qwen2-vl with
-``position_ids``) with bf16 or int8 KV caches, the RWKV6 model, and the
-MoE models: deepseek-v2-lite (MLA, with its latent cache) and grok-1
-(GQA); Mamba, cross attention, the encoder and learned positions wait
-for ROADMAP queue 1 item 10.  A decode step writes its token's K/V (or
-MLA's latent and rotated key) into the cache buffers it is given.
+``position_ids``) with bf16 or int8 KV caches, the RWKV6 model, the MoE
+models deepseek-v2-lite (MLA, with its latent cache) and grok-1 (GQA),
+and the hybrid jamba (Mamba and GQA layers, learned positions: a decoder
+with ``rope="none"`` and a layer that is not recurrent adds
+``pos_embed``); cross attention and the encoder wait for ROADMAP queue 1
+item 10.4.  A decode step writes its token's K/V (or MLA's latent and
+rotated key) into the cache buffers it is given.
 With ``cfg.remat`` each pattern layer of a
 differentiated forward runs under ``torch.utils.checkpoint`` (the
 reference's ``jax.checkpoint`` of its scan body): only the layer inputs
@@ -68,10 +70,11 @@ def _check_supported(cfg):
     if cfg.enc_dec:
         raise NotImplementedError("encoder-decoder models are not in the "
                                   "port yet (ROADMAP queue 1 item 10.4)")
-    if cfg.rope == "none" and any(s.mixer not in ("rwkv6", "mamba")
-                                  for s in specs):
-        raise NotImplementedError("learned positions (pos_embed) are not in "
-                                  "the port yet (ROADMAP queue 1 item 10.4)")
+
+
+def _is_recurrent_only(cfg):
+    return all(s.mixer in ("rwkv6", "mamba")
+               for s in list(cfg.prefix) + list(cfg.pattern))
 
 
 def _get(tree, slot, r):
@@ -116,6 +119,9 @@ def init_params(seed, cfg, *, device=None):
     if not cfg.tie_embeddings:
         p["lm_head"] = (torch.randn((D, Vp), generator=gen, device=dev)
                         * 0.02).to(dt)
+    if cfg.rope == "none" and not _is_recurrent_only(cfg):
+        p["pos_embed"] = (torch.randn((cfg.max_pos, D), generator=gen,
+                                      device=dev) * 0.01).to(dt)
     return p
 
 
@@ -151,8 +157,9 @@ def params_from_jax(cfg, tree, *, device=None):
                                                            dev))
                          for r in range(R)] for slot in tree["stack"]),
          "final_norm": _map(tree["final_norm"], lambda a: _tensor(a, dev))}
-    if "lm_head" in tree:
-        p["lm_head"] = _tensor(tree["lm_head"], dev)
+    for name in ("lm_head", "pos_embed"):
+        if name in tree:
+            p[name] = _tensor(tree[name], dev)
     return p
 
 
@@ -186,6 +193,12 @@ def hidden_states(cfg, params, tokens, *, position_ids=None,
     """tokens [B,S] (and, for mrope, position_ids [3,B,S]) ->
     (final-normed hidden [B,S,D], caches or None)."""
     x = embed_lookup(params["tok_embed"], tokens)
+    if "pos_embed" in params:
+        S, max_pos = tokens.shape[1], params["pos_embed"].shape[0]
+        if S > max_pos:  # the reference's dynamic_slice_in_dim refuses it
+            raise ValueError(f"{S} tokens past the {max_pos} learned "
+                             f"positions")
+        x = x + params["pos_embed"][:S]
     positions = torch.arange(tokens.shape[1], device=x.device)
     caches = {"prefix": [], "stack": tuple([] for _ in cfg.pattern)}
     remat = cfg.remat and torch.is_grad_enabled() and not collect_caches
@@ -297,6 +310,9 @@ def serve_step(cfg, params, caches, tokens, pos, *, position_ids=None):
     """One decode step at position ``pos``. tokens [B,1] (and, for mrope,
     position_ids [3,B,1]) -> (logits [B,Vp], new caches)."""
     x = embed_lookup(params["tok_embed"], tokens)
+    if "pos_embed" in params:  # clamped, as lax.dynamic_slice_in_dim
+        table = params["pos_embed"]
+        x = x + table[min(max(int(pos), 0), table.shape[0] - 1)]
     new = {"prefix": [], "stack": tuple([] for _ in cfg.pattern)}
     for slot, r, spec in _layers(cfg):
         x, c = _apply_layer_step(cfg, _get(params, slot, r), spec, x,
@@ -326,7 +342,8 @@ def prefill(cfg, params, tokens, *, position_ids=None, cache_len=None):
 def _fill_mixer(cfg, spec, dst, src):
     """The prefill's K/V (MLA: its latent ``ckv`` and rotated key ``kr``)
     written into the first positions of the cache (K/V quantized per
-    token and head for an int8 cache), or a recurrent mixer's state in its
+    token and head for an int8 cache), or a recurrent mixer's state
+    (RWKV6's ``S`` and ``x_last``, Mamba's ``conv`` and ``h``) in its
     cache's dtypes."""
     if spec.mixer == "mla":
         for name, t in zip(("ckv", "kr"), src):

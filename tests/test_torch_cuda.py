@@ -1300,3 +1300,155 @@ def test_flash_attention_backward_refuses_the_mla_shape_on_the_card(dev):
     with pytest.raises(NotImplementedError, match="Backward kernels"):
         out.float().sum().backward()
     assert flash_attention_bwd.launches == before[1]
+
+
+# ------------------------------------------------------------ mamba_scan ---
+MAMBA_CASES = [
+    # jamba's prefill (B 4, S 2,048, d_inner 8,192, d_state 16) and one
+    # step at its width
+    dict(b=4, s=2048, di=8192, ds=16),
+    dict(b=4, s=1, di=8192, ds=16),
+    # a partial chunk of 64 steps and a partial block of 128 channels
+    dict(b=2, s=70, di=200, ds=16),
+    # a state of 5: rows the wrapper pads to 16 states
+    dict(b=2, s=70, di=200, ds=5),
+    dict(b=1, s=33, di=7, ds=1),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MAMBA_CASES,
+                         ids=lambda c: "-".join(f"{k}{v}" for k, v in
+                                                c.items()))
+def test_mamba_scan_kernel_matches_plain_version(dev, case, dtype):
+    """One launch through the op against the plain version from a nonzero
+    state: y and the final state within the spec's tolerance of the scale
+    of their terms; a second launch bit for bit."""
+    from repro_torch.kernels.mamba_scan import ops
+    problem = dict(case, dtype=dtype)
+    arrays = ops.SPEC.make_call(problem, torch.Generator().manual_seed(3),
+                                dev)
+    ops.SPEC.reset_counts()
+    y, hT = ops.mamba_scan_op(*arrays)
+    y2, hT2 = ops.mamba_scan_op(*arrays)
+    torch.cuda.synchronize()
+    assert ops.SPEC.launches == 2 and ops.SPEC.plain_calls == 0
+    assert y.dtype == hT.dtype == torch.float32
+    assert torch.equal(y, y2) and torch.equal(hT, hT2)
+    worst = ops.held_to_plain(arrays, y, hT)["worst_vs_terms"]
+    assert max(worst.values()) <= 1.0, worst
+
+
+def test_mamba_scan_wrapper_refuses_what_it_cannot_take(dev):
+    from repro_torch.kernels.mamba_scan import ops
+    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan
+    problem = dict(b=1, s=8, di=16, ds=16, dtype="float32")
+    arrays = ops.SPEC.make_call(problem, torch.Generator().manual_seed(0),
+                                dev)
+    wide = ops.SPEC.make_call(dict(problem, ds=17),
+                              torch.Generator().manual_seed(0), dev)
+    with pytest.raises(ValueError, match="state size"):
+        mamba_scan(*wide)
+    with pytest.raises(ValueError, match="does not take"):
+        ops.mamba_scan_op(*wide)
+    mixed = (arrays[0].to(torch.bfloat16),) + arrays[1:]
+    with pytest.raises(ValueError, match="one dtype"):
+        mamba_scan(*mixed)
+    with pytest.raises(ValueError, match="CUDA"):
+        mamba_scan(*(arrays[:6] + (arrays[6].cpu(),)))
+
+
+def test_mamba_scan_refuses_grad_on_the_card(dev):
+    """No backward kernel: an input that requires grad raises on the card
+    (under no_grad the kernel runs)."""
+    from repro_torch.kernels.mamba_scan import ops
+    arrays = ops.SPEC.make_call(dict(b=1, s=8, di=16, ds=4,
+                                     dtype="float32"),
+                                torch.Generator().manual_seed(0), dev)
+    dt = arrays[0].clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="Backward kernels"):
+        ops.mamba_scan_op(dt, *arrays[1:])
+    with torch.no_grad():
+        y, _ = ops.mamba_scan_op(dt, *arrays[1:])
+    assert y.grad_fn is None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_jamba_on_the_card_matches_the_cpu(dev, dtype):
+    """Reduced jamba (16 layers: 14 Mamba on mamba_scan, 2 GQA on
+    flash_attention, MoE on every other one, learned positions): prefill
+    and three serve_steps on the card against the same weights and
+    tokens on the CPU (plain versions): one scan per Mamba layer of the
+    prefill and none in a step, one attention launch per GQA layer and
+    call; f32 within 1e-4, bf16 within 0.1 of the largest magnitude
+    (chip_smoke.py's ``LM_TOL_BF16``: 16 layers of random weights
+    amplify bf16 rounding).  Each layer's scan is also held to the plain
+    version on its own inputs at the op's tolerance, which the bf16
+    bound on the logits and states is too loose to stand in for."""
+    from unittest import mock
+
+    from repro_torch.configs.archs import reduced
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mamba_scan import ops
+    from repro_torch.models import blocks, lm
+    cfg = reduced(get_config("jamba-v0.1-52b")).replace(dtype=dtype)
+    cpu = lm.init_params(0, cfg, device="cpu")
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(to(v, device) for v in tree)
+        return tree.to(device)
+    card = to(cpu, dev)
+    B, S = 2, 40
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 3),
+                           generator=torch.Generator().manual_seed(2))
+
+    def run(params, device):
+        out = []
+        logits, caches = lm.prefill(cfg, params, tokens[:, :S].to(device),
+                                    cache_len=S + 3)
+        out.append(logits)
+        for t in range(S, S + 3):
+            logits, caches = lm.serve_step(cfg, params, caches,
+                                           tokens[:, t:t + 1].to(device), t)
+            out.append(logits)
+        return out, caches
+
+    want, want_c = run(cpu, torch.device("cpu"))
+    ops.SPEC.reset_counts()
+    flash_ops.SPEC.reset_counts()
+    scans, scan_op = [], blocks.mamba_scan_op
+
+    def recorded(*args):
+        out = scan_op(*args)
+        scans.append((args, out))
+        return out
+    with torch.no_grad(), mock.patch.object(blocks, "mamba_scan_op",
+                                            recorded):
+        got, got_c = run(card, dev)
+    torch.cuda.synchronize()
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.pattern) * \
+        cfg.pattern_repeats
+    assert ops.SPEC.launches == n_mamba and ops.SPEC.plain_calls == 0
+    assert flash_ops.SPEC.launches == 4 * (cfg.n_layers - n_mamba)
+    assert len(scans) == n_mamba
+    for args, (y, hT) in scans:
+        worst = ops.held_to_plain(args, y, hT)["worst_vs_terms"]
+        assert max(worst.values()) <= 1.0, worst
+
+    def close(g, w):
+        g, w = g.float().cpu(), w.float()
+        if dtype == "float32":
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        else:
+            err = (g - w).abs().max().item()
+            assert err <= 0.1 * (1 + w.abs().max().item()), err
+    for g, w in zip(got, want):
+        close(g, w)
+    for slot, spec in enumerate(cfg.pattern):
+        for gc_, wc in zip(got_c["stack"][slot], want_c["stack"][slot]):
+            for key in wc["mixer"]:
+                close(gc_["mixer"][key], wc["mixer"][key])

@@ -248,7 +248,8 @@ def test_build_raises_without_nvcc(monkeypatch):
     assert set(_build.sources()) == {"flash_attention", "flash_attention_bwd",
                                      "flash_attention_int8",
                                      "fused_mlp", "fused_mlp_int8",
-                                     "rwkv6_chunk", "stencil_gather"}
+                                     "mamba_scan", "rwkv6_chunk",
+                                     "stencil_gather"}
 
 
 # ------------------------------------------------------ 3xTF32 numerics ---

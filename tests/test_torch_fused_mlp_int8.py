@@ -298,7 +298,8 @@ def test_shared_memory_model_and_spec():
     assert fused_ops.SPEC.tier == "f32"
     names = [s.name for s in registry.all_specs()]
     assert names == ["flash_attention", "flash_attention_int8", "fused_mlp",
-                     "fused_mlp_int8", "rwkv6_chunk", "stencil_gather"]
+                     "fused_mlp_int8", "mamba_scan", "rwkv6_chunk",
+                     "stencil_gather"]
 
 
 @pytest.mark.parametrize("block_rows,path,slabs", [

@@ -35,6 +35,9 @@ def test_port_imports_with_jax_and_repro_blocked():
         "        'repro_torch.kernels.stencil_gather.ops',\n"
         "        'repro_torch.kernels.flash_attention.int8',\n"
         "        'repro_torch.kernels.rwkv6_chunk.ops',\n"
+        "        'repro_torch.kernels.mamba_scan.ops',\n"
+        "        'repro_torch.kernels.mamba_scan.mamba_scan',\n"
+        "        'repro_torch.kernels.mamba_scan.ref',\n"
         "        'repro_torch.models.lm', 'repro_torch.launch.serve_lm',\n"
         "        'repro_torch.models.rope', 'repro_torch.models.attention',\n"
         "        'repro_torch.examples.serve_lm',\n"

@@ -120,18 +120,14 @@ def test_registry_and_shapes_equal_reference():
 
 def test_unported_mixers_raise_naming_the_queue_item():
     """The models whose parts the port lacks raise naming the ROADMAP item
-    that ports them; deepseek-v2-lite (10.1, MLA) and grok-1 (10.3, MoE)
-    build since MLA and MoE are in (tests/test_torch_mla.py and
-    tests/test_torch_moe.py hold them to the reference)."""
-    for name, item in (("jamba-v0.1-52b", r"item 10\.2"),
-                       ("whisper-medium", r"item 10\.4")):
+    that ports them; deepseek-v2-lite (10.1, MLA), grok-1 (10.3, MoE) and
+    jamba (10.2, Mamba, with learned positions) build since they are in
+    (tests/test_torch_mla.py, tests/test_torch_moe.py and
+    tests/test_torch_mamba.py hold them to the reference)."""
+    for name, item in (("whisper-medium", r"item 10\.4"),):
         cfg = archs.reduced(base.get_config(name))
         with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
             lm.init_params(0, cfg, device="cpu")
-    # a GQA decoder without positions would need the learned table
-    cfg = archs.reduced(base.get_config("llama3.2-3b")).replace(rope="none")
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 10\.4"):
-        lm.init_params(0, cfg, device="cpu")
 
 
 # ----------------------------------------------------------- parameters ----
