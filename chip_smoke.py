@@ -160,10 +160,15 @@ source, all started together), and prints one JSON line per phase:
    same handoff through an int8 KV cache with the kernel against the
    plain version, then ``generate`` for 33 tokens (28 launches per call)
    and the same decode loop traced for the card's busy share; the same
-   comparisons on an f32 copy of the weights (``LM_TOL_F32``); the
-   kernel's times at the path's two shapes (the causal prefill, and one
-   decode step over 2,081 cached positions with 2,049 valid) beside its
-   plain version, ``scaled_dot_product_attention`` and the bound;
+   comparisons on an f32 copy of the weights (``LM_TOL_F32``); generate
+   must run its prefill on the bf16 prefill kernel and every step on the
+   decode kernel and its combine, none on the f32 design; the kernel's
+   times at the path's shapes (the causal prefill, one decode step over
+   2,081 cached positions with 2,049 valid, also from a CUDA graph and
+   its two kernels alone, and the training step's forward, B 2 x 2,048)
+   beside its plain version, ``scaled_dot_product_attention``, the bound
+   and ``bound_split_ms``, the operations the bf16 design does (q.k once,
+   P.V twice: 1.5x);
    ``mla_lm_slice`` -- the MLA + MoE LM's serving path at the full width
    and depth of deepseek-v2-lite-16b (27 layers, d_model 2,048, 16 heads
    of q.k 192 and v 128 over a 512-wide latent, a dense first layer, 26
@@ -222,15 +227,20 @@ source, all started together), and prints one JSON line per phase:
     restored bit for bit, the run resumed; the last losses of both runs
     and whether they agree bit for bit; the gradient leaves that differ
     between two evaluations of one batch; part ``resume_drill``);
-11. the ``kernels`` line, the ``nvidia-smi`` line and, last,
-    ``{"ok": true, "device": {...}}``.
+11. the ``kernels`` line (``flash_attention`` there is its f32 design;
+    ``flash_attention_bf16``, ``_bf16_decode`` and ``_bf16_combine`` the
+    bf16 one's three kernels, each with its launches by path; the script
+    fails if a kernel of the line was never launched), the ``nvidia-smi``
+    line and, last, ``{"ok": true, "device": {...}}``.
 
 Before the slices, the ``kernel`` lines also hold stencil_gather (bit
 for bit: every candidate tile of its default problem in f32 and bf16, a
-grid no tile divides, 4096x4096), flash_attention (its tolerance: both
-default problems, non-causal, GQA groups 1 and 3, ``kv_valid_len`` 0 and
-150, ``q_offset``, bf16 inputs, the llama3.2-3b prefill, q.k 192 and 256
-over v 128 in f32 and bf16) and
+grid no tile divides, 4096x4096), flash_attention (its tolerance, each
+case in f32 and bf16: both default problems, non-causal, GQA groups 1
+and 3, ``kv_valid_len`` 0 and 150, ``q_offset``, the llama3.2-3b
+prefill, the decode step at groups 1, 3 and 4 and with no valid key,
+Sq x group 16 and 17, q.k 192 and 256 over v 128; bf16 on the bf16
+kernels only, a relaunch bit for bit) and
 flash_attention_int8 (its default problem, the decode window, one decode
 step, GQA groups 1 and 4, hd 4, 36 and 64, 8,191 keys non-causal,
 ``q_offset`` -16, ``kv_valid_len`` 0 and 5,000, all at the decode
@@ -500,7 +510,7 @@ MLA_PREFILL = dict(b=LM_BATCH, sq=LM_PROMPT, skv=LM_PROMPT, causal=True,
 # the MLA prefill's kernels by kind in its trace (the first match of a
 # substring of the kernel's name)
 PREFILL_KERNEL_GROUPS = {
-    "attention": ("flash_attention_kernel",),
+    "attention": ("flash_attention_kernel", "flash_attention_bf16"),
     "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet"),
     "routing": ("index", "scatter", "gather", "scan", "topk", "sort",
                 "radix", "one_hot"),
@@ -521,7 +531,7 @@ JAMBA_SCAN = {"b": LM_BATCH, "s": LM_PROMPT, "di": 8192, "ds": 16,
 # the jamba prefill's kernels by kind in its trace
 JAMBA_KERNEL_GROUPS = {
     "mamba_scan": ("mamba_scan_kernel",),
-    "attention": ("flash_attention_kernel",),
+    "attention": ("flash_attention_kernel", "flash_attention_bf16"),
     "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet"),
     "routing": ("index", "scatter", "gather", "scan", "topk", "sort",
                 "radix", "one_hot"),
@@ -557,7 +567,7 @@ LMT_GRAD_TOL_F32, LMT_GRAD_TOL_BF16 = 1e-3, 5e-2
 # kernels, cuBLAS's matrix products, and the rest (elementwise work of the
 # model, the loss, the clip and AdamW)
 STEP_KERNEL_GROUPS = {
-    "attention_forward": ("flash_attention_kernel",),
+    "attention_forward": ("flash_attention_kernel", "flash_attention_bf16"),
     "attention_backward": ("bwd_dq_kernel", "bwd_dkdv_kernel"),
     "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet"),
 }
@@ -587,6 +597,18 @@ FLASH8_DESIGN = ("keys split across blocks (split_count: about two blocks "
                  "warps share a tile); mma.sync m16n8k32 s8 scores, p.V as "
                  "two f16 m16n8k16 products (p hi + lo, vq exact), a fresh "
                  "partial per 32 keys; cp.async double-buffered int8 K/V")
+FLASH_BF16_DESIGN = ("bf16 mma.sync m16n8k16: q.k once (q's A fragments "
+                     "in registers for the key loop, scores scaled after), "
+                     "P.V twice (p split in registers into bf16 hi + lo); "
+                     "K/V bf16 in a two-stage cp.async ring, V by "
+                     "ldmatrix.trans; prefill: a warp per 16 query rows, "
+                     "4 or 8 warps a block; decode (at most 16 rows a kv "
+                     "head): every q head of a kv head in one m16 tile, "
+                     "keys split across blocks and 4 warps, partials "
+                     "combined in ascending order by a second kernel")
+# each flash_attention kernel's launches in a path's main run, by path
+# (record_flash_launches)
+FLASH_LAUNCHES = {}
 RWKV_DESIGN = ("one block per (b, h), rows split across warps (row groups "
                "x head tile threads), cp.async double-buffered chunks, o "
                "reduced once per chunk")
@@ -2517,60 +2539,170 @@ def check_stencil(dev):
     return 0.0
 
 
+def flash_kernel_launches():
+    """Each flash_attention kernel's launches since the counts were last
+    reset, by its wrapper's name."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    return {f.__name__: f.launches for f in fa.KERNELS}
+
+
+def record_flash_launches(path):
+    """Keep the flash_attention kernels' launches of ``path``'s main run
+    (read right after it) for the ``kernels`` line."""
+    FLASH_LAUNCHES[path] = flash_kernel_launches()
+    return FLASH_LAUNCHES[path]
+
+
 def check_flash(dev):
     """flash_attention (through its op) against its plain version at the
-    spec's tolerance (bf16 outputs one bf16 ulp): both default problems,
-    non-causal, GQA groups 1 and 3, kv_valid_len including 0, bf16
-    inputs, the llama3.2-3b prefill, and the widened kernel at q.k 192
-    and 256 over v 128 (``WIDE_HEADS``) in f32 and bf16, causal over 512
-    keys with 16 heads, and at 192 / 128 with ``kv_valid_len`` 300."""
+    spec's tolerance (bf16 outputs one bf16 ulp), each case in f32 and in
+    bf16: both default problems, non-causal, GQA groups 1 and 3,
+    kv_valid_len including 0, the llama3.2-3b prefill, the widened kernel
+    at q.k 192 and 256 over v 128 (``WIDE_HEADS``) causal over 512 keys
+    with 16 heads and at 192 / 128 with ``kv_valid_len`` 300, and the
+    decode shapes (Sq 1 over the llama3.2-3b step's 2,081 keys with 2,049
+    valid at GQA groups 1, 3 and 4, none valid, Sq x group 16 and 17, MLA's
+    192 / 128 at Sq 1).  bf16 calls launch the bf16 kernels (the decode
+    kernel and its combine at most 16 rows a kv head), never the f32
+    design, and a relaunch gives the same bits."""
     import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     rtol, atol = ops.TOL
     d0, d1 = ops.SPEC.default_problems
     small = dict(b=2, sq=200, skv=333, h=8, kv=2, hd=64)
-    cases = [
-        ("default prefill", d0, {}, None),
-        ("default decode", d1, {}, None),
-        ("non-causal", small, {"causal": False}, None),
-        ("group 1", dict(small, h=4, kv=4), {}, None),
-        ("group 3, hd 96", dict(small, h=6, kv=2, hd=96), {}, None),
-        ("kv_valid_len 0", small, {"kv_valid_len": 0}, None),
+    step = dict(GQA_DECODE, causal=False)
+    shapes = [
+        ("default prefill", d0, {}),
+        ("default decode", d1, {}),
+        ("non-causal", small, {"causal": False}),
+        ("group 1", dict(small, h=4, kv=4), {}),
+        ("group 3, hd 96", dict(small, h=6, kv=2, hd=96), {}),
+        ("kv_valid_len 0", small, {"kv_valid_len": 0}),
         ("kv_valid_len 0, non-causal", small,
-         {"kv_valid_len": 0, "causal": False}, None),
-        ("kv_valid_len 150", small, {"kv_valid_len": 150}, None),
-        ("q_offset 133", dict(small, sq=200), {"q_offset": 133}, None),
-        ("bf16", d0, {}, torch.bfloat16),
-        ("llama3.2-3b prefill 4096", PREFILL, {}, None),
+         {"kv_valid_len": 0, "causal": False}),
+        ("kv_valid_len 150", small, {"kv_valid_len": 150}),
+        ("q_offset 133", dict(small, sq=200), {"q_offset": 133}),
+        ("llama3.2-3b prefill 4096", PREFILL, {}),
+        ("decode step, group 3", step, {"kv_valid_len": GQA_DECODE_VALID}),
+        ("decode step, group 1", dict(step, h=8),
+         {"kv_valid_len": GQA_DECODE_VALID}),
+        ("decode step, group 4", dict(step, h=32),
+         {"kv_valid_len": GQA_DECODE_VALID}),
+        ("decode step, kv_valid_len 0", step, {"kv_valid_len": 0}),
+        ("Sq x group 16", dict(small, sq=4, h=8, kv=2, skv=300),
+         {"q_offset": 296}),
+        ("Sq x group 17", dict(small, sq=17, h=2, kv=2, skv=300),
+         {"q_offset": 283}),
+        ("q.k 192 / v 128 decode step", dict(step, h=16, kv=16, hd=192,
+                                             hdv=128),
+         {"kv_valid_len": GQA_DECODE_VALID}),
     ]
     wide = dict(b=2, sq=512, skv=512, h=16, kv=16)
-    for hd, hdv in WIDE_HEADS:
-        for dtype in (None, torch.bfloat16):
-            cases.append((f"q.k {hd} / v {hdv} {'bf16' if dtype else 'f32'}",
-                          dict(wide, hd=hd, hdv=hdv), {}, dtype))
-    cases.append(("q.k 192 / v 128 kv_valid_len 300, non-causal",
-                  dict(wide, hd=192, hdv=128),
-                  {"kv_valid_len": 300, "causal": False}, None))
+    shapes += [(f"q.k {hd} / v {hdv}", dict(wide, hd=hd, hdv=hdv), {})
+               for hd, hdv in WIDE_HEADS]
+    shapes.append(("q.k 192 / v 128 kv_valid_len 300, non-causal",
+                   dict(wide, hd=192, hdv=128),
+                   {"kv_valid_len": 300, "causal": False}))
     errs = {}
-    for i, (label, shape, kw, dtype) in enumerate(cases):
+    for i, (label, shape, kw) in enumerate(shapes):
         kw = dict({"causal": shape.get("causal", True),
                    "q_offset": shape.get("q_offset", 0)}, **kw)
-        q, k, v = attention_inputs(shape, dev, seed=20 + i, dtype=dtype)
-        got = ops.flash_attention_op(q, k, v, **kw)
-        want = flash_attention_ref(q, k, v, **kw)
-        torch.cuda.synchronize()
-        r = BF16_RTOL if dtype is torch.bfloat16 else rtol
-        max_abs, worst = compare(got.float(), want.float(), r, atol)
-        if not (worst <= 1.0 and torch.isfinite(got).all()
-                and got.dtype == q.dtype):
-            raise AssertionError(f"flash_attention {label}: max abs error "
-                                 f"{max_abs}, {worst}x the tolerance")
-        errs[label] = max_abs
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype is torch.bfloat16
+            name = f"{label} {'bf16' if bf16 else 'f32'}"
+            q, k, v = attention_inputs(shape, dev, seed=20 + i, dtype=dtype)
+            ops.SPEC.reset_counts()
+            got = ops.flash_attention_op(q, k, v, **kw)
+            again = ops.flash_attention_op(q, k, v, **kw)
+            want = flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            launched = {n for n, c in flash_kernel_launches().items() if c}
+            if not bf16:
+                expect = {"flash_attention_f32"}
+            elif fa.is_decode(shape["sq"], shape["h"], shape["kv"]):
+                expect = {"flash_attention_bf16_decode",
+                          "flash_attention_bf16_combine"}
+            else:
+                expect = {"flash_attention_bf16_prefill"}
+            max_abs, worst = compare(got.float(), want.float(),
+                                     BF16_RTOL if bf16 else rtol, atol)
+            if not (worst <= 1.0 and torch.isfinite(got).all()
+                    and got.dtype == q.dtype and torch.equal(got, again)
+                    and launched == expect and ops.SPEC.plain_calls == 0):
+                raise AssertionError(
+                    f"flash_attention {name}: max abs error {max_abs}, "
+                    f"{worst}x the tolerance, launched {launched}, "
+                    f"relaunch equal {torch.equal(got, again)}")
+            errs[name] = max_abs
     emit("kernel", kernel="flash_attention", max_abs_err=errs, rtol=rtol,
          atol=atol, bf16_rtol=BF16_RTOL)
-    return errs["llama3.2-3b prefill 4096"]
+    return errs
+
+
+def decode_kernels_cell(shape, valid, arrays):
+    """The bf16 decode kernel and its combine alone at an LM's decode-step
+    shape, each held against its plain version on the same inputs (the
+    partials to 1e-4 of their largest magnitude: ex2.approx and the order
+    of the sums; the combine's bf16 output to one ulp): their errors,
+    split count and bounds, and thunks of the four calls.  Bytes bound
+    both: the decode kernel reads q and the visited keys' K and V once
+    and writes the partials, the combine reads the partials and writes
+    the output."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_combine_ref, flash_attention_decode_ref)
+
+    q, k, v = arrays
+    b, sq, h, kvh, hd = (shape[n] for n in ("b", "sq", "h", "kv", "hd"))
+    hdv = shape.get("hdv", hd)
+    kw = dict(causal=shape["causal"], q_offset=shape["q_offset"])
+    keys = fa.visited_keys(sq, shape["skv"], kw["causal"], kw["q_offset"],
+                           valid)
+    splits = fa.split_count(b, kvh, keys, fa.sm_count(q.device))
+
+    def decode():
+        return fa.flash_attention_bf16_decode(q, k, v, valid=valid,
+                                              splits=splits, **kw)
+
+    def decode_plain():
+        return flash_attention_decode_ref(q, k, v, kv_valid_len=valid,
+                                          splits=splits, **kw)
+    parts = decode()
+    out = q.new_empty((b, sq, h, hdv))
+
+    def combine():
+        return fa.flash_attention_bf16_combine(*parts, out, hd)
+
+    def combine_plain():
+        return flash_attention_combine_ref(*parts, hd)
+    want_parts = decode_plain()
+    got, want = combine(), combine_plain().reshape(out.shape)
+    torch.cuda.synchronize()
+    part_err = max((g - w).abs().max().item()
+                   / (1 + w.abs().max().item())
+                   for g, w in zip(parts, want_parts))
+    combine_err, worst = compare(got.float(), want.float(), BF16_RTOL, 2e-5)
+    if not (part_err <= 1e-4 and worst <= 1.0):
+        raise AssertionError(f"bf16 decode kernels at {shape}: partials "
+                             f"{part_err} of their scale, combine {worst}x "
+                             f"the tolerance")
+    part_bytes = sum(4 * t.numel() for t in parts)
+    pairs = b * h * sq * keys
+    t_ops = 1.5 * 2 * (hd + hdv) * pairs / PEAK_F16_FLOPS
+    t_bytes = (2 * (q.numel() + b * keys * kvh * (hd + hdv)) + part_bytes
+               ) / PEAK_HBM_BYTES
+    return dict(
+        decode=decode, decode_plain=decode_plain, combine=combine,
+        combine_plain=combine_plain, splits=splits, keys=keys,
+        decode_max_abs_err=part_err, combine_max_abs_err=combine_err,
+        decode_bound_ms=max(t_ops, t_bytes) * 1e3,
+        decode_bound_by="operations" if t_ops >= t_bytes else "bytes",
+        combine_bound_ms=(part_bytes + 2 * out.numel()) / PEAK_HBM_BYTES
+        * 1e3, combine_bound_by="bytes")
 
 
 def check_flash8(dev):
@@ -2853,6 +2985,7 @@ def run_tune_phase(bundle, dev, work):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {s.name: s.launches for s in registry.all_specs()}
+    record_flash_launches("run_tune")
     registry.reset_counts()
     again = autotune_registered()
     relaunched = {s.name: s.launches for s in registry.all_specs()}
@@ -3445,9 +3578,9 @@ def gqa_attention_cell(shape, valid, dev, seed):
     backend PyTorch picks for it named), and the bound: each input read
     once and the output written once (only the ``valid`` keys of K/V),
     against the operations (2 (hd + hdv) per visible query-key pair) at
-    the bf16 tensor-core peak; ``bound_tc_ms`` prices the operations as
-    the kernel runs them on bf16 inputs, two TF32 products, at the TF32
-    peak."""
+    the bf16 tensor-core peak; ``bound_split_ms`` prices the operations
+    as the bf16 kernels run them, q.k once and P.V twice (p as bf16 hi +
+    lo), 1.5x those at the same peak."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -3478,7 +3611,7 @@ def gqa_attention_cell(shape, valid, dev, seed):
         library_backend=sdpa_backend(qt, kt, vt, shape["causal"]),
         bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
-        bound_tc_ms=max(2 * flops / PEAK_TF32_FLOPS, t_bytes) * 1e3,
+        bound_split_ms=max(1.5 * flops / PEAK_F16_FLOPS, t_bytes) * 1e3,
         flops=flops, bytes=nbytes)
 
 
@@ -3498,21 +3631,25 @@ def sdpa_backend(q, k, v, causal):
 
 def time_gqa_attention(dev, smi):
     """CUDA-event times of flash_attention at the GQA LM's prefill and
-    decode-step shapes (bf16, at the tile dispatch resolves), beside the
-    plain version, ``scaled_dot_product_attention`` and the bound; the
-    decode step also from a CUDA graph (a loop of one-row launches is
-    paced by the host).  Each launch is held against the plain version
-    first (bf16 outputs within one ulp)."""
+    decode-step shapes and at the training step's forward (B 2 x 2,048;
+    bf16, at the tile dispatch resolves), beside the plain version,
+    ``scaled_dot_product_attention`` and the bound; the decode step also
+    from a CUDA graph (a loop of one-row launches is paced by the host),
+    and its two kernels alone.  Each launch is held against the plain
+    version first (bf16 outputs within one ulp)."""
     return time_lm_attention(dev, smi, "gqa_lm", (
         ("prefill", GQA_PREFILL, None, 10),
-        ("decode", GQA_DECODE, GQA_DECODE_VALID, 200)), seed=90)
+        ("decode", GQA_DECODE, GQA_DECODE_VALID, 200),
+        ("train forward", LMT_ATTN, None, 10)), seed=90)
 
 
 def time_lm_attention(dev, smi, case, shapes, seed):
     """flash_attention's times at an LM's ``shapes`` ((label, shape,
-    valid keys, iterations); a ``decode`` label also from a CUDA graph),
-    each launch held against the plain version first; one ``timing`` line
-    each, under ``case``."""
+    valid keys, iterations); a ``decode`` label also from a CUDA graph,
+    and the decode kernel and its combine alone from CUDA graphs beside
+    their plain versions, ``decode_kernels``; the others also at every
+    tile the spec would sweep, ``tiles_ms``), each launch held against
+    the plain version first; one ``timing`` line each, under ``case``."""
     import torch
     from repro_torch.kernels import registry
     from repro_torch.kernels.flash_attention import ops
@@ -3524,27 +3661,45 @@ def time_lm_attention(dev, smi, case, shapes, seed):
         plain, library = cell.pop("plain"), cell.pop("library")
         params = registry.resolve_params(ops.SPEC, problem)
 
-        def kernel():
-            return ops.SPEC.run_call(problem, arrays, params)
-        got, want = kernel().float(), plain().float()
-        torch.cuda.synchronize()
-        max_abs, worst = compare(got, want, BF16_RTOL, ops.TOL[1])
-        if not worst <= 1.0:
-            raise AssertionError(f"flash_attention at {case}'s {label} "
-                                 f"shape: max abs error {max_abs}, {worst}x "
-                                 f"the tolerance")
+        def kernel(tile=params):
+            return ops.SPEC.run_call(problem, arrays, tile)
+        decode = label == "decode"
+        want = plain().float()
+        tiles = [params] if decode else ops.SPEC.candidates(problem)
+        for tile in tiles:
+            max_abs, worst = compare(kernel(tile).float(), want, BF16_RTOL,
+                                     ops.TOL[1])
+            if not worst <= 1.0:
+                raise AssertionError(
+                    f"flash_attention at {case}'s {label} shape, tile "
+                    f"{tile}: max abs error {max_abs}, {worst}x the "
+                    f"tolerance")
+        max_abs, _ = compare(kernel().float(), want, BF16_RTOL, ops.TOL[1])
         ms = cuda_ms(kernel, iters)
         out[label] = dict(
             cell, problem=problem, params=params, max_abs_err=max_abs,
-            ms=ms, graph_ms=graph_ms(kernel) if label == "decode" else None,
-            plain_ms=cuda_ms(plain, 3 if label == "prefill" else iters),
+            ms=ms, graph_ms=graph_ms(kernel) if decode else None,
+            plain_ms=cuda_ms(plain, iters if decode else 3),
             library_ms=cuda_ms(library, iters),
             library_call="torch.nn.functional.scaled_dot_product_attention"
                          ", bf16, K/V repeated per group"
                          + (" and cut to kv_valid_len" if valid else "")
                          + " beforehand",
             share_of_bound=cell["bound_ms"] / ms,
-            tc_share_of_bound=cell["bound_tc_ms"] / ms)
+            split_share_of_bound=cell["bound_split_ms"] / ms)
+        if not decode:
+            out[label]["tiles_ms"] = {
+                f"{t['block_q']}x{t['block_kv']}":
+                cuda_ms(lambda t=t: kernel(t), iters) for t in tiles}
+        if decode:
+            parts = decode_kernels_cell(shape, valid, arrays)
+            thunks = {n: parts.pop(n) for n in (
+                "decode", "decode_plain", "combine", "combine_plain")}
+            out[label]["decode_kernels"] = dict(
+                parts, decode_ms=graph_ms(thunks["decode"]),
+                decode_plain_ms=cuda_ms(thunks["decode_plain"], 20),
+                combine_ms=graph_ms(thunks["combine"]),
+                combine_plain_ms=cuda_ms(thunks["combine_plain"], 20))
         emit("timing", kernel="flash_attention", case=f"{case} {label}",
              nvidia_smi=smi, **out[label])
     return out
@@ -3590,6 +3745,7 @@ def run_gqa_lm_slice(dev, smi):
     registry.reset_counts()
     res = serve_lm.generate(cfg, params, prompts, LM_GEN)
     gen_launches = ops.SPEC.launches
+    gen_kernels = record_flash_launches("gqa_lm_slice")
     tokens = res["tokens"]
     finite = bool(torch.isfinite(logits).all()
                   and torch.isfinite(res["logits"]).all())
@@ -3634,6 +3790,12 @@ def run_gqa_lm_slice(dev, smi):
         bf16["int8_handoff_launches"] == 2 * L
         and f32["int8_handoff_launches"] == 2 * L,
         "generate_launches_one_per_layer_per_call": gen_launches == L * LM_GEN,
+        # the prefill on the bf16 prefill kernel, each step on the decode
+        # kernel and its combine, none on the f32 design
+        "generate_on_the_bf16_kernels": gen_kernels == {
+            "flash_attention_f32": 0, "flash_attention_bf16_prefill": L,
+            "flash_attention_bf16_decode": L * (LM_GEN - 1),
+            "flash_attention_bf16_combine": L * (LM_GEN - 1)},
         "logits_finite": finite,
         "logits_shape": tuple(logits.shape) == (LM_BATCH, cfg.padded_vocab),
         "bf16_matches_plain_attention_and_handoffs":
@@ -3661,7 +3823,8 @@ def run_gqa_lm_slice(dev, smi):
          params=n_params, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
          seconds=seconds,
          launches={"prefill": prefill_launches[0], "generate": gen_launches,
-                   "f32_prefill": f32_launches},
+                   "f32_prefill": f32_launches,
+                   "generate_by_kernel": gen_kernels},
          bf16=bf16, f32=f32, tol_bf16=LM_TOL_BF16, tol_f32=LM_TOL_F32,
          sample=tokens[0, :8].tolist(), nvidia_smi=smi, **numbers, **checks)
     if not all(checks.values()):
@@ -3901,6 +4064,7 @@ def run_mla_lm_slice(dev, smi):
     registry.reset_counts()
     res = serve_lm.generate(cfg, params, prompts, LM_GEN)
     gen_launches = ops.SPEC.launches
+    record_flash_launches("mla_lm_slice")
     tokens = res["tokens"]
     finite = bool(torch.isfinite(logits).all()
                   and torch.isfinite(res["logits"]).all())
@@ -4173,6 +4337,7 @@ def run_jamba_lm_slice(dev, smi, scan_arrays):
     registry.reset_counts()
     res = serve_lm.generate(cfg, params, prompts, LM_GEN)
     gen_launches = scan_attention_launches()
+    record_flash_launches("jamba_lm_slice")
     tokens = res["tokens"]
     finite = bool(torch.isfinite(logits).all()
                   and torch.isfinite(res["logits"]).all())
@@ -4616,6 +4781,7 @@ def run_lm_train_slice(dev, smi, work):
                 flash_attention_bwd_launches=(flash_attention_bwd.launches
                                               - bwd0)))
         launches = (ops.SPEC.launches, flash_attention_bwd.launches)
+        record_flash_launches("lm_train_slice")
     finally:
         for name, attr in (("grads", "compute_grads"),
                            ("clip", "clip_by_global_norm"),
@@ -4768,8 +4934,8 @@ def main():
     tune_launches = run_tune_phase(work / "bundle", dev, work)
     shutil.rmtree(work)
     lm_launches, rwkv_timing = run_lm_slice(dev, smi, rwkv_arrays)
-    gqa_launches, gqa_timing = run_gqa_lm_slice(dev, smi)
-    mla_launches, mla_timing = run_mla_lm_slice(dev, smi)
+    _, gqa_timing = run_gqa_lm_slice(dev, smi)
+    _, mla_timing = run_mla_lm_slice(dev, smi)
     jamba_launches, mamba_timing = run_jamba_lm_slice(dev, smi,
                                                        mamba_arrays)
     del mamba_arrays
@@ -4780,6 +4946,10 @@ def main():
     shutil.rmtree(train_work)
     if rwkv_failures or mamba_failures:
         raise AssertionError("; ".join(rwkv_failures + mamba_failures))
+    # each flash_attention kernel's launches over the main paths
+    flash_by_path = {k: {path: n[k] for path, n in FLASH_LAUNCHES.items()}
+                     for k in flash_kernel_launches()}
+    flash_launches = {k: sum(v.values()) for k, v in flash_by_path.items()}
     new_rows = []
     for spec, mod in ((stencil_ops.SPEC, stencil), (flash_ops.SPEC, flash),
                       (flash8.SPEC, flash8)):
@@ -4794,47 +4964,70 @@ def main():
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         if "bound_tc_ms" in t:
             new_rows[-1]["bound_tc_ms"] = t["bound_tc_ms"]
-        if name == "flash_attention":
-            lm_p, lm_d = gqa_timing["prefill"], gqa_timing["decode"]
-            mla_p = mla_timing["prefill"]
+        if name == "flash_attention":  # the f32 design
             new_rows[-1].update(
-                launches=tune_launches[name] + gqa_launches + mla_launches
-                + jamba_launches[1] + lm_train_launches[0],
-                launches_by_path={"run_tune": tune_launches[name],
-                                  "gqa_lm_slice": gqa_launches,
-                                  "mla_lm_slice": mla_launches,
-                                  "jamba_lm_slice": jamba_launches[1],
-                                  "lm_train_slice": lm_train_launches[0]},
-                mla_prefill_shape=mla_p["problem"],
-                mla_prefill_ms=mla_p["ms"],
-                mla_prefill_plain_ms=mla_p["plain_ms"],
-                mla_prefill_bound_ms=mla_p["bound_ms"],
-                mla_prefill_bound_by=mla_p["bound_by"],
-                mla_prefill_bound_tc_ms=mla_p["bound_tc_ms"],
-                mla_prefill_library_ms=mla_p["library_ms"],
-                mla_prefill_library_backend=mla_p["library_backend"],
-                mla_prefill_max_abs_err=mla_p["max_abs_err"],
-                lm_prefill_shape=lm_p["problem"], lm_prefill_ms=lm_p["ms"],
-                lm_prefill_plain_ms=lm_p["plain_ms"],
-                lm_prefill_bound_ms=lm_p["bound_ms"],
-                lm_prefill_bound_by=lm_p["bound_by"],
-                lm_prefill_bound_tc_ms=lm_p["bound_tc_ms"],
-                lm_prefill_library_ms=lm_p["library_ms"],
-                lm_prefill_max_abs_err=lm_p["max_abs_err"],
-                lm_decode_shape=lm_d["problem"], lm_decode_ms=lm_d["ms"],
-                lm_decode_graph_ms=lm_d["graph_ms"],
-                lm_decode_plain_ms=lm_d["plain_ms"],
-                lm_decode_bound_ms=lm_d["bound_ms"],
-                lm_decode_bound_by=lm_d["bound_by"],
-                lm_decode_library_ms=lm_d["library_ms"],
-                lm_decode_max_abs_err=lm_d["max_abs_err"])
+                launches=flash_launches["flash_attention_f32"],
+                launches_by_path=flash_by_path["flash_attention_f32"],
+                max_abs_err=errs_new[name]["llama3.2-3b prefill 4096 f32"])
         if "step_ms" in t:
             new_rows[-1].update(step_ms=t["step_ms"],
                                 tuned_step_ms=t["tuned_step_ms"],
                                 step_graph_ms=t["step_graph_ms"],
                                 tuned_step_graph_ms=t["tuned_step_graph_ms"],
                                 step_bound_ms=t["step_bound_ms"])
-    print(json.dumps({"kernels": [{
+    lm_p, lm_d = gqa_timing["prefill"], gqa_timing["decode"]
+    lm_t, mla_p = gqa_timing["train forward"], mla_timing["prefill"]
+    dk = lm_d["decode_kernels"]
+    new_rows += [{
+        "name": "flash_attention_bf16", "route": "cuda",
+        "source": flash.BF16_SOURCE, "replaces": flash.REPLACES,
+        "replaces_note": "its bf16 forward; f32 runs flash_attention",
+        "design": FLASH_BF16_DESIGN,
+        "launches": flash_launches["flash_attention_bf16_prefill"],
+        "launches_by_path": flash_by_path["flash_attention_bf16_prefill"],
+        "max_abs_err": lm_p["max_abs_err"], "rtol": BF16_RTOL,
+        "atol": flash_ops.TOL[1], "shape": lm_p["problem"],
+        "params": lm_p["params"], "ms": lm_p["ms"],
+        "plain_ms": lm_p["plain_ms"], "bound_ms": lm_p["bound_ms"],
+        "bound_by": lm_p["bound_by"],
+        "bound_split_ms": lm_p["bound_split_ms"],
+        "library_ms": lm_p["library_ms"],
+        "library_backend": lm_p["library_backend"],
+        "tiles_ms": lm_p["tiles_ms"],
+        **{f"{pre}_{k}": t[k] for pre, t in (("mla_prefill", mla_p),
+                                             ("train_forward", lm_t))
+           for k in ("problem", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                     "bound_by", "bound_split_ms", "library_ms",
+                     "library_backend", "tiles_ms")}}, {
+        "name": "flash_attention_bf16_decode", "route": "cuda",
+        "source": flash.BF16_SOURCE, "replaces": flash.REPLACES,
+        "replaces_note": "its bf16 forward at most 16 rows a kv head (a "
+                         "decode step); partials for the combine",
+        "launches": flash_launches["flash_attention_bf16_decode"],
+        "launches_by_path": flash_by_path["flash_attention_bf16_decode"],
+        "max_abs_err": dk["decode_max_abs_err"],
+        "tol_of_scale": 1e-4, "shape": lm_d["problem"],
+        "splits": dk["splits"], "keys": dk["keys"],
+        "ms": dk["decode_ms"], "plain_ms": dk["decode_plain_ms"],
+        "bound_ms": dk["decode_bound_ms"], "bound_by": dk["decode_bound_by"],
+        "library_ms": None,
+        "op_ms": lm_d["ms"], "op_graph_ms": lm_d["graph_ms"],
+        "op_plain_ms": lm_d["plain_ms"], "op_bound_ms": lm_d["bound_ms"],
+        "op_library_ms": lm_d["library_ms"],
+        "op_max_abs_err": lm_d["max_abs_err"]}, {
+        "name": "flash_attention_bf16_combine", "route": "cuda",
+        "source": flash.BF16_SOURCE, "replaces": flash.REPLACES,
+        "replaces_note": "the decode kernel's partials added in ascending "
+                         "order (no Pallas counterpart: the TPU kernel "
+                         "walks every key in one grid)",
+        "launches": flash_launches["flash_attention_bf16_combine"],
+        "launches_by_path": flash_by_path["flash_attention_bf16_combine"],
+        "max_abs_err": dk["combine_max_abs_err"], "rtol": BF16_RTOL,
+        "atol": 2e-5, "shape": lm_d["problem"], "ms": dk["combine_ms"],
+        "plain_ms": dk["combine_plain_ms"],
+        "bound_ms": dk["combine_bound_ms"],
+        "bound_by": dk["combine_bound_by"], "library_ms": None}]
+    kernels = [{
         "name": "fused_mlp", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES,
         "launches": launches["fused_mlp"] + train_launches
@@ -4909,8 +5102,11 @@ def main():
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "products_design": bwd["products_design"],
         "bound_ms_design": bwd["bound_ms_design"],
-        "library_ms": bwd["library_ms"]}]}),
-        flush=True)
+        "library_ms": bwd["library_ms"]}]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels the main paths never launched: {idle}")
+    print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,8 +3,9 @@
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py::
 // flash_attention (the Pallas TPU kernel, pallas_call at l.73, _kernel at
-// l.23).  For q, k [B, Sq or Skv, H or KV, hd] and v [B, Skv, KV, hdv]
-// (f32 or bf16, H % KV == 0, q head h reading kv head h / (H / KV); hdv
+// l.23) for f32 inputs; bf16 inputs go to csrc/flash_attention_bf16.cu.
+// For q, k [B, Sq or Skv, H or KV, hd] and v [B, Skv, KV, hdv]
+// (f32, H % KV == 0, q head h reading kv head h / (H / KV); hdv
 // = hd as in the TPU kernel, or narrower, as MLA's 192-wide q.k head over
 // its 128-wide v head) it computes, in f32,
 //
@@ -32,8 +33,8 @@
 //   them over the chunk's block_kv / 8 key tiles.
 // - K/V chunks stream through a ring of two shared-memory stages filled
 //   with 16-byte cp.async, so chunk j + 1 is in flight while chunk j
-//   computes.  Rows are padded (f32: hd + 4 words; bf16: hd + 8 halves) so
-//   that the fragment loads of a warp hit 32 distinct banks.  Past a
+//   computes.  Rows are padded (hd + 4 words) so that the fragment loads
+//   of a warp hit 32 distinct banks.  Past a
 //   q.k tile of 128 (160, 192, 256), V has a head tile of its own (128)
 //   and a width of its own, hdv: the accumulator, the V chunks and P @ V
 //   take hdv's width, not hd's (padding V to MLA's 192 would cost 32 more
@@ -42,13 +43,10 @@
 //   (the wrapper pads a narrower V), and their copies stay one loop.  f32
 //   q.k tiles past 128 keep one raw stage, not two: the split buffer
 //   already frees the stage as soon as a chunk is split, and two would
-//   not fit beside the wider q tile.  Once an f32 chunk has landed, the
-//   whole block splits it into TF32 hi and lo once, into a shared buffer
-//   (every warp reads all of K and V, so splitting per warp would do the
-//   same work 8 times); K's fragments then come four at a time by ldmatrix.  bf16 K/V are
-//   staged as their raw bytes and widened when a fragment is loaded; a
-//   bf16 value is exact in TF32, so its lo part is zero and the K and V
-//   products take two mma, not three.
+//   not fit beside the wider q tile.  Once a chunk has landed, the whole
+//   block splits it into TF32 hi and lo once, into a shared buffer (every
+//   warp reads all of K and V, so splitting per warp would do the same
+//   work 8 times); K's fragments then come four at a time by ldmatrix.
 // - S = Q K^T accumulates in C fragments; the online softmax runs on them
 //   (a thread holds 2 rows; row max and sum over the 4 lanes of a quad by
 //   __shfl_xor_sync).  P never leaves registers: the P @ V product sums
@@ -70,11 +68,9 @@
 // exp(-1e30 - m) = 0 with a correction of 1, so skipping changes no bit.
 // Only chunks that cross a mask boundary pay for the mask.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #include "../../csrc/tf32x3.cuh"
 
@@ -91,11 +87,8 @@ struct Problem {
   float scale;
 };
 
-// Row strides, in elements, of the q tile (f32) and of a K/V stage.
-__host__ __device__ constexpr int q_stride(int hdt) { return hdt + 4; }
-__host__ __device__ constexpr int kv_stride(int hdt, bool bf16) {
-  return bf16 ? hdt + 8 : hdt + 4;
-}
+// Row stride, in floats, of the q tile and of a K/V stage.
+__host__ __device__ constexpr int row_stride(int hdt) { return hdt + 4; }
 
 // hd padded to the head tile the kernel is built for: 32, 64, 96 or 128,
 // then 160, 192 or 256 (q.k only).
@@ -109,44 +102,37 @@ __host__ __device__ constexpr int v_tile(int hdt) {
   return hdt < 128 ? hdt : 128;
 }
 
-// K/V stages in flight: two, one for f32 q.k tiles past 128.
-__host__ __device__ constexpr int stages(int hdt, bool bf16) {
-  return bf16 || hdt <= 128 ? STAGES : 1;
+// K/V stages in flight: two, one for q.k tiles past 128.
+__host__ __device__ constexpr int stages(int hdt) {
+  return hdt <= 128 ? STAGES : 1;
 }
 
-// Dynamic shared memory of one block: the f32 q tile, stages x {K, V}
-// chunks as they arrive, and for f32 inputs one chunk split into TF32
-// {K hi, K lo, V hi, V lo}; flash_attention.py's smem_bytes computes the
-// same.
-__host__ __device__ constexpr size_t smem_size(int bq, int bkv, int hd,
-                                               bool bf16) {
-  return sizeof(float) * (size_t)bq * q_stride(head_tile(hd)) +
-         (size_t)bkv *
-             (kv_stride(head_tile(hd), bf16) +
-              kv_stride(v_tile(head_tile(hd)), bf16)) *
-             (bf16 ? 2 * stages(head_tile(hd), bf16)
-                   : 4 * (stages(head_tile(hd), bf16) + 2));
+// Dynamic shared memory of one block: the q tile, stages x {K, V} chunks
+// as they arrive, and one chunk split into TF32 {K hi, K lo, V hi, V lo};
+// flash_attention.py's smem_bytes computes the same.
+__host__ __device__ constexpr size_t smem_size(int bq, int bkv, int hd) {
+  return sizeof(float) *
+         ((size_t)bq * row_stride(head_tile(hd)) +
+          (size_t)bkv *
+              (row_stride(head_tile(hd)) +
+               row_stride(v_tile(head_tile(hd)))) *
+              (stages(head_tile(hd)) + 2));
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// HDT: the q.k head tile; BKV: keys per chunk; T: float or
-// __nv_bfloat16.  V's head tile is v_tile(HDT).
-template <int HDT, int BKV, typename T>
+// HDT: the q.k head tile; BKV: keys per chunk.  V's head tile is
+// v_tile(HDT).
+template <int HDT, int BKV>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
                        Problem p) {
-  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int HDVT = v_tile(HDT), ST = stages(HDT, BF16);
+  constexpr int HDVT = v_tile(HDT), ST = stages(HDT);
   // past 128, V has a tile of its own and a width of its own (hdv); up to
   // 128 it is as wide as q and K (the wrapper pads a narrower V)
   constexpr bool NARROW_V = HDT > 128;
-  constexpr int QS = q_stride(HDT), KS = kv_stride(HDT, BF16);
-  constexpr int VS = kv_stride(HDVT, BF16);
+  constexpr int QS = row_stride(HDT), KS = row_stride(HDT);
+  constexpr int VS = row_stride(HDVT);
   constexpr int NT = BKV / 8;  // key tiles of a chunk
   constexpr int DT = HDT / 8;  // q.k head-dim tiles
   constexpr int DV = HDVT / 8;  // v head-dim tiles
@@ -157,7 +143,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int BQ = nwarps * 16;
   constexpr int KVSTAGE = BKV * (KS + VS);  // elements of a K/V stage
   float* const Qs = reinterpret_cast<float*>(smem_raw);        // [BQ, QS]
-  T* const KVs = reinterpret_cast<T*>(Qs + (size_t)BQ * QS);   // stages
+  float* const KVs = Qs + (size_t)BQ * QS;                     // stages
   // f32: the current chunk split once for all warps, K [BKV, KS] and V
   // [BKV, VS]
   uint32_t* const Khi =
@@ -185,7 +171,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // stale or never-written stage rows must be finite (p = 0 times them),
   // and the head-dim padding zero: clear the stages once
   {
-    const int n16 = (int)(ST * KVSTAGE * sizeof(T) / 16);
+    const int n16 = (int)(ST * KVSTAGE * sizeof(float) / 16);
     float4* z = reinterpret_cast<float4*>(KVs);
     for (int i = tid; i < n16; i += nthreads)
       z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -194,15 +180,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // elements between keys of K and of V
   const size_t key_stride = (size_t)p.KV * hd, vkey_stride = (size_t)p.KV * hdv;
-  const T* const kbase = k + ((size_t)b * p.Skv * p.KV + g) * hd;
-  const T* const vbase = v + ((size_t)b * p.Skv * p.KV + g) * hdv;
+  const float* const kbase = k + ((size_t)b * p.Skv * p.KV + g) * hd;
+  const float* const vbase = v + ((size_t)b * p.Skv * p.KV + g) * hdv;
   auto load_chunk = [&](int kv0, int stage) {
     const int nc = min(BKV, kv_end - kv0);
-    T* const Kd = KVs + (size_t)stage * KVSTAGE;
-    T* const Vd = Kd + (size_t)BKV * KS;
-    const T* const ks = kbase + (size_t)kv0 * key_stride;
-    const T* const vs = vbase + (size_t)kv0 * vkey_stride;
-    constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
+    float* const Kd = KVs + (size_t)stage * KVSTAGE;
+    float* const Vd = Kd + (size_t)BKV * KS;
+    const float* const ks = kbase + (size_t)kv0 * key_stride;
+    const float* const vs = vbase + (size_t)kv0 * vkey_stride;
+    constexpr int EPC = 16 / sizeof(float);  // elements per 16-byte chunk
     if constexpr (!NARROW_V) {  // K and V rows of one width
       if (p.vec) {
         const int cpr = hd / EPC;
@@ -246,8 +232,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + r;
     Qs[r * QS + d] =
         qi < p.Sq && d < hd
-            ? to_f32(q[(((size_t)b * p.Sq + qi) * p.H + h) * hd + d]) *
-                  p.scale
+            ? q[(((size_t)b * p.Sq + qi) * p.H + h) * hd + d] * p.scale
             : 0.0f;
   }
 
@@ -270,39 +255,37 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int j = 0; j < n_chunks; ++j) {
     const int kv0 = j * BKV;
-    const T* const Ks = KVs + (size_t)(j % ST) * KVSTAGE;
-    const T* const Vs = Ks + (size_t)BKV * KS;
+    const float* const Ks = KVs + (size_t)(j % ST) * KVSTAGE;
+    const float* const Vs = Ks + (size_t)BKV * KS;
     cp_async_wait<0>();
     __syncthreads();  // chunk j landed; every warp is done with chunk j - 1
-    if constexpr (!BF16) {
-      // split chunk j into TF32 hi and lo once, for all warps (four
-      // floats at a time; stale rows past the chunk are finite)
-      auto split4 = [](const float* src, uint32_t* hi, uint32_t* lo) {
-        const float4 f = *reinterpret_cast<const float4*>(src);
-        uint4 h, l;
-        tf32_split(f.x, h.x, l.x);
-        tf32_split(f.y, h.y, l.y);
-        tf32_split(f.z, h.z, l.z);
-        tf32_split(f.w, h.w, l.w);
-        *reinterpret_cast<uint4*>(hi) = h;
-        *reinterpret_cast<uint4*>(lo) = l;
-      };
-      if constexpr (HDVT == HDT) {
-        for (int i = tid; i < BKV * HDT / 4; i += nthreads) {
-          const int r = i / (HDT / 4), c = (i - r * (HDT / 4)) * 4;
-          const int at = r * KS + c;
-          split4(Ks + at, Khi + at, Klo + at);
-          split4(Vs + at, Vhi + at, Vlo + at);
-        }
-      } else {
-        for (int i = tid; i < BKV * HDT / 4; i += nthreads) {
-          const int r = i / (HDT / 4), c = (i - r * (HDT / 4)) * 4;
-          split4(Ks + r * KS + c, Khi + r * KS + c, Klo + r * KS + c);
-        }
-        for (int i = tid; i < BKV * HDVT / 4; i += nthreads) {
-          const int r = i / (HDVT / 4), c = (i - r * (HDVT / 4)) * 4;
-          split4(Vs + r * VS + c, Vhi + r * VS + c, Vlo + r * VS + c);
-        }
+    // split chunk j into TF32 hi and lo once, for all warps (four
+    // floats at a time; stale rows past the chunk are finite)
+    auto split4 = [](const float* src, uint32_t* hi, uint32_t* lo) {
+      const float4 f = *reinterpret_cast<const float4*>(src);
+      uint4 h, l;
+      tf32_split(f.x, h.x, l.x);
+      tf32_split(f.y, h.y, l.y);
+      tf32_split(f.z, h.z, l.z);
+      tf32_split(f.w, h.w, l.w);
+      *reinterpret_cast<uint4*>(hi) = h;
+      *reinterpret_cast<uint4*>(lo) = l;
+    };
+    if constexpr (HDVT == HDT) {
+      for (int i = tid; i < BKV * HDT / 4; i += nthreads) {
+        const int r = i / (HDT / 4), c = (i - r * (HDT / 4)) * 4;
+        const int at = r * KS + c;
+        split4(Ks + at, Khi + at, Klo + at);
+        split4(Vs + at, Vhi + at, Vlo + at);
+      }
+    } else {
+      for (int i = tid; i < BKV * HDT / 4; i += nthreads) {
+        const int r = i / (HDT / 4), c = (i - r * (HDT / 4)) * 4;
+        split4(Ks + r * KS + c, Khi + r * KS + c, Klo + r * KS + c);
+      }
+      for (int i = tid; i < BKV * HDVT / 4; i += nthreads) {
+        const int r = i / (HDVT / 4), c = (i - r * (HDVT / 4)) * 4;
+        split4(Vs + r * VS + c, Vhi + r * VS + c, Vlo + r * VS + c);
       }
     }
     // one stage: every thread has read the raw chunk before it refills
@@ -310,7 +293,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if constexpr (ST == 1) __syncthreads();
     // chunk j + 1 into the stage chunk j - 1 left
     if (j + 1 < n_chunks) load_chunk(kv0 + BKV, (j + 1) % ST);
-    if constexpr (!BF16 && ST > 1) __syncthreads();  // the split is visible
+    if constexpr (ST > 1) __syncthreads();  // the split is visible
 
     if (live && kv0 < w_end) {
 
@@ -333,24 +316,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           BFrags<GN> bf;
 #pragma unroll
           for (int i = 0; i < GN; i += 2) {
-            if constexpr (BF16) {
-#pragma unroll
-              for (int u = i; u < i + 2; ++u) {
-                const int at = ((n0 + u) * 8 + gid) * KS + kt * 8 + tig;
-                bf.exact(u, to_f32(Ks[at]), to_f32(Ks[at + 4]));
-              }
-            } else {
-              // key tiles i and i + 1, k 0-3 and 4-7: one ldmatrix each
-              // for hi and lo (lane: tile i + lane / 16, row lane % 8)
-              const int at = ((n0 + i + (lane >> 4)) * 8 + (lane & 7)) * KS +
-                             kt * 8 + ((lane >> 1) & 4);
-              ldmatrix_x4(bf.hi[i][0], bf.hi[i][1], bf.hi[i + 1][0],
-                          bf.hi[i + 1][1], Khi + at);
-              ldmatrix_x4(bf.lo[i][0], bf.lo[i][1], bf.lo[i + 1][0],
-                          bf.lo[i + 1][1], Klo + at);
-            }
+            // key tiles i and i + 1, k 0-3 and 4-7: one ldmatrix each for
+            // hi and lo (lane: tile i + lane / 16, row lane % 8)
+            const int at = ((n0 + i + (lane >> 4)) * 8 + (lane & 7)) * KS +
+                           kt * 8 + ((lane >> 1) & 4);
+            ldmatrix_x4(bf.hi[i][0], bf.hi[i][1], bf.hi[i + 1][0],
+                        bf.hi[i + 1][1], Khi + at);
+            ldmatrix_x4(bf.lo[i][0], bf.lo[i][1], bf.lo[i + 1][0],
+                        bf.lo[i + 1][1], Klo + at);
           }
-          mma_3xtf32<GN, BF16>(
+          mma_3xtf32<GN, false>(
               [&](int i) -> float (&)[4] { return s[n0 + i]; }, a_hi, a_lo,
               bf);
         }
@@ -419,12 +394,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int i = 0; i < GD; ++i) {
             const int at = vat + (d0 + i) * 8;
-            if constexpr (BF16)
-              bf.exact(i, to_f32(Vs[at]), to_f32(Vs[at + VS]));
-            else
-              bf.load(i, Vhi + at, Vlo + at, VS);
+            bf.load(i, Vhi + at, Vlo + at, VS);
           }
-          mma_3xtf32<GD, BF16>(
+          mma_3xtf32<GD, false>(
               [&](int i) -> float (&)[4] { return acc[d0 + i]; }, p_hi,
               p_lo, bf);
         }
@@ -438,18 +410,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = wq0 + gid + 8 * r;
     if (qi >= p.Sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    T* const orow = o + (((size_t)b * p.Sq + qi) * p.H + h) * hdv;
+    float* const orow = o + (((size_t)b * p.Sq + qi) * p.H + h) * hdv;
 #pragma unroll
     for (int dt = 0; dt < DV; ++dt)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int d = dt * 8 + 2 * tig + e;
         if (d >= hdv) continue;
-        const float val = acc[dt][2 * r + e] / den;
-        if constexpr (BF16)
-          orow[d] = __float2bfloat16_rn(val);
-        else
-          orow[d] = val;
+        orow[d] = acc[dt][2 * r + e] / den;
       }
   }
 }
@@ -457,73 +425,55 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Shared memory a block may use on Hopper (227 KB).
 #define SMEM_PER_BLOCK 232448
 
-template <int HDT, int BKV, typename T>
-static cudaError_t launch(const void* q, const void* k, const void* v,
-                          void* o, const Problem& p, int block_q,
+template <int HDT, int BKV>
+static cudaError_t launch(const float* q, const float* k, const float* v,
+                          float* o, const Problem& p, int block_q,
                           cudaStream_t stream) {
-  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   // tiles that fit at no block_q are not built
-  if constexpr (smem_size(64, BKV, HDT, BF16) > SMEM_PER_BLOCK) {
+  if constexpr (smem_size(64, BKV, HDT) > SMEM_PER_BLOCK) {
     return cudaErrorInvalidValue;
   } else {
-  const size_t smem = smem_size(block_q, BKV, p.hd, BF16);
+  const size_t smem = smem_size(block_q, BKV, p.hd);
   if (smem > SMEM_PER_BLOCK) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<HDT, BKV, T>,
+      flash_attention_kernel<HDT, BKV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((p.Sq + block_q - 1) / block_q), (unsigned)p.H,
                   (unsigned)p.B);
-  flash_attention_kernel<HDT, BKV, T><<<grid, block_q * 2, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), p);
+  flash_attention_kernel<HDT, BKV><<<grid, block_q * 2, smem, stream>>>(
+      q, k, v, o, p);
   return cudaGetLastError();
   }
 }
 
-template <int HDT, typename T>
-static cudaError_t launch_kv(int block_q, int block_kv, const void* q,
-                             const void* k, const void* v, void* o,
+template <int HDT>
+static cudaError_t launch_kv(int block_q, int block_kv, const float* q,
+                             const float* k, const float* v, float* o,
                              const Problem& p, cudaStream_t s) {
   switch (block_kv) {
-    case 32: return launch<HDT, 32, T>(q, k, v, o, p, block_q, s);
-    case 64: return launch<HDT, 64, T>(q, k, v, o, p, block_q, s);
-    case 128: return launch<HDT, 128, T>(q, k, v, o, p, block_q, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-static cudaError_t launch_hd(int block_q, int block_kv, const void* q,
-                             const void* k, const void* v, void* o,
-                             const Problem& p, cudaStream_t s) {
-  switch (head_tile(p.hd)) {
-    case 32: return launch_kv<32, T>(block_q, block_kv, q, k, v, o, p, s);
-    case 64: return launch_kv<64, T>(block_q, block_kv, q, k, v, o, p, s);
-    case 96: return launch_kv<96, T>(block_q, block_kv, q, k, v, o, p, s);
-    case 128: return launch_kv<128, T>(block_q, block_kv, q, k, v, o, p, s);
-    case 160: return launch_kv<160, T>(block_q, block_kv, q, k, v, o, p, s);
-    case 192: return launch_kv<192, T>(block_q, block_kv, q, k, v, o, p, s);
-    case 256: return launch_kv<256, T>(block_q, block_kv, q, k, v, o, p, s);
+    case 32: return launch<HDT, 32>(q, k, v, o, p, block_q, s);
+    case 64: return launch<HDT, 64>(q, k, v, o, p, block_q, s);
+    case 128: return launch<HDT, 128>(q, k, v, o, p, block_q, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 extern "C" size_t flash_attention_smem_bytes(int block_q, int block_kv,
-                                             int hd, int bf16) {
-  return smem_size(block_q, block_kv, hd, bf16 != 0);
+                                             int hd) {
+  return smem_size(block_q, block_kv, hd);
 }
 
 // q [B, Sq, H, hd], k [B, Skv, KV, hd], v [B, Skv, KV, hdv] and o [B, Sq,
-// H, hdv] are contiguous device pointers of f32 (bf16 = 0) or bf16 (bf16
-// = 1); hd is 1 to 256; hdv is hd, or, past a q.k tile of 128, 1 to 128
-// (the wrapper pads a narrower V up to a tile of 128).  kv_valid is already clamped to [0, Skv].
-// block_q is 64 or 128 (4 or 8 warps), block_kv 32, 64 or 128.  Returns
-// a cudaError_t (0 on success); the launch is asynchronous on `stream`.
-extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int B, int Sq, int Skv, int H,
-                               int KV, int hd, int hdv, int causal,
-                               int q_offset, int kv_valid, int bf16,
+// H, hdv] are contiguous f32 device pointers; hd is 1 to 256; hdv is hd,
+// or, past a q.k tile of 128, 1 to 128 (the wrapper pads a narrower V up
+// to a tile of 128).  kv_valid is already clamped to [0, Skv].  block_q
+// is 64 or 128 (4 or 8 warps), block_kv 32, 64 or 128.  Returns a
+// cudaError_t (0 on success); the launch is asynchronous on `stream`.
+extern "C" int flash_attention(const float* q, const float* k,
+                               const float* v, float* o, int B, int Sq,
+                               int Skv, int H, int KV, int hd, int hdv,
+                               int causal, int q_offset, int kv_valid,
                                float scale, int block_q, int block_kv,
                                void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || hd < 1 ||
@@ -536,12 +486,19 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   p.hdv = hdv;
   p.causal = causal; p.q_offset = q_offset; p.kv_valid = kv_valid;
   p.scale = scale;
-  const int elem = bf16 ? 2 : 4;
-  p.vec = (hd * elem) % 16 == 0 && (hdv * elem) % 16 == 0 &&
+  p.vec = hd % 4 == 0 && hdv % 4 == 0 &&
           reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(v) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return (int)launch_hd<__nv_bfloat16>(block_q, block_kv, q, k, v, o, p, s);
-  return (int)launch_hd<float>(block_q, block_kv, q, k, v, o, p, s);
+  const int bq = block_q, bkv = block_kv;
+  switch (head_tile(hd)) {
+    case 32: return (int)launch_kv<32>(bq, bkv, q, k, v, o, p, s);
+    case 64: return (int)launch_kv<64>(bq, bkv, q, k, v, o, p, s);
+    case 96: return (int)launch_kv<96>(bq, bkv, q, k, v, o, p, s);
+    case 128: return (int)launch_kv<128>(bq, bkv, q, k, v, o, p, s);
+    case 160: return (int)launch_kv<160>(bq, bkv, q, k, v, o, p, s);
+    case 192: return (int)launch_kv<192>(bq, bkv, q, k, v, o, p, s);
+    case 256: return (int)launch_kv<256>(bq, bkv, q, k, v, o, p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -40,7 +40,7 @@ import torch
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.flash_attention import ops as f32_ops
 from repro_torch.kernels.flash_attention.flash_attention import (
-    check_shapes, softmax_scale)
+    check_shapes, sm_count, softmax_scale)
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_mask
 from repro_torch.quant.quantize import _scale, quantize_kv
 
@@ -126,12 +126,6 @@ def split_count(b: int, sq: int, skv: int, h: int, kv: int, block_q: int,
         return 1
     return max(1, min(BLOCKS_PER_SM * sms // blocks, MAX_SPLITS,
                       skv // MIN_SPLIT_KEYS))
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of the card."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def flash_attention_int8_ref(q, kq, ks, vq, vs, *, causal=True,

@@ -2,15 +2,20 @@
 ``repro/kernels/flash_attention/ops.py``).
 
 Tunables: ``block_q`` (query rows per block: 4 or 8 warps of 16 rows)
-and ``block_kv`` (the K/V chunk), on the ladders the kernel launches,
+and ``block_kv`` (the K/V chunk), on the ladders the kernels launch,
 which are not the reference's (16 to 256 for both): a warp's mma
 fragments are 16 rows tall, and at hd 128 in f32 only chunks of 32 keys
-fit beside the q tile and their TF32 split.  Validation is to a
-tolerance, not bit-exact: the online-softmax rescaling order changes with the chunking, the kernel
-scales q before the dot where the oracle divides the scores, and its
-products are 3xTF32 on the tensor cores (about 2^-22 relative per
-product, summed in f32), so candidates must match the naive-softmax plain
-version to f32 tolerance.
+fit beside the q tile and their TF32 split.  The bf16 decode kernel (at
+most 16 rows a kv head) takes neither: its key split comes from the
+problem and the card.  Validation is to a tolerance, not bit-exact: the
+online-softmax rescaling order changes with the chunking.  f32: the
+kernel scales q before the dot where the oracle divides the scores, and
+its products are 3xTF32 on the tensor cores (about 2^-22 relative per
+product, summed in f32), so candidates must match the naive-softmax
+plain version to f32 tolerance.  bf16: q.k is one bf16 product of exact
+operands, scaled afterwards as the oracle does, and P @ V two (P split
+into bf16 hi and lo, 2^-17 of p together), so the f32 results round to
+bf16 outputs one ulp from the plain version's at most.
 
 The op is differentiable: the spec's ``backward`` makes
 ``registry.dispatch`` wrap the call in an autograd function whose
@@ -23,17 +28,24 @@ import torch
 
 from repro_torch.kernels import registry
 from repro_torch.kernels.flash_attention.flash_attention import (
-    BLOCK_KV, BLOCK_Q, check_shapes, fits, flash_attention,
+    BLOCK_KV, BLOCK_Q, KERNELS, check_shapes, fits, flash_attention,
     flash_attention_bwd)
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
 
 DEFAULT_BLOCK_Q, DEFAULT_BLOCK_KV = 128, 32
+#: the bf16 prefill kernel's default tile: 8 warps over chunks of 128 keys
+#: (one barrier a chunk), the fastest tile at the LMs' prefill shapes
+#: (chip_smoke.py's ``tiles_ms``); the f32 kernel's is the params' own (at
+#: hd 128 in f32 only chunks of 32 keys fit)
+BF16_DEFAULTS = {"block_q": 128, "block_kv": 128}
 #: (rtol, atol) against the plain version on the card, the reference's
 #: tolerance: both compute in f32, apart by the order of the softmax's
 #: sums, where the 1/sqrt(hd) scale is applied and the 3xTF32 split of
 #: each product (tests/test_torch_flash_attention.py emulates it at the
-#: llama3.2-3b shape: far inside).
+#: llama3.2-3b shape: far inside).  bf16 outputs are held to an rtol of
+#: 2**-7 instead, one bf16 ulp: the kernel's bf16 products (P as hi + lo)
+#: keep its f32 results that close (emulated there too).
 TOL = (2e-5, 2e-5)
 #: the backward kernel against the plain backward, each gradient's
 #: largest error over its largest magnitude, by input dtype.  The two
@@ -115,9 +127,9 @@ def cache_key(problem, backend):
 
 
 def _fits(problem, params):
-    """The port's design, not the Pallas one (which keeps a head's whole
-    K/V resident): the q tile, two K/V stages and the split chunk in
-    shared memory
+    """The port's designs, not the Pallas one (which keeps a head's whole
+    K/V resident): f32, the q tile, the K/V stages and the split chunk in
+    shared memory; bf16, two bf16 K/V stages, at least the q tile
     (:func:`~repro_torch.kernels.flash_attention.flash_attention.fits`)."""
     return fits(problem["hd"], params["block_q"], params["block_kv"],
                 problem["dtype"] == "bfloat16", problem.get("hdv"))
@@ -131,12 +143,21 @@ def _supports(problem):
 
 def candidates(spec, problem, fits_fn):
     """The reference's ladder clip: no tile past the extent rounded up to
-    the ladder's smallest rung (16 on the reference's ladders)."""
+    the ladder's smallest rung (16 on the reference's ladders); the
+    problem's defaults first."""
     bq, bkv = spec.params
     clip = {"block_q": registry.round_up(problem["sq"], bq.ladder[0]),
             "block_kv": registry.round_up(problem["skv"], bkv.ladder[0])}
     return registry.ladder_candidates(spec.params, clip,
-                                      fits=lambda c: fits_fn(problem, c))
+                                      fits=lambda c: fits_fn(problem, c),
+                                      defaults=spec.defaults(problem))
+
+
+def _defaults(problem):
+    """``BF16_DEFAULTS`` for bf16 problems, the params' own for f32."""
+    if problem["dtype"] == "bfloat16":
+        return BF16_DEFAULTS
+    return {"block_q": DEFAULT_BLOCK_Q, "block_kv": DEFAULT_BLOCK_KV}
 
 
 def block_params(block_q=(DEFAULT_BLOCK_Q, BLOCK_Q),
@@ -168,6 +189,7 @@ SPEC = registry.register(registry.KernelSpec(
     fits=_fits, supports=_supports, tol=TOL,
     backward=registry.Backward(kernel=flash_attention_bwd, run_call=_bwd_run,
                                ref_call=_bwd_ref),
+    parts=KERNELS, problem_defaults=_defaults,
     default_problems=(
         # the reference's: prefill-shaped, square causal, GQA group of 4
         {"b": 1, "sq": 256, "skv": 256, "h": 8, "kv": 2, "hd": 64,

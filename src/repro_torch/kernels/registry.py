@@ -106,7 +106,14 @@ class KernelSpec:
       accuracy against f32 is the quant gate's concern
       (:mod:`repro_torch.quant.gate`);
     * ``backward``, where the kernel has one, makes dispatch
-      differentiable (:class:`Backward`).
+      differentiable (:class:`Backward`);
+    * ``parts`` are the wrappers of the kernels ``kernel`` launches
+      through, where it has more than one, each with its own
+      ``launches`` count (flash attention: f32, bf16 prefill, bf16 decode
+      and its combine);
+    * ``problem_defaults(problem)``, where set, gives the tunables'
+      defaults for a problem in place of the params' own (flash
+      attention's differ by dtype: one design for each).
     """
     name: str
     params: Tuple[TunableParam, ...]
@@ -123,6 +130,8 @@ class KernelSpec:
     tier: str = "f32"
     default_problems: Tuple[dict, ...] = ()
     backward: Optional[Backward] = None
+    parts: Tuple[Callable, ...] = ()
+    problem_defaults: Optional[Callable] = None
     plain_calls: int = 0
     unsupported: int = 0
 
@@ -134,10 +143,14 @@ class KernelSpec:
         self.kernel.launches = 0
         if self.backward is not None:
             self.backward.kernel.launches = 0
+        for part in self.parts:
+            part.launches = 0
         self.plain_calls = 0
         self.unsupported = 0
 
-    def defaults(self) -> Dict[str, int]:
+    def defaults(self, problem: Optional[dict] = None) -> Dict[str, int]:
+        if problem is not None and self.problem_defaults is not None:
+            return dict(self.problem_defaults(problem))
         return {p.name: p.default for p in self.params}
 
     def lookup_keys(self, problem: dict, backend: str = BACKEND) -> List[str]:
@@ -189,21 +202,24 @@ def reset_counts() -> None:
 
 def ladder_candidates(spec_params: Sequence[TunableParam],
                       clip: Optional[Dict[str, int]] = None,
-                      fits: Optional[Callable] = None) -> List[dict]:
-    """Cartesian product of the params' ladders, defaults first, each
-    axis clipped to ``clip[name]`` (inclusive; the default always stays),
-    filtered by ``fits``.
+                      fits: Optional[Callable] = None,
+                      defaults: Optional[Dict[str, int]] = None
+                      ) -> List[dict]:
+    """Cartesian product of the params' ladders, defaults first (the
+    params' own unless ``defaults`` names them), each axis clipped to
+    ``clip[name]`` (inclusive; the default always stays), filtered by
+    ``fits``.
 
     Defaults first matters: the sweep measures the all-defaults combo as
     the baseline every winner's speedup is reported against, and ties
     keep the default.
     """
-    clip = clip or {}
+    clip, defaults = clip or {}, defaults or {}
     combos: List[dict] = [{}]
     for p in spec_params:
-        hi = clip.get(p.name)
-        vals = [p.default] + [int(v) for v in p.ladder
-                              if v != p.default and (hi is None or v <= hi)]
+        hi, first = clip.get(p.name), defaults.get(p.name, p.default)
+        vals = [first] + [int(v) for v in p.ladder
+                          if v != first and (hi is None or v <= hi)]
         combos = [dict(c, **{p.name: v}) for c in combos for v in vals]
     return [c for c in combos if fits is None or fits(c)]
 
@@ -212,7 +228,7 @@ def fitting_defaults(spec: KernelSpec, problem: dict) -> Dict[str, int]:
     """The spec's defaults, stepped down until they fit this card: the
     largest parameter drops one rung of its ladder at a time.  Raises
     when nothing on the ladders fits."""
-    params = spec.defaults()
+    params = spec.defaults(problem)
     while not spec.fits(problem, params):
         lower = {p.name: max((v for v in p.ladder if v < params[p.name]),
                              default=None) for p in spec.params}
@@ -248,6 +264,7 @@ def resolve_params_info(spec: KernelSpec, problem: dict,
     ``default``.
     """
     overrides = {k: v for k, v in (overrides or {}).items() if v is not None}
+    defaults = spec.defaults(problem)
     tuned = None
     params: Dict[str, int] = {}
     sources = set()
@@ -262,7 +279,7 @@ def resolve_params_info(spec: KernelSpec, problem: dict,
             params[p.name] = int(tuned[p.name])
             sources.add("tuned")
         else:
-            params[p.name] = p.default
+            params[p.name] = defaults[p.name]
             sources.add("default")
     provenance = "+".join(s for s in ("explicit", "tuned", "default")
                           if s in sources) or "default"

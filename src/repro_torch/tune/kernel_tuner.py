@@ -136,7 +136,7 @@ def sweep(kernel, problem: dict, *, reps: int = 5, warmup: int = 2,
     generator = torch.Generator().manual_seed(seed)
     arrays = spec.make_call(problem, generator, dev)
     ref = spec.ref_call(problem, arrays)
-    defaults = spec.defaults()
+    defaults = spec.defaults(problem)
 
     swept = []
     for params in spec.candidates(problem):

@@ -1285,6 +1285,101 @@ def test_flash_attention_refuses_what_it_does_not_take(dev):
     assert ops.SPEC.launches == 0 and ops.SPEC.plain_calls == 0
 
 
+# ------------------------------------------ flash_attention bf16 design ---
+# (b, sq, skv, h, kv, hd, hdv), keywords: the decode kernel at Sq 1 with
+# GQA groups 1, 3 and 4 over the llama3.2-3b decode step's 2,081-key cache
+# and kv_valid_len 0, 1, 2,049 and 2,081; Sq x group 15, 16 (decode) and 17
+# (prefill); MLA's 192 / 128 and the widest 256 / 128
+BF16_CASES = [
+    ((4, 1, 2081, g * 8, 8, 128, 128), {"causal": False, "kv_valid_len": n})
+    for g in (1, 3, 4) for n in (0, 1, 2049, 2081)
+] + [
+    ((2, 5, 300, 6, 2, 64, 64), {"q_offset": 290}),        # 15 rows
+    ((2, 16, 300, 2, 2, 96, 96), {"q_offset": 280}),       # 16
+    ((2, 17, 300, 2, 2, 96, 96), {"q_offset": 280}),       # 17: prefill
+    ((2, 4, 300, 12, 3, 40, 40), {"q_offset": -2}),        # 16, no key seen
+    ((4, 1, 2081, 16, 16, 192, 128), {"causal": False, "kv_valid_len": 2049}),
+    ((2, 1, 513, 16, 16, 256, 128), {"causal": False}),
+    ((2, 200, 200, 16, 16, 192, 128), {}),
+    ((1, 150, 333, 4, 1, 256, 128), {"q_offset": 183}),
+]
+
+
+def _bf16_ids(case):
+    (b, sq, skv, h, kv, hd, hdv), kw = case
+    return f"sq{sq}-skv{skv}-g{h // kv}-hd{hd}-{hdv}-" + "-".join(
+        f"{k}{v}" for k, v in kw.items())
+
+
+@pytest.mark.parametrize("case", BF16_CASES, ids=_bf16_ids)
+def test_flash_attention_bf16_kernels_match_plain_version(dev, case):
+    """bf16 through the op and at every tile that fits: the decode kernel
+    and its combine at most 16 rows a kv head, the prefill kernel past it,
+    never the f32 design or the plain version; within one bf16 ulp of the
+    plain version; a relaunch gives the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    shape, kw = case
+    b, sq, skv, h, kv, hd, hdv = shape
+    q, k, v = _attn_wide(shape, dev, seed=sq + skv, dtype=torch.bfloat16)
+    want = flash_attention_ref(q, k, v, **kw).float()
+    tol = dict(rtol=2 ** -7, atol=ops.TOL[1])
+    decode = fa.is_decode(sq, h, kv)
+    ops.SPEC.reset_counts()
+    got = ops.flash_attention_op(q, k, v, **kw)
+    again = ops.flash_attention_op(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.SPEC.launches == 2 and ops.SPEC.plain_calls == 0
+    assert {f.__name__: f.launches for f in fa.KERNELS} == {
+        "flash_attention_f32": 0,
+        "flash_attention_bf16_prefill": 0 if decode else 2,
+        "flash_attention_bf16_decode": 2 if decode else 0,
+        "flash_attention_bf16_combine": 2 if decode else 0}
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want, **tol)
+    for bq, bkv in [(bq, bkv) for bq in fa.BLOCK_Q for bkv in fa.BLOCK_KV
+                    if fa.fits(hd, bq, bkv, True, hdv)]:
+        got = fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv, **kw)
+        again = fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got.float(), want, **tol,
+                                   msg=lambda m: f"tile {bq}x{bkv}: {m}")
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5, 32])
+@pytest.mark.parametrize("valid", [0, 700, 2081])
+def test_flash_attention_bf16_decode_partials_and_combine(dev, splits,
+                                                          valid):
+    """The decode kernel's partials at any split count against their plain
+    version (f32, to 1e-4 of the largest magnitude: ex2.approx and the
+    order of the sums), and the combine kernel against its plain version
+    on the same partials (one bf16 ulp)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_combine_ref, flash_attention_decode_ref)
+    q, k, v = _attn_wide((4, 1, 2081, 24, 8, 128, 128), dev, seed=splits,
+                         dtype=torch.bfloat16)
+    kw = dict(causal=False, q_offset=0)
+    part_acc, part_ml = fa.flash_attention_bf16_decode(q, k, v, valid=valid,
+                                                       splits=splits, **kw)
+    want_acc, want_ml = flash_attention_decode_ref(
+        q, k, v, kv_valid_len=valid, splits=splits, **kw)
+    torch.cuda.synchronize()
+    for got, want in ((part_acc, want_acc), (part_ml, want_ml)):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * (1 + want.abs().max().item())
+    out = torch.empty_like(q)
+    fa.flash_attention_bf16_combine(part_acc, part_ml, out, 128)
+    want = flash_attention_combine_ref(part_acc, part_ml, 128).reshape(
+        out.shape)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), rtol=2 ** -7,
+                               atol=2e-5)
+
+
 def test_flash_attention_backward_refuses_the_mla_shape_on_the_card(dev):
     """The forward at MLA's 192 / 128 launches; its backward raises
     NotImplementedError naming ROADMAP's backward kernels list, not a

@@ -17,9 +17,12 @@ from repro.kernels.flash_attention.ref import (  # noqa: E402
 from repro.quant import quantize as jq  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.flash_attention import int8, ops  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    flash_attention, fits, smem_bytes, softmax_scale)
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+    decode_smem_bytes, flash_attention, fits, smem_bytes, softmax_scale)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_combine_ref, flash_attention_decode_ref,
+    flash_attention_ref)
 from repro_torch.quant.quantize import _scale, quantize_kv  # noqa: E402
 
 # (rtol, atol) of the f32 path: the spec's, both sides f32 on the CPU
@@ -364,20 +367,30 @@ def test_specs_match_reference_declarations():
 
 
 def test_shared_memory_and_register_model():
-    """The port's own design: the f32 q tile, two K/V stages and, for f32
-    inputs, one chunk split into TF32 hi and lo in shared memory, rows
-    padded against bank conflicts; hd rounds up to a head tile of 32, 64,
-    96 or 128."""
+    """The port's own designs.  f32: the q tile, two K/V stages and one
+    chunk split into TF32 hi and lo in shared memory, rows padded against
+    bank conflicts.  bf16: two bf16 K/V stages, rows padded by 16 bytes,
+    the q rows staged through the same memory (so at least their tile),
+    and the decode kernel's one tile of 16 q rows beside two stages of 64
+    keys.  hd rounds up to a head tile of 32, 64, 96 or 128."""
     assert smem_bytes(128, 32, 128) == (4 * 128 * 132
                                         + (2 * 2 + 4) * 32 * 4 * 132)
     assert smem_bytes(64, 32, 100) == smem_bytes(64, 32, 128)
-    assert smem_bytes(128, 128, 64, bf16=True) == (
-        4 * 128 * 68 + 2 * 2 * 128 * 2 * 72)
+    assert smem_bytes(128, 128, 64, bf16=True) == 2 * 2 * 128 * 2 * 72
+    assert smem_bytes(128, 32, 128, bf16=True) == 2 * 2 * 32 * 2 * 136
+    # 128 q rows of 264 halves outweigh two stages of 32 keys at q.k 256
+    assert smem_bytes(128, 32, 256, bf16=True) == 2 * 128 * 264
     assert smem_bytes(64, 32, 1) == 4 * 64 * 36 + 8 * 32 * 4 * 36
+    assert decode_smem_bytes(128) == 2 * (16 * 136 + 2 * 64 * 2 * 136)
+    assert decode_smem_bytes(192) == 2 * (16 * 200 + 2 * 64 * (200 + 136))
     assert fits(128, 128, 32) and fits(128, 64, 32)
     assert not fits(128, 128, 64)           # 270 KB of chunks, 66 KB of q
     assert not fits(128, 64, 64)
-    assert fits(128, 128, 128, bf16=True)   # bf16: no split chunk, half-width
+    # bf16: every tile of the ladders at every head width, the widest
+    # (q.k 256, 128 keys a chunk) in 205 KB
+    assert all(fits(hd, bq, bkv, True, min(hd, 128)) for hd in (1, 128, 256)
+               for bq in fa.BLOCK_Q for bkv in fa.BLOCK_KV)
+    assert smem_bytes(128, 128, 256, bf16=True) == 204_800
     assert fits(96, 128, 32) and not fits(96, 128, 64)
     assert fits(1, 64, 32) and fits(64, 128, 64) and fits(32, 128, 128)
     assert not fits(64, 32, 64)             # block_q: 4 or 8 warps of 16
@@ -399,9 +412,15 @@ def test_shared_memory_and_register_model():
                for bq in int8.LADDER for bkv in int8.LADDER)
     llama = {"b": 1, "sq": 4096, "skv": 4096, "h": 24, "kv": 8, "hd": 128,
              "causal": True, "q_offset": 0, "dtype": "float32"}
-    # the default 128 x 32 tile fits at every head dim and dtype
+    # the f32 default 128 x 32 tile fits at every head dim; bf16 problems
+    # default to the bf16 design's 128 x 128, first among its candidates
     assert registry.resolve_params_info(ops.SPEC, llama) == \
         ({"block_q": 128, "block_kv": 32}, "default")
+    bf16 = dict(llama, dtype="bfloat16")
+    assert registry.resolve_params_info(ops.SPEC, bf16) == \
+        ({"block_q": 128, "block_kv": 128}, "default")
+    assert ops.SPEC.candidates(bf16)[0] == ops.BF16_DEFAULTS
+    assert len(ops.SPEC.candidates(bf16)) == 6
     # an explicit tile that does not fit serves the default
     assert registry.resolve_params_info(ops.SPEC, llama, {"block_kv": 64}) \
         == ({"block_q": 128, "block_kv": 32}, "default:smem-fallback")
@@ -467,3 +486,123 @@ def test_3xtf32_llama_prefill_within_tolerance_1xtf32_not():
     assert worst(emulate(3)) < 0.1
     assert worst(emulate(1)) > 1.0
 
+
+# -------------------------------------------------------- bf16 numerics ---
+# A CPU emulation of the products csrc/flash_attention_bf16.cu forms on
+# the bf16 tensor cores: why P is split into bf16 hi + lo.
+
+def test_bf16_products_llama_prefill_within_tolerance_one_bf16_p_not():
+    """Four heads of the llama3.2-3b causal prefill (2,048 keys, hd 128)
+    in bf16: q . k as one product of the exact bf16 values, summed in f32
+    and scaled afterwards; P @ V with p split into bf16 hi + lo = bf16(p -
+    hi) against bf16 V, l the sum of the f32 p; o = acc / l rounded to
+    bf16 once.  That stays within (2^-7, 2e-5) of the plain version (one
+    bf16 ulp); one bf16 P does not, by more than 10x."""
+    s, hd, heads = 2048, 128, 4
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, s, heads, hd))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for _ in range(3))
+    want = flash_attention_ref(q, k, v).float()
+    qf, kf, vf = (t[0].float().transpose(0, 1) for t in (q, k, v))
+    mask = torch.ones(s, s, dtype=torch.bool).tril()
+    sc = (qf @ kf.transpose(1, 2) * softmax_scale(hd)).masked_fill(~mask,
+                                                                  -1e30)
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    l = p.sum(-1, keepdim=True)
+
+    def worst(acc):
+        got = (acc / l).to(torch.bfloat16).float().transpose(0, 1)[None]
+        return float(((got - want).abs()
+                      / (2e-5 + 2 ** -7 * want.abs())).max())
+    assert worst(hi @ vf + lo @ vf) <= 1.0
+    assert worst(hi @ vf) > 10.0
+
+
+@pytest.mark.parametrize("sq,h,kv,decode", [
+    (1, 24, 8, True),      # llama3.2-3b decode step: 3 rows a kv head
+    (1, 32, 8, True),      # jamba's GQA layer: 4
+    (1, 20, 20, True),     # one q head a kv head (cross-attention step)
+    (1, 16, 1, True),      # 16 rows: the threshold
+    (5, 6, 2, True),       # 15 rows
+    (16, 1, 1, True),      # 16
+    (17, 1, 1, False),     # 17: the prefill kernel
+    (6, 24, 8, False),     # 18
+    (2048, 24, 8, False),  # the llama3.2-3b prefill
+])
+def test_decode_row_rule(sq, h, kv, decode):
+    """bf16 problems of at most 16 rows a kv head (Sq x H / KV) run the
+    decode kernel, larger ones the prefill kernel."""
+    assert fa.DECODE_ROWS == 16
+    assert fa.is_decode(sq, h, kv) is decode
+
+
+def test_decode_split_count_at_the_lm_shapes():
+    """About two blocks an SM over the (batch, kv head) blocks, at least
+    256 visited keys a split, at most 32 splits, one where the blocks
+    alone fill the card: the llama3.2-3b and jamba decode steps (B 4, 8
+    kv heads, 2,049 of 2,081 keys) on the H100's 132 SMs take 8."""
+    keys = fa.visited_keys(1, 2081, False, 0, 2049)
+    assert keys == 2049
+    assert fa.split_count(4, 8, keys, 132) == 8
+    assert fa.split_count(4, 8, 2049 + 32, 132) == 8
+    assert fa.split_count(1, 8, 8192, 132) == 32         # capped
+    assert fa.split_count(4, 8, 300, 132) == 1           # few keys
+    assert fa.split_count(64, 8, 8192, 132) == 1         # blocks fill it
+    # every row sees a key: the keys stop at kv_valid and the causal
+    # horizon; else all Skv are visited (rows that see none average V)
+    assert fa.visited_keys(4, 500, True, 100, 300) == 104
+    assert fa.visited_keys(4, 500, True, -1, 300) == 500
+    assert fa.visited_keys(1, 500, False, 0, 0) == 500
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 1, 300, 6, 2, 64), {"causal": False, "kv_valid_len": 200}),
+    ((1, 5, 700, 6, 2, 40), {"q_offset": 650}),
+    ((2, 1, 50, 4, 4, 16), {"causal": False, "kv_valid_len": 0}),
+    ((1, 4, 130, 16, 4, 24), {"q_offset": -2}),
+    ((1, 1, 2081, 3, 1, 32), {"causal": False, "kv_valid_len": 2049}),
+])
+@pytest.mark.parametrize("splits", [1, 3, 8])
+def test_decode_partials_and_combine_match_jax_oracle(shape, kw, splits):
+    """The plain versions of the bf16 decode kernel's partials (its
+    partition: chunks of 64 keys over the splits, 16 keys a warp) and of
+    their combine give the reference's attention, in f32, at any split
+    count, rows that see no key included."""
+    q, k, v = _qkv(*shape, seed=splits)
+    part_acc, part_ml = flash_attention_decode_ref(*_t(q, k, v),
+                                                   splits=splits, **kw)
+    b, sq, _, h, _, hd = shape
+    assert part_acc.shape == (splits * fa.DECODE_WARPS, b * sq * h, hd)
+    got = flash_attention_combine_ref(part_acc, part_ml, hd, torch.float32)
+    oracle = np.asarray(jax_ref(*_j(q, k, v), **kw))
+    np.testing.assert_allclose(got.reshape(oracle.shape).numpy(), oracle,
+                               rtol=TOL[0], atol=TOL[1])
+
+
+def test_kernel_wrappers_need_the_card():
+    """Each kernel's wrapper refuses CPU tensors, counting nothing; the
+    op's spec resets every one of their counts."""
+    q, k, v = _t(*_qkv(1, 1, 16, 2, 2, 8))
+    out = torch.empty_like(q)
+    kw = dict(causal=True, q_offset=0, valid=16)
+    calls = [
+        lambda: fa.flash_attention_f32(q, k, v, out, block_q=64,
+                                       block_kv=32, **kw),
+        lambda: fa.flash_attention_bf16_prefill(q, k, v, out, block_q=64,
+                                                block_kv=32, **kw),
+        lambda: fa.flash_attention_bf16_decode(q, k, v, splits=1, **kw),
+        lambda: fa.flash_attention_bf16_combine(
+            torch.zeros(4, 2, 8), torch.zeros(4, 2, 2),
+            out.to(torch.bfloat16), 8),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    for kernel in fa.KERNELS:
+        kernel.launches = 7
+    ops.SPEC.reset_counts()
+    assert ops.SPEC.parts == fa.KERNELS
+    assert all(kernel.launches == 0 for kernel in fa.KERNELS)

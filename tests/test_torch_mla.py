@@ -241,27 +241,26 @@ def test_plain_version_matches_full_attention(case, hd, hdv):
 def test_wide_head_tiles_and_their_shared_memory():
     """q.k heads past 128 take tiles of 160, 192 or 256 and V a tile of
     its own (at most 128); f32 tiles past 128 keep one raw K/V stage.
-    The MLA prefill's bf16 tile (128 x 32): a q tile of 128 rows of 196
-    words and two stages of 32 K rows of 200 halves and V rows of 136;
-    in f32 (128 x 32): one raw stage and the TF32 split of K (rows of 196
-    words) and V (132)."""
+    The MLA prefill's bf16 tile (128 x 128): two stages of 128 K rows of
+    200 halves and V rows of 136, through which the 128 q rows pass
+    first; in f32 (128 x 32): the q tile of 128 rows of 196 words, one
+    raw stage and the TF32 split of K (rows of 196 words) and V (132)."""
     assert [head_tile(hd) for hd in (1, 96, 128, 129, 160, 161, 192, 200,
                                       256)] == [32, 96, 128, 160, 160, 192,
                                                 192, 256, 256]
     assert [v_tile(hd) for hd in (24, 96, 128, 192, 256)] == [
         32, 96, 128, 128, 128]
     assert (MAX_HEAD_DIM, MAX_V_HEAD_DIM) == (256, 128)
-    assert smem_bytes(128, 32, 192, bf16=True) == (
-        4 * 128 * 196 + 2 * 32 * 2 * (200 + 136))
-    assert smem_bytes(128, 64, 192, bf16=True) == 186_368
+    assert smem_bytes(128, 128, 192, bf16=True) == (
+        2 * 2 * 128 * (200 + 136))
+    assert smem_bytes(128, 32, 192, bf16=True) == 2 * 128 * 200
     assert smem_bytes(128, 32, 192) == 4 * 128 * 196 + 3 * 32 * 4 * (
         196 + 132)
     assert smem_bytes(64, 32, 256) == 4 * 64 * 260 + 3 * 32 * 4 * (
         260 + 132)
     # at hd = hdv the layout is the one the kernel always had
     assert smem_bytes(128, 32, 128) == 4 * 128 * 132 + 8 * 32 * 4 * 132
-    assert fits(192, 128, 32, True, 128) and fits(192, 128, 64, True, 128)
-    assert not fits(192, 128, 128, True, 128)
+    assert fits(192, 128, 32, True, 128) and fits(192, 128, 128, True, 128)
     assert fits(192, 128, 32, False, 128)
     assert not fits(192, 64, 64, False, 128)
     assert fits(256, 64, 32, False, 128) and not fits(256, 128, 32, False,
@@ -273,10 +272,10 @@ def test_wide_head_tiles_and_their_shared_memory():
            "hdv": 128, "causal": True, "q_offset": 0, "dtype": "bfloat16"}
     assert ops.SPEC.supports(mla)
     assert registry.resolve_params_info(ops.SPEC, mla) == (
-        {"block_q": 128, "block_kv": 32}, "default")
+        {"block_q": 128, "block_kv": 128}, "default")
     assert [(c["block_q"], c["block_kv"]) for c in
-            ops.SPEC.candidates(mla)] == [(128, 32), (128, 64), (64, 32),
-                                         (64, 64), (64, 128)]
+            ops.SPEC.candidates(mla)] == [(128, 128), (128, 32), (128, 64),
+                                         (64, 128), (64, 32), (64, 64)]
     wide32 = dict(mla, hd=256, dtype="float32")
     assert registry.resolve_params_info(ops.SPEC, wide32) == (
         {"block_q": 64, "block_kv": 32}, "default")

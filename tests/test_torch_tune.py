@@ -159,7 +159,8 @@ def test_flash_attention_sweeps_only_the_kernels_tiles():
     """``run_tune`` sweeps the tiles the kernel launches: block_q 64 or
     128, block_kv 32, 64 or 128, clipped to the extent rounded up to the
     smallest rung, and filtered by shared memory (at hd 128 in f32 only
-    chunks of 32 keys fit beside the q tile and their TF32 split)."""
+    chunks of 32 keys fit beside the q tile and their TF32 split); a bf16
+    problem's own default tile first."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     spec = flash_ops.SPEC
     tiles = lambda problem: [(c["block_q"], c["block_kv"])  # noqa: E731
@@ -168,7 +169,7 @@ def test_flash_attention_sweeps_only_the_kernels_tiles():
              "causal": True, "q_offset": 0, "dtype": "float32"}
     assert tiles(llama) == [(128, 32), (64, 32)]
     assert tiles(dict(llama, dtype="bfloat16")) == [
-        (128, 32), (128, 64), (128, 128), (64, 32), (64, 64), (64, 128)]
+        (128, 128), (128, 32), (128, 64), (64, 128), (64, 32), (64, 64)]
     decode = spec.default_problems[1]
     assert tiles(decode) == [(128, 32), (128, 64), (64, 32), (64, 64)]
     assert tiles(dict(decode, sq=20, skv=50)) == [
