@@ -248,8 +248,9 @@ window's size; a second launch bit-identical; the count of elements that
 differ at all) and rwkv6_chunk (its default problem, T 1 and 33, head sizes 8, 16, 24, 64
 and 128, bf16 inputs, the rwkv6-1.6b prefill shape; the final state bit
 for bit) and mamba_scan (jamba's prefill shape in bf16 and f32, one
-step, S 70 at d_inner 200, d_state 5; y and the final state against the
-scale of their terms, a second launch bit for bit) against their plain
+step, S 70 at d_inner 200, d_state 5 and 8, decays underflowing to 0; y
+and the final state against the scale of their terms, a second launch
+bit for bit) against their plain
 versions.  fused_mlp_int8's rows are held
 bit-identical across every ``block_rows`` that fits;
 rwkv6_chunk's timing lines also give its device time from a CUDA graph
@@ -543,10 +544,26 @@ JAMBA_PLAIN = ("flash_attention_op", "mamba_scan_op")
 # guide's throughput table, compute capability 9.0); the rate is this
 # times the SMs times the SM clock nvidia-smi reports as its maximum
 SFU_EXP2_PER_CLOCK_SM = 16
-MAMBA_DESIGN = ("one thread a channel, its d_state states in registers, "
-                "A*log2(e) kept for one exp2f a state and step; blocks of "
-                "128 channels of one batch row; dt/x tiles and Bm/Cm rows "
-                "of 32 steps staged by cp.async, double-buffered")
+MAMBA_DESIGN = ("2 lanes a channel, each 8 of its d_state states in "
+                "registers; one ex2.approx.ftz a decay; blocks of 128 "
+                "channels of one batch row; dt/x tiles and Bm/Cm rows (f32, "
+                "converted once by the wrapper) of 32 steps staged by "
+                "cp.async, double-buffered; two steps an iteration, y's "
+                "sum in two interleaved chains a lane met by shfl_xor")
+# f32 operations of one exp2 on the f32 pipe, for the joint bound: a
+# Cody-Waite reduction and a degree-6 Horner polynomial (the clamp 2, the
+# rounding and the reduced argument 3, six fused Horner steps 12, the
+# scale 1; the integer work on the exponent field not counted).  The
+# kernel keeps every exp on the SFUs: such a split measured slower
+# (PERF.md §6, row 8), so the joint bound is a floor no kernel reaches
+MAMBA_POLY_OPS = 18
+# the mamba_scan cases check_mamba_scan holds beyond jamba's shapes:
+# underflow (dt uniform up to 200: with make_call's A = -(1 .. ds), dt
+# |A| log2(e) passes 127 on every state at more than half the steps, so
+# those decays are 0, and at dt below 20 the states with |A| > 4.4
+# underflow beside ones that do not) and d_state 8 (the second lane of
+# each channel holds only padding)
+MAMBA_UNDERFLOW_DT = 200.0
 # the LM training slice: llama3.2-3b at full width and depth trained on
 # one repeated TokenPipeline batch of 2 x 2,048 tokens, 4 steps past the
 # warmup (policy full); attention's backward at that shape
@@ -3208,13 +3225,16 @@ def sm_clock_hz():
 
 
 def mamba_bound(problem):
-    """(bound_ms, bound_by, bytes, operations) of one selective scan: dt,
-    x, Bm, Cm read once in the problem's dtype and y written once in f32,
-    A, D, h0 and hT in f32; its operations are one exp2 a state and step
-    on the SFUs (``SFU_EXP2_PER_CLOCK_SM`` x SMs x ``sm_clock_hz``) and,
-    beside them, two products and two fused multiply-adds (6 f32
-    operations) at the f32 peak; the slower of the two is the operations'
-    time."""
+    """(bound_ms, bound_by, bytes, operations, sfu_only_ms) of one
+    selective scan: dt, x, Bm, Cm read once in the problem's dtype and y
+    written once in f32, A, D, h0 and hT in f32.  Its operations: one
+    exp2 a state and step, and beside it two products and two fused
+    multiply-adds (6 f32 operations at the f32 peak).  Each exp2 runs
+    either on the SFUs (``SFU_EXP2_PER_CLOCK_SM`` x SMs x
+    ``sm_clock_hz``) or as ``MAMBA_POLY_OPS`` more f32 operations; the
+    operations' time is the least over the share on the f32 pipe (the
+    share where the two units finish together).  ``sfu_only_ms``: every
+    exp2 on the SFUs (the kernel's first design's bound)."""
     import torch
     b, s, di, ds = (problem[k] for k in ("b", "s", "di", "ds"))
     el = 4 if problem["dtype"] == "float32" else 2
@@ -3223,11 +3243,30 @@ def mamba_bound(problem):
     exps = b * s * di * ds
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     sfu = SFU_EXP2_PER_CLOCK_SM * sms * sm_clock_hz()
-    t_ops = max(exps / sfu, 6 * exps / PEAK_F32_FLOPS)
+    t_sfu_only = max(exps / sfu, 6 * exps / PEAK_F32_FLOPS)
+    # (1 - share) / sfu = (6 + POLY_OPS share) / f32, clipped to [0, 1]
+    share = min(max((PEAK_F32_FLOPS - 6 * sfu)
+                    / (PEAK_F32_FLOPS + MAMBA_POLY_OPS * sfu), 0.0), 1.0)
+    t_ops = max(exps * (1 - share) / sfu,
+                exps * (6 + MAMBA_POLY_OPS * share) / PEAK_F32_FLOPS)
     t_bytes = nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", nbytes,
-            {"exp2": exps, "f32": 6 * exps, "sfu_per_s": sfu, "sms": sms})
+            {"exp2": exps, "f32": 6 * exps, "poly_share": share,
+             "poly_f32_per_exp2": MAMBA_POLY_OPS, "sfu_per_s": sfu,
+             "sms": sms, "ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3},
+            max(t_sfu_only, t_bytes) * 1e3)
+
+
+def mamba_underflow_case(problem, generator, dev):
+    """``ops.SPEC.make_call``'s inputs with dt uniform in [0,
+    ``MAMBA_UNDERFLOW_DT``]: decays that underflow to 0 beside decays
+    that do not."""
+    import torch
+    from repro_torch.kernels.mamba_scan import ops
+    arrays = ops.SPEC.make_call(problem, generator, dev)
+    dt = torch.rand(arrays[0].shape, generator=generator) * MAMBA_UNDERFLOW_DT
+    return (dt.to(device=dev, dtype=arrays[0].dtype),) + arrays[1:]
 
 
 def check_mamba_scan(dev):
@@ -3236,10 +3275,13 @@ def check_mamba_scan(dev):
     part taken against the scale of their terms (``ops.term_scale``):
     jamba's prefill shape in bf16 and f32, one step (S 1) at jamba's
     width, S 70 (a partial chunk of 64) at di 200 (a partial block of
-    128 channels) in f32 and bf16, d_state 5 in both (rows the wrapper
-    pads to 16 states); every case from a nonzero state; a second launch
-    bit for bit.  Returns ``(errors, failures, bf16 prefill arrays)``;
-    the caller raises on failures after the LM slices have run."""
+    128 channels) in f32 and bf16, d_state 5 and 8 in both (rows the
+    wrapper pads to 16 states; at 8 the second lane of each channel
+    holds only padding), decays underflowing (dt up to
+    ``MAMBA_UNDERFLOW_DT``) in both, every case from a nonzero state; a
+    second launch bit for bit.  Returns ``(errors, failures, bf16 prefill
+    arrays)``; the caller raises on failures after the LM slices have
+    run."""
     import torch
     from repro_torch.kernels.mamba_scan import mamba_scan as scan
     from repro_torch.kernels.mamba_scan import ops
@@ -3254,11 +3296,17 @@ def check_mamba_scan(dev):
         ("S 70, di 200 bf16", dict(small, dtype="bfloat16")),
         ("ds 5", dict(small, ds=5)),
         ("ds 5 bf16", dict(small, ds=5, dtype="bfloat16")),
+        ("ds 8", dict(small, ds=8)),
+        ("ds 8 bf16", dict(small, ds=8, dtype="bfloat16")),
+        ("underflow", small),
+        ("underflow bf16", dict(small, dtype="bfloat16")),
     ]
     results, failures, prefill = {}, [], None
     for i, (label, problem) in enumerate(cases):
-        arrays = ops.SPEC.make_call(
-            problem, torch.Generator().manual_seed(110 + i), dev)
+        gen = torch.Generator().manual_seed(110 + i)
+        arrays = (mamba_underflow_case(problem, gen, dev)
+                  if label.startswith("underflow")
+                  else ops.SPEC.make_call(problem, gen, dev))
         y, hT = ops.mamba_scan_op(*arrays)
         y2, hT2 = ops.SPEC.run_call(problem, arrays, {})
         res = dict(ops.held_to_plain(arrays, y, hT),
@@ -3280,16 +3328,69 @@ def check_mamba_scan(dev):
     return results, failures, prefill
 
 
+def sass_loops(so_path):
+    """Instructions of one step of each ``mamba_scan_kernel`` (one a
+    dtype) in the library at ``so_path``, from ``cuobjdump -sass``: the
+    innermost loop holding the exps (a backward ``BRA`` and its target),
+    its instructions (``NOP`` aside) over the steps an iteration (its
+    ``MUFU.EX2`` over a lane's 8 exps a step), per lane and per channel
+    (times its 2 lanes), with the loop's opcodes counted.  None where the
+    toolkit has no ``cuobjdump``."""
+    import re
+    from repro_torch.kernels.mamba_scan import mamba_scan as scan
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.access(tool, os.X_OK):
+        return None
+    text = subprocess.run([tool, "-sass", str(so_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    lanes, out = scan.LANES, {}
+    for block in text.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if "mamba_scan_kernel" not in name:
+            continue
+        elt = "bf16" if "bfloat16" in name.split("EvPK")[0] else "f32"
+        instrs = [(int(a, 16), op.strip()) for a, op in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
+        loops = []
+        for addr, op in instrs:
+            m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+            if m and int(m.group(1), 16) < addr:
+                body = [o for a, o in instrs
+                        if int(m.group(1), 16) <= a <= addr
+                        and not o.startswith("NOP")]
+                mufu = sum("MUFU.EX2" in o for o in body)
+                if mufu:
+                    loops.append((len(body), mufu, body))
+        if not loops:
+            continue
+        n, mufu, body = min(loops, key=lambda loop: loop[0])
+        steps = mufu / (scan.MAX_STATE // lanes)
+        ops_count = {}
+        for o in body:
+            key = re.sub(r"^@!?U?P\w+\s+", "", o).split()[0]
+            ops_count[key] = ops_count.get(key, 0) + 1
+        out[elt] = {
+            "loop_instructions": n, "steps_an_iteration": steps,
+            "per_lane_step": n / steps, "per_channel_step": n / steps * lanes,
+            "mufu_per_channel_step": mufu / steps * lanes,
+            "opcodes": dict(sorted(ops_count.items(),
+                                   key=lambda kv: -kv[1]))}
+    return out
+
+
 def time_mamba_scan(dev, arrays, smi):
-    """CUDA-event times of mamba_scan and its plain version at jamba's
-    prefill shape, beside the bound.  No one PyTorch call computes this
-    scan: no library time."""
+    """CUDA-event times of mamba_scan (over 20 launches) and its plain
+    version at jamba's prefill shape, beside the joint bound and the
+    SFU-only one, and the SASS instructions of one step (``sass_loops``).
+    No one PyTorch call computes this scan: no library time."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.mamba_scan import mamba_scan as scan
     from repro_torch.kernels.mamba_scan import ops
     from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 
     problem = JAMBA_SCAN
-    bound_ms, bound_by, nbytes, operations = mamba_bound(problem)
+    bound_ms, bound_by, nbytes, operations, sfu_only_ms = \
+        mamba_bound(problem)
 
     def kernel():
         return ops.SPEC.run_call(problem, arrays, {})
@@ -3298,9 +3399,12 @@ def time_mamba_scan(dev, arrays, smi):
                plain_ms=cuda_ms(lambda: mamba_scan_ref(*arrays), 3,
                                 warmup=1),
                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-               share_of_bound=bound_ms / ms, bytes=nbytes,
+               share_of_bound=bound_ms / ms, sfu_only_bound_ms=sfu_only_ms,
+               share_of_sfu_only_bound=sfu_only_ms / ms, bytes=nbytes,
                operations=operations,
-               launch=scan.launch_shape(problem["b"], problem["di"]))
+               launch=scan.launch_shape(problem["b"], problem["di"]),
+               sass=sass_loops(_build.build_all(["mamba_scan"])[
+                   "mamba_scan"].so_path))
     emit("timing", kernel="mamba_scan", case="jamba prefill",
          design=MAMBA_DESIGN, nvidia_smi=smi, **out)
     return out
@@ -5090,6 +5194,7 @@ def main():
         "plain_ms": mamba_timing["plain_ms"],
         "bound_ms": mamba_timing["bound_ms"],
         "bound_by": mamba_timing["bound_by"], "library_ms": None,
+        "sfu_only_bound_ms": mamba_timing["sfu_only_bound_ms"],
         "launch": mamba_timing["launch"]}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": flash.BWD_SOURCE, "replaces": flash.BWD_REPLACES,

@@ -14,38 +14,61 @@
 //   h[s]  = a[s] * h[s] + (dt[t][d] * x[t][d]) * Bm[t][s]
 //   y[t][d] = sum_s h[s] * Cm[t][s] + D[d] * x[t][d]
 //
-// dt and x are [B, S, di] (f32 or bf16), Bm and Cm [B, S, MAX_STATE] of
-// the same type (the wrapper pads ds up with zeros), A is [di, ds] f32
+// dt and x are [B, S, di] (f32 or bf16); Bm and Cm [B, S, MAX_STATE] f32
+// (the wrapper widens them and pads ds up with zeros); A is [di, ds] f32
 // (-exp(A_log)), D [di] f32, h0 and hT [B, di, ds] f32, y [B, S, di]
 // f32.  Any S >= 0, any di (the last block's channels are masked), ds
 // from 1 to MAX_STATE.
 //
-// What bounds it on the card: the exponentials.  One per state and step
-// (B S di ds of them: 1.07 G at jamba's prefill, B 4, S 2,048, di 8,192,
-// ds 16) run on the SFUs at 16 a clock an SM, about 0.26 ms on an H100;
-// the bytes (dt and x read once, y written once: about 540 MB in bf16)
-// take about 0.16 ms at 3.35 TB/s, and the four f32 operations a state
-// and step take half the exponentials' time.  There is no product to
-// put on the tensor cores.
+// What bounds it on the card: the exponentials and the instructions
+// around them.  One exp a state and step (B S di ds of them: 1.07 G at
+// jamba's prefill, B 4, S 2,048, di 8,192, ds 16) takes 0.26 ms on the
+// SFUs alone (16 a clock an SM on an H100); each also needs two products
+// and two fused multiply-adds on the f32 pipe.  The bytes (dt and x read
+// once, y written once: about 540 MB in bf16) take about 0.16 ms at
+// 3.35 TB/s.  There is no product to put on the tensor cores.
 //
-// The design: one thread owns one channel (b, d) and keeps its ds states
-// in registers, so each step is ds independent chains; A * log2(e) is
-// kept in registers too, so that each state's decay is one exp2f.  A
-// block is CHANNELS threads of one batch row.  The steps are staged into
-// shared memory in chunks of STEPS by cp.async, double-buffered, so that
-// loading chunk c + 1 overlaps the walk of chunk c: dt and x as
-// [STEPS][CHANNELS] tiles (each thread reads its own column), Bm and Cm
-// as [STEPS][MAX_STATE] rows that every thread of the block reads (a
-// broadcast).  State lanes s >= ds are zero in Bm and Cm and in A, so
-// they decay by exp2(0) = 1 from a zero state and add nothing: the step
-// has no branch on ds.  y is written once a step, coalesced along d.
+// The design:
+// - LANES (2) lanes of a warp own one channel (b, d), each lane
+//   MAX_STATE / LANES of its states in registers, so a block of CHANNELS
+//   channels is CHANNELS * LANES threads.  A * log2(e) is kept in
+//   registers too, so each state's decay is one exp2 of dt * A2[s].
+// - The decay is one SFU instruction, ex2.approx.ftz.f32 (exp2f wraps it
+//   in a range test and two products for results below 2^-126; here such
+//   a decay flushes to 0, which changes h by less than 2^-126 |h|).
+// - The steps are staged into shared memory in chunks of STEPS by
+//   cp.async, double-buffered, so that loading chunk c + 1 overlaps the
+//   walk of chunk c: dt and x as [STEPS][CHANNELS] tiles, Bm and Cm as
+//   [STEPS][MAX_STATE] f32 rows that every lane reads with 16-byte loads
+//   (the wrapper converts each row once, so no lane converts).
+// - The walk takes two steps an iteration, so that one step's decays
+//   are in flight while the other's fused multiply-adds finish; y's sum over a
+//   lane's states runs in two interleaved chains, and the two lanes' sums
+//   meet by __shfl_xor_sync.  Lane 0 of a channel writes the first step
+//   of a pair and lane 1 the second: a warp's store covers whole 32-byte
+//   sectors of y.
+// - State slots s >= ds are zero in Bm, Cm and A, so they decay by
+//   exp2(0) = 1 exactly from a zero state and add nothing: the step has
+//   no branch on ds.
+//
+// What the card showed (PERF.md §6, row 8): this design runs at about
+// 0.56 of the SFU bound.  One, two or four lanes a channel, Bm and Cm
+// staged in bf16 (half the loads, a conversion in every lane) and part
+// of the decays on the f32 pipe (a Cody-Waite reduction and a degree-6
+// polynomial) were each measured slower at jamba's prefill.
 //
 // Rounding: dt * x is rounded before it scales Bm, as in the reference;
-// the state update is one fused multiply-add a * h + b; y's sum over s
-// runs in ascending s with fused multiply-adds, then D * x is added.
+// the state update is one fused multiply-add a * h + b.  y's sum: in a
+// lane, state slot j goes into chain j mod 2 by a fused multiply-add, in
+// ascending j; the chains are added 0 + 1; the two lanes' sums by
+// __shfl_xor_sync (both lanes of a channel get the same bits); then
+// D * x is added.
 // The reference's associative scan groups the products of the decays in
 // another order, so h and y differ from it by f32 rounding of their
-// terms (ops.TOL, held against the sum of the terms' magnitudes).
+// terms (ops.TOL, held against the sum of the terms' magnitudes).  The
+// order is fixed: a relaunch is bit for bit the same.  ex2.approx.ftz
+// is within 2 ulp of 2^x where 2^x >= 2^-126 (the PTX manual's bound),
+// 0 below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,38 +76,25 @@
 #include <cstdint>
 
 #define MAX_STATE 16  // the largest ds; smaller ones are zero-padded
-#define CHANNELS 128  // threads a block: one channel each
+#define CHANNELS 128  // channels a block, LANES lanes each
 #define STEPS 32      // steps a staged chunk
+#define LANES 2       // lanes a channel
+
+constexpr int SPL = MAX_STATE / LANES;  // states a lane
+static_assert(LANES == 2 && SPL % 4 == 0,
+              "meet() and the stores of a step pair take two lanes a "
+              "channel; a lane takes whole 16-byte loads of the rows");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// MAX_STATE consecutive elements of a shared-memory row, as f32.
-__device__ __forceinline__ void load_row(const float* p, float* out) {
-#pragma unroll
-  for (int q = 0; q < MAX_STATE; q += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p + q);
-    out[q] = v.x;
-    out[q + 1] = v.y;
-    out[q + 2] = v.z;
-    out[q + 3] = v.w;
-  }
-}
-__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* out) {
-#pragma unroll
-  for (int q = 0; q < MAX_STATE; q += 8) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p + q);
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&w[e]));
-      out[q + 2 * e] = f.x;
-      out[q + 2 * e + 1] = f.y;
-    }
-  }
+// 2^x on the SFU: one MUFU.EX2, results below 2^-126 flushed to 0.
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -109,15 +119,16 @@ __device__ __forceinline__ void cp_async_wait() {
 // Copy `rows` rows of `bytes` bytes each, from src + row * src_stride to
 // dst + row * dst_stride (byte strides), with `width`-byte cp.async
 // copies (16 or 4; strides, pointers and `bytes` multiples of it) or,
-// width 0, element by element with plain loads and stores.
+// width 0, element by element with plain loads and stores; `nt` threads.
 template <typename Elt>
 __device__ __forceinline__ void copy_rows(char* dst, long long dst_stride,
                                           const char* src,
                                           long long src_stride, int rows,
-                                          int bytes, int width, int tid) {
+                                          int bytes, int width, int tid,
+                                          int nt) {
   const int w = width > 0 ? width : (int)sizeof(Elt);
   const int per = bytes / w, total = rows * per;
-  for (int idx = tid; idx < total; idx += CHANNELS) {
+  for (int idx = tid; idx < total; idx += nt) {
     const int row = idx / per, q = idx - row * per;
     char* d = dst + row * dst_stride + q * w;
     const char* s = src + row * src_stride + q * w;
@@ -130,14 +141,17 @@ __device__ __forceinline__ void copy_rows(char* dst, long long dst_stride,
   }
 }
 
-// Elements of one staged buffer: dt and x [STEPS][CHANNELS], Bm and Cm
-// [STEPS][MAX_STATE].
+// Elements of one staged buffer: dt and x [STEPS][CHANNELS] of the
+// input's type Elt, then Bm and Cm [STEPS][MAX_STATE] in f32.
 constexpr int TILE = STEPS * CHANNELS, ROWS = STEPS * MAX_STATE;
-constexpr int BUF = 2 * TILE + 2 * ROWS;
 
 template <typename Elt>
+__host__ __device__ constexpr size_t buf_bytes() {
+  return (size_t)2 * TILE * sizeof(Elt) + (size_t)2 * ROWS * sizeof(float);
+}
+template <typename Elt>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return (size_t)2 * BUF * sizeof(Elt);
+  return 2 * buf_bytes<Elt>();
 }
 
 // The widest copy (16, 4 or 0: element by element) that a row of `bytes`
@@ -148,46 +162,87 @@ __device__ __forceinline__ int row_width(int width, int bytes) {
   return width;
 }
 
+// N consecutive f32 values from p (N a multiple of 4, p 16-byte
+// aligned), by 16-byte loads.
+template <int N>
+__device__ __forceinline__ void load_row(const float* p, float* out) {
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(p)[q];
+    out[4 * q] = v.x, out[4 * q + 1] = v.y;
+    out[4 * q + 2] = v.z, out[4 * q + 3] = v.w;
+  }
+}
+
+// One lane's part of step cc: its SPL states decayed and updated, and its
+// share of y's sum (the two lanes' shares not yet met).
 template <typename Elt>
-__global__ void __launch_bounds__(CHANNELS)
+__device__ __forceinline__ float lane_step(const Elt* buf, int cc, int ch,
+                                           int g, const float* a2, float* h,
+                                           float& xv) {
+  const float dtv = to_f32(buf[cc * CHANNELS + ch]);
+  xv = to_f32(buf[TILE + cc * CHANNELS + ch]);
+  const float* rows = reinterpret_cast<const float*>(buf + 2 * TILE);
+  float bs[SPL], cs[SPL];
+  load_row<SPL>(rows + cc * MAX_STATE + g * SPL, bs);
+  load_row<SPL>(rows + ROWS + cc * MAX_STATE + g * SPL, cs);
+  const float dx = __fmul_rn(dtv, xv);
+  float acc[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < SPL; ++j) {
+    const float a = exp2_sfu(__fmul_rn(dtv, a2[j]));
+    h[j] = __fmaf_rn(a, h[j], __fmul_rn(dx, bs[j]));
+    acc[j % 2] = __fmaf_rn(h[j], cs[j], acc[j % 2]);
+  }
+  return __fadd_rn(acc[0], acc[1]);
+}
+
+// The two lanes' shares met: both lanes of the channel get the same bits.
+__device__ __forceinline__ float meet(float v) {
+  return __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
+}
+
+template <typename Elt>
+__global__ void __launch_bounds__(CHANNELS * LANES)
 mamba_scan_kernel(const Elt* __restrict__ dt, const Elt* __restrict__ x,
-                  const Elt* __restrict__ Bm, const Elt* __restrict__ Cm,
+                  const float* __restrict__ Bm, const float* __restrict__ Cm,
                   const float* __restrict__ A, const float* __restrict__ D,
                   const float* __restrict__ h0, float* __restrict__ y,
                   float* __restrict__ hT, int S, int di, int ds,
                   int in_width) {
+  constexpr int NT = CHANNELS * LANES;
   extern __shared__ __align__(16) unsigned char smem[];
-  Elt* const in = reinterpret_cast<Elt*>(smem);  // [2][dt, x, Bm, Cm]
 
   const int tid = threadIdx.x, b = blockIdx.y;
-  const int d0 = blockIdx.x * CHANNELS, d = d0 + tid;
+  const int ch = tid / LANES, g = tid % LANES;  // this lane's channel, part
+  const int d0 = blockIdx.x * CHANNELS, d = d0 + ch;
   const int nch = min(CHANNELS, di - d0);
-  const bool live = tid < nch;
-  const int esz = (int)sizeof(Elt);
+  const bool live = ch < nch;
+  const int esz = (int)sizeof(Elt), rsz = (int)sizeof(float);
   const int tile_width = row_width(in_width, nch * esz);
   const long long row0 = (long long)b * S;  // (b, t = 0)
 
   // chunk c's steps into buffer c % 2 (channels past di are left
-  // unwritten: only threads that store nothing read them)
+  // unwritten: only lanes that store nothing read them)
   auto stage = [&](int c) {
     const int t0 = c * STEPS, n = min(STEPS, S - t0);
-    Elt* const buf = in + (c & 1) * BUF;
+    char* const buf =
+        reinterpret_cast<char*>(smem) + (c & 1) * buf_bytes<Elt>();
     const Elt* const tiles[2] = {dt, x};
 #pragma unroll
     for (int a = 0; a < 2; ++a)
-      copy_rows<Elt>(reinterpret_cast<char*>(buf + a * TILE),
-                     CHANNELS * esz,
+      copy_rows<Elt>(buf + a * TILE * esz, CHANNELS * esz,
                      reinterpret_cast<const char*>(
                          tiles[a] + (row0 + t0) * di + d0),
-                     (long long)di * esz, n, nch * esz, tile_width, tid);
-    const Elt* const rows[2] = {Bm, Cm};
+                     (long long)di * esz, n, nch * esz, tile_width, tid, NT);
+    const float* const rows[2] = {Bm, Cm};
 #pragma unroll
     for (int a = 0; a < 2; ++a)
-      copy_rows<Elt>(reinterpret_cast<char*>(buf + 2 * TILE + a * ROWS),
-                     MAX_STATE * esz,
-                     reinterpret_cast<const char*>(rows[a] +
-                                                   (row0 + t0) * MAX_STATE),
-                     MAX_STATE * esz, n, MAX_STATE * esz, 16, tid);
+      copy_rows<float>(buf + 2 * TILE * esz + a * ROWS * rsz,
+                       MAX_STATE * rsz,
+                       reinterpret_cast<const char*>(
+                           rows[a] + (row0 + t0) * MAX_STATE),
+                       MAX_STATE * rsz, n, MAX_STATE * rsz, 16, tid, NT);
   };
 
   const int nc = (S + STEPS - 1) / STEPS;
@@ -197,13 +252,14 @@ mamba_scan_kernel(const Elt* __restrict__ dt, const Elt* __restrict__ x,
   cp_async_commit();
 
   constexpr float LOG2E = 1.4426950408889634f;
-  float h[MAX_STATE], a2[MAX_STATE];
+  float h[SPL], a2[SPL];
   const long long hd = ((long long)b * di + d) * ds;
 #pragma unroll
-  for (int s = 0; s < MAX_STATE; ++s) {
+  for (int j = 0; j < SPL; ++j) {
+    const int s = g * SPL + j;
     const bool on = live && s < ds;
-    a2[s] = on ? A[(long long)d * ds + s] * LOG2E : 0.0f;
-    h[s] = on ? h0[hd + s] : 0.0f;
+    a2[j] = on ? A[(long long)d * ds + s] * LOG2E : 0.0f;
+    h[j] = on ? h0[hd + s] : 0.0f;
   }
   const float dskip = live ? D[d] : 0.0f;
 
@@ -212,25 +268,26 @@ mamba_scan_kernel(const Elt* __restrict__ dt, const Elt* __restrict__ x,
     // chunk c has landed (chunk c + 1 may still be in flight)
     cp_async_wait<1>();
     __syncthreads();
-    const Elt* const buf = in + (c & 1) * BUF;
+    const Elt* const buf = reinterpret_cast<const Elt*>(
+        reinterpret_cast<const char*>(smem) + (c & 1) * buf_bytes<Elt>());
     float* const yp = y + (row0 + t0) * di + d;
-    for (int cc = 0; cc < n; ++cc) {
-      const float dtv = to_f32(buf[cc * CHANNELS + tid]);
-      const float xv = to_f32(buf[TILE + cc * CHANNELS + tid]);
-      float bs[MAX_STATE], cs[MAX_STATE];
-      load_row(buf + 2 * TILE + cc * MAX_STATE, bs);
-      load_row(buf + 2 * TILE + ROWS + cc * MAX_STATE, cs);
-      const float dx = __fmul_rn(dtv, xv);
-      float acc = 0.0f;
-#pragma unroll
-      for (int s = 0; s < MAX_STATE; ++s) {
-        const float a = exp2f(__fmul_rn(dtv, a2[s]));
-        h[s] = __fmaf_rn(a, h[s], __fmul_rn(dx, bs[s]));
-        acc = __fmaf_rn(h[s], cs[s], acc);
-      }
-      if (live) yp[(long long)cc * di] = __fadd_rn(acc, __fmul_rn(dskip, xv));
+    int cc = 0;
+    for (; cc + 1 < n; cc += 2) {
+      float x0, x1;
+      const float s0 = lane_step(buf, cc, ch, g, a2, h, x0);
+      const float s1 = lane_step(buf, cc + 1, ch, g, a2, h, x1);
+      const float y0 = __fadd_rn(meet(s0), __fmul_rn(dskip, x0));
+      const float y1 = __fadd_rn(meet(s1), __fmul_rn(dskip, x1));
+      if (live && g == 0) yp[(long long)cc * di] = y0;
+      if (live && g == LANES - 1) yp[(long long)(cc + 1) * di] = y1;
     }
-    __syncthreads();  // every thread is done with buffer c % 2
+    if (cc < n) {  // an odd last step
+      float x0;
+      const float s0 = lane_step(buf, cc, ch, g, a2, h, x0);
+      const float y0 = __fadd_rn(meet(s0), __fmul_rn(dskip, x0));
+      if (live && g == 0) yp[(long long)cc * di] = y0;
+    }
+    __syncthreads();  // every lane is done with buffer c % 2
     if (c + 2 < nc) stage(c + 2);
     cp_async_commit();
   }
@@ -238,8 +295,8 @@ mamba_scan_kernel(const Elt* __restrict__ dt, const Elt* __restrict__ x,
 
   if (live)
 #pragma unroll
-    for (int s = 0; s < MAX_STATE; ++s)
-      if (s < ds) hT[hd + s] = h[s];
+    for (int j = 0; j < SPL; ++j)
+      if (g * SPL + j < ds) hT[hd + g * SPL + j] = h[j];
 }
 
 static bool aligned(const void* p, int bytes) {
@@ -253,8 +310,8 @@ static int launch(const void* dt, const void* x, const void* Bm,
                   int ds, cudaStream_t stream) {
   const size_t smem = smem_bytes<Elt>();
   cudaError_t err = cudaFuncSetAttribute(
-      mamba_scan_kernel<Elt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      mamba_scan_kernel<Elt>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int esz = (int)sizeof(Elt);
   // the copy width of dt and x: 16 bytes where every row and pointer
@@ -266,10 +323,10 @@ static int launch(const void* dt, const void* x, const void* Bm,
   else if (di * esz % 4 == 0 && aligned(dt, 4) && aligned(x, 4))
     in_width = 4;
   const dim3 grid((unsigned)((di + CHANNELS - 1) / CHANNELS), (unsigned)B);
-  mamba_scan_kernel<Elt><<<grid, CHANNELS, smem, stream>>>(
+  mamba_scan_kernel<Elt><<<grid, CHANNELS * LANES, smem, stream>>>(
       static_cast<const Elt*>(dt), static_cast<const Elt*>(x),
-      static_cast<const Elt*>(Bm), static_cast<const Elt*>(Cm), A, D, h0, y,
-      hT, S, di, ds, in_width);
+      static_cast<const float*>(Bm), static_cast<const float*>(Cm), A, D, h0,
+      y, hT, S, di, ds, in_width);
   return (int)cudaGetLastError();
 }
 
@@ -277,18 +334,20 @@ static int launch(const void* dt, const void* x, const void* Bm,
 extern "C" int mamba_scan_max_state() { return MAX_STATE; }
 extern "C" int mamba_scan_channels() { return CHANNELS; }
 extern "C" int mamba_scan_steps() { return STEPS; }
+extern "C" int mamba_scan_lanes() { return LANES; }
 
-// dt, x: [B, S, di]; Bm, Cm: [B, S, MAX_STATE], zero past ds, 16-byte
-// aligned; device pointers of elem_bytes (4: f32, 2: bf16) elements.
-// A [di, ds], D [di], h0 and hT [B, di, ds], y [B, S, di]: f32.  All
-// contiguous.  Returns a cudaError_t (0 on
-// success); the launch is asynchronous on `stream`.
+// dt, x: [B, S, di], device pointers of elem_bytes (4: f32, 2: bf16)
+// elements; Bm, Cm: [B, S, MAX_STATE] f32, zero past ds, 16-byte
+// aligned.  A [di, ds], D [di], h0 and hT [B, di, ds], y [B, S, di]:
+// f32.  All contiguous.  Returns a cudaError_t (0 on success); the
+// launch is asynchronous on `stream`.
 extern "C" int mamba_scan(const void* dt, const void* x, const void* Bm,
                           const void* Cm, const void* A, const void* D,
                           const void* h0, void* y, void* hT, int B, int S,
                           int di, int ds, int elem_bytes, void* stream) {
   if (B < 1 || B > 65535 || S < 0 || di < 1 || ds < 1 || ds > MAX_STATE ||
-      !aligned(Bm, 16) || !aligned(Cm, 16))
+      !aligned(Bm, 16) || !aligned(Cm, 16) ||
+      (elem_bytes != 4 && elem_bytes != 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* Af = static_cast<const float*>(A);
@@ -299,8 +358,6 @@ extern "C" int mamba_scan(const void* dt, const void* x, const void* Bm,
   if (elem_bytes == 4)
     return launch<float>(dt, x, Bm, Cm, Af, Df, h0f, yf, hTf, B, S, di, ds,
                          s);
-  if (elem_bytes == 2)
-    return launch<__nv_bfloat16>(dt, x, Bm, Cm, Af, Df, h0f, yf, hTf, B, S,
-                                 di, ds, s);
-  return (int)cudaErrorInvalidValue;
+  return launch<__nv_bfloat16>(dt, x, Bm, Cm, Af, Df, h0f, yf, hTf, B, S, di,
+                               ds, s);
 }

@@ -6,14 +6,17 @@ over chunks of 64 steps), and so does the port's plain version
 (:func:`repro_torch.kernels.mamba_scan.ref.mamba_scan_ref`).  At jamba's
 width that form writes ``[B, 64, di, ds]`` f32 tensors several times a
 chunk; the kernel, ``csrc/mamba_scan.cu``, reads dt, x, Bm and Cm once
-and writes y once.  One thread owns one channel of one batch row and
-keeps its ``ds`` states in registers (blocks of :data:`CHANNELS`
-channels; :func:`launch_shape`); the steps are staged into shared memory
-in chunks of :data:`STEPS` by ``cp.async``, double-buffered.  Any
-sequence length and channel count, ``ds`` up to :data:`MAX_STATE`.
+and writes y once.  :data:`LANES` lanes of a warp own one channel of
+one batch row, each ``MAX_STATE / LANES`` of its states in registers
+(blocks of :data:`CHANNELS` channels; :func:`launch_shape`); each decay
+is one ``ex2.approx.ftz`` on the SFUs; the steps are staged into shared
+memory in chunks of :data:`STEPS` by ``cp.async``, double-buffered, Bm
+and Cm as f32 rows the wrapper converts once.  Any sequence length and
+channel count, ``ds`` up to :data:`MAX_STATE`.
 
-What bounds it on an H100: the exponentials, one a state and step on
-the SFUs (16 a clock an SM), ahead of the bytes.
+What bounds it on an H100: the exponentials (one a state and step, 16 a
+clock an SM on the SFUs) and the instruction slots of the f32 work and
+the shared-memory loads beside them, ahead of the bytes.
 
 :func:`mamba_scan` counts its launches in ``mamba_scan.launches``.
 """
@@ -28,8 +31,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.mamba_scan.ref import check_shapes
 
 MAX_STATE = 16   # the kernel takes ds 1 .. MAX_STATE
-CHANNELS = 128   # threads a block, one channel each
+CHANNELS = 128   # channels a block, LANES threads each
 STEPS = 32       # steps a staged chunk
+LANES = 2        # threads a channel, MAX_STATE / LANES states each
 ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu"
 REPLACES = "src/repro/models/blocks.py:563"
@@ -37,18 +41,19 @@ REPLACES = "src/repro/models/blocks.py:563"
 
 def launch_shape(b: int, di: int) -> dict:
     """The grid of one call at batch ``b`` and ``di`` channels: blocks of
-    :data:`CHANNELS` threads, ``ceil(di / CHANNELS)`` of them a batch
-    row."""
+    :data:`CHANNELS` channels, :data:`LANES` threads a channel,
+    ``ceil(di / CHANNELS)`` of them a batch row."""
     blocks = -(-di // CHANNELS)
-    return {"threads": CHANNELS, "blocks": blocks * b,
+    return {"threads": CHANNELS * LANES, "blocks": blocks * b,
             "grid": (blocks, b), "steps_a_chunk": STEPS}
 
 
 def smem_bytes(dtype) -> int:
     """Dynamic shared memory of one block: two staged chunks of dt and x
-    ``[STEPS, CHANNELS]`` and Bm and Cm ``[STEPS, MAX_STATE]``."""
-    return 2 * (2 * STEPS * CHANNELS + 2 * STEPS * MAX_STATE) * \
-        ELEMENT_BYTES[dtype]
+    ``[STEPS, CHANNELS]`` in ``dtype`` and Bm and Cm ``[STEPS,
+    MAX_STATE]`` in f32."""
+    return 2 * (2 * STEPS * CHANNELS * ELEMENT_BYTES[dtype]
+                + 2 * STEPS * MAX_STATE * 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,13 +64,13 @@ def _lib():
     lib.mamba_scan.restype = ctypes.c_int
     got = []
     for name in ("mamba_scan_max_state", "mamba_scan_channels",
-                 "mamba_scan_steps"):
+                 "mamba_scan_steps", "mamba_scan_lanes"):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = [], ctypes.c_int
         got.append(fn())
-    if got != [MAX_STATE, CHANNELS, STEPS]:
+    if got != [MAX_STATE, CHANNELS, STEPS, LANES]:
         raise RuntimeError(f"csrc/mamba_scan.cu and mamba_scan.py disagree "
-                           f"on (MAX_STATE, CHANNELS, STEPS): {got}")
+                           f"on (MAX_STATE, CHANNELS, STEPS, LANES): {got}")
     return lib
 
 
@@ -90,9 +95,13 @@ def mamba_scan(dt, x, Bm, Cm, A, D, h0):
         raise ValueError(f"state size {ds}: the kernel takes 1 to "
                          f"{MAX_STATE}")
     dt, x = dt.contiguous(), x.contiguous()
-    # new [B, S, MAX_STATE] tensors, zero past ds: the kernel stages their
-    # rows with 16-byte copies
-    Bm, Cm = (torch.nn.functional.pad(t, (0, MAX_STATE - ds))
+    # new [B, S, MAX_STATE] f32 tensors, zero past ds: the kernel stages
+    # their rows with 16-byte copies and reads them without converting
+    Bm, Cm = (t.to(torch.float32, memory_format=torch.contiguous_format,
+                   copy=True)
+              if ds == MAX_STATE else
+              torch.nn.functional.pad(t.to(torch.float32),
+                                      (0, MAX_STATE - ds))
               for t in (Bm, Cm))
     A, D, h0 = (t.to(torch.float32).contiguous() for t in (A, D, h0))
     y = torch.empty((B, S, di), dtype=torch.float32, device=dt.device)

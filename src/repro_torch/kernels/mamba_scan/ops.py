@@ -19,7 +19,8 @@ from repro_torch.kernels.mamba_scan.ref import check_shapes, mamba_scan_ref
 #: against the scale of the terms (:func:`term_scale`): both compute in
 #: f32 and differ in the grouping of the decays' products (a sequential
 #: chain in the kernel, the associative scan's tree in the plain
-#: version) and in the exponential (``exp2f`` of a prescaled argument).
+#: version), in the order of y's sum over the states, and in the
+#: exponential (``ex2.approx``, within 2 ulp, of a prescaled argument).
 TOL = (1e-5, 1e-5)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

@@ -1408,7 +1408,25 @@ MAMBA_CASES = [
     # a state of 5: rows the wrapper pads to 16 states
     dict(b=2, s=70, di=200, ds=5),
     dict(b=1, s=33, di=7, ds=1),
+    # a state of 8: the second lane of each channel holds only padding
+    dict(b=2, s=70, di=200, ds=8),
+    # dt uniform up to 200: with A = -(1 .. ds), dt |A| log2(e) passes
+    # 127 on every state at more than half the steps, so those decays
+    # underflow to 0, beside decays that do not
+    dict(b=2, s=70, di=200, ds=16, dt_max=200.0),
 ]
+
+
+def _mamba_arrays(problem, dev, seed):
+    """``ops.SPEC.make_call``'s inputs; with ``dt_max``, dt uniform in
+    [0, dt_max]."""
+    from repro_torch.kernels.mamba_scan import ops
+    gen = torch.Generator().manual_seed(seed)
+    arrays = ops.SPEC.make_call(problem, gen, dev)
+    if "dt_max" not in problem:
+        return arrays
+    dt = torch.rand(arrays[0].shape, generator=gen) * problem["dt_max"]
+    return (dt.to(device=dev, dtype=arrays[0].dtype),) + arrays[1:]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1421,8 +1439,7 @@ def test_mamba_scan_kernel_matches_plain_version(dev, case, dtype):
     of their terms; a second launch bit for bit."""
     from repro_torch.kernels.mamba_scan import ops
     problem = dict(case, dtype=dtype)
-    arrays = ops.SPEC.make_call(problem, torch.Generator().manual_seed(3),
-                                dev)
+    arrays = _mamba_arrays(problem, dev, 3)
     ops.SPEC.reset_counts()
     y, hT = ops.mamba_scan_op(*arrays)
     y2, hT2 = ops.mamba_scan_op(*arrays)

@@ -25,6 +25,8 @@ Tolerances:
   chip_smoke.py's 0.1 of the largest magnitude (``assert_close``).
 """
 import functools
+import re
+from pathlib import Path
 
 import pytest
 
@@ -41,7 +43,7 @@ from repro_torch.configs import archs, base  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops  # noqa: E402
 from repro_torch.kernels.mamba_scan.mamba_scan import (  # noqa: E402
-    CHANNELS, MAX_STATE, STEPS, launch_shape, mamba_scan, smem_bytes)
+    CHANNELS, LANES, MAX_STATE, STEPS, launch_shape, mamba_scan, smem_bytes)
 from repro_torch.kernels.mamba_scan.ref import (  # noqa: E402
     _combine, associative_scan, mamba_scan_ref)
 from repro_torch.models import blocks, lm  # noqa: E402
@@ -86,17 +88,24 @@ def _scan_inputs(B, S, di, ds, dtype="float32", seed=0):
 
 def _kernel_order(dt, x, Bm, Cm, A, D, h0):
     """A torch emulation of csrc/mamba_scan.cu's arithmetic, step by step:
-    the decay ``exp2(dt * fl(A log2 e))``, the state update ``fma(a, h,
-    fl(fl(dt x) Bm))`` and y's chain of fused multiply-adds in ascending
-    s, then ``+ fl(D x)``; each fused operation in f64 rounded to f32
+    the decay ``exp2(dt * fl(A log2 e))`` (an exact exp2: the SFU's 2-ulp
+    ``ex2.approx`` is not emulated), the state update ``fma(a, h,
+    fl(fl(dt x) Bm))``; y's sum as the kernel takes it: in each of the
+    ``LANES`` lanes of a channel, state slot j into chain j mod 2 by fused
+    multiply-adds in ascending j, the chains added, the two lanes' sums
+    added, then ``+ fl(D x)``.  Each fused operation in f64 rounded to f32
     (exact up to a double rounding), the states zero-padded to
-    ``MAX_STATE`` as in the kernel.  Returns (y, hT) in f32."""
+    ``MAX_STATE``.  Returns (y, hT) in f32."""
     f32, f64 = torch.float32, torch.float64
     B, S, di = dt.shape
     ds = Bm.shape[2]
+    spl = MAX_STATE // LANES
 
     def pad(t):
         return torch.nn.functional.pad(t.to(f32), (0, MAX_STATE - ds))
+
+    def fma(a, b, c):
+        return (a.to(f64) * b.to(f64) + c.to(f64)).to(f32)
     a2 = pad(A) * torch.tensor(1.4426950408889634, dtype=f32)
     h = pad(h0)
     Bp, Cp = pad(Bm), pad(Cm)
@@ -105,12 +114,16 @@ def _kernel_order(dt, x, Bm, Cm, A, D, h0):
     for t in range(S):
         a = torch.exp2((dtf[:, t, :, None] * a2).to(f64)).to(f32)
         b = (dtf[:, t] * xf[:, t])[..., None] * Bp[:, t, None, :]
-        h = (a.to(f64) * h.to(f64) + b.to(f64)).to(f32)
-        acc = torch.zeros((B, di), dtype=f32)
-        for s in range(MAX_STATE):
-            acc = (h[..., s].to(f64) * Cp[:, t, None, s].to(f64)
-                   + acc.to(f64)).to(f32)
-        y[:, t] = acc + D.to(f32) * xf[:, t]
+        h = fma(a, h, b)
+        total = None
+        for g in range(LANES):
+            acc = [torch.zeros((B, di), dtype=f32) for _ in range(2)]
+            for j in range(spl):
+                s = g * spl + j
+                acc[j % 2] = fma(h[..., s], Cp[:, t, None, s], acc[j % 2])
+            total = acc[0] + acc[1] if total is None \
+                else total + (acc[0] + acc[1])
+        y[:, t] = total + D.to(f32) * xf[:, t]
     return y, h[..., :ds]
 
 
@@ -248,14 +261,50 @@ def test_autotune_registered_skips_the_scan(monkeypatch):
 
 def test_launch_shape_and_shared_memory():
     """jamba's prefill: 64 blocks of 128 channels a batch row, 256 in
-    all; two staged chunks fit a block's shared memory in both dtypes."""
+    all, two threads a channel; two staged chunks (dt and x in the
+    input's type, Bm and Cm in f32) fit a block's shared memory in both
+    dtypes."""
     shape = launch_shape(4, 8192)
-    assert shape == {"threads": CHANNELS, "blocks": 256, "grid": (64, 4),
-                     "steps_a_chunk": STEPS}
+    assert shape == {"threads": CHANNELS * LANES, "blocks": 256,
+                     "grid": (64, 4), "steps_a_chunk": STEPS}
+    assert LANES == 2 and shape["threads"] == 256
     assert launch_shape(2, 200)["grid"] == (2, 2)
-    assert smem_bytes(torch.bfloat16) == 36_864
+    assert smem_bytes(torch.bfloat16) == 40_960
     assert smem_bytes(torch.float32) == 73_728 <= registry.SMEM_PER_BLOCK
     assert MAX_STATE == 16
+
+
+SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
+          "kernels" / "mamba_scan" / "csrc" / "mamba_scan.cu")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ds,dt_max", [(8, None), (16, 200.0)],
+                         ids=["ds8", "underflow"])
+def test_kernel_order_at_padding_and_underflow(ds, dt_max, dtype):
+    """The kernel's order against the plain version within ``ops.TOL`` of
+    the terms' scale at ds 8 (the second lane of a channel holds only
+    padding) and with dt uniform up to 200, where most decays underflow
+    to 0 beside decays that do not."""
+    arrays = _scan_inputs(2, 40, 20, ds, dtype, seed=40 + ds)
+    if dt_max is not None:
+        dt = np.random.default_rng(40).uniform(0.0, dt_max, (2, 40, 20))
+        arrays[0] = torch.from_numpy(dt.astype(np.float32)).to(
+            arrays[0].dtype)
+        a = torch.exp2(arrays[0].to(torch.float32)[..., None]
+                       * arrays[4].to(torch.float32) * 1.4426950408889634)
+        assert 0.5 < float((a == 0).float().mean()) < 1.0
+    worst = ops.held_to_plain(arrays, *_kernel_order(*arrays))
+    assert max(worst["worst_vs_terms"].values()) <= 1.0, (ds, worst)
+
+
+def test_source_constants_are_the_wrappers():
+    """csrc/mamba_scan.cu's constants are the ones mamba_scan.py declares
+    (the wrapper checks the built library's against them too)."""
+    text = SOURCE.read_text()
+    for name, value in (("MAX_STATE", MAX_STATE), ("CHANNELS", CHANNELS),
+                        ("STEPS", STEPS), ("LANES", LANES)):
+        assert re.search(rf"#define {name} {value}\b", text), name
 
 
 # ---------------------------------------------------------- the mixer ------
