@@ -207,6 +207,27 @@ source, all started together), and prints one JSON line per phase:
    the same comparisons on an f32 copy of the weights made leaf by leaf
    as the bf16 ones are freed (``LM_TOL_F32``); the scan's time at the
    prefill shape beside its plain version and the bound;
+   ``whisper_lm_slice`` -- the encoder-decoder LM's serving path at the
+   full width and depth of whisper-medium (24 encoder and 24 decoder
+   layers, d_model 1,024, 16 heads of 64 without GQA, d_ff 4,096, qkv
+   bias, LayerNorm, gelu, vocab 51,865 padded to 51,968, learned decoder
+   positions, bf16, seeded weights on the card; the jamba weights freed
+   first), every attention on ``flash_attention``: ``prefill`` of 4
+   prompts of 384 tokens over 4 x 1,500 seeded frame embeddings (the
+   reference's stub frontend), exactly 72 launches on the bf16 prefill
+   kernel (24 causal encoder 1,500 x 1,500, 24 decoder self, 24 cross
+   384 x 1,500), the same prefill and the encoder with
+   ``blocks.flash_attention_op`` patched to the plain version (no
+   launch; logits, the encoder's output, every layer's self and cross
+   K/V), the cache handoff, the int8-cache handoff (the cross cache
+   stays bf16) with the kernel against the plain version; then
+   ``serve_lm.generate`` for 33 tokens (48 launches a step, each on the
+   decode kernel and its combine: 24 self, 24 cross over all 1,500
+   frames) and the decode loop traced for the card's busy share; the
+   same comparisons on an f32 copy (``LM_TOL_F32``); the kernel's times
+   at the path's four shapes (the encoder, the cross prefill, a step's
+   self and cross attention) beside its plain version, SDPA and the
+   bound;
 10. ``lm_train_slice`` -- LM training on the card: the
     ``flash_attention_bwd`` kernel at the training shape (B 2, S 2,048,
     24/8 heads of 128, causal) in f32 and bf16 against the plain backward
@@ -239,7 +260,9 @@ grid no tile divides, 4096x4096), flash_attention (its tolerance, each
 case in f32 and bf16: both default problems, non-causal, GQA groups 1
 and 3, ``kv_valid_len`` 0 and 150, ``q_offset``, the llama3.2-3b
 prefill, the decode step at groups 1, 3 and 4 and with no valid key,
-Sq x group 16 and 17, q.k 192 and 256 over v 128; bf16 on the bf16
+Sq x group 16 and 17, q.k 192 and 256 over v 128, whisper's encoder
+(causal 1,500 x 1,500, hd 64, group 1), cross prefill (384 x 1,500) and
+cross step (Sq 1 over 1,500 keys, all valid); bf16 on the bf16
 kernels only, a relaunch bit for bit) and
 flash_attention_int8 (its default problem, the decode window, one decode
 step, GQA groups 1 and 4, hd 4, 36 and 64, 8,191 keys non-causal,
@@ -540,6 +563,24 @@ JAMBA_KERNEL_GROUPS = {
 # the kernel ops each MoE slice holds against their plain versions
 MLA_PLAIN = ("flash_attention_op",)
 JAMBA_PLAIN = ("flash_attention_op", "mamba_scan_op")
+# the whisper LM slice: whisper-medium (src/repro/configs/archs.py:13-20)
+# at full width and depth (24 encoder and 24 decoder layers) serving 4
+# prompts of 384 tokens (serve_lm.ENC_DEC_PROMPT: 417 positions with the
+# 33 generated, inside whisper's 448-token text context, and the cross
+# prefill's 384 x 1,500 scores below the reference's switch to its
+# chunked attention at 2,796 rows) over 4 x 1,500 seeded frames; the
+# kernel at its four shapes (16 heads of 64, group 1): the causal
+# encoder, the cross prefill, and the first decode step's self attention
+# (385 of the 417 cached keys valid) and cross attention (all 1,500)
+WHISPER_ARCH, WHISPER_PROMPT, WHISPER_FRAMES = "whisper-medium", 384, 1500
+WHISPER_HEADS = dict(h=16, kv=16, hd=64)
+WHISPER_ENCODER = dict(b=LM_BATCH, sq=WHISPER_FRAMES, skv=WHISPER_FRAMES,
+                       causal=True, q_offset=0, **WHISPER_HEADS)
+WHISPER_CROSS = dict(b=LM_BATCH, sq=WHISPER_PROMPT, skv=WHISPER_FRAMES,
+                     causal=False, q_offset=0, **WHISPER_HEADS)
+WHISPER_SELF_STEP = dict(b=LM_BATCH, sq=1, skv=WHISPER_PROMPT + LM_GEN,
+                         causal=False, q_offset=0, **WHISPER_HEADS)
+WHISPER_CROSS_STEP = dict(WHISPER_CROSS, sq=1)
 # exp2 on the SFUs: 16 a clock an SM on Hopper (the CUDA programming
 # guide's throughput table, compute capability 9.0); the rate is this
 # times the SMs times the SM clock nvidia-smi reports as its maximum
@@ -2576,10 +2617,12 @@ def check_flash(dev):
     bf16: both default problems, non-causal, GQA groups 1 and 3,
     kv_valid_len including 0, the llama3.2-3b prefill, the widened kernel
     at q.k 192 and 256 over v 128 (``WIDE_HEADS``) causal over 512 keys
-    with 16 heads and at 192 / 128 with ``kv_valid_len`` 300, and the
+    with 16 heads and at 192 / 128 with ``kv_valid_len`` 300, the
     decode shapes (Sq 1 over the llama3.2-3b step's 2,081 keys with 2,049
     valid at GQA groups 1, 3 and 4, none valid, Sq x group 16 and 17, MLA's
-    192 / 128 at Sq 1).  bf16 calls launch the bf16 kernels (the decode
+    192 / 128 at Sq 1), and whisper's (hd 64, group 1): its causal
+    encoder over 1,500 frames, its cross prefill of 384 rows over them
+    and a cross step over all of them.  bf16 calls launch the bf16 kernels (the decode
     kernel and its combine at most 16 rows a kv head), never the f32
     design, and a relaunch gives the same bits."""
     import torch
@@ -2623,6 +2666,11 @@ def check_flash(dev):
     shapes.append(("q.k 192 / v 128 kv_valid_len 300, non-causal",
                    dict(wide, hd=192, hdv=128),
                    {"kv_valid_len": 300, "causal": False}))
+    shapes += [
+        ("whisper encoder, causal 1500", WHISPER_ENCODER, {}),
+        ("whisper cross prefill 384 x 1500", WHISPER_CROSS, {}),
+        ("whisper cross step over 1500", WHISPER_CROSS_STEP,
+         {"kv_valid_len": WHISPER_FRAMES})]
     errs = {}
     for i, (label, shape, kw) in enumerate(shapes):
         kw = dict({"causal": shape.get("causal", True),
@@ -3606,21 +3654,39 @@ def gqa_compare_kv(caches, want):
     return {k: tuple(v) for k, v in acc.items()}, by_layer
 
 
-def gqa_handoff(cfg, params, prompts):
+def gqa_handoff(cfg, params, prompts, frames=None):
     """``serve_step`` on the last prompt token after a prefill of the
-    others (into a cache of the prompt's length): the step's logits."""
+    others (into a cache of the prompt's length; an encoder-decoder
+    model's over ``frames``): the step's logits."""
     from repro_torch.models import lm
     S = prompts.shape[1]
-    _, short = lm.prefill(cfg, params, prompts[:, :-1], cache_len=S)
+    _, short = lm.prefill(cfg, params, prompts[:, :-1], enc_embeds=frames,
+                          cache_len=S)
     return lm.serve_step(cfg, params, short, prompts[:, -1:], S - 1)[0]
 
 
-def gqa_against_plain(cfg, params, prompts, logits, caches):
+def whisper_cross_kv(caches, want):
+    """Every decoder layer's cross K and V against ``want``'s: ``{"cross_k":
+    (max abs error, largest |want|, worst), "cross_v": ...}``."""
+    out = {}
+    for key in ("cross_k", "cross_v"):
+        acc = [0.0, 0.0, 0.0]
+        for got, ref in zip(caches["stack"][0], want["stack"][0]):
+            acc = [max(a, b) for a, b in zip(acc, lm_compare(got[key],
+                                                             ref[key]))]
+        out[key] = tuple(acc)
+    return out
+
+
+def gqa_against_plain(cfg, params, prompts, logits, caches, frames=None):
     """The prefill that gave ``logits``/``caches`` run again with attention
     computed by the kernel's plain version (which must launch nothing),
     then the cache handoff against ``logits``, and the same handoff
     through an int8 KV cache, with the kernel and with the plain
-    version."""
+    version.  An encoder-decoder model's prefill runs over ``frames``;
+    its encoder's output and every layer's cross K/V are compared too,
+    and the cross caches' dtypes reported (the model's, also beside an
+    int8 self cache)."""
     from unittest import mock
 
     import torch
@@ -3630,21 +3696,32 @@ def gqa_against_plain(cfg, params, prompts, logits, caches):
 
     cfg8 = cfg.replace(kv_cache_dtype="int8")
     before = ops.SPEC.launches
-    step8 = gqa_handoff(cfg8, params, prompts)
+    step8 = gqa_handoff(cfg8, params, prompts, frames)
     torch.cuda.synchronize()
     int8_launches = ops.SPEC.launches - before
+    encode = frames is not None
+    enc = lm.encode(cfg, params, frames) if encode else None
     before = ops.SPEC.launches
     with mock.patch.object(blocks, "flash_attention_op", flash_attention_ref):
         t0 = time.perf_counter()
-        logits_p, caches_p = lm.prefill(cfg, params, prompts)
+        logits_p, caches_p = lm.prefill(cfg, params, prompts,
+                                        enc_embeds=frames)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        step8_p = gqa_handoff(cfg8, params, prompts)
+        enc_p = lm.encode(cfg, params, frames) if encode else None
+        step8_p = gqa_handoff(cfg8, params, prompts, frames)
         torch.cuda.synchronize()
     plain_launches = ops.SPEC.launches - before
     kv, by_layer = gqa_compare_kv(caches, caches_p)
+    extra = {}
+    if encode:
+        kv.update(whisper_cross_kv(caches, caches_p), enc_out=lm_compare(
+            enc, enc_p))
+        extra["cross_cache_dtypes"] = sorted({
+            str(c[k].dtype).removeprefix("torch.")
+            for c in caches["stack"][0] for k in ("cross_k", "cross_v")})
     del caches_p
-    step = gqa_handoff(cfg, params, prompts)
+    step = gqa_handoff(cfg, params, prompts, frames)
 
     def real(t):  # logits of the vocabulary (padding reads -1e30)
         return t[..., :cfg.vocab_size]
@@ -3664,7 +3741,7 @@ def gqa_against_plain(cfg, params, prompts, logits, caches):
         "handoff": named(step, logits),
         "int8_handoff_vs_plain": named(step8, step8_p),
         # not a check: the int8 cache's own quantization error
-        "int8_handoff_vs_prefill": named(step8, logits)}
+        "int8_handoff_vs_prefill": named(step8, logits), **extra}
 
 
 def gqa_within(res, tol):
@@ -3749,7 +3826,7 @@ def time_gqa_attention(dev, smi):
 
 def time_lm_attention(dev, smi, case, shapes, seed):
     """flash_attention's times at an LM's ``shapes`` ((label, shape,
-    valid keys, iterations); a ``decode`` label also from a CUDA graph,
+    valid keys, iterations); a ``decode...`` label also from a CUDA graph,
     and the decode kernel and its combine alone from CUDA graphs beside
     their plain versions, ``decode_kernels``; the others also at every
     tile the spec would sweep, ``tiles_ms``), each launch held against
@@ -3767,7 +3844,7 @@ def time_lm_attention(dev, smi, case, shapes, seed):
 
         def kernel(tile=params):
             return ops.SPEC.run_call(problem, arrays, tile)
-        decode = label == "decode"
+        decode = label.startswith("decode")
         want = plain().float()
         tiles = [params] if decode else ops.SPEC.candidates(problem)
         for tile in tiles:
@@ -4548,6 +4625,179 @@ def run_jamba_lm_slice(dev, smi, scan_arrays):
     return gen_launches, timing
 
 
+def time_whisper_attention(dev, smi):
+    """flash_attention at whisper's four shapes (bf16): the causal
+    encoder, the cross prefill, and a decode step's self and cross
+    attention (also from CUDA graphs, with their two kernels alone),
+    beside its plain version, SDPA and the bound."""
+    return time_lm_attention(dev, smi, "whisper_lm", (
+        ("encoder", WHISPER_ENCODER, None, 10),
+        ("cross prefill", WHISPER_CROSS, None, 10),
+        ("decode self", WHISPER_SELF_STEP, WHISPER_PROMPT + 1, 200),
+        ("decode cross", WHISPER_CROSS_STEP, WHISPER_FRAMES, 200)),
+        seed=130)
+
+
+def run_whisper_lm_slice(dev, smi):
+    """prefill -> serve_step of whisper-medium at full width and depth
+    through ``serve_lm.generate``, every attention (encoder, decoder
+    self, cross) on flash_attention, held against the same model with
+    attention computed by the kernel's plain version, in its bf16 and as
+    an f32 copy; then the kernel's times at this path's four shapes.
+    Returns the generate loop's flash_attention launches and the
+    kernel's times."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import lm
+
+    cfg = get_config(WHISPER_ARCH)
+    if (cfg.enc_ctx, serve_lm.ENC_DEC_PROMPT) != (WHISPER_FRAMES,
+                                                  WHISPER_PROMPT):
+        raise AssertionError("whisper's shapes moved: update WHISPER_*")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = {}
+    t_phase = t0 = time.perf_counter()
+    params = lm.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    seconds["init_params"] = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, WHISPER_PROMPT),
+                            generator=g, device=dev)
+    frames = serve_lm.enc_embeds_for(cfg, LM_BATCH, g)
+    lm.prefill(cfg, params, prompts, enc_embeds=frames)  # warm-up
+
+    registry.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = lm.prefill(cfg, params, prompts, enc_embeds=frames)
+    torch.cuda.synchronize()
+    seconds["prefill"] = time.perf_counter() - t0
+    prefill_launches = (ops.SPEC.launches, ops.SPEC.plain_calls)
+    prefill_kernels = flash_kernel_launches()
+    _, traced_prefill_s, prefill_busy_s, prefill_by_kind = device_busy(
+        lambda: lm.prefill(cfg, params, prompts, enc_embeds=frames),
+        PREFILL_KERNEL_GROUPS)
+    bf16 = gqa_against_plain(cfg, params, prompts, logits, caches, frames)
+    del caches
+
+    registry.reset_counts()
+    res = serve_lm.generate(cfg, params, prompts, LM_GEN, enc_embeds=frames)
+    gen_launches = ops.SPEC.launches
+    gen_kernels = record_flash_launches("whisper_lm_slice")
+    tokens = res["tokens"]
+    finite = bool(torch.isfinite(logits).all()
+                  and torch.isfinite(res["logits"]).all())
+
+    # the card's busy share over the same decode loop, traced
+    steps = LM_GEN - 1
+    first, caches = lm.prefill(cfg, params, prompts, enc_embeds=frames,
+                               cache_len=WHISPER_PROMPT + LM_GEN)
+
+    def decode_loop():
+        tok = first.argmax(-1)[:, None]
+        for i in range(steps):
+            out, _ = lm.serve_step(cfg, params, caches, tok,
+                                   WHISPER_PROMPT + i)
+            tok = out.argmax(-1)[:, None]
+        return tok
+    _, traced_s, busy_s = device_busy(decode_loop)
+    del caches
+
+    # the same weights in f32: the kernel's own differences, without
+    # bf16 rounding of the activations to amplify them layer by layer
+    cfg32 = cfg.replace(dtype="float32")
+    params32, frames32 = _cast(params, torch.float32), frames.float()
+    del params
+    registry.reset_counts()
+    logits32, caches32 = lm.prefill(cfg32, params32, prompts,
+                                    enc_embeds=frames32)
+    torch.cuda.synchronize()
+    f32_launches = ops.SPEC.launches
+    f32_kernels = flash_kernel_launches()
+    f32 = gqa_against_plain(cfg32, params32, prompts, logits32, caches32,
+                            frames32)
+    finite = finite and bool(torch.isfinite(logits32).all())
+    del params32, caches32
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    timing = time_whisper_attention(dev, smi)
+    seconds["phase"] = time.perf_counter() - t_phase
+    L, Le = cfg.n_layers, cfg.enc_layers
+    per_prefill, per_step = Le + 2 * L, 2 * L
+    checks = {
+        # 24 encoder, 24 decoder self, 24 cross: all on the prefill kernel
+        "prefill_launches_72": prefill_launches == (per_prefill, 0)
+        and f32_launches == per_prefill,
+        "prefill_on_the_bf16_prefill_kernel": prefill_kernels == {
+            "flash_attention_f32": 0,
+            "flash_attention_bf16_prefill": per_prefill,
+            "flash_attention_bf16_decode": 0,
+            "flash_attention_bf16_combine": 0}
+        and f32_kernels["flash_attention_f32"] == per_prefill,
+        "plain_path_launched_nothing": bf16["plain_path_launches"] == 0
+        and f32["plain_path_launches"] == 0,
+        "int8_handoff_launches_72_and_48": all(
+            r["int8_handoff_launches"] == per_prefill + per_step
+            for r in (bf16, f32)),
+        "cross_caches_in_the_model_dtype":
+        bf16["cross_cache_dtypes"] == ["bfloat16"]
+        and f32["cross_cache_dtypes"] == ["float32"],
+        "generate_launches_72_then_48_a_step":
+        gen_launches == per_prefill + per_step * steps,
+        # the prefill on the bf16 prefill kernel, each step's 48 on the
+        # decode kernel and its combine, none on the f32 design
+        "generate_on_the_bf16_kernels": gen_kernels == {
+            "flash_attention_f32": 0,
+            "flash_attention_bf16_prefill": per_prefill,
+            "flash_attention_bf16_decode": per_step * steps,
+            "flash_attention_bf16_combine": per_step * steps},
+        "logits_finite": finite,
+        "logits_shape": tuple(logits.shape) == (LM_BATCH, cfg.padded_vocab),
+        "bf16_matches_plain_attention_and_handoffs":
+        gqa_within(bf16, LM_TOL_BF16),
+        "f32_matches_plain_attention_and_handoffs":
+        gqa_within(f32, LM_TOL_F32),
+        "tokens": tuple(tokens.shape) == (LM_BATCH, LM_GEN)
+        and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+    }
+    numbers = dict(
+        prefill_s=seconds["prefill"], decode_s=res["decode_s"],
+        generate_prefill_s=res["prefill_s"],
+        decode_ms_per_step=res["decode_s"] / steps * 1e3,
+        tokens_per_s=LM_BATCH * steps / res["decode_s"],
+        decode_traced_s=traced_s, decode_busy_s=busy_s,
+        decode_busy_share=busy_s / traced_s if busy_s else None,
+        prefill_traced_s=traced_prefill_s, prefill_busy_s=prefill_busy_s,
+        prefill_kernel_s=prefill_by_kind,
+        kernel_ms_encoder=timing["encoder"]["ms"],
+        kernel_ms_cross_prefill=timing["cross prefill"]["ms"],
+        kernel_graph_ms_decode_self=timing["decode self"]["graph_ms"],
+        kernel_graph_ms_decode_cross=timing["decode cross"]["graph_ms"],
+        kernel_share_of_prefill=(Le * timing["encoder"]["ms"]
+                                 + L * timing["cross prefill"]["ms"])
+        / (seconds["prefill"] * 1e3), peak_gib=peak_gib)
+    emit("whisper_lm_slice", arch=cfg.name, enc_layers=Le, n_layers=L,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+         padded_vocab=cfg.padded_vocab, dtype=cfg.dtype, params=n_params,
+         batch=LM_BATCH, prompt=WHISPER_PROMPT, frames=WHISPER_FRAMES,
+         gen=LM_GEN, seconds=seconds,
+         launches={"prefill": prefill_launches[0],
+                   "prefill_by_kernel": prefill_kernels,
+                   "generate": gen_launches, "f32_prefill": f32_launches,
+                   "generate_by_kernel": gen_kernels},
+         bf16=bf16, f32=f32, tol_bf16=LM_TOL_BF16, tol_f32=LM_TOL_F32,
+         sample=tokens[0, :8].tolist(), nvidia_smi=smi, **numbers, **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"whisper lm slice checks failed: {checks}")
+    return gen_launches, timing
+
+
 def attention_bwd_cell(shape, dtype, dev, seed):
     """flash_attention_bwd at the training shape: its inputs (o from the
     plain version, a seeded cotangent), the bound (each of q, k, v, o, dO
@@ -5043,6 +5293,7 @@ def main():
     jamba_launches, mamba_timing = run_jamba_lm_slice(dev, smi,
                                                        mamba_arrays)
     del mamba_arrays
+    _, whisper_timing = run_whisper_lm_slice(dev, smi)
     train_work = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(train_work, ignore_errors=True)
     train_work.mkdir(parents=True)
@@ -5102,7 +5353,13 @@ def main():
                                              ("train_forward", lm_t))
            for k in ("problem", "max_abs_err", "ms", "plain_ms", "bound_ms",
                      "bound_by", "bound_split_ms", "library_ms",
-                     "library_backend", "tiles_ms")}}, {
+                     "library_backend", "tiles_ms")},
+        **{f"whisper_{pre}_{k}": whisper_timing[label][k]
+           for pre, label in (("encoder", "encoder"),
+                              ("cross_prefill", "cross prefill"))
+           for k in ("problem", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                     "bound_by", "bound_split_ms", "library_ms",
+                     "library_backend")}}, {
         "name": "flash_attention_bf16_decode", "route": "cuda",
         "source": flash.BF16_SOURCE, "replaces": flash.REPLACES,
         "replaces_note": "its bf16 forward at most 16 rows a kv head (a "
@@ -5118,7 +5375,18 @@ def main():
         "op_ms": lm_d["ms"], "op_graph_ms": lm_d["graph_ms"],
         "op_plain_ms": lm_d["plain_ms"], "op_bound_ms": lm_d["bound_ms"],
         "op_library_ms": lm_d["library_ms"],
-        "op_max_abs_err": lm_d["max_abs_err"]}, {
+        "op_max_abs_err": lm_d["max_abs_err"],
+        **{f"whisper_{pre}_{k}": v
+           for pre, label in (("self_step", "decode self"),
+                              ("cross_step", "decode cross"))
+           for k, v in dict(
+               whisper_timing[label]["decode_kernels"],
+               op_ms=whisper_timing[label]["ms"],
+               op_graph_ms=whisper_timing[label]["graph_ms"],
+               op_plain_ms=whisper_timing[label]["plain_ms"],
+               op_bound_ms=whisper_timing[label]["bound_ms"],
+               op_library_ms=whisper_timing[label]["library_ms"],
+               problem=whisper_timing[label]["problem"]).items()}}, {
         "name": "flash_attention_bf16_combine", "route": "cuda",
         "source": flash.BF16_SOURCE, "replaces": flash.REPLACES,
         "replaces_note": "the decode kernel's partials added in ascending "

@@ -4,8 +4,9 @@ prefill + decode with KV caches.
 Runs a small llama-style model (GQA + swiglu), or with ``--arch`` the
 reduced form of a registered config (``archs.reduced``: e.g.
 deepseek-v2-lite-16b's MLA + MoE, grok-1-314b's GQA + MoE, which at
-full size fits no single card, or jamba-v0.1-52b's Mamba + GQA + MoE
-with learned positions), prefills a batch of prompts, then decodes
+full size fits no single card, jamba-v0.1-52b's Mamba + GQA + MoE
+with learned positions, or whisper-medium's encoder and cross attention
+over seeded frame embeddings), prefills a batch of prompts, then decodes
 tokens greedily through ``serve_step``; attention runs on the
 ``flash_attention`` kernel on the card, and Mamba's prefill scan on
 ``mamba_scan``.  The reference jits its decode step; the port's runs
@@ -22,7 +23,7 @@ import torch
 from repro_torch.configs.archs import reduced
 from repro_torch.configs.base import LayerSpec, ModelConfig, get_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.serve_lm import generate
+from repro_torch.launch.serve_lm import enc_embeds_for, generate
 from repro_torch.models import lm
 
 CFG = ModelConfig(name="serve-demo", n_layers=4, d_model=256, n_heads=8,
@@ -33,15 +34,18 @@ BATCH, PROMPT_LEN, GEN = 4, 32, 48
 
 def serve_demo(*, device=None, arch=None):
     """Seeded weights and prompts, then ``GEN`` greedy tokens for each of
-    ``BATCH`` prompts of ``PROMPT_LEN`` tokens, of ``CFG`` or the reduced
-    ``arch``: the dict of :func:`~repro_torch.launch.serve_lm.generate`."""
+    ``BATCH`` prompts of ``PROMPT_LEN`` tokens (and, for an
+    encoder-decoder model, seeded frame embeddings), of ``CFG`` or the
+    reduced ``arch``: the dict of
+    :func:`~repro_torch.launch.serve_lm.generate`."""
     cfg = CFG if arch is None else reduced(get_config(arch))
     dev = resolve_device(device)
     params = lm.init_params(0, cfg, device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN),
                             generator=g, device=dev)
-    return generate(cfg, params, prompts, GEN)
+    return generate(cfg, params, prompts, GEN,
+                    enc_embeds=enc_embeds_for(cfg, BATCH, g))
 
 
 def main(argv=None):

@@ -1,6 +1,7 @@
 """Layer blocks of the LM (counterpart of ``repro/models/blocks.py``):
-the norms, the GQA, MLA, RWKV6 and Mamba mixers, and the swiglu, gelu,
-MoE and RWKV channel-mix MLPs.
+the norms, the GQA (and, with ``cross_kv``, an encoder-decoder's cross
+attention), MLA, RWKV6 and Mamba mixers, and the swiglu, gelu, MoE and
+RWKV channel-mix MLPs.
 
 Each mixer exposes, as in the reference:
   ``<name>_init(gen, cfg)``                   -> param dict
@@ -99,7 +100,10 @@ def _act(name):
 
 
 # ------------------------------------------------------------- GQA mixer ---
-def gqa_init(gen, cfg):
+def gqa_init(gen, cfg, cross=False):
+    """GQA's projections (``bq``/``bk``/``bv`` with ``qkv_bias``, qwen3's
+    ``q_norm``/``k_norm`` with ``qk_norm``); a ``cross`` attention's have
+    no q/k norm, as in the reference."""
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt, dev = cfg.torch_dtype, gen.device
     p = {"wq": _dense_init(gen, (d, H * hd), dt),
@@ -110,7 +114,7 @@ def gqa_init(gen, cfg):
         p["bq"] = torch.zeros((H * hd,), dtype=dt, device=dev)
         p["bk"] = torch.zeros((KV * hd,), dtype=dt, device=dev)
         p["bv"] = torch.zeros((KV * hd,), dtype=dt, device=dev)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones((hd,), dtype=dt, device=dev)
         p["k_norm"] = torch.ones((hd,), dtype=dt, device=dev)
     return p
@@ -155,12 +159,28 @@ def _project_qkv(cfg, p, x, positions, position_ids=None):
     return q, k, v
 
 
-def gqa_seq(cfg, p, x, *, positions, position_ids=None, causal=True):
+def _cross_q(cfg, p, x):
+    """A cross attention's query ``[B, S, H, hd]``: x's projection (with
+    ``bq`` under ``qkv_bias``), no norm and no rotation."""
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    return q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+
+
+def gqa_seq(cfg, p, x, *, positions, position_ids=None, causal=True,
+            cross_kv=None):
     """Attention over a sequence x ``[B, S, d]`` at ``positions``
     ``[S]``.  Returns ``(y, (k, v))``, k and v ``[B, S, KV, hd]`` for the
-    cache."""
+    cache.  With ``cross_kv`` (the encoder's k and v ``[B, Se, KV, hd]``)
+    it is cross attention: only q is projected, and every query sees
+    every key (``causal`` is ignored); ``(k, v)`` are ``cross_kv``."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(cfg, p, x, positions, position_ids)
+    if cross_kv is not None:
+        q, (k, v), causal = _cross_q(cfg, p, x), cross_kv, False
+    else:
+        q, k, v = _project_qkv(cfg, p, x, positions, position_ids)
     o = flash_attention_op(q, k, v, causal=causal, q_offset=0)
     return o.reshape(B, S, -1) @ p["wo"], (k, v)
 
@@ -233,7 +253,7 @@ def _int8_decode_attention(cfg, q, kq, vq, ks, vs, valid, *, chunk=2048):
     return out.transpose(1, 2).to(q.dtype)
 
 
-def gqa_step(cfg, p, x, cache, pos, *, position_ids=None):
+def gqa_step(cfg, p, x, cache, pos, *, position_ids=None, cross_kv=None):
     """One token x ``[B, 1, d]`` at position ``pos`` against the cache
     (k, v ``[B, S, KV, hd]``; int8 with per-token scales when
     ``cfg.kv_cache_dtype == "int8"``).  The token's K/V are written into
@@ -241,8 +261,16 @@ def gqa_step(cfg, p, x, cache, pos, *, position_ids=None):
     and attention runs over the whole cache with ``kv_valid_len = pos +
     1``; an int8 cache is dequantized to bf16 first, as the reference
     does, then cast to q's dtype for the kernel.  For mrope without
-    ``position_ids``, every component is ``pos``."""
+    ``position_ids``, every component is ``pos``.  With ``cross_kv``
+    (the cross cache's k and v ``[B, Se, KV, hd]``, in the model's dtype
+    whatever the cache's) only q is projected, it sees all ``Se`` keys,
+    and ``cache`` is returned as given."""
     B = x.shape[0]
+    if cross_kv is not None:
+        k, v = cross_kv
+        o = flash_attention_op(_cross_q(cfg, p, x), k, v, causal=False,
+                               kv_valid_len=k.shape[1])
+        return o.reshape(B, 1, -1) @ p["wo"], cache
     pid = position_ids
     if cfg.rope == "mrope" and pid is None:
         pid = torch.full((3, B, 1), int(pos), dtype=torch.int64,

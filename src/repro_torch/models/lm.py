@@ -5,6 +5,7 @@ Public surface, under the reference's names:
   params_from_jax(cfg, tree, device=None) -> params
   forward(cfg, params, tokens, ...)      -> logits
   train_loss(cfg, params, batch)         -> scalar loss
+  encode(cfg, params, enc_embeds)        -> encoder output
   init_caches(cfg, batch, cache_len)     -> decode caches
   prefill(cfg, params, tokens)           -> (logits_last, caches)
   serve_step(cfg, params, caches, tokens, pos) -> (logits, caches)
@@ -13,15 +14,22 @@ Parameters are dicts of tensors with the reference's keys.  The
 reference stacks each pattern slot's ``R`` repeats on a leading axis
 (built by ``vmap``, walked by ``lax.scan``); the port keeps a list of
 ``R`` per-layer dicts instead, ``params["stack"][slot][r]``, and walks
-the layers in an unrolled loop.  Caches are laid out the same way.
-The port runs the GQA decoders (llama, qwen1.5, qwen3, qwen2-vl with
-``position_ids``) with bf16 or int8 KV caches, the RWKV6 model, the MoE
-models deepseek-v2-lite (MLA, with its latent cache) and grok-1 (GQA),
-and the hybrid jamba (Mamba and GQA layers, learned positions: a decoder
-with ``rope="none"`` and a layer that is not recurrent adds
-``pos_embed``); cross attention and the encoder wait for ROADMAP queue 1
-item 10.4.  A decode step writes its token's K/V (or MLA's latent and
-rotated key) into the cache buffers it is given.
+the layers in an unrolled loop.  Caches are laid out the same way, and
+so is the encoder of an encoder-decoder model,
+``params["encoder"]["stack"][slot][r]``.
+The port runs every registered family: the GQA decoders (llama,
+qwen1.5, qwen3, qwen2-vl with ``position_ids``) with bf16 or int8 KV
+caches, the RWKV6 model, the MoE models deepseek-v2-lite (MLA, with its
+latent cache) and grok-1 (GQA), the hybrid jamba (Mamba and GQA layers,
+learned positions: a decoder with ``rope="none"`` and a layer that is
+not recurrent adds ``pos_embed``), and the encoder-decoder whisper: an
+encoder over frame embeddings (``enc_embeds`` ``[B, Se, d]``, the
+reference's stub frontend) with sinusoidal positions, run **causal** as
+the reference runs it, and decoder layers with cross attention over its
+output, whose K/V a decode cache keeps per layer (``cross_k``,
+``cross_v``, in the model's dtype under an int8 cache too).  A decode
+step writes its token's K/V (or MLA's latent and rotated key) into the
+cache buffers it is given.
 With ``cfg.remat`` each pattern layer of a
 differentiated forward runs under ``torch.utils.checkpoint`` (the
 reference's ``jax.checkpoint`` of its scan body): only the layer inputs
@@ -38,10 +46,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models.blocks import (MIXER_CACHE, MIXER_INIT, MIXER_SEQ,
                                        MIXER_STEP, _dense_init,
                                        _quantize_kv,
-                                       apply_norm, mixer, mlp_apply,
+                                       apply_norm, gqa_init, gqa_seq,
+                                       gqa_step, mixer, mlp_apply,
                                        mlp_init, norm_init)
 from repro_torch.models import loss as loss_lib
 from repro_torch.models.loss import embed_lookup
+from repro_torch.models.rope import sinusoidal
 
 
 def _layers(cfg):
@@ -57,19 +67,15 @@ _MLPS = ("swiglu", "gelu", "rwkv_cm", "moe")
 
 
 def _check_supported(cfg):
-    """Raise ``NotImplementedError`` naming the ROADMAP item that ports
-    what ``cfg`` needs and the port lacks."""
+    """Raise ``ValueError`` for a mixer or MLP kind the port does not
+    know (every registered config passes)."""
     specs = list(cfg.prefix) + list(cfg.pattern)
+    if cfg.enc_dec:
+        specs += list(cfg.enc_pattern)
     for s in specs:
         mixer(MIXER_INIT, s.mixer)
         if s.mlp not in _MLPS:
             raise ValueError(f"unknown mlp {s.mlp!r}")
-        if s.cross_attn:
-            raise NotImplementedError("cross attention is not in the port "
-                                      "yet (ROADMAP queue 1 item 10.4)")
-    if cfg.enc_dec:
-        raise NotImplementedError("encoder-decoder models are not in the "
-                                  "port yet (ROADMAP queue 1 item 10.4)")
 
 
 def _is_recurrent_only(cfg):
@@ -79,6 +85,14 @@ def _is_recurrent_only(cfg):
 
 def _get(tree, slot, r):
     return tree["prefix"][r] if slot is None else tree["stack"][slot][r]
+
+
+def _enc_layers(cfg):
+    """The encoder's (slot, repeat, spec) in the reference's order (its
+    pattern repeated ``enc_layers / len(enc_pattern)`` times)."""
+    R = cfg.enc_layers // len(cfg.enc_pattern)
+    return [(slot, r, s) for r in range(R)
+            for slot, s in enumerate(cfg.enc_pattern)]
 
 
 # ---------------------------------------------------------------- init -----
@@ -91,6 +105,9 @@ def init_layer(gen, cfg, spec):
         "ln2": norm_init(cfg, gen.device),
         "mlp": mlp_init(gen, cfg, spec.mlp),
     }
+    if spec.cross_attn:
+        p["ln_cross"] = norm_init(cfg, gen.device)
+        p["cross"] = gqa_init(gen, cfg, cross=True)
     if cfg.ffn_surrogate_dim:
         d, sd = cfg.d_model, cfg.ffn_surrogate_dim
         p["surr"] = {
@@ -122,6 +139,11 @@ def init_params(seed, cfg, *, device=None):
     if cfg.rope == "none" and not _is_recurrent_only(cfg):
         p["pos_embed"] = (torch.randn((cfg.max_pos, D), generator=gen,
                                       device=dev) * 0.01).to(dt)
+    if cfg.enc_dec:
+        enc = tuple([] for _ in cfg.enc_pattern)
+        for slot, _, spec in _enc_layers(cfg):
+            enc[slot].append(init_layer(gen, cfg, spec))
+        p["encoder"] = {"stack": enc, "final_norm": norm_init(cfg, dev)}
     return p
 
 
@@ -141,36 +163,68 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _unstack(stack, R, dev):
+    """Each slot's ``R`` stacked layers as a list of per-layer dicts."""
+    return tuple([_map(slot, lambda a, r=r: _tensor(np.asarray(a)[r], dev))
+                  for r in range(R)] for slot in stack)
+
+
 def params_from_jax(cfg, tree, *, device=None):
     """The port's parameters from the reference's ``init_params`` pytree
     given as numpy arrays: the stacked ``R`` axis of ``tree["stack"]``
-    unstacked into per-layer dicts (an MoE layer's ``[R, E, d, f]``
-    experts into its ``[E, d, f]``), every leaf carried bit for bit in
-    its own dtype (the router stays f32 in a bf16 model)."""
+    (and of the encoder's ``tree["encoder"]["stack"]``) unstacked into
+    per-layer dicts (an MoE layer's ``[R, E, d, f]`` experts into its
+    ``[E, d, f]``), every leaf carried bit for bit in its own dtype (the
+    router stays f32 in a bf16 model)."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    R = cfg.pattern_repeats
     p = {"tok_embed": _tensor(tree["tok_embed"], dev),
          "prefix": [_map(lp, lambda a: _tensor(a, dev))
                     for lp in tree["prefix"]],
-         "stack": tuple([_map(slot, lambda a, r=r: _tensor(np.asarray(a)[r],
-                                                           dev))
-                         for r in range(R)] for slot in tree["stack"]),
+         "stack": _unstack(tree["stack"], cfg.pattern_repeats, dev),
          "final_norm": _map(tree["final_norm"], lambda a: _tensor(a, dev))}
     for name in ("lm_head", "pos_embed"):
         if name in tree:
             p[name] = _tensor(tree[name], dev)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        p["encoder"] = {
+            "stack": _unstack(enc["stack"],
+                              cfg.enc_layers // len(cfg.enc_pattern), dev),
+            "final_norm": _map(enc["final_norm"],
+                               lambda a: _tensor(a, dev))}
     return p
 
 
 # ------------------------------------------------------------- forward -----
 
 
-def _apply_layer_seq(cfg, p, spec, x, *, positions, position_ids):
+def _cross_kv(cfg, pc, enc_out):
+    """A decoder layer's cross-attention K and V ``[B, Se, KV, hd]`` of
+    the encoder output ``enc_out`` ``[B, Se, d]`` (with ``bk``/``bv``
+    under ``qkv_bias``)."""
+    B, Se, _ = enc_out.shape
+    k, v = enc_out @ pc["wk"], enc_out @ pc["wv"]
+    if cfg.qkv_bias:
+        k, v = k + pc["bk"], v + pc["bv"]
+    shape = (B, Se, cfg.n_kv_heads, cfg.head_dim)
+    return k.reshape(shape), v.reshape(shape)
+
+
+def _apply_layer_seq(cfg, p, spec, x, *, positions, position_ids,
+                     enc_out=None):
+    """One layer over a sequence: the mixer, then (a decoder layer with
+    ``cross_attn``, given ``enc_out``) cross attention over the encoder
+    output, then the MLP, each a pre-norm residual."""
     h, mc = mixer(MIXER_SEQ, spec.mixer)(
         cfg, p["mixer"], apply_norm(cfg, p["ln1"], x), positions=positions,
         position_ids=position_ids)
     x = x + h
+    if spec.cross_attn and enc_out is not None:
+        h, _ = gqa_seq(cfg, p["cross"], apply_norm(cfg, p["ln_cross"], x),
+                       positions=positions,
+                       cross_kv=_cross_kv(cfg, p["cross"], enc_out))
+        x = x + h
     h, cm_new = mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x),
                           spec.mlp)
     x = x + h
@@ -180,18 +234,53 @@ def _apply_layer_seq(cfg, p, spec, x, *, positions, position_ids):
     return x, cache
 
 
-def _remat_layer(cfg, p, spec, x, positions, position_ids):
+def _remat_layer(cfg, p, spec, x, positions, position_ids, enc_out=None):
     """One layer's output, its activations recomputed in the backward."""
-    def body(h, lp):
+    def body(h, lp, e):
         return _apply_layer_seq(cfg, lp, spec, h, positions=positions,
-                                position_ids=position_ids)[0]
-    return checkpoint(body, x, p, use_reentrant=False), None
+                                position_ids=position_ids, enc_out=e)[0]
+    return checkpoint(body, x, p, enc_out, use_reentrant=False), None
+
+
+def encode(cfg, params, enc_embeds, *, remat=None):
+    """The encoder over frame embeddings ``enc_embeds`` ``[B, Se, d]``
+    (the reference's stub frontend): the sinusoidal table added in their
+    dtype, the encoder stack, **causal** as the reference runs it
+    (``gqa_seq``'s default), and its final norm.  With ``remat`` (None:
+    ``cfg.remat`` while autograd records) each layer is recomputed in
+    the backward, as the decoder's are."""
+    if not cfg.enc_dec:
+        raise ValueError(f"{cfg.name} has no encoder")
+    S = enc_embeds.shape[1]
+    x = enc_embeds + sinusoidal(S, cfg.d_model, enc_embeds.device).to(
+        enc_embeds.dtype)[None]
+    positions = torch.arange(S, device=x.device)
+    if remat is None:
+        remat = cfg.remat and torch.is_grad_enabled()
+    for slot, r, spec in _enc_layers(cfg):
+        p = params["encoder"]["stack"][slot][r]
+        if remat:
+            x, _ = _remat_layer(cfg, p, spec, x, positions, None)
+        else:
+            x, _ = _apply_layer_seq(cfg, p, spec, x, positions=positions,
+                                    position_ids=None)
+    return apply_norm(cfg, params["encoder"]["final_norm"], x)
 
 
 def hidden_states(cfg, params, tokens, *, position_ids=None,
-                  collect_caches=False):
-    """tokens [B,S] (and, for mrope, position_ids [3,B,S]) ->
-    (final-normed hidden [B,S,D], caches or None)."""
+                  enc_embeds=None, collect_caches=False):
+    """tokens [B,S] (and, for mrope, position_ids [3,B,S]; for an
+    encoder-decoder model, enc_embeds [B,Se,D], which a decoder-only one
+    ignores, as the reference does) -> (final-normed hidden [B,S,D],
+    caches or None).  The encoder's output travels in the caches as
+    ``caches["enc_out"]`` (the reference returns it third)."""
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_caches
+    enc_out = None
+    if cfg.enc_dec:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder model: "
+                             f"pass enc_embeds [B, Se, {cfg.d_model}]")
+        enc_out = encode(cfg, params, enc_embeds, remat=remat)
     x = embed_lookup(params["tok_embed"], tokens)
     if "pos_embed" in params:
         S, max_pos = tokens.shape[1], params["pos_embed"].shape[0]
@@ -201,14 +290,16 @@ def hidden_states(cfg, params, tokens, *, position_ids=None,
         x = x + params["pos_embed"][:S]
     positions = torch.arange(tokens.shape[1], device=x.device)
     caches = {"prefix": [], "stack": tuple([] for _ in cfg.pattern)}
-    remat = cfg.remat and torch.is_grad_enabled() and not collect_caches
+    if enc_out is not None:
+        caches["enc_out"] = enc_out
     for slot, r, spec in _layers(cfg):
         p = _get(params, slot, r)
         if remat and slot is not None:  # the reference remats the scan body
-            x, c = _remat_layer(cfg, p, spec, x, positions, position_ids)
+            x, c = _remat_layer(cfg, p, spec, x, positions, position_ids,
+                                enc_out)
             continue
         x, c = _apply_layer_seq(cfg, p, spec, x, positions=positions,
-                                position_ids=position_ids)
+                                position_ids=position_ids, enc_out=enc_out)
         if collect_caches:
             (caches["prefix"] if slot is None
              else caches["stack"][slot]).append(c)
@@ -230,11 +321,13 @@ def _logits_from_hidden(cfg, params, x):
     return logits
 
 
-def forward(cfg, params, tokens, *, position_ids=None, collect_caches=False,
-            last_only=False):
+def forward(cfg, params, tokens, *, position_ids=None, enc_embeds=None,
+            collect_caches=False, last_only=False):
     """tokens [B,S] -> logits [B,S,Vp] (or [B,1,Vp] with last_only), and
-    the caches with ``collect_caches``."""
+    the caches with ``collect_caches`` (holding the encoder's output as
+    ``"enc_out"`` for an encoder-decoder model)."""
     x, caches = hidden_states(cfg, params, tokens, position_ids=position_ids,
+                              enc_embeds=enc_embeds,
                               collect_caches=collect_caches)
     if last_only:
         x = x[:, -1:]
@@ -244,14 +337,14 @@ def forward(cfg, params, tokens, *, position_ids=None, collect_caches=False,
 
 def train_loss(cfg, params, batch, *, fused: bool = True):
     """Mean next-token cross-entropy of ``batch`` (``tokens`` and
-    ``targets`` ``[B, S]``, and ``position_ids`` ``[3, B, S]`` for mrope),
-    through :func:`~repro_torch.models.loss.fused_linear_xent` or, with
+    ``targets`` ``[B, S]``, ``position_ids`` ``[3, B, S]`` for mrope and
+    ``enc_embeds`` ``[B, Se, d]`` for an encoder-decoder model, which a
+    decoder-only one ignores), through
+    :func:`~repro_torch.models.loss.fused_linear_xent` or, with
     ``fused=False``, the naive loss."""
-    if batch.get("enc_embeds") is not None:
-        raise NotImplementedError("encoder inputs are not in the port yet "
-                                  "(ROADMAP queue 1 item 10.4)")
     x, _ = hidden_states(cfg, params, batch["tokens"],
-                         position_ids=batch.get("position_ids"))
+                         position_ids=batch.get("position_ids"),
+                         enc_embeds=batch.get("enc_embeds"))
     W = _head_matrix(cfg, params, x.dtype)
     if fused:
         return loss_lib.fused_linear_xent(x, W, batch["targets"],
@@ -272,13 +365,25 @@ def _layer_cache(cfg, spec, batch, cache_len, dtype, device):
     return c
 
 
-def init_caches(cfg, batch, cache_len, dtype=None, *, device=None):
-    """Zero decode caches, laid out as the parameters."""
+def init_caches(cfg, batch, cache_len, dtype=None, *, enc_out=None,
+                params=None, device=None):
+    """Zero decode caches, laid out as the parameters.  An
+    encoder-decoder model needs the encoder's output ``enc_out`` and the
+    ``params``: each cross-attention layer's cache gets ``cross_k`` and
+    ``cross_v`` (:func:`_cross_kv`, in the model's dtype whatever
+    ``kv_cache_dtype`` says, as in the reference), which every decode
+    step attends to unchanged."""
     dtype = dtype or cfg.torch_dtype
     dev = resolve_device(device)
+    if cfg.enc_dec and (enc_out is None or params is None):
+        raise ValueError(f"{cfg.name}: the cross caches need enc_out and "
+                         f"params")
     caches = {"prefix": [], "stack": tuple([] for _ in cfg.pattern)}
-    for slot, _, spec in _layers(cfg):
+    for slot, r, spec in _layers(cfg):
         c = _layer_cache(cfg, spec, batch, cache_len, dtype, dev)
+        if spec.cross_attn and cfg.enc_dec:
+            c["cross_k"], c["cross_v"] = _cross_kv(
+                cfg, _get(params, slot, r)["cross"], enc_out)
         (caches["prefix"] if slot is None else caches["stack"][slot]).append(c)
     return caches
 
@@ -288,6 +393,11 @@ def _apply_layer_step(cfg, p, spec, x, cache, pos, *, position_ids):
         cfg, p["mixer"], apply_norm(cfg, p["ln1"], x), cache["mixer"], pos,
         position_ids=position_ids)
     x = x + h
+    if spec.cross_attn and "cross_k" in cache:
+        h, _ = gqa_step(cfg, p["cross"], apply_norm(cfg, p["ln_cross"], x),
+                        None, pos,
+                        cross_kv=(cache["cross_k"], cache["cross_v"]))
+        x = x + h
     cm_prev = cache.get("cm_x_last")
     cm_new = cm_prev
     if cfg.ffn_surrogate_dim and "surr" in p:
@@ -323,13 +433,18 @@ def serve_step(cfg, params, caches, tokens, pos, *, position_ids=None):
     return _logits_from_hidden(cfg, params, x[:, 0]), new
 
 
-def prefill(cfg, params, tokens, *, position_ids=None, cache_len=None):
-    """Forward over the prompt; returns (last-token logits, decode caches
-    of ``cache_len`` positions, the prompt's length when None)."""
+def prefill(cfg, params, tokens, *, position_ids=None, enc_embeds=None,
+            cache_len=None):
+    """Forward over the prompt (and, for an encoder-decoder model, the
+    encoder over ``enc_embeds``); returns (last-token logits, decode
+    caches of ``cache_len`` positions, the prompt's length when None,
+    with the cross caches)."""
     logits, caches = forward(cfg, params, tokens, position_ids=position_ids,
-                             collect_caches=True, last_only=True)
+                             enc_embeds=enc_embeds, collect_caches=True,
+                             last_only=True)
     B, S = tokens.shape
     out = init_caches(cfg, B, cache_len or S, cfg.torch_dtype,
+                      enc_out=caches.get("enc_out"), params=params,
                       device=params["tok_embed"].device)
     for slot, r, spec in _layers(cfg):
         src, dst = _get(caches, slot, r), _get(out, slot, r)

@@ -785,6 +785,71 @@ def test_gqa_lm_on_the_card_matches_the_cpu(dev, name, dtype, cache):
         close(g, w)
 
 
+@pytest.mark.parametrize("cache", ["bfloat16", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_on_the_card_matches_the_cpu(dev, dtype, cache):
+    """Reduced whisper-medium (2 encoder and 2 decoder layers, 16 frames):
+    prefill over the frames and three serve_steps on the card, one
+    flash_attention launch per encoder layer and two per decoder layer
+    (self and cross) and call, against the same weights, frames and
+    tokens on the CPU (plain attention): logits and every layer's cross
+    K/V, f32 within 1e-4, bf16 and the int8 self cache within 2e-2 of the
+    largest magnitude; the cross cache stays in the model's dtype."""
+    from repro_torch.configs.archs import reduced
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import lm
+    cfg = reduced(get_config("whisper-medium")).replace(
+        dtype=dtype, kv_cache_dtype=cache)
+    cpu = lm.init_params(0, cfg, device="cpu")
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(to(v, device) for v in tree)
+        return tree.to(device)
+    card = to(cpu, dev)
+    B, S = 2, 13
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 3), generator=gen)
+    frames = torch.randn((B, cfg.enc_ctx, cfg.d_model), generator=gen).to(
+        cfg.torch_dtype)
+
+    def close(got, want):
+        got, want = got.float().cpu(), want.float()
+        if dtype == "float32" and cache != "int8":
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        else:
+            err = (got - want).abs().max().item()
+            assert err <= 2e-2 * (1 + want.abs().max().item()), err
+
+    def run(params, device):
+        logits, caches = lm.prefill(cfg, params, tokens[:, :S].to(device),
+                                    enc_embeds=frames.to(device),
+                                    cache_len=S + 3)
+        out = [logits]
+        for t in range(S, S + 3):
+            logits, caches = lm.serve_step(cfg, params, caches,
+                                           tokens[:, t:t + 1].to(device), t)
+            out.append(logits)
+        return out, caches
+
+    want, want_c = run(cpu, torch.device("cpu"))
+    ops.SPEC.reset_counts()
+    got, got_c = run(card, dev)
+    torch.cuda.synchronize()
+    assert ops.SPEC.launches == cfg.enc_layers + 2 * cfg.n_layers \
+        + 3 * 2 * cfg.n_layers
+    assert ops.SPEC.plain_calls == 0
+    for g, w in zip(got, want):
+        close(g, w)
+    for gc_, wc in zip(got_c["stack"][0], want_c["stack"][0]):
+        for key in ("cross_k", "cross_v"):
+            assert gc_[key].dtype == cfg.torch_dtype
+            close(gc_[key], wc[key])
+
+
 # ------------------------------------------------ the serving layer -------
 def _serve_bundle(tmp_path, monkeypatch, hidden=(64, 32), gated=False):
     """A seeded minibude-shaped bundle on the card, through the gate when

@@ -12,8 +12,9 @@ step and a training step's forward and backward, in bf16 and f32, from
 the config's fields alone (no weights; the tensors live on the ``meta``
 device), through each op's own ``inspect_call``:
 
-- GQA (and whisper's encoder, decoder and cross attention, ahead of its
-  port): ``flash_attention`` at ``head_dim`` over ``n_kv_heads``;
+- GQA (and whisper's encoder, causal as the reference runs it, its
+  decoder and its cross attention over the encoder's frames):
+  ``flash_attention`` at ``head_dim`` over ``n_kv_heads``;
 - MLA: ``flash_attention`` at q.k ``qk_nope_dim + qk_rope_dim`` over v
   ``v_head_dim`` in prefill (its decode step is absorbed and launches
   nothing);
@@ -92,7 +93,7 @@ def kernel_problems(cfg, dtype):
             seq = [(PROMPT, PROMPT, hd, hd, dict(causal=causal))]
             if encoder:
                 seq = [(cfg.enc_ctx, cfg.enc_ctx, hd, hd,
-                        dict(causal=False))]
+                        dict(causal=True))]
             steps = [] if encoder else [
                 (1, CACHE, hd, hd, dict(causal=False,
                                         kv_valid_len=CACHE // 2))]

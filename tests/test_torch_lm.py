@@ -119,15 +119,26 @@ def test_registry_and_shapes_equal_reference():
 
 
 def test_unported_mixers_raise_naming_the_queue_item():
-    """The models whose parts the port lacks raise naming the ROADMAP item
-    that ports them; deepseek-v2-lite (10.1, MLA), grok-1 (10.3, MoE) and
-    jamba (10.2, Mamba, with learned positions) build since they are in
-    (tests/test_torch_mla.py, tests/test_torch_moe.py and
-    tests/test_torch_mamba.py hold them to the reference)."""
-    for name, item in (("whisper-medium", r"item 10\.4"),):
+    """No registered config raises from ``_check_supported`` any more:
+    whisper-medium (item 10.4, the encoder and cross attention) was the
+    last family the port refused, and every family builds at its
+    reduced size (tests/test_torch_whisper.py, test_torch_mla.py,
+    test_torch_moe.py and test_torch_mamba.py hold them to the
+    reference).  A mixer or MLP kind the port does not know still
+    raises."""
+    for name in archs.ARCH_NAMES:
         cfg = archs.reduced(base.get_config(name))
-        with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
-            lm.init_params(0, cfg, device="cpu")
+        lm._check_supported(cfg)
+        lm._check_supported(base.get_config(name))
+        assert lm.init_params(0, cfg, device="cpu")["tok_embed"].shape == (
+            cfg.padded_vocab, cfg.d_model)
+    llama = archs.reduced(base.get_config("llama3.2-3b"))
+    with pytest.raises(ValueError, match="unknown mixer"):
+        lm._check_supported(llama.replace(
+            pattern=(base.LayerSpec(mixer="lstm"),)))
+    with pytest.raises(ValueError, match="unknown mlp"):
+        lm._check_supported(llama.replace(
+            pattern=(base.LayerSpec(mlp="relu"),)))
 
 
 # ----------------------------------------------------------- parameters ----

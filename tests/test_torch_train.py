@@ -197,10 +197,24 @@ def test_remat_changes_no_bit(remat):
 
 
 def test_train_loss_refuses_encoder_inputs():
+    """A decoder-only config ignores ``enc_embeds``, as the reference's
+    ``hidden_states`` does (it encodes only under ``enc_dec``): llama's
+    loss and gradients are the same with and without them, and the loss
+    equals the reference's with them."""
     m = _model("llama3.2-3b", "float32")
-    batch = dict(m.batch(), enc_embeds=torch.zeros(B, 4, m.cfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 10.4"):
-        lm.train_loss(m.cfg, m.params(), batch)
+    e = np.random.default_rng(3).standard_normal(
+        (B, 4, m.cfg.d_model)).astype(np.float32)
+    losses, grads = [], []
+    for batch in (m.batch(), dict(m.batch(),
+                                  enc_embeds=torch.from_numpy(e))):
+        params = m.params()
+        losses.append(lm.train_loss(m.cfg, params, batch))
+        grads.append(torch.autograd.grad(losses[-1], tree_leaves(params)))
+    assert torch.equal(losses[0], losses[1])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    jloss = jlm.train_loss(m.jcfg, m.jparams,
+                           dict(m.jbatch(), enc_embeds=jnp.asarray(e)))
+    np.testing.assert_allclose(losses[1].item(), float(jloss), rtol=1e-5)
 
 
 # ------------------------------------------------------------- optimizer ---
