@@ -243,14 +243,29 @@ source, all started together), and prints one JSON line per phase:
     and AdamW (CUDA events), 56 flash_attention and 28
     flash_attention_bwd launches a step (remat runs each forward twice),
     the last step traced for the card's busy share, ``peak_gib`` (part
-    ``train``); the train_lm example's resume drill on the 20m preset (60
-    steps; the simulated failure after 36 exits 17, its checkpoint
+    ``train``); then rwkv6-1.6b: the ``rwkv6_chunk_bwd`` kernel at its
+    training shape (B 2, T 2,048, 32 heads of 64, f32) and at T 1 and 33,
+    head sizes 8, 24, 64 and 128 and bf16 inputs, from s0 != 0, with and
+    without a cotangent on the final state, against the plain backward and
+    autograd of the plain version (``TOL_BWD``), a relaunch bit for bit,
+    its time beside the plain backward's, the forward's and the bound
+    (``kernel`` line); every leaf's gradient at
+    full width and depth 2 against ``blocks.rwkv6_chunk_op`` patched to
+    the plain version (``LMT_GRAD_TOL_F32``, ``RWKV_GRAD_TOL_BF16``); 4
+    ``train_step``s at full width and depth as llama's: 48 rwkv6_chunk
+    and 24 rwkv6_chunk_bwd launches a step, none of the plain version,
+    the kernel time by kind (``wkv_forward``, ``wkv_backward``), loss
+    falling, ``peak_gib`` under 80; the train_lm example's resume drill
+    on the 20m preset (60 steps; the simulated failure after 36 exits 17,
+    its checkpoint
     restored bit for bit, the run resumed; the last losses of both runs
     and whether they agree bit for bit; the gradient leaves that differ
     between two evaluations of one batch; part ``resume_drill``);
 11. the ``kernels`` line (``flash_attention`` there is its f32 design;
     ``flash_attention_bf16``, ``_bf16_decode`` and ``_bf16_combine`` the
-    bf16 one's three kernels, each with its launches by path; the script
+    bf16 one's three kernels, each with its launches by path;
+    ``rwkv6_chunk`` with its serving and training launches,
+    ``rwkv6_chunk_bwd`` with the training steps'; the script
     fails if a kernel of the line was never launched), the ``nvidia-smi``
     line and, last, ``{"ok": true, "device": {...}}``.
 
@@ -627,8 +642,29 @@ LMT_GRAD_TOL_F32, LMT_GRAD_TOL_BF16 = 1e-3, 5e-2
 STEP_KERNEL_GROUPS = {
     "attention_forward": ("flash_attention_kernel", "flash_attention_bf16"),
     "attention_backward": ("bwd_dq_kernel", "bwd_dkdv_kernel"),
+    "wkv_forward": ("rwkv6_chunk_kernel",),
+    "wkv_backward": ("rwkv6_bwd_",),
     "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet"),
 }
+# rwkv6-1.6b trained the same way (4 steps at full width and depth, one
+# repeated batch of 2 x 2,048 tokens, policy full); the WKV recurrence at
+# its training shape (B 2, T 2,048, 32 heads of 64, f32: the mixer casts
+# r, k, v to f32 and makes w in f32), where its backward runs once a layer
+# a step and its forward twice (remat)
+RWKV_TRAIN = {"b": LMT_BATCH, "t": LMT_SEQ, "h": 32, "hd": 64,
+              "dtype": "float32"}
+# every leaf's gradient at depth 2 with the recurrence on the kernels
+# against the plain recurrence (autograd of rwkv6_chunk_ref), each error
+# over the leaf's largest magnitude: f32 as for llama (1e-3); bf16 as the
+# CPU tests hold rwkv6's bf16 gradients to the reference's
+# (tests/test_torch_train.py RWKV6_BF16_GRAD_TOL: the reference's own bf16
+# gradients lie 0.149 of the largest magnitude from its f32 ones)
+RWKV_GRAD_TOL_BF16 = 0.15
+# f32 operations per state element and step that the gradient needs: the
+# state and its cotangent rebuilt (a product and a fused multiply-add
+# each, 3 + 3) and four contractions over the head (dr, dk, dv, dw, 2
+# each)
+RWKV_BWD_OPS = 14
 # the resume drill: the train_lm example's 20m preset, 60 steps, the
 # simulated failure after 36 (60%)
 DRILL_STEPS, DRILL_FAIL_AT = 60, 36
@@ -4920,20 +4956,126 @@ def check_flash_bwd(dev, smi):
     return out["bfloat16"]
 
 
-def grads_against_plain(cfg, dev):
-    """Every leaf's gradient of one TokenPipeline batch, attention on the
-    kernels, against the same with ``blocks.flash_attention_op`` patched
-    to the plain version (autograd of it): (worst error over the leaf's
-    largest magnitude, its leaf, the leaf count, the backward launches of
-    each run)."""
+def rwkv6_bwd_bound(problem):
+    """(bound_ms, bound_by, bytes, flops) of one WKV backward without a
+    cotangent on the final state (as in training): r, k, v, w and do read
+    and dr, dk, dv and dw written once in the problem's dtype, u and s0
+    read and du and ds0 written in f32; ``RWKV_BWD_OPS`` hd^2 f32
+    operations per (b, t, h)."""
+    b, t, h, hd = (problem[k] for k in ("b", "t", "h", "hd"))
+    el = 4 if problem["dtype"] == "float32" else 2
+    nbytes = el * 9 * b * t * h * hd + 4 * 2 * (h * hd + b * h * hd * hd)
+    flops = RWKV_BWD_OPS * hd * hd * b * t * h
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", nbytes, flops)
+
+
+def check_rwkv6_bwd(dev, smi):
+    """rwkv6_chunk_bwd against the plain backward and against autograd of
+    the plain version (each gradient's largest error over its largest
+    magnitude within ``ops.TOL_BWD``), a relaunch bit for bit, at the
+    rwkv6-1.6b training shape (no cotangent on the final state, as in
+    training), T 1 and 33, head sizes 8, 24, 64 and 128, bf16 inputs, all
+    from s0 != 0 and the others with a cotangent on the final state; then
+    its CUDA-event time at the training shape beside the plain backward's,
+    the forward's and the bound.  Returns the training shape's line."""
+    import torch
+    from repro_torch.kernels.rwkv6_chunk import ops
+    from repro_torch.kernels.rwkv6_chunk import rwkv6_chunk as rwkv
+    from repro_torch.kernels.rwkv6_chunk.ref import (rwkv6_chunk_bwd_ref,
+                                                     rwkv6_chunk_ref)
+
+    default = ops.SPEC.default_problems[0]
+    cases = [
+        ("rwkv6-1.6b training", RWKV_TRAIN, False),
+        ("T 1", dict(RWKV_TRAIN, t=1), True),
+        ("T 33", dict(default, t=33), True),
+        ("hd 8", dict(default, hd=8), True),
+        ("hd 24", dict(default, t=33, hd=24), True),
+        ("hd 64", dict(default, t=100, h=4, hd=64), True),
+        ("hd 128", dict(default, t=100, h=4, hd=128), True),
+        ("bf16", dict(default, t=100, h=4, hd=64, dtype="bfloat16"), True),
+        ("hd 128 bf16", dict(default, t=33, hd=128, dtype="bfloat16"), True),
+    ]
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp_min(1e-30)).item()
+    results, failures = {}, []
+    for i, (label, problem, with_dsT) in enumerate(cases):
+        arrays = ops.SPEC.make_call(
+            problem, torch.Generator().manual_seed(80 + i), dev)
+        o, sT = rwkv6_chunk_ref(*arrays)
+        g = torch.Generator().manual_seed(90 + i)
+        do = torch.randn(o.shape, generator=g).to(device=dev, dtype=o.dtype)
+        dsT = (torch.randn(sT.shape, generator=g).to(dev) if with_dsT
+               else None)
+        got = rwkv.rwkv6_chunk_bwd(*arrays, do, dsT, sT=sT)
+        again = rwkv.rwkv6_chunk_bwd(*arrays, do, dsT, sT=sT)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        want = rwkv6_chunk_bwd_ref(*arrays, do, dsT)
+        leaves = [a.clone().requires_grad_() for a in arrays]
+        o2, s2 = rwkv6_chunk_ref(*leaves)
+        auto = torch.autograd.grad(
+            (o2, s2) if with_dsT else (o2,), leaves,
+            (do, dsT) if with_dsT else (do,))
+        del leaves, o2, s2
+        tol = ops.TOL_BWD[arrays[0].dtype]
+        res = {"vs_plain_backward": {n: rel(a, b) for n, a, b in
+                                     zip(names, got, want)},
+               "vs_autograd_of_plain": {n: rel(a, b) for n, a, b in
+                                        zip(names, got, auto)},
+               "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                  for a, b in zip(got, want)),
+               "bit_identical_relaunch": same, "tol": tol,
+               "dsT": with_dsT, "launch": rwkv.bwd_launch_shape(
+                   problem["hd"])}
+        results[label] = res
+        if not (same and max(res["vs_plain_backward"].values()) <= tol
+                and max(res["vs_autograd_of_plain"].values()) <= tol
+                and all(a.dtype == b.dtype for a, b in zip(got, want))):
+            failures.append(f"rwkv6_chunk_bwd {label}: {res}")
+        if label == "rwkv6-1.6b training":
+            train = (arrays, do, sT)
+        del got, want, auto
+    arrays, do, sT = train
+
+    def kernel():
+        return rwkv.rwkv6_chunk_bwd(*arrays, do, None, sT=sT)
+
+    def plain():
+        return rwkv6_chunk_bwd_ref(*arrays, do)
+    bound_ms, bound_by, nbytes, flops = rwkv6_bwd_bound(RWKV_TRAIN)
+    ms = cuda_ms(kernel, 10)
+    line = dict(
+        cases=results, shape=RWKV_TRAIN, ms=ms,
+        plain_ms=cuda_ms(plain, 1, warmup=1),
+        fwd_ms=cuda_ms(lambda: ops.SPEC.run_call(RWKV_TRAIN, arrays, {}), 10),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+        share_of_bound=bound_ms / ms, bytes=nbytes, flops=flops,
+        max_abs_err=results["rwkv6-1.6b training"]["max_abs_err"],
+        launch=rwkv.bwd_launch_shape(RWKV_TRAIN["hd"]), ok=not failures)
+    emit("kernel", kernel="rwkv6_chunk_bwd", nvidia_smi=smi, **line)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return line
+
+
+def grads_against_plain(cfg, dev, op, plain, bwd):
+    """Every leaf's gradient of one TokenPipeline batch with the kernel op
+    ``blocks.<op>`` on its kernels, against the same with it patched to
+    ``plain`` (autograd of the plain version): (worst error over the
+    leaf's largest magnitude, its leaf, the leaf count, the launches of
+    the backward kernel ``bwd`` in each run)."""
     from unittest import mock
 
     import torch
     from repro_torch.ckpt.checkpoint import leaf_paths
     from repro_torch.data.pipeline import TokenPipeline
-    from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention_bwd)
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.models import blocks, lm
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train import trainer
@@ -4943,16 +5085,16 @@ def grads_against_plain(cfg, dev):
         t.requires_grad_(True)
     batch = trainer.to_device(TokenPipeline(
         cfg.vocab_size, LMT_SEQ, LMT_BATCH, seed=11).batch_at(0), dev)
-    before = flash_attention_bwd.launches
+    before = bwd.launches
     loss, got = trainer.compute_grads(cfg, params, batch)
     torch.cuda.synchronize()
-    kernel_launches = flash_attention_bwd.launches - before
+    kernel_launches = bwd.launches - before
     got = [g.detach() for g in tree_leaves(got)]
-    with mock.patch.object(blocks, "flash_attention_op", flash_attention_ref):
-        before = flash_attention_bwd.launches
+    with mock.patch.object(blocks, op, plain):
+        before = bwd.launches
         loss_p, want = trainer.compute_grads(cfg, params, batch)
         torch.cuda.synchronize()
-        plain_launches = flash_attention_bwd.launches - before
+        plain_launches = bwd.launches - before
     worst, where = 0.0, None
     for key, g, w in zip(leaf_paths(want), got, tree_leaves(want)):
         err = ((g.float() - w.float()).abs().max()
@@ -4963,6 +5105,96 @@ def grads_against_plain(cfg, dev):
                 worst_leaf=where, leaves=len(got),
                 kernel_launches=kernel_launches,
                 plain_launches=plain_launches)
+
+
+def train_cell(cfg, dev, counts, seed):
+    """``LMT_STEPS`` train_steps of ``cfg`` (seeded weights) on one
+    repeated TokenPipeline batch from ``LMT_AT_STEP``: per step the loss,
+    grad norm, rate, host seconds, the device spans of the gradients, the
+    clip and AdamW (CUDA events, no sync) and the rise of each of
+    ``counts`` ({name: a function reading a launch count}), set to 0 just
+    before the steps; the last step traced for the card's busy share and
+    its kernel time by kind (``STEP_KERNEL_GROUPS``).  Returns ``(steps,
+    numbers)``: s a step (the median after the first), tokens/s, busy
+    share, kernel seconds by kind, ``peak_gib``, init seconds and the
+    parameter count."""
+    import gc
+
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import registry
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.make_train_state(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    batch = trainer.to_device(TokenPipeline(
+        cfg.vocab_size, LMT_SEQ, LMT_BATCH, seed=seed).batch_at(0), dev)
+    spans = {"grads": [], "clip": [], "adamw": []}
+    attrs = {"grads": "compute_grads", "clip": "clip_by_global_norm",
+             "adamw": "adamw_update"}
+    originals = {n: getattr(trainer, a) for n, a in attrs.items()}
+
+    def timed(name):  # CUDA events on the stream: no sync, no change
+        fn = originals[name]
+
+        def wrapper(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            stop.record()
+            spans[name].append((start, stop))
+            return out
+        return wrapper
+    for name, attr in attrs.items():
+        setattr(trainer, attr, timed(name))
+    steps = []
+    try:
+        registry.reset_counts()
+        for i in range(LMT_STEPS):
+            before = {n: f() for n, f in counts.items()}
+            t0 = time.perf_counter()
+            if i < LMT_STEPS - 1:
+                state, m = trainer.train_step(cfg, state, batch,
+                                              step=LMT_AT_STEP + i)
+                loss = m["loss"].item()
+                wall, busy = time.perf_counter() - t0, None
+            else:  # the last step traced: the card's busy share, and
+                # its kernel time by kind
+                (state, m), wall, busy, by_kind = device_busy(
+                    lambda: trainer.train_step(cfg, state, batch,
+                                               step=LMT_AT_STEP + i),
+                    groups=STEP_KERNEL_GROUPS)
+                loss = m["loss"].item()
+            torch.cuda.synchronize()
+            steps.append(dict(
+                step=i, loss=loss, grad_norm=m["grad_norm"].item(),
+                lr=m["lr"].item(), seconds=wall, busy_s=busy,
+                **{f"{n}_launches": f() - before[n]
+                   for n, f in counts.items()}))
+    finally:
+        for name, attr in attrs.items():
+            setattr(trainer, attr, originals[name])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for name, evs in spans.items():
+        for rec, (a, b) in zip(steps, evs):
+            rec[f"{name}_ms"] = a.elapsed_time(b)
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    steady = sorted(r["seconds"] for r in steps[1:])
+    step_s = steady[len(steady) // 2]
+    last = steps[-1]
+    return steps, dict(
+        seconds_per_step=step_s, tokens_per_s=LMT_BATCH * LMT_SEQ / step_s,
+        busy_share=last["busy_s"] / last["seconds"] if last["busy_s"]
+        else None, kernel_s_by_kind=by_kind, peak_gib=peak_gib,
+        init_s=init_s, params=n_params)
 
 
 def _host_copy(state):
@@ -5046,129 +5278,92 @@ def resume_drill(dev, work):
 def run_lm_train_slice(dev, smi, work):
     """LM training on the card: the backward kernel at the training
     shape, the full-width gradients against plain attention at depth 2,
-    4 steps of llama3.2-3b at full width and depth, and the train_lm
-    example's resume drill.  Returns the backward kernel's line and the
-    launches of the training steps."""
+    4 steps of llama3.2-3b at full width and depth; then the WKV
+    backward kernel at rwkv6-1.6b's training shape, its full-width
+    gradients against the plain recurrence at depth 2 and 4 steps of
+    rwkv6-1.6b at full width and depth; and the train_lm example's
+    resume drill.  Returns the two backward kernels' lines and the
+    launches of the training steps: ``{kernel: launches}``."""
     import gc
 
     import torch
     from repro_torch.configs.base import get_config, with_repeats
-    from repro_torch.data.pipeline import TokenPipeline
-    from repro_torch.kernels import registry
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_bwd)
-    from repro_torch.optim.adamw import tree_leaves
-    from repro_torch.train import trainer
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rwkv6_chunk import ops as rwkv_ops
+    from repro_torch.kernels.rwkv6_chunk.ref import rwkv6_chunk_ref
+    from repro_torch.kernels.rwkv6_chunk.rwkv6_chunk import rwkv6_chunk_bwd
+
+    def grads_part(cfg, op, plain, bwd, tols):
+        grads = {}
+        for dtype, tol in tols:
+            res = grads_against_plain(
+                with_repeats(cfg, 2).replace(dtype=dtype), dev, op, plain,
+                bwd)
+            res["tol"] = tol
+            grads[dtype] = res
+            gc.collect()
+            torch.cuda.empty_cache()
+        emit("lm_train_slice", part="grads", arch=cfg.name, n_layers=2,
+             batch=LMT_BATCH, seq=LMT_SEQ, nvidia_smi=smi, **grads)
+        return grads
+
+    def train_part(cfg, counts, seed, **shape):
+        steps, numbers = train_cell(cfg, dev, counts, seed)
+        emit("lm_train_slice", part="train", arch=cfg.name,
+             n_layers=cfg.n_layers, d_model=cfg.d_model, d_ff=cfg.d_ff,
+             vocab=cfg.vocab_size, dtype=cfg.dtype, policy=cfg.opt_policy,
+             batch=LMT_BATCH, seq=LMT_SEQ, at_step=LMT_AT_STEP, steps=steps,
+             nvidia_smi=smi, **shape, **numbers)
+        return steps, numbers
 
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     bwd_line = check_flash_bwd(dev, smi)
-
     cfg = get_config(LMT_ARCH)
-    grads = {}
-    for dtype, tol in (("bfloat16", LMT_GRAD_TOL_BF16),
-                       ("float32", LMT_GRAD_TOL_F32)):
-        res = grads_against_plain(with_repeats(cfg, 2).replace(dtype=dtype),
-                                  dev)
-        res["tol"] = tol
-        grads[dtype] = res
-        gc.collect()
-        torch.cuda.empty_cache()
-    emit("lm_train_slice", part="grads", arch=cfg.name, n_layers=2,
-         batch=LMT_BATCH, seq=LMT_SEQ, nvidia_smi=smi, **grads)
+    grads = grads_part(cfg, "flash_attention_op", flash_attention_ref,
+                       flash_attention_bwd,
+                       (("bfloat16", LMT_GRAD_TOL_BF16),
+                        ("float32", LMT_GRAD_TOL_F32)))
+    steps, numbers = train_part(
+        cfg, {"flash_attention": lambda: ops.SPEC.launches,
+              "flash_attention_bwd": lambda: flash_attention_bwd.launches},
+        5, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim)
+    launches = {"flash_attention": ops.SPEC.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches}
+    record_flash_launches("lm_train_slice")
 
-    # training at full width and depth
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    state = trainer.make_train_state(0, cfg, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
-    batch = trainer.to_device(TokenPipeline(
-        cfg.vocab_size, LMT_SEQ, LMT_BATCH, seed=5).batch_at(0), dev)
-    spans = {"grads": [], "clip": [], "adamw": []}
-    originals = {n: getattr(trainer, f) for n, f in (
-        ("grads", "compute_grads"), ("clip", "clip_by_global_norm"),
-        ("adamw", "adamw_update"))}
-
-    def timed(name):  # CUDA events on the stream: no sync, no change
-        fn = originals[name]
-
-        def wrapper(*a, **kw):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*a, **kw)
-            stop.record()
-            spans[name].append((start, stop))
-            return out
-        return wrapper
-    for name, attr in (("grads", "compute_grads"),
-                       ("clip", "clip_by_global_norm"),
-                       ("adamw", "adamw_update")):
-        setattr(trainer, attr, timed(name))
-    steps = []
-    try:
-        registry.reset_counts()
-        for i in range(LMT_STEPS):
-            fwd0, bwd0 = ops.SPEC.launches, flash_attention_bwd.launches
-            t0 = time.perf_counter()
-            if i < LMT_STEPS - 1:
-                state, m = trainer.train_step(cfg, state, batch,
-                                              step=LMT_AT_STEP + i)
-                loss = m["loss"].item()
-                wall, busy = time.perf_counter() - t0, None
-            else:  # the last step traced: the card's busy share, and
-                # its kernel time by kind
-                (state, m), wall, busy, by_kind = device_busy(
-                    lambda: trainer.train_step(cfg, state, batch,
-                                               step=LMT_AT_STEP + i),
-                    groups=STEP_KERNEL_GROUPS)
-                loss = m["loss"].item()
-            torch.cuda.synchronize()
-            steps.append(dict(
-                step=i, loss=loss, grad_norm=m["grad_norm"].item(),
-                lr=m["lr"].item(), seconds=wall, busy_s=busy,
-                flash_attention_launches=ops.SPEC.launches - fwd0,
-                flash_attention_bwd_launches=(flash_attention_bwd.launches
-                                              - bwd0)))
-        launches = (ops.SPEC.launches, flash_attention_bwd.launches)
-        record_flash_launches("lm_train_slice")
-    finally:
-        for name, attr in (("grads", "compute_grads"),
-                           ("clip", "clip_by_global_norm"),
-                           ("adamw", "adamw_update")):
-            setattr(trainer, attr, originals[name])
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    for name, evs in spans.items():
-        for rec, (a, b) in zip(steps, evs):
-            rec[f"{name}_ms"] = a.elapsed_time(b)
-    del state, batch
+    # rwkv6-1.6b: the WKV recurrence's backward kernel
+    rwkv_line = check_rwkv6_bwd(dev, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    L = cfg.n_layers
-    steady = sorted(r["seconds"] for r in steps[1:])
-    step_s = steady[len(steady) // 2]
-    losses = [r["loss"] for r in steps]
-    last = steps[-1]
-    numbers = dict(
-        seconds_per_step=step_s, tokens_per_s=LMT_BATCH * LMT_SEQ / step_s,
-        busy_share=last["busy_s"] / last["seconds"] if last["busy_s"]
-        else None, kernel_s_by_kind=by_kind, peak_gib=peak_gib,
-        init_s=init_s, params=n_params)
-    emit("lm_train_slice", part="train", arch=cfg.name, n_layers=L,
-         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
-         head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
-         dtype=cfg.dtype, policy=cfg.opt_policy, batch=LMT_BATCH,
-         seq=LMT_SEQ, at_step=LMT_AT_STEP, steps=steps,
-         nvidia_smi=smi, **numbers)
+    rcfg = get_config(LM_ARCH)
+    rgrads = grads_part(rcfg, "rwkv6_chunk_op", rwkv6_chunk_ref,
+                        rwkv6_chunk_bwd,
+                        (("bfloat16", RWKV_GRAD_TOL_BF16),
+                         ("float32", LMT_GRAD_TOL_F32)))
+    rsteps, rnumbers = train_part(
+        rcfg, {"rwkv6_chunk": lambda: rwkv_ops.SPEC.launches,
+               "rwkv6_chunk_bwd": lambda: rwkv6_chunk_bwd.launches,
+               "rwkv6_chunk_plain": lambda: rwkv_ops.SPEC.plain_calls},
+        6, heads=rcfg.n_rwkv_heads, head_dim=rcfg.rwkv_head_size,
+        wkv_bwd_ms=rwkv_line["ms"], wkv_fwd_ms=rwkv_line["fwd_ms"])
+    launches.update(rwkv6_chunk=rwkv_ops.SPEC.launches,
+                    rwkv6_chunk_bwd=rwkv6_chunk_bwd.launches)
 
     drill = resume_drill(dev, work)
     emit("lm_train_slice", part="resume_drill", preset="20m",
          steps=DRILL_STEPS, fail_at=DRILL_FAIL_AT, nvidia_smi=smi, **drill)
 
+    def finite(xs):
+        return all(x == x and abs(x) < float("inf") for x in xs)
+    L, RL = cfg.n_layers, rcfg.n_layers
+    losses = [r["loss"] for r in steps]
+    rlosses = [r["loss"] for r in rsteps]
     checks = {
         "grads_bf16_match_plain_attention":
         grads["bfloat16"]["worst"] <= LMT_GRAD_TOL_BF16,
@@ -5177,12 +5372,26 @@ def run_lm_train_slice(dev, smi, work):
         "grads_one_backward_launch_per_layer":
         all(g["kernel_launches"] == 2 and g["plain_launches"] == 0
             for g in grads.values()),
-        "loss_finite": all(x == x and abs(x) < float("inf") for x in losses),
+        "loss_finite": finite(losses),
         "loss_falling": losses[-1] < losses[0],
         "launches_per_step": all(
             r["flash_attention_launches"] == 2 * L
             and r["flash_attention_bwd_launches"] == L for r in steps),
-        "peak_under_80_gib": peak_gib < 80,
+        "peak_under_80_gib": numbers["peak_gib"] < 80,
+        "rwkv_grads_bf16_match_plain_recurrence":
+        rgrads["bfloat16"]["worst"] <= RWKV_GRAD_TOL_BF16,
+        "rwkv_grads_f32_match_plain_recurrence":
+        rgrads["float32"]["worst"] <= LMT_GRAD_TOL_F32,
+        "rwkv_grads_one_backward_launch_per_layer":
+        all(g["kernel_launches"] == 2 and g["plain_launches"] == 0
+            for g in rgrads.values()),
+        "rwkv_loss_finite": finite(rlosses),
+        "rwkv_loss_falling": rlosses[-1] < rlosses[0],
+        "rwkv_launches_per_step": all(
+            r["rwkv6_chunk_launches"] == 2 * RL
+            and r["rwkv6_chunk_bwd_launches"] == RL
+            and r["rwkv6_chunk_plain_launches"] == 0 for r in rsteps),
+        "rwkv_peak_under_80_gib": rnumbers["peak_gib"] < 80,
         "drill_exit_17": drill["exit_code"] == 17,
         "drill_checkpoint_at_fail_step":
         drill["checkpoint_step"] == DRILL_FAIL_AT
@@ -5191,12 +5400,10 @@ def run_lm_train_slice(dev, smi, work):
         "drill_loss_falls": drill["loss_last"] < drill["loss_first"],
     }
     emit("lm_train_slice", part="total",
-         seconds=time.perf_counter() - t_phase, launches={
-             "flash_attention": launches[0],
-             "flash_attention_bwd": launches[1]}, **checks)
+         seconds=time.perf_counter() - t_phase, launches=launches, **checks)
     if not all(checks.values()):
         raise AssertionError(f"lm train slice checks failed: {checks}")
-    return bwd_line, launches
+    return bwd_line, rwkv_line, launches
 
 
 def _cast(tree, dtype):
@@ -5297,7 +5504,8 @@ def main():
     train_work = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(train_work, ignore_errors=True)
     train_work.mkdir(parents=True)
-    bwd, lm_train_launches = run_lm_train_slice(dev, smi, train_work)
+    bwd, rwkv_bwd, lm_train_launches = run_lm_train_slice(dev, smi,
+                                                          train_work)
     shutil.rmtree(train_work)
     if rwkv_failures or mamba_failures:
         raise AssertionError("; ".join(rwkv_failures + mamba_failures))
@@ -5436,7 +5644,11 @@ def main():
         "plain_ms_256": time8_256["plain_ms"],
         "library_ms_256": time8_256["library_ms"]}] + new_rows + [{
         "name": "rwkv6_chunk", "route": "cuda", "source": rwkv.SOURCE,
-        "replaces": rwkv.REPLACES, "launches": lm_launches,
+        "replaces": rwkv.REPLACES,
+        "launches": lm_launches + lm_train_launches["rwkv6_chunk"],
+        "launches_by_path": {
+            "lm_slice": lm_launches,
+            "lm_train_slice": lm_train_launches["rwkv6_chunk"]},
         "max_abs_err": rwkv_errs["rwkv6-1.6b prefill"]["max_abs_err"],
         "rtol": rwkv_ops.SPEC.tol[0], "atol": rwkv_ops.SPEC.tol[1],
         "shape": RWKV_PREFILL, "ms": rwkv_timing["prefill"]["ms"],
@@ -5467,15 +5679,28 @@ def main():
         "name": "flash_attention_bwd", "route": "cuda",
         "source": flash.BWD_SOURCE, "replaces": flash.BWD_REPLACES,
         "replaces_note": "no Pallas kernel: jax.grad of full_attention",
-        "launches": lm_train_launches[1],
-        "launches_by_path": {"lm_train_slice": lm_train_launches[1]},
+        "launches": lm_train_launches["flash_attention_bwd"],
+        "launches_by_path": {
+            "lm_train_slice": lm_train_launches["flash_attention_bwd"]},
         "max_abs_err": bwd["max_abs_err"], "tol": bwd["tol"],
         "tol_autograd": bwd["tol_autograd"], "shape": bwd["shape"],
         "dtype": bwd["dtype"], "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "products_design": bwd["products_design"],
         "bound_ms_design": bwd["bound_ms_design"],
-        "library_ms": bwd["library_ms"]}]
+        "library_ms": bwd["library_ms"]}, {
+        "name": "rwkv6_chunk_bwd", "route": "cuda",
+        "source": rwkv.BWD_SOURCE, "replaces": rwkv.BWD_REPLACES,
+        "replaces_note": "no Pallas kernel: the gradient XLA takes of the "
+                         "chunked associative scan of rwkv6_seq",
+        "launches": lm_train_launches["rwkv6_chunk_bwd"],
+        "launches_by_path": {
+            "lm_train_slice": lm_train_launches["rwkv6_chunk_bwd"]},
+        "max_abs_err": rwkv_bwd["max_abs_err"],
+        "tol": rwkv_ops.TOL_BWD[torch.float32], "shape": rwkv_bwd["shape"],
+        "ms": rwkv_bwd["ms"], "plain_ms": rwkv_bwd["plain_ms"],
+        "bound_ms": rwkv_bwd["bound_ms"], "bound_by": rwkv_bwd["bound_by"],
+        "library_ms": None, "launch": rwkv_bwd["launch"]}]
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels the main paths never launched: {idle}")

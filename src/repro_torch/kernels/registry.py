@@ -8,9 +8,9 @@ Dispatch is decided by where the data lies:
   answered with the plain version.
 
 Gradients: a spec with a ``backward`` is differentiable on both devices
-(:class:`_Differentiable`): when grad mode is on and an input requires
-grad, its backward runs the backward kernel on the card and the plain
-backward on the CPU.  On the card a spec without one raises
+(:class:`_Differentiable`), through one output or a tuple of them: when
+grad mode is on and an input requires grad, its backward runs the
+backward kernel on the card and the plain backward on the CPU.  On the card a spec without one raises
 ``NotImplementedError`` for such inputs rather than return an output
 that autograd cannot see past (the kernel's output has no ``grad_fn``);
 on the CPU its plain version differentiates through autograd as before.
@@ -71,7 +71,12 @@ class Backward:
     """The backward of a kernel: ``run_call(problem, arrays, out, grad)``
     launches ``kernel`` (the wrapper, with its plain-integer count
     ``kernel.launches``) and ``ref_call`` with the same arguments is the
-    plain backward; both return one gradient (or None) per array."""
+    plain backward; both return one gradient (or None) per array.  For a
+    kernel with one output, ``out`` is that output and ``grad`` its
+    cotangent; for a kernel that returns a tuple, both are tuples, one
+    entry per output.  A cotangent autograd did not compute (an output
+    the loss does not reach) arrives as zeros: autograd materialises
+    it."""
     kernel: Callable
     run_call: Callable
     ref_call: Callable
@@ -330,22 +335,32 @@ def select_tier_spec(spec: KernelSpec, problem: Optional[dict] = None, *,
 
 class _Differentiable(torch.autograd.Function):
     """A dispatch whose backward is the spec's: the kernel's backward on
-    the card, the plain backward on the CPU."""
+    the card, the plain backward on the CPU.  The kernel returns one
+    output or a tuple of them; every output is saved and carries a
+    ``grad_fn``.  An input that needs no gradient
+    (``ctx.needs_input_grad``) gets None."""
 
     @staticmethod
     def forward(ctx, spec, problem, device, overrides, *arrays):
         out = _dispatch(spec, problem, arrays, device, overrides)
         ctx.spec, ctx.problem, ctx.device = spec, problem, device
-        ctx.save_for_backward(*arrays, out)
+        ctx.n_arrays, ctx.several = len(arrays), isinstance(out, tuple)
+        ctx.save_for_backward(*arrays, *(out if ctx.several else (out,)))
         return out
 
     @staticmethod
-    def backward(ctx, grad):
-        *arrays, out = ctx.saved_tensors
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        arrays, outs = saved[:ctx.n_arrays], saved[ctx.n_arrays:]
+        grads = tuple(g.contiguous() for g in grads)
+        if not ctx.several:
+            outs, grads = outs[0], grads[0]
         bwd = ctx.spec.backward
         call = bwd.ref_call if ctx.device.type == "cpu" else bwd.run_call
-        grads = call(ctx.problem, tuple(arrays), out, grad.contiguous())
-        return (None, None, None, None, *grads)
+        found = call(ctx.problem, tuple(arrays), outs, grads)
+        return (None, None, None, None,
+                *(g if need else None
+                  for g, need in zip(found, ctx.needs_input_grad[4:])))
 
 
 def _needs_grad(arrays) -> bool:

@@ -19,6 +19,22 @@ over ``i`` runs in the order above.
 The plain version is
 :func:`repro_torch.kernels.rwkv6_chunk.ref.rwkv6_chunk_ref`;
 :func:`rwkv6_chunk` counts its launches in ``rwkv6_chunk.launches``.
+
+The backward, ``csrc/rwkv6_chunk_bwd.cu`` (:func:`rwkv6_chunk_bwd`,
+launches in ``rwkv6_chunk_bwd.launches``; plain version
+:func:`~repro_torch.kernels.rwkv6_chunk.ref.rwkv6_chunk_bwd_ref`),
+replaces no Pallas kernel: it is the gradient XLA takes of the
+reference's chunked scan.  Three walks of the forward's block shape
+(:func:`bwd_launch_shape`) share one grid: the state forward in time,
+transposed, for dr; its cotangent backward in time, transposed, for dk,
+and as it is, for dv and ds0.  A finishing kernel walks each (b, h, i)
+backward once more for dw, from ``w_t dw_t = a_t - k_t dk'_t`` with
+``a_{t-1} = a_t + r_t dr'_t - k_t dk'_t`` (primes: without the u term;
+``a_{T-1} = sum_j dsT sT``; a in f64), so no state is stored and none is
+divided by w (it needs w > 0), adds the u terms and writes parts of du
+(blocks of :data:`BWD_SEGMENT` steps, each starting from a first
+kernel's sums over the later ones); a last kernel adds the parts in
+order.  No atomics.
 """
 from __future__ import annotations
 
@@ -36,6 +52,12 @@ TILES = {32: (4, 32), 64: (8, 32), 128: (4, 16)}
 ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 SOURCE = "src/repro_torch/kernels/rwkv6_chunk/csrc/rwkv6_chunk.cu"
 REPLACES = "src/repro/kernels/rwkv6_chunk/rwkv6_chunk.py:47"
+#: per head tile of the backward's walks (csrc/rwkv6_chunk_bwd.cu's
+#: BwdTile): (row groups, steps a chunk)
+BWD_TILES = {32: (4, 32), 64: (8, 16), 128: (4, 16)}
+BWD_SEGMENT = 128  # steps of a finishing block (csrc's SEGMENT)
+BWD_SOURCE = "src/repro_torch/kernels/rwkv6_chunk/csrc/rwkv6_chunk_bwd.cu"
+BWD_REPLACES = "src/repro/models/blocks.py:457-479"
 
 
 def launch_shape(hd: int) -> dict:
@@ -49,6 +71,20 @@ def launch_shape(hd: int) -> dict:
     return {"head_tile": tile, "row_groups": groups,
             "rows_per_group": tile // groups, "threads": tile * groups,
             "chunk": chunk}
+
+
+def bwd_launch_shape(hd: int) -> dict:
+    """The blocks of the backward at head size ``hd``: a walk's head tile,
+    row groups, rows per group, threads and steps a chunk, and the steps
+    of a finishing block."""
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head size {hd}: the kernel takes 1 to "
+                         f"{MAX_HEAD_DIM}")
+    tile = next(t for t in sorted(BWD_TILES) if hd <= t)
+    groups, chunk = BWD_TILES[tile]
+    return {"head_tile": tile, "row_groups": groups,
+            "rows_per_group": tile // groups, "threads": tile * groups,
+            "chunk": chunk, "segment": BWD_SEGMENT}
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,3 +143,90 @@ def rwkv6_chunk(r, k, v, w, u, s0):
 
 
 rwkv6_chunk.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    lib = _build.load("rwkv6_chunk_bwd")
+    lib.rwkv6_chunk_bwd.argtypes = [ctypes.c_void_p] * 19 \
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.rwkv6_chunk_bwd.restype = ctypes.c_int
+    for name in ("rwkv6_chunk_bwd_takes_head_dim", "rwkv6_chunk_bwd_threads",
+                 "rwkv6_chunk_bwd_chunk"):
+        getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.rwkv6_chunk_bwd_segment.argtypes = []
+    lib.rwkv6_chunk_bwd_segment.restype = ctypes.c_int
+    takes = [n for n in range(1, 257)
+             if lib.rwkv6_chunk_bwd_takes_head_dim(n)]
+    shapes = [(lib.rwkv6_chunk_bwd_threads(n), lib.rwkv6_chunk_bwd_chunk(n))
+              for n in takes]
+    if takes != list(range(1, MAX_HEAD_DIM + 1)) or shapes != [
+            (bwd_launch_shape(n)["threads"], bwd_launch_shape(n)["chunk"])
+            for n in takes] or lib.rwkv6_chunk_bwd_segment() != BWD_SEGMENT:
+        raise RuntimeError("csrc/rwkv6_chunk_bwd.cu and rwkv6_chunk.py "
+                           "disagree on the head sizes or the block shapes")
+    return lib
+
+
+def rwkv6_chunk_bwd(r, k, v, w, u, s0, do, dsT=None, sT=None):
+    """Launch the backward on tensors on the card: the forward's inputs,
+    o's cotangent ``do`` (r's shape and dtype) and the final state's
+    ``dsT`` ``[B, H, hd, hd]`` (None: zeros), beside the forward's final
+    state ``sT``, which dw needs where dsT is given.  Returns ``(dr, dk,
+    dv, dw, du, ds0)``, each in its input's dtype."""
+    check_shapes(r, k, v, w, u, s0)
+    B, T, H, hd = (int(n) for n in r.shape)
+    state = (B, H, hd, hd)
+    if tuple(do.shape) != tuple(r.shape):
+        raise ValueError(f"do must be {tuple(r.shape)}, got "
+                         f"{tuple(do.shape)}")
+    if dsT is not None and (sT is None or tuple(dsT.shape) != state
+                            or tuple(sT.shape) != state):
+        raise ValueError(f"dsT needs sT, both {state}")
+    given = [t for t in (r, k, v, w, u, s0, do, dsT, sT) if t is not None]
+    devices = {t.device for t in given}
+    if len(devices) != 1 or r.device.type != "cuda":
+        raise ValueError(f"rwkv6_chunk_bwd kernel needs every tensor on one "
+                         f"CUDA device, got {sorted(map(str, devices))}")
+    if r.dtype not in ELEMENT_BYTES or {k.dtype, v.dtype, w.dtype,
+                                        do.dtype} != {r.dtype}:
+        raise ValueError(f"r, k, v, w, do must share one dtype of "
+                         f"{sorted(map(str, ELEMENT_BYTES))}, got "
+                         f"{[str(t.dtype) for t in (r, k, v, w, do)]}")
+    bwd_launch_shape(hd)  # raises above MAX_HEAD_DIM
+    f32 = torch.float32
+    r, k, v, w, do = (t.contiguous() for t in (r, k, v, w, do))
+    uf, s0f = (t.to(f32).contiguous() for t in (u, s0))
+    if dsT is not None:
+        dsT, sT = (t.to(f32).contiguous() for t in (dsT, sT))
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty((H, hd), dtype=f32, device=r.device)
+    ds0 = torch.empty(state, dtype=f32, device=r.device)
+    if B * H == 0:
+        return dr, dk, dv, dw, du.zero_().to(u.dtype), ds0.to(s0.dtype)
+    drp, dkp = (torch.empty(r.shape, dtype=f32, device=r.device)
+                for _ in range(2))
+    nseg = -(-T // BWD_SEGMENT)
+    seg_sum = torch.empty((B, H, nseg, hd), dtype=torch.float64,
+                          device=r.device)
+    du_part = torch.empty((B, H, nseg, hd), dtype=f32, device=r.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = lib.rwkv6_chunk_bwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            uf.data_ptr(), s0f.data_ptr(),
+            sT.data_ptr() if dsT is not None else None, do.data_ptr(),
+            dsT.data_ptr() if dsT is not None else None, dr.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+            ds0.data_ptr(), drp.data_ptr(), dkp.data_ptr(),
+            seg_sum.data_ptr(), du_part.data_ptr(), B, T, H, hd,
+            ELEMENT_BYTES[r.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_chunk_bwd launch failed: cudaError {err}")
+    rwkv6_chunk_bwd.launches += 1
+    return dr, dk, dv, dw, du.to(u.dtype), ds0.to(s0.dtype)
+
+
+rwkv6_chunk_bwd.launches = 0

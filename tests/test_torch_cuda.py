@@ -1207,18 +1207,139 @@ def test_flash_attention_op_differentiates_on_the_card(dev):
 
 
 def test_kernel_without_backward_raises_on_the_card(dev):
-    from repro_torch.kernels.rwkv6_chunk.ops import rwkv6_chunk_op
-    g = torch.Generator(device=dev).manual_seed(0)
-    r, k, v = (torch.randn(1, 8, 2, 16, generator=g, device=dev)
-               for _ in range(3))
-    w = torch.rand(1, 8, 2, 16, generator=g, device=dev) * 0.5 + 0.4
-    u = torch.randn(2, 16, generator=g, device=dev)
-    s0 = torch.zeros(1, 2, 16, 16, device=dev)
-    r.requires_grad_(True)
+    """stencil_gather has no backward kernel: an input that requires grad
+    raises on the card, and under no_grad the kernel runs (rwkv6_chunk,
+    which this test held until it had a backward, differentiates now:
+    test_rwkv6_chunk_op_differentiates_on_the_card)."""
+    from repro_torch.kernels.stencil_gather import ops
+    x = torch.randn(16, 16, device=dev, requires_grad=True)
+    kw = dict(offsets=((0, 1), (1, 0)), out_h=8, out_w=8)
     with pytest.raises(NotImplementedError, match="Backward kernels"):
-        rwkv6_chunk_op(r, k, v, w, u, s0)
+        ops.stencil_gather_op(x, **kw)
+    before = ops.SPEC.launches
     with torch.no_grad():
-        rwkv6_chunk_op(r, k, v, w, u, s0)
+        ops.stencil_gather_op(x, **kw)
+    assert ops.SPEC.launches == before + 1
+
+
+RWKV_BWD_CASES = [
+    # (b, t, h, hd, with a cotangent on the final state)
+    (2, 2048, 32, 64, False),   # rwkv6-1.6b's training shape
+    (2, 64, 2, 16, True),
+    (4, 1, 32, 64, True),
+    (2, 33, 2, 24, True),
+    (1, 100, 3, 8, True),
+    (1, 70, 2, 128, True),
+    (1, 0, 2, 8, True),         # no step: ds0 is dsT
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,h,hd,with_dsT", RWKV_BWD_CASES)
+def test_rwkv6_chunk_bwd_kernel_matches_plain_backward(dev, dtype, b, t, h,
+                                                       hd, with_dsT):
+    """The backward kernel against the plain backward, from s0 != 0: each
+    gradient within TOL_BWD of its largest magnitude, in its input's
+    dtype, one launch counted, a relaunch bit for bit."""
+    from repro_torch.kernels.rwkv6_chunk import ops
+    from repro_torch.kernels.rwkv6_chunk.ref import (rwkv6_chunk_bwd_ref,
+                                                     rwkv6_chunk_ref)
+    from repro_torch.kernels.rwkv6_chunk.rwkv6_chunk import rwkv6_chunk_bwd
+    problem = {"b": b, "t": t, "h": h, "hd": hd, "dtype": dtype}
+    arrays = ops.SPEC.make_call(problem, torch.Generator().manual_seed(t),
+                                dev)
+    o, sT = rwkv6_chunk_ref(*arrays)
+    g = torch.Generator().manual_seed(hd)
+    do = torch.randn(o.shape, generator=g).to(dev, o.dtype)
+    dsT = torch.randn(sT.shape, generator=g).to(dev) if with_dsT else None
+    before = rwkv6_chunk_bwd.launches
+    got = rwkv6_chunk_bwd(*arrays, do, dsT, sT=sT)
+    again = rwkv6_chunk_bwd(*arrays, do, dsT, sT=sT)
+    want = rwkv6_chunk_bwd_ref(*arrays, do, dsT)
+    torch.cuda.synchronize()
+    assert rwkv6_chunk_bwd.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    tol = ops.TOL_BWD[arrays[0].dtype]
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        if x.numel():
+            assert _rel(x, y) <= tol
+
+
+def test_rwkv6_chunk_bwd_wrapper_refuses_what_it_cannot_take(dev):
+    from repro_torch.kernels.rwkv6_chunk import ops
+    from repro_torch.kernels.rwkv6_chunk.rwkv6_chunk import rwkv6_chunk_bwd
+    problem = {"b": 1, "t": 4, "h": 2, "hd": 8, "dtype": "float32"}
+    arrays = ops.SPEC.make_call(problem, torch.Generator().manual_seed(0),
+                                dev)
+    do = torch.ones_like(arrays[0])
+    with pytest.raises(ValueError, match="one dtype"):
+        rwkv6_chunk_bwd(*arrays, do.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="CUDA"):
+        rwkv6_chunk_bwd(*arrays, do.cpu())
+    wide = ops.SPEC.make_call(dict(problem, hd=129),
+                              torch.Generator().manual_seed(0), dev)
+    with pytest.raises(ValueError, match="128"):
+        rwkv6_chunk_bwd(*wide, torch.ones_like(wide[0]))
+
+
+def test_rwkv6_chunk_op_differentiates_on_the_card(dev):
+    """rwkv6_chunk_op's gradient on the card, through both outputs,
+    launches the forward and the backward kernel once each and matches
+    autograd of the plain version; no_grad launches no backward."""
+    from repro_torch.kernels.rwkv6_chunk import ops
+    from repro_torch.kernels.rwkv6_chunk.ref import rwkv6_chunk_ref
+    from repro_torch.kernels.rwkv6_chunk.rwkv6_chunk import rwkv6_chunk_bwd
+    problem = {"b": 2, "t": 50, "h": 3, "hd": 16, "dtype": "float32"}
+    arrays = ops.SPEC.make_call(problem, torch.Generator().manual_seed(1),
+                                dev)
+    leaves = [a.clone().requires_grad_() for a in arrays]
+    fwd, bwd = ops.SPEC.launches, rwkv6_chunk_bwd.launches
+    o, sT = ops.rwkv6_chunk_op(*leaves)
+    do, dsT = torch.randn_like(o), torch.randn_like(sT)
+    got = torch.autograd.grad((o, sT), leaves, (do, dsT))
+    torch.cuda.synchronize()
+    assert (ops.SPEC.launches, rwkv6_chunk_bwd.launches) == (fwd + 1, bwd + 1)
+    plain = [a.clone().requires_grad_() for a in arrays]
+    want = torch.autograd.grad(rwkv6_chunk_ref(*plain), plain, (do, dsT))
+    for x, y in zip(got, want):
+        assert _rel(x, y) <= ops.TOL_BWD[torch.float32]
+    with torch.no_grad():
+        o, sT = ops.rwkv6_chunk_op(*leaves)
+    assert o.grad_fn is None and rwkv6_chunk_bwd.launches == bwd + 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_train_gradient_matches_plain_recurrence(dev, dtype):
+    """Every gradient of reduced rwkv6-1.6b's loss through the kernels
+    against the same loss with the recurrence computed by the plain
+    version (differentiated by autograd) on the card: one backward launch
+    per layer; f32 within 1e-4 of each leaf's largest magnitude, bf16
+    within test_torch_train.py's RWKV6_BF16_GRAD_TOL (0.15)."""
+    from unittest import mock
+
+    from repro_torch.configs import archs, base
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.rwkv6_chunk.ref import rwkv6_chunk_ref
+    from repro_torch.kernels.rwkv6_chunk.rwkv6_chunk import rwkv6_chunk_bwd
+    from repro_torch.models import blocks
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import trainer
+    cfg = archs.reduced(base.get_config("rwkv6-1.6b")).replace(dtype=dtype)
+    st = trainer.make_train_state(0, cfg, device=dev)
+    batch = trainer.to_device(TokenPipeline(cfg.vocab_size, 96, 2,
+                                            seed=1).batch_at(0), dev)
+    before = rwkv6_chunk_bwd.launches
+    loss, got = trainer.compute_grads(cfg, st["params"], batch)
+    torch.cuda.synchronize()
+    assert rwkv6_chunk_bwd.launches == before + cfg.n_layers
+    with mock.patch.object(blocks, "rwkv6_chunk_op", rwkv6_chunk_ref):
+        loss_p, want = trainer.compute_grads(cfg, st["params"], batch)
+    assert rwkv6_chunk_bwd.launches == before + cfg.n_layers
+    tol = 1e-4 if dtype == "float32" else 0.15
+    assert abs(loss.item() - loss_p.item()) <= tol * abs(loss_p.item())
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert _rel(g, w) <= tol
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -23,8 +23,9 @@ device), through each op's own ``inspect_call``:
 - Mamba: ``mamba_scan`` at ``mamba_d_state`` in prefill (its step is
   plain torch).
 
-The backward has no spec of its own: ``flash_attention_bwd`` takes
-``hd == hdv`` up to ``BWD_MAX_HEAD_DIM``.  :data:`KNOWN_OUTSIDE` lists
+A backward has no spec of its own: ``flash_attention_bwd`` takes
+``hd == hdv`` up to ``BWD_MAX_HEAD_DIM``, ``rwkv6_chunk_bwd`` the
+forward's domain (f32 and bf16, hd 1 to 128).  :data:`KNOWN_OUTSIDE` lists
 the problems that lie outside today, each with the queued work that
 closes it (ROADMAP queue 1, "Backward kernels"); the test fails both for
 a new problem outside a domain and for a listed one that has come
@@ -50,8 +51,6 @@ DTYPES = ("bfloat16", "float32")
 KNOWN_OUTSIDE = {
     ("deepseek-v2-lite-16b", "train", "flash_attention_bwd"):
         "backward kernel 2: MLA's q.k 192 over v 128",
-    ("rwkv6-1.6b", "train", "rwkv6_chunk_bwd"):
-        "backward kernel 1: rwkv6_chunk has no backward kernel",
     ("jamba-v0.1-52b", "train", "mamba_scan_bwd"):
         "backward kernel 4: mamba_scan has no backward kernel",
 }
@@ -143,7 +142,9 @@ def outside(phase, kernel, problem):
     """The kernels of ``(phase, kernel, problem)`` whose domain on the card
     it leaves: the forward's ``spec.supports`` and, in training, the
     backward's (``flash_attention_bwd``'s ``hd == hdv <=
-    BWD_MAX_HEAD_DIM``; a spec without a backward kernel takes none)."""
+    BWD_MAX_HEAD_DIM``; ``rwkv6_chunk_bwd``'s is the forward's,
+    ``bwd_launch_shape``'s hd 1 to 128 in f32 and bf16; a spec without a
+    backward kernel takes none)."""
     spec = SPECS[kernel]
     found = [] if spec.supports(problem) else [kernel]
     if phase == "train":
@@ -153,6 +154,8 @@ def outside(phase, kernel, problem):
                 problem.get("hdv", problem["hd"]) == problem["hd"]
                 <= BWD_MAX_HEAD_DIM):
             found.append("flash_attention_bwd")
+        elif kernel == "rwkv6_chunk" and not spec.supports(problem):
+            found.append("rwkv6_chunk_bwd")
     return found
 
 
@@ -200,7 +203,8 @@ def test_problems_follow_the_configs_widths():
 
 def test_a_config_outside_a_domain_is_found():
     """The guard sees a config past a kernel's domain (a Mamba state of
-    17, a GQA head of 192 with v as wide), and sees a known exception
+    17, a GQA head of 192 with v as wide, an RWKV6 head of 192, forward
+    and backward), and sees a known exception
     come inside (MLA at q.k 128 over v 128 trains on the backward
     kernel)."""
     jamba = all_configs()["jamba-v0.1-52b"]
@@ -215,6 +219,12 @@ def test_a_config_outside_a_domain_is_found():
     assert wide == {(ph, k) for ph in ("prefill", "decode", "train")
                     for k in ("flash_attention",)} | {
                         ("train", "flash_attention_bwd")}
+    rwkv = all_configs()["rwkv6-1.6b"]
+    wide_rwkv = {(ph, k) for ph, kernel, p in kernel_problems(
+        rwkv.replace(rwkv_head_size=192), "bfloat16")
+        for k in outside(ph, kernel, p)}
+    assert wide_rwkv == {(ph, "rwkv6_chunk") for ph in (
+        "prefill", "decode", "train")} | {("train", "rwkv6_chunk_bwd")}
     narrow = all_configs()["deepseek-v2-lite-16b"].replace(qk_nope_dim=64)
     assert [k for ph, kernel, p in kernel_problems(narrow, "bfloat16")
             for k in outside(ph, kernel, p)] == []

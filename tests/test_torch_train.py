@@ -1,8 +1,9 @@
 """Port parity: LM training (train_loss, compute_grads with microbatches,
 AdamW, clipping, the schedule, int8 error-feedback compression and
 train_step) against repro.models / repro.optim / repro.train on the CPU,
-at the reference's reduced llama3.2-3b, qwen3-4b (qk_norm) and
-qwen2-vl-7b (mrope, ``position_ids``), with the reference's weights
+at the reference's reduced llama3.2-3b, qwen3-4b (qk_norm), qwen2-vl-7b
+(mrope, ``position_ids``) and rwkv6-1.6b (the WKV recurrence through its
+op's plain backward), with the reference's weights
 (``lm.params_from_jax``).  Also the registry's guard against kernels
 without a backward, remat, and the ``train_lm`` example's twin.
 
@@ -17,7 +18,12 @@ Tolerances, each gradient's largest error over its largest magnitude:
   port's lie 2.2-2.4% from the reference's bf16 ones, at the same leaves:
   XLA and PyTorch round some bf16 products one ulp apart, and sums over
   the tokens of a batch (a norm scale's gradient) gather them.  5e-2 is
-  twice the reference's own bf16 spread;
+  twice the reference's own bf16 spread.  rwkv6-1.6b in bf16 is held to
+  ``RWKV6_BF16_GRAD_TOL``: the reference's own bf16 gradients lie 0.149
+  of the largest magnitude from its f32 ones there (llama: 0.023),
+  spread over the first layer's mixer and channel mix, and the port's
+  lie 0.066 from the reference's bf16 ones (measured on the CPU); 0.15
+  is the reference's own spread;
 - three f32 train_steps: losses rtol 1e-5; every parameter within
   ``3 * 2 * lr`` and, without compression, at most 1e-3 of them more
   than 1e-6 apart (measured: 5 of 90,432, the largest 1.3e-5).  Adam's
@@ -61,6 +67,7 @@ from repro_torch.train import compression, trainer  # noqa: E402
 
 B, S = 2, 24
 BF16_GRAD_TOL = 5e-2
+RWKV6_BF16_GRAD_TOL = 0.15
 
 
 def _np(a):
@@ -146,8 +153,13 @@ def _model(name, dtype):
 GRAD_CASES = [("llama3.2-3b", dt, fused, mb) for dt in ("float32",
                                                          "bfloat16")
               for fused, mb in ((True, 1), (False, 1), (True, 2))] + [
-    (name, dt, True, 1) for name in ("qwen3-4b", "qwen2-vl-7b")
+    (name, dt, True, 1) for name in ("qwen3-4b", "qwen2-vl-7b",
+                                     "rwkv6-1.6b")
     for dt in ("float32", "bfloat16")]
+
+
+def bf16_grad_tol(name):
+    return RWKV6_BF16_GRAD_TOL if name == "rwkv6-1.6b" else BF16_GRAD_TOL
 
 
 @pytest.mark.parametrize("name,dtype,fused,mb", GRAD_CASES)
@@ -176,7 +188,7 @@ def test_loss_and_every_grad_match_reference(name, dtype, fused, mb):
                                rtol=1e-5 if f32 else 2e-2)
     want_dt = torch.float32 if mb > 1 else getattr(torch, dtype)
     assert all(g.dtype == want_dt for g in tree_leaves(grads))
-    assert_trees_close(grads, jgrads, 1e-4 if f32 else BF16_GRAD_TOL)
+    assert_trees_close(grads, jgrads, 1e-4 if f32 else bf16_grad_tol(name))
 
 
 @pytest.mark.parametrize("remat", [True, False])
@@ -366,7 +378,7 @@ def test_train_state_and_shardings():
 
 
 # ------------------------------------------------------- registry guard ---
-@pytest.mark.parametrize("kernel", ["rwkv6_chunk", "fused_mlp",
+@pytest.mark.parametrize("kernel", ["mamba_scan", "fused_mlp",
                                     "fused_mlp_int8", "stencil_gather",
                                     "flash_attention_int8"])
 def test_kernel_without_backward_refuses_grad_on_the_card(kernel):
@@ -407,6 +419,31 @@ def test_flash_attention_differentiates_through_its_backward():
     assert all(t.grad is not None for t in (q, k, v))
     with torch.no_grad():
         assert flash_ops.flash_attention_op(q, k, v).grad_fn is None
+
+
+def test_rwkv6_chunk_differentiates_through_its_backward():
+    """The WKV recurrence's spec has a backward: both outputs carry a
+    grad_fn on the CPU, the plain backward serves the gradient (no
+    kernel launch), and an input without grad (s0, zeros in training)
+    gets none."""
+    from repro_torch.kernels.rwkv6_chunk import ops as rwkv_ops
+    from repro_torch.kernels.rwkv6_chunk.rwkv6_chunk import rwkv6_chunk_bwd
+    assert rwkv_ops.SPEC.backward is not None
+    assert rwkv_ops.SPEC.backward.kernel is rwkv6_chunk_bwd
+    g = torch.Generator().manual_seed(0)
+    r, k, v = (torch.randn(1, 5, 2, 8, generator=g, requires_grad=True)
+               for _ in range(3))
+    w = (torch.rand(1, 5, 2, 8, generator=g) * 0.5 + 0.4).requires_grad_()
+    u = torch.randn(2, 8, generator=g, requires_grad=True)
+    s0 = torch.zeros(1, 2, 8, 8)
+    o, sT = rwkv_ops.rwkv6_chunk_op(r, k, v, w, u, s0)
+    assert type(o.grad_fn).__name__ == "_DifferentiableBackward"
+    assert sT.grad_fn is o.grad_fn
+    o.sum().backward()
+    assert all(t.grad is not None for t in (r, k, v, w, u))
+    assert s0.grad is None and rwkv6_chunk_bwd.launches == 0
+    with torch.no_grad():
+        assert rwkv_ops.rwkv6_chunk_op(r, k, v, w, u, s0)[0].grad_fn is None
 
 
 # ------------------------------------------------------ the example twin ---
