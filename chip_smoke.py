@@ -244,12 +244,15 @@ source, all started together), and prints one JSON line per phase:
     flash_attention_bwd launches a step (remat runs each forward twice),
     the last step traced for the card's busy share, ``peak_gib`` (part
     ``train``); then rwkv6-1.6b: the ``rwkv6_chunk_bwd`` kernel at its
-    training shape (B 2, T 2,048, 32 heads of 64, f32) and at T 1 and 33,
-    head sizes 8, 24, 64 and 128 and bf16 inputs, from s0 != 0, with and
-    without a cotangent on the final state, against the plain backward and
-    autograd of the plain version (``TOL_BWD``), a relaunch bit for bit,
-    its time beside the plain backward's, the forward's and the bound
-    (``kernel`` line); every leaf's gradient at
+    training shape (B 2, T 2,048, 32 heads of 64, f32) with the spec's
+    decays and with the model's, and at T 1 and 33, head sizes 8, 24, 64
+    and 128 and bf16 inputs, from s0 != 0, with and without a cotangent
+    on the final state, against the plain backward and autograd of the
+    plain version (``TOL_BWD``), a relaunch bit for bit, its time beside
+    the plain backward's, the forward's, the bound (its products in
+    3xTF32) and the CUDA-core f32 bound, and each of its kernels' device
+    time (``kernel`` line); every leaf's
+    gradient at
     full width and depth 2 against ``blocks.rwkv6_chunk_op`` patched to
     the plain version (``LMT_GRAD_TOL_F32``, ``RWKV_GRAD_TOL_BF16``); 4
     ``train_step``s at full width and depth as llama's: 48 rwkv6_chunk
@@ -4957,18 +4960,34 @@ def check_flash_bwd(dev, smi):
 
 
 def rwkv6_bwd_bound(problem):
-    """(bound_ms, bound_by, bytes, flops) of one WKV backward without a
-    cotangent on the final state (as in training): r, k, v, w and do read
-    and dr, dk, dv and dw written once in the problem's dtype, u and s0
-    read and du and ds0 written in f32; ``RWKV_BWD_OPS`` hd^2 f32
-    operations per (b, t, h)."""
+    """(bound_ms, bound_by, bound_f32_ms, bytes, flops) of one WKV
+    backward without a cotangent on the final state (as in training): r,
+    k, v, w and do read and dr, dk, dv and dw written once in the
+    problem's dtype, u and s0 read and du and ds0 written in f32;
+    ``RWKV_BWD_OPS`` hd^2 f32 operations per (b, t, h).  The kernel runs
+    its products in 3xTF32 on the tensor cores, so ``bound_ms`` takes the
+    operations at that rate (``tc_bound_ms``); ``bound_f32_ms`` takes them
+    at the CUDA cores' f32 rate, the bound of a design that walks every
+    step on the CUDA cores."""
     b, t, h, hd = (problem[k] for k in ("b", "t", "h", "hd"))
     el = 4 if problem["dtype"] == "float32" else 2
     nbytes = el * 9 * b * t * h * hd + 4 * 2 * (h * hd + b * h * hd * hd)
     flops = RWKV_BWD_OPS * hd * hd * b * t * h
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", nbytes, flops)
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (tc_bound_ms(flops, nbytes),
+            "operations" if t_ops >= t_bytes else "bytes",
+            max(flops / PEAK_F32_FLOPS, t_bytes) * 1e3, nbytes, flops)
+
+
+def model_decays(arrays, generator, dev):
+    """The WKV inputs with w as rwkv6's mixer makes it, exp(-exp(c)) for
+    c uniform in [-6, 1] (0.066 to 0.998; ``make_call`` draws 0.7 to
+    0.999)."""
+    import torch
+    w = arrays[3]
+    c = torch.rand(w.shape, generator=generator) * 7.0 - 6.0
+    return (*arrays[:3], torch.exp(-torch.exp(c)).to(dev, w.dtype),
+            *arrays[4:])
 
 
 def check_rwkv6_bwd(dev, smi):
@@ -4976,10 +4995,17 @@ def check_rwkv6_bwd(dev, smi):
     the plain version (each gradient's largest error over its largest
     magnitude within ``ops.TOL_BWD``), a relaunch bit for bit, at the
     rwkv6-1.6b training shape (no cotangent on the final state, as in
-    training), T 1 and 33, head sizes 8, 24, 64 and 128, bf16 inputs, all
-    from s0 != 0 and the others with a cotangent on the final state; then
-    its CUDA-event time at the training shape beside the plain backward's,
-    the forward's and the bound.  Returns the training shape's line."""
+    training) with ``make_call``'s decays and with the model's, T 1 and
+    33, head sizes 8, 24, 64 and 128, bf16 inputs, all from s0 != 0 and
+    the others with a cotangent on the final state; then its CUDA-event
+    time at the training shape beside the plain backward's, the
+    forward's, the bound (3xTF32) and the CUDA-core f32 bound, and the
+    device time a launch of each kernel whose name starts with
+    ``rwkv6_bwd_`` over 20 calls (``device_busy``'s top kernels, so any
+    design of the backward splits the same way).  Returns the training
+    shape's line."""
+    import re
+
     import torch
     from repro_torch.kernels.rwkv6_chunk import ops
     from repro_torch.kernels.rwkv6_chunk import rwkv6_chunk as rwkv
@@ -4989,6 +5015,7 @@ def check_rwkv6_bwd(dev, smi):
     default = ops.SPEC.default_problems[0]
     cases = [
         ("rwkv6-1.6b training", RWKV_TRAIN, False),
+        ("rwkv6-1.6b training, model decays", RWKV_TRAIN, False),
         ("T 1", dict(RWKV_TRAIN, t=1), True),
         ("T 33", dict(default, t=33), True),
         ("hd 8", dict(default, hd=8), True),
@@ -5007,6 +5034,9 @@ def check_rwkv6_bwd(dev, smi):
     for i, (label, problem, with_dsT) in enumerate(cases):
         arrays = ops.SPEC.make_call(
             problem, torch.Generator().manual_seed(80 + i), dev)
+        if "model decays" in label:
+            arrays = model_decays(arrays, torch.Generator().manual_seed(70),
+                                  dev)
         o, sT = rwkv6_chunk_ref(*arrays)
         g = torch.Generator().manual_seed(90 + i)
         do = torch.randn(o.shape, generator=g).to(device=dev, dtype=o.dtype)
@@ -5049,14 +5079,23 @@ def check_rwkv6_bwd(dev, smi):
 
     def plain():
         return rwkv6_chunk_bwd_ref(*arrays, do)
-    bound_ms, bound_by, nbytes, flops = rwkv6_bwd_bound(RWKV_TRAIN)
+    bound_ms, bound_by, bound_f32, nbytes, flops = rwkv6_bwd_bound(
+        RWKV_TRAIN)
     ms = cuda_ms(kernel, 10)
+    *_, by = device_busy(lambda: [kernel() for _ in range(20)], {})
+    kernels_ms = {}
+    for name, s, n in by["top_kernels"]:
+        m = re.search(r"rwkv6_bwd_\w+", name)
+        if m:
+            kernels_ms[m.group(0)] = {"ms": s * 1e3 / n,
+                                      "launches_traced": n, "calls": 20}
     line = dict(
-        cases=results, shape=RWKV_TRAIN, ms=ms,
+        cases=results, shape=RWKV_TRAIN, ms=ms, kernels_ms=kernels_ms,
         plain_ms=cuda_ms(plain, 1, warmup=1),
         fwd_ms=cuda_ms(lambda: ops.SPEC.run_call(RWKV_TRAIN, arrays, {}), 10),
         library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-        share_of_bound=bound_ms / ms, bytes=nbytes, flops=flops,
+        share_of_bound=bound_ms / ms, bound_f32_ms=bound_f32,
+        share_of_bound_f32=bound_f32 / ms, bytes=nbytes, flops=flops,
         max_abs_err=results["rwkv6-1.6b training"]["max_abs_err"],
         launch=rwkv.bwd_launch_shape(RWKV_TRAIN["hd"]), ok=not failures)
     emit("kernel", kernel="rwkv6_chunk_bwd", nvidia_smi=smi, **line)
@@ -5700,6 +5739,8 @@ def main():
         "tol": rwkv_ops.TOL_BWD[torch.float32], "shape": rwkv_bwd["shape"],
         "ms": rwkv_bwd["ms"], "plain_ms": rwkv_bwd["plain_ms"],
         "bound_ms": rwkv_bwd["bound_ms"], "bound_by": rwkv_bwd["bound_by"],
+        "bound_f32_ms": rwkv_bwd["bound_f32_ms"],
+        "kernels_ms": rwkv_bwd["kernels_ms"],
         "library_ms": None, "launch": rwkv_bwd["launch"]}]
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:

@@ -7,6 +7,8 @@
 
 #include <cstdint>
 
+#include "../../csrc/tf32x3.cuh"
+
 #define MAX_HEAD_DIM 128
 
 // The head tile (32, 64 or 128 lanes) a head of hd lanes is padded to.
@@ -39,23 +41,11 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
+// smem_addr, cp_async16, cp_async_commit and cp_async_wait come from
+// tf32x3.cuh (the backward's products use its 3xTF32 mma as well).
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
                :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // Copy `rows` rows of `bytes` bytes each, from src + row * src_stride to

@@ -31,10 +31,11 @@ TOL = (1e-5, 1e-5)
 #: the backward (kernel) against the plain backward, or either against
 #: autograd of the plain version, each gradient's largest error over its
 #: largest magnitude, by input dtype.  f32: sums over the head and over
-#: time in other orders, and the kernel's dw from suffix sums of r dr' and
-#: k dk' (the plain backward sums G S over the head directly), which at
-#: T 2,048 and decays down to exp(-e) stays within 2.5e-5
-#: (tests/test_torch_rwkv6_bwd.py models it): 1e-4.  bf16: f32
+#: time in other orders (the kernel's in chunks, from boundary states),
+#: and the kernel's dw from sums of r dr' and k dk' over a chunk, started
+#: from the boundary states (the plain backward sums G S over the head
+#: directly), which at T 2,048 and decays down to exp(-e) stays within
+#: 2.9e-6 (tests/test_torch_rwkv6_bwd.py models it): 1e-4.  bf16: f32
 #: results that agree that closely round at most one bf16 step apart, and
 #: one ulp of the largest magnitude is at most 2**-7 of it.
 TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}

@@ -24,17 +24,22 @@ The backward, ``csrc/rwkv6_chunk_bwd.cu`` (:func:`rwkv6_chunk_bwd`,
 launches in ``rwkv6_chunk_bwd.launches``; plain version
 :func:`~repro_torch.kernels.rwkv6_chunk.ref.rwkv6_chunk_bwd_ref`),
 replaces no Pallas kernel: it is the gradient XLA takes of the
-reference's chunked scan.  Three walks of the forward's block shape
-(:func:`bwd_launch_shape`) share one grid: the state forward in time,
-transposed, for dr; its cotangent backward in time, transposed, for dk,
-and as it is, for dv and ds0.  A finishing kernel walks each (b, h, i)
-backward once more for dw, from ``w_t dw_t = a_t - k_t dk'_t`` with
-``a_{t-1} = a_t + r_t dr'_t - k_t dk'_t`` (primes: without the u term;
-``a_{T-1} = sum_j dsT sT``; a in f64), so no state is stored and none is
-divided by w (it needs w > 0), adds the u terms and writes parts of du
-(blocks of :data:`BWD_SEGMENT` steps, each starting from a first
-kernel's sums over the later ones); a last kernel adds the parts in
-order.  No atomics.
+reference's chunked scan.  It cuts time into chunks of C steps
+(:func:`bwd_launch_shape`) so that only T / C steps are serial.  A first
+kernel walks the chunks' boundary states, the state before each chunk
+forward from s0 and the cotangent after it backward from dsT, a block per
+state of one (batch, head), each chunk one product with the chunk's
+decayed inputs on the tensor cores.  A second kernel takes every chunk
+at once, a block each: the terms of dr and dk from the boundary states
+and the
+chunk's own steps (Horner sums over the chunk, so every decay is a
+product of w, never a quotient), dv from the cotangent and a [C, C]
+matrix of the chunk's pairs, and dw from ``w_t dw_t = a_t - k_t dk'_t``
+with ``a_{t-1} = a_t + r_t dr'_t - k_t dk'_t`` (primes: without the u
+term; a in f64) walked back over the chunk only, from ``a`` at its end
+made of the boundary states (it needs w > 0).  A third adds du's parts
+in order.  No per-step state is stored (the scratch holds the boundary
+states, freed with the call); no atomics.
 """
 from __future__ import annotations
 
@@ -52,10 +57,10 @@ TILES = {32: (4, 32), 64: (8, 32), 128: (4, 16)}
 ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 SOURCE = "src/repro_torch/kernels/rwkv6_chunk/csrc/rwkv6_chunk.cu"
 REPLACES = "src/repro/kernels/rwkv6_chunk/rwkv6_chunk.py:47"
-#: per head tile of the backward's walks (csrc/rwkv6_chunk_bwd.cu's
-#: BwdTile): (row groups, steps a chunk)
-BWD_TILES = {32: (4, 32), 64: (8, 16), 128: (4, 16)}
-BWD_SEGMENT = 128  # steps of a finishing block (csrc's SEGMENT)
+#: per head tile, the backward's steps a chunk (csrc/rwkv6_chunk_bwd.cu's
+#: BwdTile); a chunk block has a 2 x 4 tile of the chunk's [C, head tile]
+#: outputs a thread
+BWD_TILES = {32: 16, 64: 32, 128: 16}
 BWD_SOURCE = "src/repro_torch/kernels/rwkv6_chunk/csrc/rwkv6_chunk_bwd.cu"
 BWD_REPLACES = "src/repro/models/blocks.py:457-479"
 
@@ -74,17 +79,14 @@ def launch_shape(hd: int) -> dict:
 
 
 def bwd_launch_shape(hd: int) -> dict:
-    """The blocks of the backward at head size ``hd``: a walk's head tile,
-    row groups, rows per group, threads and steps a chunk, and the steps
-    of a finishing block."""
+    """The chunk blocks of the backward at head size ``hd``: the head tile,
+    the steps of a chunk and a block's threads."""
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"head size {hd}: the kernel takes 1 to "
                          f"{MAX_HEAD_DIM}")
     tile = next(t for t in sorted(BWD_TILES) if hd <= t)
-    groups, chunk = BWD_TILES[tile]
-    return {"head_tile": tile, "row_groups": groups,
-            "rows_per_group": tile // groups, "threads": tile * groups,
-            "chunk": chunk, "segment": BWD_SEGMENT}
+    chunk = BWD_TILES[tile]
+    return {"head_tile": tile, "chunk": chunk, "threads": chunk * tile // 8}
 
 
 @functools.lru_cache(maxsize=None)
@@ -148,22 +150,20 @@ rwkv6_chunk.launches = 0
 @functools.lru_cache(maxsize=None)
 def _bwd_lib():
     lib = _build.load("rwkv6_chunk_bwd")
-    lib.rwkv6_chunk_bwd.argtypes = [ctypes.c_void_p] * 19 \
+    lib.rwkv6_chunk_bwd.argtypes = [ctypes.c_void_p] * 17 \
         + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.rwkv6_chunk_bwd.restype = ctypes.c_int
     for name in ("rwkv6_chunk_bwd_takes_head_dim", "rwkv6_chunk_bwd_threads",
                  "rwkv6_chunk_bwd_chunk"):
         getattr(lib, name).argtypes = [ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_int
-    lib.rwkv6_chunk_bwd_segment.argtypes = []
-    lib.rwkv6_chunk_bwd_segment.restype = ctypes.c_int
     takes = [n for n in range(1, 257)
              if lib.rwkv6_chunk_bwd_takes_head_dim(n)]
     shapes = [(lib.rwkv6_chunk_bwd_threads(n), lib.rwkv6_chunk_bwd_chunk(n))
               for n in takes]
     if takes != list(range(1, MAX_HEAD_DIM + 1)) or shapes != [
             (bwd_launch_shape(n)["threads"], bwd_launch_shape(n)["chunk"])
-            for n in takes] or lib.rwkv6_chunk_bwd_segment() != BWD_SEGMENT:
+            for n in takes]:
         raise RuntimeError("csrc/rwkv6_chunk_bwd.cu and rwkv6_chunk.py "
                            "disagree on the head sizes or the block shapes")
     return lib
@@ -173,8 +173,10 @@ def rwkv6_chunk_bwd(r, k, v, w, u, s0, do, dsT=None, sT=None):
     """Launch the backward on tensors on the card: the forward's inputs,
     o's cotangent ``do`` (r's shape and dtype) and the final state's
     ``dsT`` ``[B, H, hd, hd]`` (None: zeros), beside the forward's final
-    state ``sT``, which dw needs where dsT is given.  Returns ``(dr, dk,
-    dv, dw, du, ds0)``, each in its input's dtype."""
+    state ``sT``, which the registry hands every backward with a dsT
+    (the kernel rebuilds what it needs of the state from s0, so sT is
+    checked but not read).  Returns ``(dr, dk, dv, dw, du, ds0)``, each in
+    its input's dtype."""
     check_shapes(r, k, v, w, u, s0)
     B, T, H, hd = (int(n) for n in r.shape)
     state = (B, H, hd, hd)
@@ -194,35 +196,33 @@ def rwkv6_chunk_bwd(r, k, v, w, u, s0, do, dsT=None, sT=None):
         raise ValueError(f"r, k, v, w, do must share one dtype of "
                          f"{sorted(map(str, ELEMENT_BYTES))}, got "
                          f"{[str(t.dtype) for t in (r, k, v, w, do)]}")
-    bwd_launch_shape(hd)  # raises above MAX_HEAD_DIM
+    shape = bwd_launch_shape(hd)  # raises above MAX_HEAD_DIM
     f32 = torch.float32
     r, k, v, w, do = (t.contiguous() for t in (r, k, v, w, do))
     uf, s0f = (t.to(f32).contiguous() for t in (u, s0))
     if dsT is not None:
-        dsT, sT = (t.to(f32).contiguous() for t in (dsT, sT))
+        dsT = dsT.to(f32).contiguous()
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty((H, hd), dtype=f32, device=r.device)
     ds0 = torch.empty(state, dtype=f32, device=r.device)
     if B * H == 0:
         return dr, dk, dv, dw, du.zero_().to(u.dtype), ds0.to(s0.dtype)
-    drp, dkp = (torch.empty(r.shape, dtype=f32, device=r.device)
-                for _ in range(2))
-    nseg = -(-T // BWD_SEGMENT)
-    seg_sum = torch.empty((B, H, nseg, hd), dtype=torch.float64,
-                          device=r.device)
-    du_part = torch.empty((B, H, nseg, hd), dtype=f32, device=r.device)
+    # the boundary states, each [head tile, head tile] (zero padded), and
+    # du's part of each (b, h, chunk)
+    nc, tile = -(-T // shape["chunk"]), shape["head_tile"]
+    S_st, G_st = (torch.empty((B, H, nc, tile, tile), dtype=f32,
+                              device=r.device) for _ in range(2))
+    du_part = torch.empty((B, H, nc, hd), dtype=f32, device=r.device)
     lib = _bwd_lib()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = lib.rwkv6_chunk_bwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            uf.data_ptr(), s0f.data_ptr(),
-            sT.data_ptr() if dsT is not None else None, do.data_ptr(),
+            uf.data_ptr(), s0f.data_ptr(), do.data_ptr(),
             dsT.data_ptr() if dsT is not None else None, dr.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
-            ds0.data_ptr(), drp.data_ptr(), dkp.data_ptr(),
-            seg_sum.data_ptr(), du_part.data_ptr(), B, T, H, hd,
-            ELEMENT_BYTES[r.dtype], stream)
+            ds0.data_ptr(), S_st.data_ptr(), G_st.data_ptr(),
+            du_part.data_ptr(), B, T, H, hd, ELEMENT_BYTES[r.dtype], stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_chunk_bwd launch failed: cudaError {err}")
     rwkv6_chunk_bwd.launches += 1

@@ -1223,24 +1223,27 @@ def test_kernel_without_backward_raises_on_the_card(dev):
 
 
 RWKV_BWD_CASES = [
-    # (b, t, h, hd, with a cotangent on the final state)
-    (2, 2048, 32, 64, False),   # rwkv6-1.6b's training shape
-    (2, 64, 2, 16, True),
-    (4, 1, 32, 64, True),
-    (2, 33, 2, 24, True),
-    (1, 100, 3, 8, True),
-    (1, 70, 2, 128, True),
-    (1, 0, 2, 8, True),         # no step: ds0 is dsT
+    # (b, t, h, hd, with a cotangent on the final state, decays)
+    (2, 2048, 32, 64, False, "make_call"),  # rwkv6-1.6b's training shape,
+    (2, 2048, 32, 64, False, "model"),      # with the model's decays too
+    (2, 64, 2, 16, True, "make_call"),
+    (4, 1, 32, 64, True, "make_call"),
+    (2, 33, 2, 24, True, "make_call"),
+    (1, 100, 3, 8, True, "make_call"),
+    (1, 70, 2, 128, True, "make_call"),
+    (1, 0, 2, 8, True, "make_call"),        # no step: ds0 is dsT
 ]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,t,h,hd,with_dsT", RWKV_BWD_CASES)
+@pytest.mark.parametrize("b,t,h,hd,with_dsT,decays", RWKV_BWD_CASES)
 def test_rwkv6_chunk_bwd_kernel_matches_plain_backward(dev, dtype, b, t, h,
-                                                       hd, with_dsT):
+                                                       hd, with_dsT, decays):
     """The backward kernel against the plain backward, from s0 != 0: each
     gradient within TOL_BWD of its largest magnitude, in its input's
-    dtype, one launch counted, a relaunch bit for bit."""
+    dtype, one launch counted, a relaunch bit for bit.  Decays as the
+    spec's ``make_call`` draws them (0.7 to 0.999) or as rwkv6's mixer
+    makes them (exp(-exp(c)), c in [-6, 1]: 0.066 to 0.998)."""
     from repro_torch.kernels.rwkv6_chunk import ops
     from repro_torch.kernels.rwkv6_chunk.ref import (rwkv6_chunk_bwd_ref,
                                                      rwkv6_chunk_ref)
@@ -1248,6 +1251,11 @@ def test_rwkv6_chunk_bwd_kernel_matches_plain_backward(dev, dtype, b, t, h,
     problem = {"b": b, "t": t, "h": h, "hd": hd, "dtype": dtype}
     arrays = ops.SPEC.make_call(problem, torch.Generator().manual_seed(t),
                                 dev)
+    if decays == "model":
+        c = torch.rand(arrays[3].shape,
+                       generator=torch.Generator().manual_seed(1)) * 7 - 6
+        w = torch.exp(-torch.exp(c)).to(dev, arrays[3].dtype)
+        arrays = (*arrays[:3], w, *arrays[4:])
     o, sT = rwkv6_chunk_ref(*arrays)
     g = torch.Generator().manual_seed(hd)
     do = torch.randn(o.shape, generator=g).to(dev, o.dtype)
