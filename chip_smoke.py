@@ -630,6 +630,14 @@ LMT_ARCH, LMT_BATCH, LMT_SEQ, LMT_STEPS = "llama3.2-3b", 2, 2048, 4
 LMT_AT_STEP = 1000
 LMT_ATTN = dict(b=LMT_BATCH, sq=LMT_SEQ, skv=LMT_SEQ, causal=True,
                 q_offset=0, **LLAMA)
+# deepseek-v2-lite-16b trained the same way at full width, its depth cut
+# from 27 layers to the dense first layer and 5 MoE layers (3.4 B
+# parameters: with bf16 gradients and Adam's f32 state the whole model,
+# 15.7 B, would need about 190 GB); attention's backward at its training
+# shape, MLA's q.k 192 over v 128 (16 heads, no GQA)
+DEEPSEEK_ARCH, DEEPSEEK_TRAIN_REPEATS = "deepseek-v2-lite-16b", 5
+MLA_TRAIN_ATTN = dict(b=LMT_BATCH, sq=LMT_SEQ, skv=LMT_SEQ, causal=True,
+                      q_offset=0, h=16, kv=16, hd=192, hdv=128)
 # every leaf's gradient at full width and depth 2 with attention on the
 # kernels against attention by the plain version (autograd of
 # flash_attention_ref), each error over the leaf's largest magnitude:
@@ -4838,16 +4846,19 @@ def run_whisper_lm_slice(dev, smi):
 
 
 def attention_bwd_cell(shape, dtype, dev, seed):
-    """flash_attention_bwd at the training shape: its inputs (o from the
-    plain version, a seeded cotangent), the bound (each of q, k, v, o, dO
-    read once and dq, dk, dv written once, against the five causal
-    products of the gradient, 2 hd operations per visible pair each, at
-    the bf16 tensor-core peak for bf16 inputs, the f32 CUDA-core peak for
-    f32), the bound of the ``BWD_PRODUCTS`` products the kernel does as
-    it does them (``bound_ms_design``: bf16 ``mma.sync`` at the bf16
-    peak, or 3xTF32, three TF32 products each, at the TF32 peak), and one
-    PyTorch call for the same function: ``scaled_dot_product_attention``'s
-    forward and backward (K/V repeated per group), minus its forward."""
+    """flash_attention_bwd at a training shape (v ``hdv`` wide where the
+    shape names it): its inputs (o from the plain version, a seeded
+    cotangent), the bound (q, k, v, o and dO read once and dq, dk, dv
+    written once, against the five causal products of the gradient, S,
+    dS K and dS^T Q at hd and dO V^T and P^T dO at hdv, 2 operations a
+    visible pair and head column each, at the bf16 tensor-core peak for
+    bf16 inputs, the f32 CUDA-core peak for f32), the bound of the
+    ``BWD_PRODUCTS`` products the kernel does as it does them
+    (``bound_ms_design``: five at hd and three at hdv, bf16 ``mma.sync``
+    at the bf16 peak, or 3xTF32, three TF32 products each, at the TF32
+    peak), and one PyTorch call for the same function:
+    ``scaled_dot_product_attention``'s forward and backward (K/V
+    repeated per group), minus its forward."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -4856,12 +4867,14 @@ def attention_bwd_cell(shape, dtype, dev, seed):
     g = torch.Generator().manual_seed(seed + 1)
     do = torch.randn(o.shape, generator=g).to(device=dev, dtype=dtype)
     b, sq, h, kvh, hd = (shape[n] for n in ("b", "sq", "h", "kv", "hd"))
+    hdv = shape.get("hdv", hd)
     pairs = b * h * sq * (sq + 1) // 2
-    flops = 5 * 2 * hd * pairs
-    nbytes = q.element_size() * (3 * q.numel() + 4 * k.numel())
+    flops = 2 * (3 * hd + 2 * hdv) * pairs
+    nbytes = q.element_size() * (2 * (q.numel() + k.numel() + v.numel())
+                                 + 2 * o.numel())
     peak = PEAK_F16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
-    design_flops = BWD_PRODUCTS * 2 * hd * pairs
+    design_flops = 2 * (5 * hd + 3 * hdv) * pairs
     t_design = (design_flops / PEAK_F16_FLOPS if dtype == torch.bfloat16
                 else 3 * design_flops / PEAK_TF32_FLOPS)
     group = h // kvh
@@ -4879,20 +4892,23 @@ def attention_bwd_cell(shape, dtype, dev, seed):
         return torch.autograd.grad(out, (qt, kt, vt), dot)
     return dict(arrays=(q, k, v, o, do), sdpa_fwd=sdpa_fwd,
                 sdpa_fwd_bwd=sdpa_fwd_bwd,
+                library_backend=sdpa_backend(qt, kt, vt, True),
                 bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 products_design=BWD_PRODUCTS,
                 bound_ms_design=max(t_design, t_bytes) * 1e3,
-                flops=flops, bytes=nbytes)
+                flops=flops, flops_design=design_flops, bytes=nbytes,
+                seen_pairs=pairs)
 
 
 def check_flash_bwd(dev, smi):
-    """flash_attention_bwd at the training shape in f32 and bf16 against
+    """flash_attention_bwd at the two training shapes (llama3.2-3b's, and
+    deepseek-v2-lite's MLA at q.k 192 / v 128), in f32 and bf16, against
     the plain backward (``TOL_BWD``) and autograd of the plain version
     (``bwd_autograd_tol``), two launches bit for bit, then its CUDA-event
     time beside the plain backward's, SDPA's backward, the bound of the
     five products the gradient needs and that of the ones it does.
-    Returns the bf16 line (the training path's dtype)."""
+    Returns the bf16 lines (the training path's dtype), by shape."""
     import torch
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.flash_attention import (
@@ -4901,62 +4917,71 @@ def check_flash_bwd(dev, smi):
         flash_attention_bwd_ref, flash_attention_ref)
 
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        cell = attention_bwd_cell(LMT_ATTN, dtype, dev, seed=120)
-        q, k, v, o, do = cell.pop("arrays")
-        sdpa_fwd, sdpa_fwd_bwd = cell.pop("sdpa_fwd"), cell.pop("sdpa_fwd_bwd")
+    for label, shape in (("llama3.2-3b", LMT_ATTN), ("mla", MLA_TRAIN_ATTN)):
+        for dtype in (torch.float32, torch.bfloat16):
+            cell = attention_bwd_cell(shape, dtype, dev, seed=120)
+            q, k, v, o, do = cell.pop("arrays")
+            sdpa_fwd = cell.pop("sdpa_fwd")
+            sdpa_fwd_bwd = cell.pop("sdpa_fwd_bwd")
 
-        def kernel():
-            return flash_attention_bwd(q, k, v, o, do, causal=True)
+            def kernel():
+                return flash_attention_bwd(q, k, v, o, do, causal=True)
 
-        def plain():
-            return flash_attention_bwd_ref(q, k, v, o, do, causal=True)
-        got, again = kernel(), kernel()
-        torch.cuda.synchronize()
-        same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
-        del again
-        want = plain()
-        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
-        auto = torch.autograd.grad(flash_attention_ref(qq, kk, vv),
-                                   (qq, kk, vv), do)
-        del qq, kk, vv
-        group = LMT_ATTN["h"] // LMT_ATTN["kv"]
-        names = ("dq", "dk", "dv")
+            def plain():
+                return flash_attention_bwd_ref(q, k, v, o, do, causal=True)
+            got, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+            del again
+            want = plain()
+            qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+            auto = torch.autograd.grad(flash_attention_ref(qq, kk, vv),
+                                       (qq, kk, vv), do)
+            del qq, kk, vv
+            group = shape["h"] // shape["kv"]
+            names = ("dq", "dk", "dv")
 
-        def rel(a, b):
-            return ((a.float() - b.float()).abs().max()
-                    / b.float().abs().max()).item()
-        vs_plain = {n: rel(a, b) for n, a, b in zip(names, got, want)}
-        vs_auto = {n: rel(a, b) for n, a, b in zip(names, got, auto)}
-        max_abs = max((a.float() - b.float()).abs().max().item()
-                      for a, b in zip(got, auto))
-        del got, want, auto
-        tol, tol_auto = ops.TOL_BWD[dtype], ops.bwd_autograd_tol(dtype, group)
-        ok = (same_bits and max(vs_plain.values()) <= tol
-              and max(vs_auto.values()) <= tol_auto)
-        line = dict(
-            cell, dtype=str(dtype).removeprefix("torch."),
-            shape=LMT_ATTN, vs_plain_backward=vs_plain, tol=tol,
-            vs_autograd_of_plain=vs_auto, tol_autograd=tol_auto,
-            max_abs_err=max_abs, bit_identical_relaunch=same_bits,
-            ms=cuda_ms(kernel, 5), plain_ms=cuda_ms(plain, 2))
-        fwd_ms, fwd_bwd_ms = cuda_ms(sdpa_fwd, 10), cuda_ms(sdpa_fwd_bwd, 10)
-        line.update(
-            library_ms=fwd_bwd_ms - fwd_ms, library_fwd_bwd_ms=fwd_bwd_ms,
-            library_call="torch.nn.functional.scaled_dot_product_attention "
-                         "forward + backward minus its forward, K/V "
-                         "repeated per group",
-            share_of_bound=cell["bound_ms"] / line["ms"],
-            design_share_of_bound=cell["bound_ms_design"] / line["ms"])
-        emit("kernel", kernel="flash_attention_bwd", nvidia_smi=smi, **line)
-        if not ok:
-            raise AssertionError(f"flash_attention_bwd at the training shape "
-                                 f"({dtype}): {vs_plain} (tol {tol}), "
-                                 f"{vs_auto} (tol {tol_auto}), bit-identical "
-                                 f"relaunch {same_bits}")
-        out[line["dtype"]] = line
-        del q, k, v, o, do
-    return out["bfloat16"]
+            def rel(a, b):
+                return ((a.float() - b.float()).abs().max()
+                        / b.float().abs().max()).item()
+            vs_plain = {n: rel(a, b) for n, a, b in zip(names, got, want)}
+            vs_auto = {n: rel(a, b) for n, a, b in zip(names, got, auto)}
+            max_abs = max((a.float() - b.float()).abs().max().item()
+                          for a, b in zip(got, auto))
+            shapes_ok = all(a.shape == b.shape and a.dtype == b.dtype
+                            for a, b in zip(got, want))
+            del got, want, auto
+            tol = ops.TOL_BWD[dtype]
+            tol_auto = ops.bwd_autograd_tol(dtype, group)
+            ok = (same_bits and shapes_ok and max(vs_plain.values()) <= tol
+                  and max(vs_auto.values()) <= tol_auto)
+            line = dict(
+                cell, dtype=str(dtype).removeprefix("torch."), model=label,
+                shape=shape, vs_plain_backward=vs_plain, tol=tol,
+                vs_autograd_of_plain=vs_auto, tol_autograd=tol_auto,
+                max_abs_err=max_abs, bit_identical_relaunch=same_bits,
+                ms=cuda_ms(kernel, 5), plain_ms=cuda_ms(plain, 2))
+            fwd_ms = cuda_ms(sdpa_fwd, 10)
+            fwd_bwd_ms = cuda_ms(sdpa_fwd_bwd, 10)
+            line.update(
+                library_ms=fwd_bwd_ms - fwd_ms, library_fwd_bwd_ms=fwd_bwd_ms,
+                library_call="torch.nn.functional.scaled_dot_product_"
+                             "attention forward + backward minus its "
+                             "forward, K/V repeated per group",
+                share_of_bound=cell["bound_ms"] / line["ms"],
+                design_share_of_bound=cell["bound_ms_design"] / line["ms"])
+            emit("kernel", kernel="flash_attention_bwd", nvidia_smi=smi,
+                 **line)
+            if not ok:
+                raise AssertionError(
+                    f"flash_attention_bwd at the {label} training shape "
+                    f"({dtype}): {vs_plain} (tol {tol}), {vs_auto} (tol "
+                    f"{tol_auto}), bit-identical relaunch {same_bits}, "
+                    f"shapes and dtypes {shapes_ok}")
+            if line["dtype"] == "bfloat16":
+                out[label] = line
+            del q, k, v, o, do
+    return out
 
 
 def rwkv6_bwd_bound(problem):
@@ -5104,12 +5129,83 @@ def check_rwkv6_bwd(dev, smi):
     return line
 
 
+@contextlib.contextmanager
+def routes_from(calls):
+    """``blocks.moe_route`` choosing, call by call, the experts of
+    ``calls`` (:func:`record_routes` of another run, in order: remat's
+    calls in the backward too), its gates the router's own probabilities
+    at those experts; yields a list of (the experts its own top-k would
+    have chosen, its probabilities, the experts taken), one a call."""
+    import torch
+    from repro_torch.models import blocks
+    route, it, seen = blocks.moe_route, iter(calls), []
+    topk = torch.topk
+
+    def forced(cfg, p, x):
+        taken = next(it)[0]
+
+        def pick(probs, k, dim=-1):
+            idx = taken.reshape(probs.shape[:-1] + (k,))
+            seen.append((topk(probs, k, dim=dim).indices.reshape(-1, k),
+                         probs.reshape(-1, probs.shape[-1]), taken))
+            return probs.gather(dim, idx), idx
+        with mock.patch.object(torch, "topk", pick):
+            return route(cfg, p, x)
+    with mock.patch.object(blocks, "moe_route", forced):
+        yield seen
+    if next(it, None) is not None:
+        raise AssertionError("the forced run routed fewer MoE layers than "
+                             "the recorded one")
+
+
+def route_flips(seen, ref, cfg):
+    """The routes the kernel run would have taken against the plain run's
+    (``seen`` from :func:`routes_from`, ``ref`` from
+    :func:`record_routes` with probabilities), over the forward's MoE
+    layers (the first calls; remat's recomputation repeats them): each
+    token whose experts differ as a set, with the experts only one run
+    chose and the kernel run's top-k margin (its k-th router probability
+    less the next), and per layer the largest change of a probability
+    between the two runs.  A flip on a near-tie has a margin of at most
+    twice that change (``near_ties``)."""
+    moe = (sum(spec.mlp == "moe" for spec in cfg.prefix)
+           + cfg.pattern_repeats * sum(spec.mlp == "moe"
+                                       for spec in cfg.pattern))
+    flips, drift = [], []
+    for n, ((own, pa, _), (eb, _, pb)) in enumerate(zip(seen[:moe], ref)):
+        k = cfg.top_k
+        top = pa.topk(k + 1, dim=-1).values
+        margin = top[:, k - 1] - top[:, k]
+        drift.append((pa - pb).abs().max().item())
+        tokens = (own.sort(-1).values != eb.sort(-1).values).any(-1)
+        for t in tokens.nonzero().flatten().tolist():
+            xa, xb = set(own[t].tolist()), set(eb[t].tolist())
+            flips.append({"layer": n, "token": t,
+                          "kernel_only": sorted(xa - xb),
+                          "plain_only": sorted(xb - xa),
+                          "margin": margin[t].item()})
+    near = all(f["margin"] <= 2 * drift[f["layer"]] for f in flips)
+    return flips, drift, near
+
+
+def has_moe(cfg):
+    """Whether any layer of ``cfg`` routes through a mixture of experts."""
+    return any(spec.mlp == "moe" for spec in (*cfg.prefix, *cfg.pattern))
+
+
 def grads_against_plain(cfg, dev, op, plain, bwd):
     """Every leaf's gradient of one TokenPipeline batch with the kernel op
     ``blocks.<op>`` on its kernels, against the same with it patched to
     ``plain`` (autograd of the plain version): (worst error over the
     leaf's largest magnitude, its leaf, the leaf count, the launches of
-    the backward kernel ``bwd`` in each run)."""
+    the backward kernel ``bwd`` in each run).  The plain run goes first;
+    in an MoE model (:func:`has_moe`) its routes are recorded, and the kernel
+    run takes the same experts (:func:`routes_from`): bf16 activations an
+    ulp apart flip near-tied routes, and a flipped token's gradient
+    reaches every leaf (its lm_head row, and every layer below through
+    its cotangent), so no leaf could be held otherwise.  Each route the
+    kernel run would have taken otherwise is named with its margin
+    (:func:`route_flips`)."""
     from unittest import mock
 
     import torch
@@ -5119,31 +5215,41 @@ def grads_against_plain(cfg, dev, op, plain, bwd):
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train import trainer
 
+    routes = has_moe(cfg)
     params = lm.init_params(0, cfg, device=dev)
     for t in tree_leaves(params):
         t.requires_grad_(True)
     batch = trainer.to_device(TokenPipeline(
         cfg.vocab_size, LMT_SEQ, LMT_BATCH, seed=11).batch_at(0), dev)
-    before = bwd.launches
-    loss, got = trainer.compute_grads(cfg, params, batch)
-    torch.cuda.synchronize()
-    kernel_launches = bwd.launches - before
-    got = [g.detach() for g in tree_leaves(got)]
-    with mock.patch.object(blocks, op, plain):
+    with mock.patch.object(blocks, op, plain), (
+            record_routes(probs=True) if routes
+            else contextlib.nullcontext([])) as ref:
         before = bwd.launches
         loss_p, want = trainer.compute_grads(cfg, params, batch)
         torch.cuda.synchronize()
         plain_launches = bwd.launches - before
-    worst, where = 0.0, None
-    for key, g, w in zip(leaf_paths(want), got, tree_leaves(want)):
-        err = ((g.float() - w.float()).abs().max()
-               / w.float().abs().max().clamp_min(1e-30)).item()
-        if err > worst:
-            worst, where = err, key
-    return dict(loss=loss.item(), loss_plain=loss_p.item(), worst=worst,
-                worst_leaf=where, leaves=len(got),
-                kernel_launches=kernel_launches,
-                plain_launches=plain_launches)
+    before = bwd.launches
+    with (routes_from(ref) if routes else contextlib.nullcontext()) as seen:
+        loss, got = trainer.compute_grads(cfg, params, batch)
+        torch.cuda.synchronize()
+    kernel_launches = bwd.launches - before
+    got = [g.detach() for g in tree_leaves(got)]
+    errs = {key: ((g.float() - w.float()).abs().max()
+                  / w.float().abs().max().clamp_min(1e-30)).item()
+            for key, g, w in zip(leaf_paths(want), got, tree_leaves(want))}
+    where = max(errs, key=errs.get)
+    out = dict(loss=loss.item(), loss_plain=loss_p.item(),
+               worst=errs[where], worst_leaf=where, leaves=len(got),
+               kernel_launches=kernel_launches,
+               plain_launches=plain_launches)
+    if routes:
+        flips, drift, near = route_flips(seen, ref, cfg)
+        out.update(route_calls=len(ref), routes_taken_from_plain=True,
+                   tokens_flipped=len(flips), flips=flips[:40],
+                   flip_margin_max=max((f["margin"] for f in flips),
+                                       default=0.0),
+                   prob_drift_by_layer=drift, flips_near_ties=near)
+    return out
 
 
 def train_cell(cfg, dev, counts, seed):
@@ -5153,7 +5259,8 @@ def train_cell(cfg, dev, counts, seed):
     clip and AdamW (CUDA events, no sync) and the rise of each of
     ``counts`` ({name: a function reading a launch count}), set to 0 just
     before the steps; the last step traced for the card's busy share and
-    its kernel time by kind (``STEP_KERNEL_GROUPS``).  Returns ``(steps,
+    its kernel time by kind (``STEP_KERNEL_GROUPS``, and the routing of
+    an MoE model, :func:`has_moe`).  Returns ``(steps,
     numbers)``: s a step (the median after the first), tokens/s, busy
     share, kernel seconds by kind, ``peak_gib``, init seconds and the
     parameter count."""
@@ -5192,6 +5299,9 @@ def train_cell(cfg, dev, counts, seed):
         return wrapper
     for name, attr in attrs.items():
         setattr(trainer, attr, timed(name))
+    groups = (dict(STEP_KERNEL_GROUPS,
+                   routing=PREFILL_KERNEL_GROUPS["routing"])
+              if has_moe(cfg) else STEP_KERNEL_GROUPS)
     steps = []
     try:
         registry.reset_counts()
@@ -5208,7 +5318,7 @@ def train_cell(cfg, dev, counts, seed):
                 (state, m), wall, busy, by_kind = device_busy(
                     lambda: trainer.train_step(cfg, state, batch,
                                                step=LMT_AT_STEP + i),
-                    groups=STEP_KERNEL_GROUPS)
+                    groups=groups)
                 loss = m["loss"].item()
             torch.cuda.synchronize()
             steps.append(dict(
@@ -5315,14 +5425,17 @@ def resume_drill(dev, work):
 
 
 def run_lm_train_slice(dev, smi, work):
-    """LM training on the card: the backward kernel at the training
-    shape, the full-width gradients against plain attention at depth 2,
+    """LM training on the card: the backward kernel at the two training
+    shapes, the full-width gradients against plain attention at depth 2,
     4 steps of llama3.2-3b at full width and depth; then the WKV
     backward kernel at rwkv6-1.6b's training shape, its full-width
     gradients against the plain recurrence at depth 2 and 4 steps of
-    rwkv6-1.6b at full width and depth; and the train_lm example's
-    resume drill.  Returns the two backward kernels' lines and the
-    launches of the training steps: ``{kernel: launches}``."""
+    rwkv6-1.6b at full width and depth; then deepseek-v2-lite-16b (MLA
+    and MoE) at full width: its gradients at depth 2 against plain
+    attention, routes recorded, and 4 steps at ``DEEPSEEK_TRAIN_REPEATS``
+    MoE layers; and the train_lm example's resume drill.  Returns the
+    backward kernels' lines and the launches of the training steps by
+    kernel and model: ``{kernel: {model: launches}}``."""
     import gc
 
     import torch
@@ -5336,18 +5449,18 @@ def run_lm_train_slice(dev, smi, work):
     from repro_torch.kernels.rwkv6_chunk.rwkv6_chunk import rwkv6_chunk_bwd
 
     def grads_part(cfg, op, plain, bwd, tols):
-        grads = {}
+        grads, depth = {}, with_repeats(cfg, 2)
         for dtype, tol in tols:
-            res = grads_against_plain(
-                with_repeats(cfg, 2).replace(dtype=dtype), dev, op, plain,
-                bwd)
+            res = grads_against_plain(depth.replace(dtype=dtype), dev, op,
+                                      plain, bwd)
             res["tol"] = tol
             grads[dtype] = res
             gc.collect()
             torch.cuda.empty_cache()
-        emit("lm_train_slice", part="grads", arch=cfg.name, n_layers=2,
-             batch=LMT_BATCH, seq=LMT_SEQ, nvidia_smi=smi, **grads)
-        return grads
+        emit("lm_train_slice", part="grads", arch=cfg.name,
+             n_layers=depth.n_layers, pattern_repeats=2, batch=LMT_BATCH,
+             seq=LMT_SEQ, nvidia_smi=smi, **grads)
+        return grads, depth.n_layers
 
     def train_part(cfg, counts, seed, **shape):
         steps, numbers = train_cell(cfg, dev, counts, seed)
@@ -5361,19 +5474,21 @@ def run_lm_train_slice(dev, smi, work):
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    bwd_line = check_flash_bwd(dev, smi)
+    bwd_lines = check_flash_bwd(dev, smi)
     cfg = get_config(LMT_ARCH)
-    grads = grads_part(cfg, "flash_attention_op", flash_attention_ref,
-                       flash_attention_bwd,
-                       (("bfloat16", LMT_GRAD_TOL_BF16),
-                        ("float32", LMT_GRAD_TOL_F32)))
+    attn_counts = {"flash_attention": lambda: ops.SPEC.launches,
+                   "flash_attention_bwd": lambda: flash_attention_bwd.launches,
+                   "flash_attention_plain": lambda: ops.SPEC.plain_calls}
+    grads, _ = grads_part(cfg, "flash_attention_op", flash_attention_ref,
+                          flash_attention_bwd,
+                          (("bfloat16", LMT_GRAD_TOL_BF16),
+                           ("float32", LMT_GRAD_TOL_F32)))
     steps, numbers = train_part(
-        cfg, {"flash_attention": lambda: ops.SPEC.launches,
-              "flash_attention_bwd": lambda: flash_attention_bwd.launches},
-        5, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        cfg, attn_counts, 5, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim)
-    launches = {"flash_attention": ops.SPEC.launches,
-                "flash_attention_bwd": flash_attention_bwd.launches}
+    launches = {"flash_attention": {cfg.name: ops.SPEC.launches},
+                "flash_attention_bwd": {
+                    cfg.name: flash_attention_bwd.launches}}
     record_flash_launches("lm_train_slice")
 
     # rwkv6-1.6b: the WKV recurrence's backward kernel
@@ -5381,7 +5496,7 @@ def run_lm_train_slice(dev, smi, work):
     gc.collect()
     torch.cuda.empty_cache()
     rcfg = get_config(LM_ARCH)
-    rgrads = grads_part(rcfg, "rwkv6_chunk_op", rwkv6_chunk_ref,
+    rgrads, _ = grads_part(rcfg, "rwkv6_chunk_op", rwkv6_chunk_ref,
                         rwkv6_chunk_bwd,
                         (("bfloat16", RWKV_GRAD_TOL_BF16),
                          ("float32", LMT_GRAD_TOL_F32)))
@@ -5391,8 +5506,28 @@ def run_lm_train_slice(dev, smi, work):
                "rwkv6_chunk_plain": lambda: rwkv_ops.SPEC.plain_calls},
         6, heads=rcfg.n_rwkv_heads, head_dim=rcfg.rwkv_head_size,
         wkv_bwd_ms=rwkv_line["ms"], wkv_fwd_ms=rwkv_line["fwd_ms"])
-    launches.update(rwkv6_chunk=rwkv_ops.SPEC.launches,
-                    rwkv6_chunk_bwd=rwkv6_chunk_bwd.launches)
+    launches.update(rwkv6_chunk={rcfg.name: rwkv_ops.SPEC.launches},
+                    rwkv6_chunk_bwd={rcfg.name: rwkv6_chunk_bwd.launches})
+
+    # deepseek-v2-lite-16b: MLA's attention backward at q.k 192 / v 128
+    gc.collect()
+    torch.cuda.empty_cache()
+    dcfg = get_config(DEEPSEEK_ARCH)
+    dgrads, dgrad_layers = grads_part(
+        dcfg, "flash_attention_op", flash_attention_ref, flash_attention_bwd,
+        (("bfloat16", LMT_GRAD_TOL_BF16), ("float32", LMT_GRAD_TOL_F32)))
+    dcfg = with_repeats(dcfg, DEEPSEEK_TRAIN_REPEATS)
+    dsteps, dnumbers = train_part(
+        dcfg, attn_counts, 7, heads=dcfg.n_heads,
+        qk_head_dim=dcfg.qk_nope_dim + dcfg.qk_rope_dim,
+        v_head_dim=dcfg.v_head_dim, kv_lora_rank=dcfg.kv_lora_rank,
+        experts=dcfg.n_experts, top_k=dcfg.top_k,
+        shared_experts=dcfg.n_shared_experts, moe_d_ff=dcfg.moe_d_ff,
+        pattern_repeats=dcfg.pattern_repeats,
+        attention_bwd_ms=bwd_lines["mla"]["ms"])
+    launches["flash_attention"][dcfg.name] = ops.SPEC.launches
+    launches["flash_attention_bwd"][dcfg.name] = flash_attention_bwd.launches
+    record_flash_launches("lm_train_slice_deepseek")
 
     drill = resume_drill(dev, work)
     emit("lm_train_slice", part="resume_drill", preset="20m",
@@ -5400,9 +5535,13 @@ def run_lm_train_slice(dev, smi, work):
 
     def finite(xs):
         return all(x == x and abs(x) < float("inf") for x in xs)
-    L, RL = cfg.n_layers, rcfg.n_layers
+    # remat recomputes each pattern layer, not the prefix (deepseek's
+    # dense first layer), as the reference's jax.checkpoint covers only
+    # the scanned pattern
+    L, RL, DL = cfg.n_layers, rcfg.n_layers, dcfg.n_layers
     losses = [r["loss"] for r in steps]
     rlosses = [r["loss"] for r in rsteps]
+    dlosses = [r["loss"] for r in dsteps]
     checks = {
         "grads_bf16_match_plain_attention":
         grads["bfloat16"]["worst"] <= LMT_GRAD_TOL_BF16,
@@ -5415,7 +5554,8 @@ def run_lm_train_slice(dev, smi, work):
         "loss_falling": losses[-1] < losses[0],
         "launches_per_step": all(
             r["flash_attention_launches"] == 2 * L
-            and r["flash_attention_bwd_launches"] == L for r in steps),
+            and r["flash_attention_bwd_launches"] == L
+            and r["flash_attention_plain_launches"] == 0 for r in steps),
         "peak_under_80_gib": numbers["peak_gib"] < 80,
         "rwkv_grads_bf16_match_plain_recurrence":
         rgrads["bfloat16"]["worst"] <= RWKV_GRAD_TOL_BF16,
@@ -5431,6 +5571,22 @@ def run_lm_train_slice(dev, smi, work):
             and r["rwkv6_chunk_bwd_launches"] == RL
             and r["rwkv6_chunk_plain_launches"] == 0 for r in rsteps),
         "rwkv_peak_under_80_gib": rnumbers["peak_gib"] < 80,
+        "deepseek_grads_bf16_match_plain_attention":
+        dgrads["bfloat16"]["worst"] <= LMT_GRAD_TOL_BF16,
+        "deepseek_grads_f32_match_plain_attention":
+        dgrads["float32"]["worst"] <= LMT_GRAD_TOL_F32,
+        "deepseek_route_flips_near_ties":
+        all(g["flips_near_ties"] for g in dgrads.values()),
+        "deepseek_grads_one_backward_launch_per_layer":
+        all(g["kernel_launches"] == dgrad_layers and g["plain_launches"] == 0
+            for g in dgrads.values()),
+        "deepseek_loss_finite": finite(dlosses),
+        "deepseek_loss_falling": dlosses[-1] < dlosses[0],
+        "deepseek_launches_per_step": all(
+            r["flash_attention_launches"] == 2 * DL - len(dcfg.prefix)
+            and r["flash_attention_bwd_launches"] == DL
+            and r["flash_attention_plain_launches"] == 0 for r in dsteps),
+        "deepseek_peak_under_80_gib": dnumbers["peak_gib"] < 80,
         "drill_exit_17": drill["exit_code"] == 17,
         "drill_checkpoint_at_fail_step":
         drill["checkpoint_step"] == DRILL_FAIL_AT
@@ -5442,7 +5598,7 @@ def run_lm_train_slice(dev, smi, work):
          seconds=time.perf_counter() - t_phase, launches=launches, **checks)
     if not all(checks.values()):
         raise AssertionError(f"lm train slice checks failed: {checks}")
-    return bwd_line, rwkv_line, launches
+    return bwd_lines, rwkv_line, launches
 
 
 def _cast(tree, dtype):
@@ -5543,8 +5699,9 @@ def main():
     train_work = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(train_work, ignore_errors=True)
     train_work.mkdir(parents=True)
-    bwd, rwkv_bwd, lm_train_launches = run_lm_train_slice(dev, smi,
-                                                          train_work)
+    bwd_lines, rwkv_bwd, lm_train_launches = run_lm_train_slice(
+        dev, smi, train_work)
+    bwd, mla_bwd = bwd_lines["llama3.2-3b"], bwd_lines["mla"]
     shutil.rmtree(train_work)
     if rwkv_failures or mamba_failures:
         raise AssertionError("; ".join(rwkv_failures + mamba_failures))
@@ -5684,7 +5841,8 @@ def main():
         "library_ms_256": time8_256["library_ms"]}] + new_rows + [{
         "name": "rwkv6_chunk", "route": "cuda", "source": rwkv.SOURCE,
         "replaces": rwkv.REPLACES,
-        "launches": lm_launches + lm_train_launches["rwkv6_chunk"],
+        "launches": lm_launches + sum(lm_train_launches["rwkv6_chunk"]
+                                      .values()),
         "launches_by_path": {
             "lm_slice": lm_launches,
             "lm_train_slice": lm_train_launches["rwkv6_chunk"]},
@@ -5718,7 +5876,7 @@ def main():
         "name": "flash_attention_bwd", "route": "cuda",
         "source": flash.BWD_SOURCE, "replaces": flash.BWD_REPLACES,
         "replaces_note": "no Pallas kernel: jax.grad of full_attention",
-        "launches": lm_train_launches["flash_attention_bwd"],
+        "launches": sum(lm_train_launches["flash_attention_bwd"].values()),
         "launches_by_path": {
             "lm_train_slice": lm_train_launches["flash_attention_bwd"]},
         "max_abs_err": bwd["max_abs_err"], "tol": bwd["tol"],
@@ -5727,12 +5885,16 @@ def main():
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "products_design": bwd["products_design"],
         "bound_ms_design": bwd["bound_ms_design"],
-        "library_ms": bwd["library_ms"]}, {
+        "library_ms": bwd["library_ms"],
+        **{f"mla_{k}": mla_bwd[k]
+           for k in ("shape", "max_abs_err", "tol_autograd", "ms",
+                     "plain_ms", "bound_ms", "bound_by", "bound_ms_design",
+                     "library_ms", "library_backend")}}, {
         "name": "rwkv6_chunk_bwd", "route": "cuda",
         "source": rwkv.BWD_SOURCE, "replaces": rwkv.BWD_REPLACES,
         "replaces_note": "no Pallas kernel: the gradient XLA takes of the "
                          "chunked associative scan of rwkv6_seq",
-        "launches": lm_train_launches["rwkv6_chunk_bwd"],
+        "launches": sum(lm_train_launches["rwkv6_chunk_bwd"].values()),
         "launches_by_path": {
             "lm_train_slice": lm_train_launches["rwkv6_chunk_bwd"]},
         "max_abs_err": rwkv_bwd["max_abs_err"],

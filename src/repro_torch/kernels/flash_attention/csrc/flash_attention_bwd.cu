@@ -5,10 +5,12 @@
 // (src/repro/kernels has no custom_vjp); its training differentiates the
 // jnp attention of src/repro/models/attention.py::full_attention with
 // XLA's autodiff.  This is the port's counterpart of that gradient for the
-// forward kernel csrc/flash_attention.cu.  For q [B, Sq, H, hd], k and v
-// [B, Skv, KV, hd], the forward's output o and its cotangent dO (f32 or
-// bf16, H % KV == 0, q head h reading kv head h / (H / KV)) it computes,
-// every sum in f32,
+// forward kernels csrc/flash_attention.cu and flash_attention_bf16.cu, over
+// their whole domain.  For q [B, Sq, H, hd], k [B, Skv, KV, hd], v [B,
+// Skv, KV, hdv], the forward's output o and its cotangent dO [B, Sq, H,
+// hdv] (f32 or bf16, H % KV == 0, q head h reading kv head h / (H / KV);
+// hd 1-256, hdv 1 to min(hd, 128): MLA's q.k 192 over v 128 among them)
+// it computes, every sum in f32,
 //
 //   s[i, c]  = scale * q[i] . k[c]             scale = 1 / sqrt(hd)
 //   P[i, c]  = exp(s[i, c] - lse[i]) where c is seen by i, else 0
@@ -29,14 +31,19 @@
 // first pass of the dQ kernel) rather than kept by the forward kernel, so
 // the forward and its serving launches stay as they are.
 //
-// What bounds it on the card: the products.  Five are needed (S, dO V^T,
-// P^T dO, dS K, dS^T Q); this design does eight (lse's pass, and S and
-// dO V^T again in each kernel), 2 * hd operations per seen (query, key)
-// pair each.  At the llama3.2-3b training shape (B 2, S 2,048, 24 q and 8
-// kv heads of 128, causal; 1.007e8 seen pairs) five products are 1.29e11
-// operations: 0.130 ms at the bf16 tensor-core peak (989 TFLOP/s), and
-// as 3xTF32 (three TF32 products each, 495 TFLOP/s) 0.781 ms.  The eight
-// this design does are 2.06e11: 0.209 ms in bf16, 1.250 ms in 3xTF32.
+// What bounds it on the card: the products.  Five are needed (S, dS K and
+// dS^T Q at hd; dO V^T and P^T dO at hdv); this design does eight (lse's
+// pass, and S and dO V^T again in each kernel: five at hd, three at hdv),
+// 2 operations per seen (query, key) pair and head column each.  At the
+// llama3.2-3b training shape (B 2, S 2,048, 24 q and 8 kv heads of 128,
+// causal; 1.007e8 seen pairs) five products are 1.29e11 operations: 0.130
+// ms at the bf16 tensor-core peak (989 TFLOP/s), and as 3xTF32 (three
+// TF32 products each, 495 TFLOP/s) 0.781 ms.  The eight this design does
+// are 2.06e11: 0.209 ms in bf16, 1.250 ms in 3xTF32.  At deepseek-v2-lite's
+// MLA training shape (B 2, S 2,048, 16 q and 16 kv heads, q.k 192 over v
+// 128; 6.71e7 seen pairs) five products are 1,664 operations a pair,
+// 1.117e11: 0.113 ms in bf16, 0.677 in 3xTF32; the eight, 2,688 a pair,
+// 1.804e11: 0.182 and 1.094 ms.
 //
 // What the design does about it (FlashAttention-2's backward on mma.sync,
 // no float atomics, deterministic):
@@ -72,9 +79,21 @@
 //   block and chunks of 64 rows in both kernels, 103 KB of shared memory,
 //   two blocks an SM.  f32 (twice the bytes a row): dq 8 warps (128 rows)
 //   and chunks of 32 keys, 199 KB, one block an SM; dkdv 4 warps and
-//   chunks of 16 rows, 99 KB, two blocks an SM.  At the training shape
-//   the grids are 1,536 (dq) and 512 (dkdv) blocks in bf16, 768 and 512
-//   in f32.
+//   chunks of 16 rows, 99 KB, two blocks an SM.  At the llama training
+//   shape the grids are 1,536 (dq) and 512 (dkdv) blocks in bf16, 768 and
+//   512 in f32.
+// - V's head tile.  Up to a q.k tile of 128 (head tiles 64 and 128) V is
+//   as wide as K (the wrapper pads a narrower v with zeros to hd; D =
+//   dO . o does not see the zero columns).  Past it the head tiles are the
+//   forward's, 160, 192 and 256 (HDT: Q, K, dQ, dK, and S, dS K, dS^T Q),
+//   over a V tile of 128 (HDV: V, dO, o, dV, and dO V^T, P^T dO, D).  Those
+//   take 4 warps a block everywhere and chunks of 32 keys in dq and of 32
+//   query rows in bf16 dkdv (16 past a q.k tile of 192, and in f32 dkdv),
+//   so that a dkdv warp holds dK (HDT / 2 floats a lane), dV (64) and its
+//   score tiles in registers (chunks of 64 rows would add 16 floats a
+//   lane to each score tile).  At q.k 192: bf16 86 KB a block in both
+//   kernels, two blocks an SM; f32 dq 164 KB, dkdv 123 KB, one block an
+//   SM; at the MLA training shape 1,024 blocks in each kernel.
 // - The blocks launch in order of cost, every head's longest first (the
 //   last query rows walk every key; the first keys are seen by every
 //   row): the head is the grid's fast index.  With the head slow, the
@@ -86,8 +105,8 @@
 //   to nearest.  bf16: the mma accumulate into the running sums, which
 //   leaves the HDT / 8 tiles of a sum independent and needs no partial
 //   registers; at most (Sq / 16) * (H / KV) mma reach one sum, 384 at the
-//   training shape, a bias of at most 4.6e-5 of its magnitude, 170 times
-//   under TOL_BWD's 2^-7.
+//   llama training shape (128 at MLA's), a bias of at most 4.6e-5 of its
+//   magnitude, 170 times under TOL_BWD's 2^-7.
 // - exp by the SFU (ex2.approx, scores in log2 units); the masks only on
 //   the chunks that cross a mask boundary; a warp skips the chunks past
 //   its rows' causal horizon, a dkdv block the query chunks that see none
@@ -96,7 +115,10 @@
 //
 // Registers (nvcc -Xptxas -v, sm_90a) at head tile 128 / 64: bf16 dq 210
 // / 179, dkdv 255 / 240; f32 dq 215 / 255, dkdv 255 / 191.  No spills but
-// 4 bytes in the f32 dq kernel at head tile 64.
+// 4 bytes in the f32 dq kernel at head tile 64.  At q.k tiles 160 / 192 /
+// 256 over V 128: bf16 dq 187 / 207 / 243, dkdv 252 / 253 / 255, no
+// spills; f32 dq 248 / 254 / 254, no spills, dkdv 255 each, spilling 20 /
+// 24 / 72 bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,7 +135,7 @@
 #define POS_INF (__int_as_float(0x7f800000))
 
 struct BwdProblem {
-  int B, Sq, Skv, H, KV, hd;
+  int B, Sq, Skv, H, KV, hd, hdv;
   int causal, q_offset, kv_valid;
   int vec;  // every row is whole, aligned 16-byte chunks: cp.async them
   float scale;
@@ -124,15 +146,21 @@ __host__ __device__ constexpr bool is_bf16() {
   return std::is_same<T, __nv_bfloat16>::value;
 }
 // Warps of a block (each owns 16 rows of the block's tile) and rows of a
-// streamed chunk (keys in dq, query rows in dkdv), by kernel and input
-// type: bf16 4 warps and 64 rows in both kernels; f32, twice the bytes a
-// row, 8 warps and 32 keys in dq, 4 warps and 16 query rows in dkdv.
-template <bool DKDV, typename T>
+// streamed chunk (keys in dq, query rows in dkdv), by kernel, q.k head
+// tile and input type.  Up to a q.k tile of 128: bf16 4 warps and 64 rows
+// in both kernels; f32, twice the bytes a row, 8 warps and 32 keys in dq,
+// 4 warps and 16 query rows in dkdv.  Past it (V a tile of 128 of its
+// own): 4 warps everywhere; chunks of 32 keys in dq, of 32 query rows in
+// bf16 dkdv up to a q.k tile of 192 and 16 past it and in f32 dkdv, which
+// keeps a dkdv warp's dK, dV and score tiles within its registers and
+// bf16 at two blocks an SM.
+template <bool DKDV, int HDT, typename T>
 __host__ __device__ constexpr int warps() {
-  return is_bf16<T>() || DKDV ? 4 : 8;
+  return is_bf16<T>() || DKDV || HDT > 128 ? 4 : 8;
 }
-template <bool DKDV, typename T>
+template <bool DKDV, int HDT, typename T>
 __host__ __device__ constexpr int chunk_rows() {
+  if (HDT > 128) return !DKDV || (is_bf16<T>() && HDT <= 192) ? 32 : 16;
   return is_bf16<T>() ? 64 : DKDV ? 16 : 32;
 }
 // Row stride, in elements, of every tile: 16 bytes of padding.
@@ -140,20 +168,21 @@ template <typename T>
 __host__ __device__ constexpr int row_stride(int hdt) {
   return hdt + 16 / (int)sizeof(T);
 }
-// Dynamic shared memory of a block.  dq: the Q and dO tiles, two stages
-// of {K, V} chunks, D of the tile's rows.  dkdv: the K and V tiles, two
-// stages of {Q, dO, lse, D} chunks.
-template <int HDT, typename T>
+// Dynamic shared memory of a block: rows of Q, K (HDT wide) and of V, dO
+// (HDV wide) side by side.  dq: the Q and dO tiles, two stages of {K, V}
+// chunks, D of the tile's rows.  dkdv: the K and V tiles, two stages of
+// {Q, dO, lse, D} chunks.
+template <int HDT, int HDV, typename T>
 __host__ __device__ constexpr size_t dq_smem_bytes() {
-  return sizeof(T) * (size_t)row_stride<T>(HDT) *
-             (2 * 16 * warps<false, T>() + 4 * chunk_rows<false, T>()) +
-         sizeof(float) * 16 * warps<false, T>();
+  return sizeof(T) * (size_t)(row_stride<T>(HDT) + row_stride<T>(HDV)) *
+             (16 * warps<false, HDT, T>() + 2 * chunk_rows<false, HDT, T>()) +
+         sizeof(float) * 16 * warps<false, HDT, T>();
 }
-template <int HDT, typename T>
+template <int HDT, int HDV, typename T>
 __host__ __device__ constexpr size_t dkdv_smem_bytes() {
-  return sizeof(T) * (size_t)row_stride<T>(HDT) *
-             (2 * 16 * warps<true, T>() + 4 * chunk_rows<true, T>()) +
-         sizeof(float) * 4 * chunk_rows<true, T>();
+  return sizeof(T) * (size_t)(row_stride<T>(HDT) + row_stride<T>(HDV)) *
+             (16 * warps<true, HDT, T>() + 2 * chunk_rows<true, HDT, T>()) +
+         sizeof(float) * 4 * chunk_rows<true, HDT, T>();
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -310,25 +339,25 @@ __device__ __forceinline__ void nn_product(float (&acc)[HDT / 8][4],
 }
 
 // Rows [r0, r0 + n) of a tensor whose row r starts at base + r * rs into
-// rows 0 .. n - 1 of a [rows][HDT] tile (columns < hd; the rest of the
+// rows 0 .. n - 1 of a [rows][HDT] tile (columns < width; the rest of the
 // tile keeps what it holds).  Asynchronous (cp.async, committed by the
 // caller) when p.vec, else plain copies.
 template <int HDT, typename T>
 __device__ __forceinline__ void stage_rows(T* dst, const T* base, size_t rs,
-                                           int r0, int n,
+                                           int r0, int n, int width,
                                            const BwdProblem& p) {
   constexpr int LS = row_stride<T>(HDT);
   const int tid = threadIdx.x, nthreads = blockDim.x;
   if (p.vec) {
     constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
-    const int cpr = p.hd / EPC;
+    const int cpr = width / EPC;
     for (int i = tid; i < n * cpr; i += nthreads) {
       const int r = i / cpr, j = (i - r * cpr) * EPC;
       cp_async16(dst + r * LS + j, base + (size_t)(r0 + r) * rs + j);
     }
   } else {
-    for (int i = tid; i < n * p.hd; i += nthreads) {
-      const int r = i / p.hd, d = i - r * p.hd;
+    for (int i = tid; i < n * width; i += nthreads) {
+      const int r = i / width, d = i - r * width;
       dst[r * LS + d] = base[(size_t)(r0 + r) * rs + d];
     }
   }
@@ -343,21 +372,23 @@ __device__ __forceinline__ void zero_smem(void* sm, size_t bytes) {
 }
 
 // dQ, and each row's lse (in log2 units) and D for the dkdv kernel.
-template <int HDT, typename T>
-__global__ void __launch_bounds__(32 * warps<false, T>(),
-                                  warps<false, T>() > 4 ? 1 : 2)
+// HDT: the q.k head tile (Q, K, dQ); HDV: V's (V, dO, o).
+template <int HDT, int HDV, typename T>
+__global__ void __launch_bounds__(32 * warps<false, HDT, T>(),
+                                  warps<false, HDT, T>() > 4 ? 1 : 2)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ o,
               const T* __restrict__ dout, T* __restrict__ dq,
               float* __restrict__ lse_out, float* __restrict__ delta_out,
               BwdProblem p) {
-  constexpr int LS = row_stride<T>(HDT), CH = chunk_rows<false, T>();
-  constexpr int NT = CH / 8, DT = HDT / 8, TILE = 16 * warps<false, T>();
+  constexpr int LS = row_stride<T>(HDT), LSV = row_stride<T>(HDV);
+  constexpr int CH = chunk_rows<false, HDT, T>(), NT = CH / 8, DT = HDT / 8;
+  constexpr int TILE = 16 * warps<false, HDT, T>(), STAGE = CH * (LS + LSV);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const Qs = reinterpret_cast<T*>(smem_raw);
   T* const dOs = Qs + TILE * LS;
-  T* const KVs = dOs + TILE * LS;  // stage i: K at 2i, V at 2i + 1
-  float* const D_s = reinterpret_cast<float*>(KVs + 4 * CH * LS);
+  T* const KVs = dOs + TILE * LSV;  // stage i at i STAGE: K, then V
+  float* const D_s = reinterpret_cast<float*>(KVs + 2 * STAGE);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
@@ -365,12 +396,16 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TILE;
   const int h = blockIdx.x % p.H, b = blockIdx.x / p.H;
   const int g = h / (p.H / p.KV);
+  const int hdv = HDV == HDT ? p.hd : p.hdv;
   const size_t qrs = (size_t)p.H * p.hd, krs = (size_t)p.KV * p.hd;
+  const size_t ors = (size_t)p.H * hdv, vrs = (size_t)p.KV * hdv;
   const size_t qoff = ((size_t)b * p.Sq * p.H + h) * p.hd;
+  const size_t ooff = ((size_t)b * p.Sq * p.H + h) * hdv;
   const size_t koff = ((size_t)b * p.Skv * p.KV + g) * p.hd;
+  const size_t voff = ((size_t)b * p.Skv * p.KV + g) * hdv;
   const float sl2 = p.scale * LOG2E;  // scores in log2 units
 
-  zero_smem(smem_raw, dq_smem_bytes<HDT, T>());
+  zero_smem(smem_raw, dq_smem_bytes<HDT, HDV, T>());
   __syncthreads();
 
   // the keys any row of this block sees
@@ -381,17 +416,18 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   kv_end = max(kv_end, 0);
   const int n_chunks = (kv_end + CH - 1) / CH;
 
-  stage_rows<HDT>(Qs, q + qoff, qrs, q0, n_rows, p);
-  stage_rows<HDT>(dOs, dout + qoff, qrs, q0, n_rows, p);
+  stage_rows<HDT>(Qs, q + qoff, qrs, q0, n_rows, p.hd, p);
+  stage_rows<HDV>(dOs, dout + ooff, ors, q0, n_rows, hdv, p);
   cp_async_commit();
   // step s < n_chunks: chunk s of K (pass 1); else chunk s - n_chunks of
   // K and V (pass 2)
   auto load_step = [&](int s) {
     const int pass2 = s >= n_chunks, kv0 = (s - pass2 * n_chunks) * CH;
     const int nk = min(CH, kv_end - kv0);
-    T* const Kd = KVs + (size_t)(2 * (s & 1)) * CH * LS;
-    stage_rows<HDT>(Kd, k + koff, krs, kv0, nk, p);
-    if (pass2) stage_rows<HDT>(Kd + CH * LS, v + koff, krs, kv0, nk, p);
+    T* const Kd = KVs + (size_t)(s & 1) * STAGE;
+    stage_rows<HDT>(Kd, k + koff, krs, kv0, nk, p.hd, p);
+    if (pass2)
+      stage_rows<HDV>(Kd + CH * LS, v + voff, vrs, kv0, nk, hdv, p);
     cp_async_commit();
   };
   if (n_chunks) load_step(0);
@@ -403,10 +439,10 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = wr0 + (lane >> 1);
     float acc = 0.0f;
     if (r < n_rows) {
-      const T* const orow = o + qoff + (size_t)(q0 + r) * qrs;
-      const T* const drow = dout + qoff + (size_t)(q0 + r) * qrs;
+      const T* const orow = o + ooff + (size_t)(q0 + r) * ors;
+      const T* const drow = dout + ooff + (size_t)(q0 + r) * ors;
 #pragma unroll 8
-      for (int d = lane & 1; d < p.hd; d += 2)
+      for (int d = lane & 1; d < hdv; d += 2)
         acc = fmaf(to_f32(drow[d]), to_f32(orow[d]), acc);
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
@@ -421,7 +457,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (p.causal)
     w_end = max(0, min(w_end, p.q_offset + min(wq0 + 15, p.Sq - 1) + 1));
   const T* const Qw = Qs + wr0 * LS;
-  const T* const dOw = dOs + wr0 * LS;
+  const T* const dOw = dOs + wr0 * LSV;
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f}, lse2[2];
   auto finish_pass1 = [&]() {  // each row's lse, written with its D
@@ -444,7 +480,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int s = 0; s < 2 * n_chunks; ++s) {
     const int pass2 = s >= n_chunks, kv0 = (s - pass2 * n_chunks) * CH;
-    const T* const Ks = KVs + (size_t)(2 * (s & 1)) * CH * LS;
+    const T* const Ks = KVs + (size_t)(s & 1) * STAGE;
     const T* const Vs = Ks + CH * LS;
     cp_async_wait<0>();
     __syncthreads();  // step s landed; every warp is done with step s - 1
@@ -513,7 +549,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // pass 2: dS = P (dO V^T - D) and dQ += dS K
     float dp[NT][4];
-    nt_product<HDT, CH>(dp, dOw, Vs, lane);
+    nt_product<HDV, CH>(dp, dOw, Vs, lane);
     if (clean) {
 #pragma unroll
       for (int n = 0; n < NT; ++n)
@@ -559,21 +595,23 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // dK and dV of 64 keys of one kv head, summed over its q heads.
-template <int HDT, typename T>
-__global__ void __launch_bounds__(32 * warps<true, T>(),
-                                  warps<true, T>() > 4 ? 1 : 2)
+template <int HDT, int HDV, typename T>
+__global__ void __launch_bounds__(32 * warps<true, HDT, T>(),
+                                  warps<true, HDT, T>() > 4 ? 1 : 2)
 bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse_in,
                 const float* __restrict__ delta_in, T* __restrict__ dk,
                 T* __restrict__ dv, BwdProblem p) {
-  constexpr int LS = row_stride<T>(HDT), CH = chunk_rows<true, T>();
-  constexpr int NT = CH / 8, DT = HDT / 8, TILE = 16 * warps<true, T>();
+  constexpr int LS = row_stride<T>(HDT), LSV = row_stride<T>(HDV);
+  constexpr int CH = chunk_rows<true, HDT, T>(), NT = CH / 8, DT = HDT / 8;
+  constexpr int DTV = HDV / 8, TILE = 16 * warps<true, HDT, T>();
+  constexpr int STAGE = CH * (LS + LSV);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const Ks = reinterpret_cast<T*>(smem_raw);
   T* const Vs = Ks + TILE * LS;
-  T* const QDs = Vs + TILE * LS;  // stage i: Q at 2i, dO at 2i + 1
-  float* const stats = reinterpret_cast<float*>(QDs + 4 * CH * LS);
+  T* const QDs = Vs + TILE * LSV;  // stage i at i STAGE: Q, then dO
+  float* const stats = reinterpret_cast<float*>(QDs + 2 * STAGE);
   // stage i: lse at stats + 2i CH, D at stats + (2i + 1) CH
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -582,14 +620,17 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.y * TILE;
   const int g = blockIdx.x % p.KV, b = blockIdx.x / p.KV;
   const int group = p.H / p.KV;
+  const int hdv = HDV == HDT ? p.hd : p.hdv;
   const size_t qrs = (size_t)p.H * p.hd, krs = (size_t)p.KV * p.hd;
+  const size_t ors = (size_t)p.H * hdv, vrs = (size_t)p.KV * hdv;
   const size_t koff = ((size_t)b * p.Skv * p.KV + g) * p.hd;
+  const size_t voff = ((size_t)b * p.Skv * p.KV + g) * hdv;
   const float sl2 = p.scale * LOG2E;
 
-  zero_smem(smem_raw, dkdv_smem_bytes<HDT, T>());
+  zero_smem(smem_raw, dkdv_smem_bytes<HDT, HDV, T>());
   __syncthreads();
-  stage_rows<HDT>(Ks, k + koff, krs, k0, min(TILE, p.Skv - k0), p);
-  stage_rows<HDT>(Vs, v + koff, krs, k0, min(TILE, p.Skv - k0), p);
+  stage_rows<HDT>(Ks, k + koff, krs, k0, min(TILE, p.Skv - k0), p.hd, p);
+  stage_rows<HDV>(Vs, v + voff, vrs, k0, min(TILE, p.Skv - k0), hdv, p);
   cp_async_commit();
 
   // the query chunks to visit: every one if some row sees no key (it
@@ -612,9 +653,10 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int h = g * group + s / per_head;
     const int q0 = q_lo + (s % per_head) * CH, nq = min(CH, p.Sq - q0);
     const size_t qoff = ((size_t)b * p.Sq * p.H + h) * p.hd;
-    T* const Qd = QDs + (size_t)(2 * (s & 1)) * CH * LS;
-    stage_rows<HDT>(Qd, q + qoff, qrs, q0, nq, p);
-    stage_rows<HDT>(Qd + CH * LS, dout + qoff, qrs, q0, nq, p);
+    const size_t ooff = ((size_t)b * p.Sq * p.H + h) * hdv;
+    T* const Qd = QDs + (size_t)(s & 1) * STAGE;
+    stage_rows<HDT>(Qd, q + qoff, qrs, q0, nq, p.hd, p);
+    stage_rows<HDV>(Qd + CH * LS, dout + ooff, ors, q0, nq, hdv, p);
     float* const st = stats + 2 * (s & 1) * CH;
     if (tid < CH) {
       const size_t at = ((size_t)b * p.H + h) * p.Sq + q0 + tid;
@@ -632,16 +674,20 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int wk0 = k0 + warp * 16;  // this warp's keys
   const T* const Kw = Ks + warp * 16 * LS;
-  const T* const Vw = Vs + warp * 16 * LS;
-  float dk_acc[DT][4], dv_acc[DT][4];
+  const T* const Vw = Vs + warp * 16 * LSV;
+  float dk_acc[DT][4], dv_acc[DTV][4];
 #pragma unroll
   for (int n = 0; n < DT; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.0f;
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = 0.0f;
+#pragma unroll
+  for (int n = 0; n < DTV; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv_acc[n][e] = 0.0f;
 
   for (int s = 0; s < n_steps; ++s) {
     const int q0 = q_lo + (s % per_head) * CH;
-    const T* const Qs = QDs + (size_t)(2 * (s & 1)) * CH * LS;
+    const T* const Qs = QDs + (size_t)(s & 1) * STAGE;
     const T* const dOs = Qs + CH * LS;
     const float* const lse_s = stats + 2 * (s & 1) * CH;
     const float* const D_s = lse_s + CH;
@@ -656,7 +702,7 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     float st[NT][4], dpt[NT][4];  // [key][query]
     nt_product<HDT, CH>(st, Kw, Qs, lane);
-    nt_product<HDT, CH>(dpt, Vw, dOs, lane);
+    nt_product<HDV, CH>(dpt, Vw, dOs, lane);
     // score (n, e) is query q0 + 8n + 2t + (e & 1) of key wk0 + g +
     // 8 (e >> 1); clean: every row is live and sees every key of the warp
     const bool clean = !any_dead && q0 + CH <= p.Sq &&
@@ -698,7 +744,7 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
     }
     const AOperand<CH, T> pa(st), dsa(dpt);
-    nn_product<HDT, CH>(dv_acc, pa, dOs, lane);
+    nn_product<HDV, CH>(dv_acc, pa, dOs, lane);
     nn_product<HDT, CH>(dk_acc, dsa, Qs, lane);
   }
   cp_async_wait<0>();  // nothing in flight at exit, even with no step
@@ -708,32 +754,51 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int c = wk0 + gid + 8 * r;
     if (c >= p.Skv) continue;
     T* const krow = dk + koff + (size_t)c * krs;
-    T* const vrow = dv + koff + (size_t)c * krs;
+    T* const vrow = dv + voff + (size_t)c * vrs;
+    // equal tiles: one pass over both (two passes cost the bf16 dkdv
+    // kernel at head tile 128 a 28-byte spill)
+    if constexpr (HDV == HDT) {
 #pragma unroll
-    for (int n = 0; n < DT; ++n)
+      for (int n = 0; n < DT; ++n)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = n * 8 + 2 * tig + e;
-        if (d < p.hd) {
-          put(krow + d, dk_acc[n][2 * r + e] * p.scale);
-          put(vrow + d, dv_acc[n][2 * r + e]);
+        for (int e = 0; e < 2; ++e) {
+          const int d = n * 8 + 2 * tig + e;
+          if (d < p.hd) {
+            put(krow + d, dk_acc[n][2 * r + e] * p.scale);
+            put(vrow + d, dv_acc[n][2 * r + e]);
+          }
         }
-      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = n * 8 + 2 * tig + e;
+          if (d < p.hd) put(krow + d, dk_acc[n][2 * r + e] * p.scale);
+        }
+#pragma unroll
+      for (int n = 0; n < DTV; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = n * 8 + 2 * tig + e;
+          if (d < hdv) put(vrow + d, dv_acc[n][2 * r + e]);
+        }
+    }
   }
 }
 
-template <int HDT, typename T>
+template <int HDT, int HDV, typename T>
 static cudaError_t launch(const void* q, const void* k, const void* v,
                           const void* o, const void* dout, void* dq,
                           void* dk, void* dv, float* lse, float* delta,
                           const BwdProblem& p, cudaStream_t stream) {
-  const size_t dq_smem = dq_smem_bytes<HDT, T>();
-  const size_t kv_smem = dkdv_smem_bytes<HDT, T>();
+  const size_t dq_smem = dq_smem_bytes<HDT, HDV, T>();
+  const size_t kv_smem = dkdv_smem_bytes<HDT, HDV, T>();
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dq_kernel<HDT, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_dq_kernel<HDT, HDV, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)dq_smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dkdv_kernel<HDT, T>,
+  err = cudaFuncSetAttribute(bwd_dkdv_kernel<HDT, HDV, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)kv_smem);
   if (err != cudaSuccess) return err;
@@ -741,72 +806,95 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  constexpr int TQ = 16 * warps<false, T>(), TK = 16 * warps<true, T>();
+  constexpr int TQ = 16 * warps<false, HDT, T>();
+  constexpr int TK = 16 * warps<true, HDT, T>();
   const dim3 gq((unsigned)(p.H * p.B), (unsigned)((p.Sq + TQ - 1) / TQ));
-  bwd_dq_kernel<HDT, T><<<gq, 2 * TQ, dq_smem, stream>>>(
+  bwd_dq_kernel<HDT, HDV, T><<<gq, 2 * TQ, dq_smem, stream>>>(
       qt, kt, vt, static_cast<const T*>(o), dot, static_cast<T*>(dq), lse,
       delta, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 gk((unsigned)(p.KV * p.B), (unsigned)((p.Skv + TK - 1) / TK));
-  bwd_dkdv_kernel<HDT, T><<<gk, 2 * TK, kv_smem, stream>>>(
+  bwd_dkdv_kernel<HDT, HDV, T><<<gk, 2 * TK, kv_smem, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
       p);
   return cudaGetLastError();
 }
 
+// The head tiles by q.k width: 64 and 128 with V as wide (the wrapper
+// pads a narrower v to hd there), then 160, 192 and 256 over a V tile of
+// 128 -- the forward's tiles past 128.
 template <typename T>
 static cudaError_t launch_hd(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, void* dq,
                              void* dk, void* dv, float* lse, float* delta,
                              const BwdProblem& p, cudaStream_t s) {
   if (p.hd <= 64)
-    return launch<64, T>(q, k, v, o, dout, dq, dk, dv, lse, delta, p, s);
-  return launch<128, T>(q, k, v, o, dout, dq, dk, dv, lse, delta, p, s);
+    return launch<64, 64, T>(q, k, v, o, dout, dq, dk, dv, lse, delta, p, s);
+  if (p.hd <= 128)
+    return launch<128, 128, T>(q, k, v, o, dout, dq, dk, dv, lse, delta, p,
+                               s);
+  if (p.hd <= 160)
+    return launch<160, 128, T>(q, k, v, o, dout, dq, dk, dv, lse, delta, p,
+                               s);
+  if (p.hd <= 192)
+    return launch<192, 128, T>(q, k, v, o, dout, dq, dk, dv, lse, delta, p,
+                               s);
+  return launch<256, 128, T>(q, k, v, o, dout, dq, dk, dv, lse, delta, p, s);
+}
+
+template <int HDT, int HDV>
+static size_t smem_of(int kernel, int bf16) {
+  using bf = __nv_bfloat16;
+  if (bf16)
+    return kernel ? dkdv_smem_bytes<HDT, HDV, bf>()
+                  : dq_smem_bytes<HDT, HDV, bf>();
+  return kernel ? dkdv_smem_bytes<HDT, HDV, float>()
+                : dq_smem_bytes<HDT, HDV, float>();
 }
 
 // Dynamic shared memory of the dq (kernel 0) and dkdv (kernel 1) blocks at
-// head dim hd for f32 (bf16 = 0) or bf16 (1) inputs; flash_attention.py's
-// bwd_smem_bytes computes the same.
+// q.k head dim hd for f32 (bf16 = 0) or bf16 (1) inputs (V's tile follows
+// from hd); flash_attention.py's bwd_smem_bytes computes the same.
 extern "C" size_t flash_attention_bwd_smem_bytes(int hd, int kernel,
                                                  int bf16) {
-  using bf = __nv_bfloat16;
-  if (hd <= 64) {
-    if (bf16)
-      return kernel ? dkdv_smem_bytes<64, bf>() : dq_smem_bytes<64, bf>();
-    return kernel ? dkdv_smem_bytes<64, float>() : dq_smem_bytes<64, float>();
-  }
-  if (bf16)
-    return kernel ? dkdv_smem_bytes<128, bf>() : dq_smem_bytes<128, bf>();
-  return kernel ? dkdv_smem_bytes<128, float>() : dq_smem_bytes<128, float>();
+  if (hd <= 64) return smem_of<64, 64>(kernel, bf16);
+  if (hd <= 128) return smem_of<128, 128>(kernel, bf16);
+  if (hd <= 160) return smem_of<160, 128>(kernel, bf16);
+  if (hd <= 192) return smem_of<192, 128>(kernel, bf16);
+  return smem_of<256, 128>(kernel, bf16);
 }
 
-// q, o, dout, dq [B, Sq, H, hd] and k, v, dk, dv [B, Skv, KV, hd] are
-// contiguous device pointers of f32 (bf16 = 0) or bf16 (bf16 = 1); lse and
-// delta are f32 scratch of B * H * Sq.  kv_valid is already clamped to
-// [0, Skv].  Returns a cudaError_t (0 on success); both kernels are
-// enqueued on `stream`, the dkdv kernel after the dq kernel that writes
-// lse and delta.
+// q, dq [B, Sq, H, hd], k, dk [B, Skv, KV, hd], v, dv [B, Skv, KV, hdv]
+// and o, dout [B, Sq, H, hdv] are contiguous device pointers of f32
+// (bf16 = 0) or bf16 (bf16 = 1), hd 1-256 and hdv hd up to 128, else
+// 1-128; lse and delta are f32 scratch of B * H * Sq.  kv_valid is
+// already clamped to [0, Skv].  Returns a cudaError_t (0 on success);
+// both kernels are enqueued on `stream`, the dkdv kernel after the dq
+// kernel that writes lse and delta.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, void* dq, void* dk,
                                    void* dv, float* lse, float* delta, int B,
                                    int Sq, int Skv, int H, int KV, int hd,
-                                   int causal, int q_offset, int kv_valid,
-                                   int bf16, float scale, void* stream) {
+                                   int hdv, int causal, int q_offset,
+                                   int kv_valid, int bf16, float scale,
+                                   void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || hd < 1 ||
-      hd > 128 || kv_valid < 0 || kv_valid > Skv)
+      hd > 256 || (hd <= 128 ? hdv != hd : hdv < 1 || hdv > 128) ||
+      kv_valid < 0 || kv_valid > Skv)
     return (int)cudaErrorInvalidValue;
   BwdProblem p;
   p.B = B; p.Sq = Sq; p.Skv = Skv; p.H = H; p.KV = KV; p.hd = hd;
+  p.hdv = hdv;
   p.causal = causal; p.q_offset = q_offset; p.kv_valid = kv_valid;
   p.scale = scale;
   const int elem = bf16 ? 2 : 4;
   auto aligned = [](const void* x) {
     return reinterpret_cast<uintptr_t>(x) % 16 == 0;
   };
-  p.vec = (hd * elem) % 16 == 0 && aligned(q) && aligned(k) && aligned(v) &&
-          aligned(dout);
+  p.vec = (hd * elem) % 16 == 0 && (hdv * elem) % 16 == 0 && aligned(q) &&
+          aligned(k) && aligned(v) && aligned(dout);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return (int)launch_hd<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, lse,

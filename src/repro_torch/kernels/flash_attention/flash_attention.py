@@ -50,7 +50,9 @@ and each kernel's wrapper its launches (``KERNELS``).
 ``csrc/flash_attention_bwd.cu`` (two kernels: dQ with each row's
 log-sum-exp, then dK and dV summed over each kv head's q heads; products
 on the tensor cores, bf16 ``mma.sync`` for bf16 inputs with P and dS
-rounded to bf16 as operands, 3xTF32 for f32; no atomics); it has no
+rounded to bf16 as operands, 3xTF32 for f32; no atomics), over the
+forward's shapes (past a q.k tile of 128 V has a tile of its own, as in
+the forward; up to it a narrower V is padded to hd); it has no
 Pallas source, the JAX package differentiating its jnp attention
 instead.  Its plain version is
 :func:`repro_torch.kernels.flash_attention.ref.flash_attention_bwd_ref`
@@ -91,11 +93,11 @@ BWD_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
 # no Pallas source: the reference's gradient is XLA's autodiff of this
 BWD_REPLACES = "src/repro/models/attention.py:82"
 # (warps, chunk rows) of the backward's dq and dkdv kernels by input
-# dtype: a warp owns 16 of its block's query rows (dq) or keys (dkdv); a
+# dtype, up to a q.k tile of 128 (``warps()``/``chunk_rows()`` in the
+# source): a warp owns 16 of its block's query rows (dq) or keys (dkdv); a
 # chunk is the keys (dq) or query rows (dkdv) streamed through shared memory
 BWD_SHAPE = {torch.bfloat16: ((4, 64), (4, 64)),
              torch.float32: ((8, 32), (4, 16))}
-BWD_MAX_HEAD_DIM = 128     # the backward: hd = hdv up to this
 
 
 def head_tile(hd: int) -> int:
@@ -445,18 +447,48 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 
 
+def bwd_tiles(hd: int) -> tuple:
+    """The backward's (q.k head tile, V's head tile) at q.k width ``hd``:
+    64 or 128 with V as wide (a narrower v is padded to hd there), then
+    the forward's 160, 192 or 256 over a V tile of 128."""
+    if hd <= 128:
+        t = 64 if hd <= 64 else 128
+        return t, t
+    return head_tile(hd), MAX_V_HEAD_DIM
+
+
+def bwd_shape(hd: int, dtype) -> tuple:
+    """``((warps, chunk), (warps, chunk))`` of the dq and dkdv kernels at
+    q.k width ``hd``: ``BWD_SHAPE`` up to a q.k tile of 128; past it 4
+    warps, chunks of 32 keys in dq, and of 32 query rows in bf16 dkdv up
+    to a q.k tile of 192, else 16 (``warps()``/``chunk_rows()`` in the
+    source)."""
+    if hd <= 128:
+        return BWD_SHAPE[dtype]
+    wide_bf16 = dtype == torch.bfloat16 and head_tile(hd) <= 192
+    return (4, 32), (4, 32 if wide_bf16 else 16)
+
+
+def bwd_takes(hd: int, hdv: int) -> bool:
+    """Whether the backward takes q.k width ``hd`` over v width ``hdv``:
+    the forward's domain, hd 1-256 and hdv 1 to ``min(hd, 128)``."""
+    return 1 <= hd <= MAX_HEAD_DIM and 1 <= hdv <= min(hd, MAX_V_HEAD_DIM)
+
+
 def bwd_smem_bytes(hd: int, kernel: int, dtype) -> int:
     """Dynamic shared memory of a backward block (``dq_smem_bytes`` and
     ``dkdv_smem_bytes`` in the source): two tiles of 16 rows a warp (Q and
     dO for dq, ``kernel`` 0; K and V for dkdv, 1) and two stages of two
-    chunks (K and V; Q and dO), ``BWD_SHAPE``, in the inputs' dtype, each
-    row the head tile (64 or 128) padded by 16 bytes; then f32 row
-    statistics: D of the block's rows (dq), or lse and D of each stage's
-    chunk (dkdv)."""
-    hdt = 64 if hd <= 64 else 128
-    warps, chunk = BWD_SHAPE[dtype][kernel]
+    chunks (K and V; Q and dO), :func:`bwd_shape`, in the inputs' dtype,
+    rows of Q and K the q.k tile wide and rows of V and dO V's tile wide
+    (:func:`bwd_tiles`), each padded by 16 bytes; then f32 row statistics:
+    D of the block's rows (dq), or lse and D of each stage's chunk
+    (dkdv)."""
+    hdt, hdvt = bwd_tiles(hd)
+    warps, chunk = bwd_shape(hd, dtype)[kernel]
     elem = 2 if dtype == torch.bfloat16 else 4
-    tiles = elem * (hdt + 16 // elem) * (2 * 16 * warps + 4 * chunk)
+    row = hdt + hdvt + 2 * (16 // elem)  # one Q (K) row and one dO (V) row
+    tiles = elem * row * (16 * warps + 2 * chunk)
     return tiles + 4 * (4 * chunk if kernel else 16 * warps)
 
 
@@ -464,14 +496,15 @@ def bwd_smem_bytes(hd: int, kernel: int, dtype) -> int:
 def _bwd_lib():
     lib = _build.load("flash_attention_bwd")
     lib.flash_attention_bwd.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float]
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_float]
         + [ctypes.c_void_p])
     lib.flash_attention_bwd.restype = ctypes.c_int
     lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_size_t
     if any(lib.flash_attention_bwd_smem_bytes(
             hd, kern, int(dt == torch.bfloat16)) != bwd_smem_bytes(hd, kern, dt)
-           for hd in (40, 128) for kern in (0, 1) for dt in DTYPES):
+           for hd in (40, 128, 160, 192, 256) for kern in (0, 1)
+           for dt in DTYPES):
         raise RuntimeError("csrc/flash_attention_bwd.cu and "
                            "flash_attention.py disagree on the shared-memory "
                            "layout")
@@ -480,19 +513,28 @@ def _bwd_lib():
 
 def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
                         q_offset: int = 0, kv_valid_len=None):
-    """Launch the backward: q, o and do ``[B, Sq, H, hd]``, k and v ``[B,
-    Skv, KV, hd]``, all f32 or all bf16 on one card, ``o`` the forward's
-    output and ``do`` its cotangent; returns ``(dq, dk, dv)`` in the
-    inputs' shapes and dtype.  The forward's wider shapes, a v head of
-    its own width or a q.k head past 128 (MLA's 192 / 128), raise
-    ``NotImplementedError`` on any device: their backward kernel waits in
-    ROADMAP's backward kernels list."""
+    """Launch the backward: q ``[B, Sq, H, hd]``, k ``[B, Skv, KV, hd]``, v
+    ``[B, Skv, KV, hdv]``, o and do ``[B, Sq, H, hdv]``, all f32 or all
+    bf16 on one card, ``o`` the forward's output and ``do`` its cotangent;
+    returns ``(dq, dk, dv)`` in the inputs' shapes and dtype.  It takes
+    the forward's shapes (:func:`bwd_takes`: hd 1-256, hdv 1 to
+    ``min(hd, 128)``, MLA's 192 / 128 among them) and raises
+    ``ValueError`` for any other, before any launch, on any device.  Up to
+    a q.k tile of 128 a narrower v is padded with zeros to hd, as the
+    forward pads it (D = dO . o is unchanged by the zero columns), and dv
+    cut back to hdv; past it the kernel takes v at its own width."""
     ts = (q, k, v, o, do)
-    if v.shape[-1] != k.shape[-1] or k.shape[-1] > BWD_MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"flash_attention_bwd takes hd = hdv up to {BWD_MAX_HEAD_DIM}, "
-            f"got q.k {k.shape[-1]} and v {v.shape[-1]}: the MLA backward "
-            f"is not written yet (ROADMAP queue 1, 'Backward kernels')")
+    check_shapes(q, k, v)
+    B, Sq, H, hd = (int(s) for s in q.shape)
+    Skv, KV, hdv = int(k.shape[1]), int(k.shape[2]), int(v.shape[3])
+    if not bwd_takes(hd, hdv):
+        raise ValueError(f"flash_attention_bwd takes q.k heads 1-"
+                         f"{MAX_HEAD_DIM} over v heads 1 to min(hd, "
+                         f"{MAX_V_HEAD_DIM}), got hd {hd}, hdv {hdv}")
+    want = (B, Sq, H, hdv)
+    if tuple(o.shape) != want or tuple(do.shape) != want:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"be {want}")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd kernel needs a CUDA tensor, "
                          f"got {q.device}")
@@ -501,36 +543,29 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
     if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in ts):
         raise ValueError(f"q, k, v, o, do must all be f32 or all bf16, got "
                          f"{[t.dtype for t in ts]}")
-    check_shapes(q, k, v, same_width=True)
-    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
-        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
-                         f"have q's shape {tuple(q.shape)}")
-    B, Sq, H, hd = (int(s) for s in q.shape)
-    Skv, KV = int(k.shape[1]), int(k.shape[2])
-    if hd < 1:
-        raise ValueError(f"flash_attention_bwd takes hd 1-"
-                         f"{BWD_MAX_HEAD_DIM}, got {hd}")
-    q, k, v, o, do = (t.contiguous() for t in ts)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or Skv == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
+        return (torch.zeros_like(q), torch.zeros_like(k),
+                torch.zeros_like(v))
+    narrow = hdv != hd and hd <= 128
+    if narrow:
+        v, o, do = (torch.nn.functional.pad(t, (0, hd - hdv))
+                    for t in (v, o, do))
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     valid = Skv if kv_valid_len is None else min(max(int(kv_valid_len), 0),
                                                  Skv)
     stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             stats[0].data_ptr(), stats[1].data_ptr(), B, Sq, Skv, H, KV, hd,
-            int(bool(causal)), int(q_offset), valid,
-            int(q.dtype == torch.bfloat16), softmax_scale(hd), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError "
-                           f"{err}")
+            int(v.shape[3]), int(bool(causal)), int(q_offset), valid,
+            int(q.dtype == torch.bfloat16), softmax_scale(hd), _stream(q))
+    _raise_on(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    return dq, dk, dv[..., :hdv].contiguous() if narrow else dv
 
 
 flash_attention_bwd.launches = 0

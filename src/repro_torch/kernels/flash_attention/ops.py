@@ -55,7 +55,9 @@ TOL = (2e-5, 2e-5)
 #: forms P from the row's log-sum-exp where the plain version normalises
 #: exp of the scores: 1e-4.  bf16: f32 results that agree that closely
 #: round at most one bf16 step apart, and one ulp of the largest
-#: magnitude is at most 2**-7 of it.
+#: magnitude is at most 2**-7 of it.  Neither bound depends on the head
+#: widths: MLA's q.k head of 192 sums 192 products into each score where
+#: llama's sums 128, and its v head of 128 enters dO V^T and D as before.
 TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
 
 
@@ -206,8 +208,8 @@ def flash_attention_op(q, k, v, *, causal=True, q_offset=0,
     ``[B, Skv, KV, hdv]`` (``hdv`` at most ``hd``: MLA's 128 under its
     192): the plain version on the CPU, the kernel on the card with its
     tiles resolved explicit > tuned > default, and a shape the kernel does
-    not take raises there; differentiable in q, k and v on both (the
-    backward kernel on the card, for ``hdv == hd`` up to 128)."""
+    not take raises there; differentiable in q, k and v on both (on the
+    card the backward kernel, which takes the forward's shapes)."""
     check_shapes(q, k, v)
     problem = inspect_call(q, k, v, causal=causal, q_offset=q_offset,
                            kv_valid_len=kv_valid_len)

@@ -1117,32 +1117,41 @@ def test_obs_demo_self_check_on_the_card(dev):
 
 
 # ------------------------------------------- flash_attention backward ---
+# (B, Sq, Skv, H, KV, hd, hdv)
 BWD_CASES = [
-    ((1, 130, 130, 4, 2, 24), {"causal": True}),
-    ((2, 70, 200, 3, 1, 64), {"causal": True, "q_offset": -70}),
-    ((1, 130, 130, 4, 4, 128), {"causal": False, "kv_valid_len": 0}),
-    ((1, 130, 200, 8, 2, 100), {"causal": True, "q_offset": 30,
-                                "kv_valid_len": 100}),
-    ((2, 257, 257, 8, 2, 128), {"causal": True}),
-    ((1, 1, 300, 4, 1, 128), {"causal": False, "kv_valid_len": 290}),
+    ((1, 130, 130, 4, 2, 24, 24), {"causal": True}),
+    ((2, 70, 200, 3, 1, 64, 64), {"causal": True, "q_offset": -70}),
+    ((1, 130, 130, 4, 4, 128, 128), {"causal": False, "kv_valid_len": 0}),
+    ((1, 130, 200, 8, 2, 100, 100), {"causal": True, "q_offset": 30,
+                                     "kv_valid_len": 100}),
+    ((2, 257, 257, 8, 2, 128, 128), {"causal": True}),
+    ((1, 1, 300, 4, 1, 128, 128), {"causal": False, "kv_valid_len": 290}),
     # a group of 8 q heads on one kv head
-    ((1, 130, 130, 8, 1, 64), {"causal": True}),
+    ((1, 130, 130, 8, 1, 64, 64), {"causal": True}),
     # hd not a multiple of the bf16 mma's k (16), 160 rows
-    ((1, 160, 160, 4, 2, 120), {"causal": True}),
+    ((1, 160, 160, 4, 2, 120, 120), {"causal": True}),
     # every tile and chunk whole, no mask
-    ((1, 64, 64, 2, 1, 64), {"causal": False}),
+    ((1, 64, 64, 2, 1, 64, 64), {"causal": False}),
+    # past a q.k tile of 128, V a tile of its own: MLA's 192 / 128, the
+    # widest tile with rows that see no key, and 160 with kv_valid_len
+    ((1, 130, 130, 4, 4, 192, 128), {"causal": True}),
+    ((1, 70, 200, 2, 1, 256, 128), {"causal": True, "q_offset": -70}),
+    ((1, 130, 200, 4, 2, 160, 128), {"causal": True, "kv_valid_len": 100}),
+    # up to a q.k tile of 128 a narrower v is padded to hd
+    ((1, 130, 130, 4, 2, 24, 16), {"causal": True}),
+    ((1, 130, 200, 4, 2, 128, 64), {"causal": True, "q_offset": 30}),
 ]
 
 
 def _bwd_inputs(dev, shape, dtype, seed=0):
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    B, Sq, Skv, H, KV, hd = shape
+    B, Sq, Skv, H, KV, hd, hdv = shape
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def t(*s):
         return torch.randn(s, generator=g, device=dev).to(dtype)
-    q, k, v = t(B, Sq, H, hd), t(B, Skv, KV, hd), t(B, Skv, KV, hd)
-    return q, k, v, t(B, Sq, H, hd), flash_attention_ref
+    q, k, v = t(B, Sq, H, hd), t(B, Skv, KV, hd), t(B, Skv, KV, hdv)
+    return q, k, v, t(B, Sq, H, hdv), flash_attention_ref
 
 
 def _rel(a, b):
@@ -1188,7 +1197,7 @@ def test_flash_attention_op_differentiates_on_the_card(dev):
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_bwd)
-    q, k, v, do, ref = _bwd_inputs(dev, (2, 96, 96, 6, 2, 64),
+    q, k, v, do, ref = _bwd_inputs(dev, (2, 96, 96, 6, 2, 64, 64),
                                    torch.float32, seed=3)
     qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
     fwd, bwd = ops.SPEC.launches, flash_attention_bwd.launches
@@ -1204,6 +1213,34 @@ def test_flash_attention_op_differentiates_on_the_card(dev):
     with torch.no_grad():
         assert ops.flash_attention_op(qq, kk, vv).grad_fn is None
     assert flash_attention_bwd.launches == bwd + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_op_differentiates_at_the_mla_shape(dev, dtype):
+    """At MLA's q.k 192 / v 128 flash_attention_op's gradient runs on the
+    card through the kernels: one forward and one backward launch, no
+    plain call, within ``bwd_autograd_tol`` (group 1) of autograd of the
+    plain version."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd)
+    q, k, v, do, ref = _bwd_inputs(dev, (2, 200, 200, 4, 4, 192, 128),
+                                   dtype, seed=5)
+    qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+    registry.reset_counts()
+    bwd = flash_attention_bwd.launches
+    out = ops.flash_attention_op(qq, kk, vv)
+    assert out.shape == do.shape
+    got = torch.autograd.grad(out, (qq, kk, vv), do)
+    torch.cuda.synchronize()
+    assert (ops.SPEC.launches, ops.SPEC.plain_calls,
+            flash_attention_bwd.launches) == (1, 0, bwd + 1)
+    q2, k2, v2 = (x.clone().requires_grad_() for x in (q, k, v))
+    want = torch.autograd.grad(ref(q2, k2, v2), (q2, k2, v2), do)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _rel(g, w) <= ops.bwd_autograd_tol(dtype, 1)
 
 
 def test_kernel_without_backward_raises_on_the_card(dev):
@@ -1572,23 +1609,6 @@ def test_flash_attention_bf16_decode_partials_and_combine(dev, splits,
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), want.float(), rtol=2 ** -7,
                                atol=2e-5)
-
-
-def test_flash_attention_backward_refuses_the_mla_shape_on_the_card(dev):
-    """The forward at MLA's 192 / 128 launches; its backward raises
-    NotImplementedError naming ROADMAP's backward kernels list, not a
-    bare ValueError."""
-    from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention_bwd)
-    q, k, v = (x.requires_grad_() for x in _attn_wide(
-        (1, 64, 64, 4, 4, 192, 128), dev, dtype=torch.bfloat16))
-    before = (ops.SPEC.launches, flash_attention_bwd.launches)
-    out = ops.flash_attention_op(q, k, v)
-    assert ops.SPEC.launches == before[0] + 1
-    with pytest.raises(NotImplementedError, match="Backward kernels"):
-        out.float().sum().backward()
-    assert flash_attention_bwd.launches == before[1]
 
 
 # ------------------------------------------------------------ mamba_scan ---

@@ -23,9 +23,10 @@ device), through each op's own ``inspect_call``:
 - Mamba: ``mamba_scan`` at ``mamba_d_state`` in prefill (its step is
   plain torch).
 
-A backward has no spec of its own: ``flash_attention_bwd`` takes
-``hd == hdv`` up to ``BWD_MAX_HEAD_DIM``, ``rwkv6_chunk_bwd`` the
-forward's domain (f32 and bf16, hd 1 to 128).  :data:`KNOWN_OUTSIDE` lists
+A backward has no spec of its own: ``flash_attention_bwd`` and
+``rwkv6_chunk_bwd`` each take their forward's domain (``bwd_takes``:
+q.k 1 to 256 over v 1 to ``min(hd, 128)``; hd 1 to 128 in f32 and
+bf16).  :data:`KNOWN_OUTSIDE` lists
 the problems that lie outside today, each with the queued work that
 closes it (ROADMAP queue 1, "Backward kernels"); the test fails both for
 a new problem outside a domain and for a listed one that has come
@@ -39,7 +40,7 @@ from repro_torch.configs import archs  # noqa: E402
 from repro_torch.configs.base import all_configs  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    BWD_MAX_HEAD_DIM)
+    bwd_takes)
 from repro_torch.kernels.mamba_scan import ops as mamba_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_chunk import ops as rwkv_ops  # noqa: E402
 
@@ -49,8 +50,6 @@ DTYPES = ("bfloat16", "float32")
 #: (config, phase, kernel) outside its kernel's domain on the card today,
 #: and the work that closes it
 KNOWN_OUTSIDE = {
-    ("deepseek-v2-lite-16b", "train", "flash_attention_bwd"):
-        "backward kernel 2: MLA's q.k 192 over v 128",
     ("jamba-v0.1-52b", "train", "mamba_scan_bwd"):
         "backward kernel 4: mamba_scan has no backward kernel",
 }
@@ -141,18 +140,17 @@ SPECS = {"flash_attention": flash_ops.SPEC, "rwkv6_chunk": rwkv_ops.SPEC,
 def outside(phase, kernel, problem):
     """The kernels of ``(phase, kernel, problem)`` whose domain on the card
     it leaves: the forward's ``spec.supports`` and, in training, the
-    backward's (``flash_attention_bwd``'s ``hd == hdv <=
-    BWD_MAX_HEAD_DIM``; ``rwkv6_chunk_bwd``'s is the forward's,
-    ``bwd_launch_shape``'s hd 1 to 128 in f32 and bf16; a spec without a
-    backward kernel takes none)."""
+    backward's (``flash_attention_bwd``'s ``bwd_takes``, the forward's
+    widths; ``rwkv6_chunk_bwd``'s is the forward's, ``bwd_launch_shape``'s
+    hd 1 to 128 in f32 and bf16; a spec without a backward kernel takes
+    none)."""
     spec = SPECS[kernel]
     found = [] if spec.supports(problem) else [kernel]
     if phase == "train":
         if spec.backward is None:
             found.append(f"{kernel}_bwd")
-        elif kernel == "flash_attention" and not (
-                problem.get("hdv", problem["hd"]) == problem["hd"]
-                <= BWD_MAX_HEAD_DIM):
+        elif kernel == "flash_attention" and not bwd_takes(
+                problem["hd"], problem.get("hdv", problem["hd"])):
             found.append("flash_attention_bwd")
         elif kernel == "rwkv6_chunk" and not spec.supports(problem):
             found.append("rwkv6_chunk_bwd")
@@ -204,9 +202,8 @@ def test_problems_follow_the_configs_widths():
 def test_a_config_outside_a_domain_is_found():
     """The guard sees a config past a kernel's domain (a Mamba state of
     17, a GQA head of 192 with v as wide, an RWKV6 head of 192, forward
-    and backward), and sees a known exception
-    come inside (MLA at q.k 128 over v 128 trains on the backward
-    kernel)."""
+    and backward, an MLA q.k head past 256), and MLA inside it at q.k 128
+    over v 128 as at its own 192 over 128."""
     jamba = all_configs()["jamba-v0.1-52b"]
     wide_state = [k for ph, kernel, p in kernel_problems(
         jamba.replace(mamba_d_state=17), "bfloat16")
@@ -228,3 +225,8 @@ def test_a_config_outside_a_domain_is_found():
     narrow = all_configs()["deepseek-v2-lite-16b"].replace(qk_nope_dim=64)
     assert [k for ph, kernel, p in kernel_problems(narrow, "bfloat16")
             for k in outside(ph, kernel, p)] == []
+    wide_mla = all_configs()["deepseek-v2-lite-16b"].replace(qk_nope_dim=200)
+    assert {(ph, k) for ph, kernel, p in kernel_problems(wide_mla, "float32")
+            for k in outside(ph, kernel, p)} == {
+                ("prefill", "flash_attention"), ("train", "flash_attention"),
+                ("train", "flash_attention_bwd")}

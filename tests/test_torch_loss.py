@@ -30,7 +30,7 @@ from repro.models import attention as jattn  # noqa: E402
 from repro.models import loss as jloss  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    BWD_SHAPE, softmax_scale)
+    bwd_shape, softmax_scale)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_bwd_ref, flash_attention_ref)
 from repro_torch.models import loss  # noqa: E402
@@ -157,10 +157,13 @@ ATTN_CASES = {
 
 
 def _attn_inputs(shape, dtype, seed=0):
-    B, Sq, Skv, H, KV, hd = shape
+    """q, k, v and do of ``shape`` (B, Sq, Skv, H, KV, hd[, hdv]): v and
+    do ``hdv`` wide (``hd`` when not given)."""
+    B, Sq, Skv, H, KV, hd, *rest = shape
+    hdv = rest[0] if rest else hd
     q, k, v = (_normal(seed + i, *s) for i, s in enumerate(
-        ((B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd))))
-    do = _normal(seed + 3, B, Sq, H, hd)
+        ((B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hdv))))
+    do = _normal(seed + 3, B, Sq, H, hdv)
     return q, k, v, do
 
 
@@ -216,8 +219,9 @@ def test_plain_backward_matches_autograd_of_plain_version(case, dtype):
 def _kernel_model(q, k, v, o, do, causal=True, q_offset=0,
                   kv_valid_len=None, dtype=torch.float32):
     """The backward kernel's partition in f64, at its shape for ``dtype``
-    (``BWD_SHAPE``): the dq kernel's blocks of 16 rows a warp with their
-    key bound and log-sum-exp, the dkdv kernel's blocks of 64 keys
+    and q.k width (``bwd_shape``): the dq kernel's blocks of 16 rows a
+    warp with their key bound and log-sum-exp, the dkdv kernel's blocks
+    of 64 keys
     visiting only the query chunks that can see them (all of them when
     some row sees no key), such rows adding dO / Skv to every key's dV.
     bf16: P and dS rounded to bf16 (to nearest, from f32) as the operands
@@ -227,7 +231,7 @@ def _kernel_model(q, k, v, o, do, causal=True, q_offset=0,
     Skv, KV = k.shape[1], k.shape[2]
     group = H // KV
     sc = softmax_scale(hd)
-    (dq_warps, _), (kv_warps, chunk) = BWD_SHAPE[dtype]
+    (dq_warps, _), (kv_warps, chunk) = bwd_shape(hd, dtype)
     tq, tk = 16 * dq_warps, 16 * kv_warps
     bf16 = dtype == torch.bfloat16
 
@@ -301,6 +305,9 @@ def _kernel_model(q, k, v, o, do, causal=True, q_offset=0,
                                 "kv_valid_len": 100}),
     ((1, 70, 200, 2, 1, 16), {"causal": False, "kv_valid_len": 90}),
     ((1, 70, 70, 2, 1, 16), {"causal": True, "q_offset": -200}),
+    # past a q.k tile of 128: the wide tiles' chunks, v at its own width
+    ((1, 130, 150, 2, 1, 192, 128), {"causal": True, "q_offset": 10}),
+    ((1, 70, 200, 2, 2, 256, 100), {"causal": True, "q_offset": -70}),
 ])
 def test_kernel_partition_model_matches_plain_backward(shape, kw):
     q, k, v, do = (torch.from_numpy(a) for a in _attn_inputs(shape,
@@ -321,6 +328,10 @@ def test_kernel_partition_model_matches_plain_backward(shape, kw):
                                 "kv_valid_len": 100}),
     ((1, 160, 160, 4, 2, 120), {"causal": True}),
     ((1, 64, 64, 8, 1, 64), {"causal": False}),
+    # one head at the MLA training shape's widths (q.k 192 / v 128), and
+    # the widest tile with rows that see no key
+    ((1, 1024, 1024, 1, 1, 192, 128), {"causal": True}),
+    ((1, 70, 200, 2, 1, 256, 128), {"causal": True, "q_offset": -70}),
 ])
 def test_kernel_model_bf16_rounding_within_backward_tolerances(shape, kw):
     """P and dS rounded to bf16 as the kernel rounds them, against the

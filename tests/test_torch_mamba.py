@@ -24,6 +24,7 @@ Tolerances:
   reference's decode to its forward at 1e-3); bf16 ``LM_TOL_BF16``,
   chip_smoke.py's 0.1 of the largest magnitude (``assert_close``).
 """
+import contextlib
 import functools
 import re
 from pathlib import Path
@@ -55,6 +56,32 @@ JAMBA = "jamba-v0.1-52b"
 BF16_TOL = 2e-2     # one layer, as tests/test_torch_mla.py holds bf16
 LM_TOL_BF16 = 0.1   # the whole model, chip_smoke.py's
 PROMPT = 11
+
+
+@contextlib.contextmanager
+def ieee_f32():
+    """The process-wide state the plain scan's f32 arithmetic needs, set
+    inside the block and restored after it: f32 matrix products in IEEE
+    f32 (its ``einsum`` over the states; at ``"medium"`` the CPU computes
+    them from bf16 operands) and the f32 default dtype."""
+    prec = torch.get_float32_matmul_precision()
+    dtype = torch.get_default_dtype()
+    torch.set_float32_matmul_precision("highest")
+    torch.set_default_dtype(torch.float32)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prec)
+        torch.set_default_dtype(dtype)
+
+
+@pytest.fixture(autouse=True)
+def _ieee_f32():
+    """Every test here runs in :func:`ieee_f32`, whatever an earlier test
+    of the same worker left behind (the driver runs files one after
+    another in a worker, ``--dist loadfile``)."""
+    with ieee_f32():
+        yield
 
 
 def assert_close(got, want, dtype, tol=1e-3, bf16_tol=LM_TOL_BF16):
@@ -138,6 +165,27 @@ def test_kernel_order_matches_plain_scan(S, di, ds, dtype):
     arrays = _scan_inputs(2, S, di, ds, dtype, seed=S + di + ds)
     worst = ops.held_to_plain(arrays, *_kernel_order(*arrays))
     assert max(worst["worst_vs_terms"].values()) <= 1.0, worst
+
+
+def test_kernel_order_holds_after_reduced_precision_products():
+    """What an earlier test can leave behind does not reach the order
+    test: with f32 products set to bf16 operands
+    (``set_float32_matmul_precision("medium")``, process-wide), the S 1
+    case of :func:`test_kernel_order_matches_plain_scan` (the one that
+    failed once under four workers) holds within its allowance inside
+    :func:`ieee_f32`, and the setting is back on the way out; the same
+    comparison outside the block reads past it wherever the CPU has bf16
+    products (AVX512-BF16 or AMX), and as inside where it has none."""
+    arrays = _scan_inputs(2, 1, 24, 16, "float32", seed=41)
+    mine = _kernel_order(*arrays)
+    torch.set_float32_matmul_precision("medium")
+    loose = max(ops.held_to_plain(arrays, *mine)["worst_vs_terms"].values())
+    with ieee_f32():
+        pinned = max(ops.held_to_plain(arrays, *mine)[
+            "worst_vs_terms"].values())
+    assert torch.get_float32_matmul_precision() == "medium"
+    assert pinned <= 1.0
+    assert loose > 1.0 or loose == pinned
 
 
 def test_held_to_plain_fails_a_scan_without_its_states():

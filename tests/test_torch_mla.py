@@ -35,8 +35,8 @@ from repro_torch.configs import archs, base  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    MAX_HEAD_DIM, MAX_V_HEAD_DIM, fits, flash_attention_bwd, head_tile,
-    smem_bytes, v_tile)
+    MAX_HEAD_DIM, MAX_V_HEAD_DIM, bwd_shape, bwd_smem_bytes, bwd_tiles, fits,
+    flash_attention_bwd, head_tile, smem_bytes, v_tile)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref)
 from repro_torch.models import blocks, lm  # noqa: E402
@@ -289,15 +289,67 @@ def test_wide_head_tiles_and_their_shared_memory():
     assert "hdv" not in ops.inspect_call(q, k, k)
 
 
-@pytest.mark.parametrize("hd,hdv", [(24, 16), (192, 128), (160, 160)])
-def test_backward_kernel_refuses_the_wider_shapes(hd, hdv):
-    """flash_attention_bwd raises NotImplementedError, naming ROADMAP's
-    backward kernels list, for a v head of its own width or a q.k head
-    past 128, on any device, before it checks anything else."""
-    q, k, v = (_t(a) for a in _mla_inputs((1, 4, 4, 2), hd, hdv))
-    o = q[..., :hdv].contiguous()
-    with pytest.raises(NotImplementedError, match="Backward kernels"):
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("hd,hdv", [(257, 128), (192, 129), (24, 32),
+                                    (128, 129)])
+def test_backward_kernel_refuses_shapes_outside_the_forwards_domain(
+        hd, hdv, device):
+    """flash_attention_bwd raises ValueError, naming its domain, for a q.k
+    head past 256, a v head past 128 or wider than q.k, before any launch
+    and before it looks at the device."""
+    q, k, v = (_t(a).to(device) for a in _mla_inputs((1, 4, 4, 2), hd,
+                                                       hdv))
+    o = torch.zeros(q.shape[:3] + (hdv,), device=device)
+    before = flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="takes q.k heads 1-256 over v "
+                                         "heads 1 to min"):
         flash_attention_bwd(q, k, v, o, o)
+    assert flash_attention_bwd.launches == before
+
+
+@pytest.mark.parametrize("hd,hdv", [(192, 128), (256, 128), (24, 16)])
+def test_backward_kernel_takes_the_forwards_domain(hd, hdv):
+    """MLA's 192 / 128, the widest tile and a narrower v under a q.k tile
+    of 128 pass the domain and shape checks: on the CPU the wrapper goes
+    on to refuse the device, nothing else; an o of q's width (not v's)
+    is refused."""
+    q, k, v = (_t(a) for a in _mla_inputs((1, 4, 4, 2), hd, hdv))
+    o = torch.zeros(q.shape[:3] + (hdv,))
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        flash_attention_bwd(q, k, v, o, o)
+    with pytest.raises(ValueError, match="must be"):
+        flash_attention_bwd(q, k, v, q, q)
+
+
+def test_backward_shared_memory_at_the_wide_tiles():
+    """Past a q.k tile of 128 the backward's blocks are 4 warps (64 rows)
+    with Q and K rows the q.k tile wide and V and dO rows V's tile (128)
+    wide, each padded by 16 bytes, and two stages of chunks (32 keys in
+    dq; 32 query rows in bf16 dkdv up to a q.k tile of 192, else 16),
+    then D of the block's rows (dq) or lse and D of each stage's chunk
+    (dkdv): the source's layout, within a block's 227 KB.  Up to 128 the
+    tiles and their shape are the ones the kernel always had."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert bwd_tiles(192) == (192, 128) and bwd_tiles(256) == (256, 128)
+    assert bwd_tiles(100) == (128, 128) and bwd_tiles(24) == (64, 64)
+    want = {
+        (192, 0, bf): 2 * (200 + 136) * (64 + 2 * 32) + 4 * 64,
+        (192, 1, bf): 2 * (200 + 136) * (64 + 2 * 32) + 4 * 4 * 32,
+        (192, 0, f32): 4 * (196 + 132) * (64 + 2 * 32) + 4 * 64,
+        (192, 1, f32): 4 * (196 + 132) * (64 + 2 * 16) + 4 * 4 * 16,
+        (256, 0, bf): 2 * (264 + 136) * (64 + 2 * 32) + 4 * 64,
+        (256, 1, bf): 2 * (264 + 136) * (64 + 2 * 16) + 4 * 4 * 16,
+        (256, 0, f32): 4 * (260 + 132) * (64 + 2 * 32) + 4 * 64,
+        (256, 1, f32): 4 * (260 + 132) * (64 + 2 * 16) + 4 * 4 * 16,
+        # the llama3.2-3b training shape's tiles, as since PR 23
+        (128, 0, bf): 2 * 136 * (2 * 64 + 4 * 64) + 4 * 64,
+        (128, 0, f32): 4 * 132 * (2 * 128 + 4 * 32) + 4 * 128,
+    }
+    for (hd, kernel, dt), n in want.items():
+        assert bwd_smem_bytes(hd, kernel, dt) == n, (hd, kernel, dt)
+        assert n <= registry.SMEM_PER_BLOCK
+    assert bwd_shape(192, bf) == ((4, 32), (4, 32))
+    assert bwd_shape(128, f32) == ((8, 32), (4, 16))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
