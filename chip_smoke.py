@@ -623,6 +623,26 @@ MAMBA_POLY_OPS = 18
 # underflow beside ones that do not) and d_state 8 (the second lane of
 # each channel holds only padding)
 MAMBA_UNDERFLOW_DT = 200.0
+# f32 operations a state and step that the scan's gradient needs at
+# least: the state recomputed (dt x Bm and a fused multiply-add, 3), g
+# updated (a fused multiply-add, 2) and decayed (a g, which the step
+# before takes, 1), q = (a g) h (1), and the sums of dA, du, ddt's A
+# term, dBm and dCm (a fused multiply-add each, 10); beside them one exp2
+# a state and step on the SFUs (each decay computed at least once)
+MAMBA_BWD_OPS = 17
+# the exp2 a state and step the kernel's design computes: one in its
+# local pass, two in its chunk pass (the states recomputed, then the
+# decays again on the walk back)
+MAMBA_BWD_DESIGN_EXPS = 3
+MAMBA_BWD_DESIGN = ("chunks of 16 steps: each chunk from a zero state and "
+                    "cotangent (its decays in registers), boundary states "
+                    "and cotangents chained by exp2(A log2e sum dt), every "
+                    "chunk's states recomputed in registers (4 lanes a "
+                    "channel, 4 states each) and its cotangent walked back; "
+                    "4 chunks a block, staged by cp.async, double-buffered; "
+                    "dBm/dCm summed over a warp's 8 channels by shuffles, "
+                    "over warps in shared memory, over blocks and dA/dD "
+                    "over chunk groups by an ordered sum kernel")
 # the LM training slice: llama3.2-3b at full width and depth trained on
 # one repeated TokenPipeline batch of 2 x 2,048 tokens, 4 steps past the
 # warmup (policy full); attention's backward at that shape
@@ -638,6 +658,19 @@ LMT_ATTN = dict(b=LMT_BATCH, sq=LMT_SEQ, skv=LMT_SEQ, causal=True,
 DEEPSEEK_ARCH, DEEPSEEK_TRAIN_REPEATS = "deepseek-v2-lite-16b", 5
 MLA_TRAIN_ATTN = dict(b=LMT_BATCH, sq=LMT_SEQ, skv=LMT_SEQ, causal=True,
                       q_offset=0, h=16, kv=16, hd=192, hdv=128)
+# jamba-v0.1-52b trained at full width, its depth cut to slots 3-5 of its
+# 8-layer period: (mamba, swiglu), (gqa, moe), (mamba, swiglu), 3.96 B
+# parameters (one period, 13.3 B, would need about 160 GB with bf16
+# gradients and Adam's f32 state); the smallest contiguous cut that keeps
+# every kind of layer jamba has: Mamba mixers on mamba_scan, the GQA layer
+# on flash_attention and its backward, a 16-expert top-2 MoE, swiglu MLPs
+# and the learned positions the GQA layer brings
+JAMBA_TRAIN_SLOTS = (3, 6)
+# the selective scan at jamba's training shape (B 2, S 2,048, d_inner
+# 8,192, d_state 16), where its backward runs once a Mamba layer a step
+# and its forward twice (remat)
+JAMBA_TRAIN_SCAN = {"b": LMT_BATCH, "s": LMT_SEQ, "di": 8192, "ds": 16,
+                    "dtype": "bfloat16"}
 # every leaf's gradient at full width and depth 2 with attention on the
 # kernels against attention by the plain version (autograd of
 # flash_attention_ref), each error over the leaf's largest magnitude:
@@ -656,6 +689,11 @@ STEP_KERNEL_GROUPS = {
     "wkv_forward": ("rwkv6_chunk_kernel",),
     "wkv_backward": ("rwkv6_bwd_",),
     "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet"),
+}
+# and, in a model with Mamba layers, the selective scan's kernels
+SCAN_KERNEL_GROUPS = {
+    "scan_forward": ("mamba_scan_kernel",),
+    "scan_backward": ("mamba_bwd_",),
 }
 # rwkv6-1.6b trained the same way (4 steps at full width and depth, one
 # repeated batch of 2 x 2,048 tokens, policy full); the WKV recurrence at
@@ -5129,6 +5167,190 @@ def check_rwkv6_bwd(dev, smi):
     return line
 
 
+def mamba_bwd_bound(problem):
+    """(bound_ms, bound_by, bytes, operations) of one selective-scan
+    backward without a cotangent on the final state (as in training): dt,
+    x, Bm and Cm read and ddt, dx, dBm and dCm written once in the
+    problem's dtype, dy read in f32, A, D and h0 read and dA, dD and dh0
+    written in f32; its operations one
+    exp2 a state and step on the SFUs (``SFU_EXP2_PER_CLOCK_SM`` x SMs x
+    ``sm_clock_hz``) beside ``MAMBA_BWD_OPS`` f32 operations a state and
+    step at the f32 peak, the larger of the two.  ``operations`` also
+    names the kernel design's own exps (``MAMBA_BWD_DESIGN_EXPS`` a state
+    and step) and its bound on the SFUs alone."""
+    import torch
+    b, s, di, ds = (problem[k] for k in ("b", "s", "di", "ds"))
+    el = 4 if problem["dtype"] == "float32" else 2
+    nbytes = el * (4 * b * s * di + 4 * b * s * ds) + 4 * b * s * di \
+        + 4 * (2 * di * ds + 2 * di + 2 * b * di * ds)
+    steps = b * s * di * ds
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu = SFU_EXP2_PER_CLOCK_SM * sms * sm_clock_hz()
+    t_ops = max(steps / sfu, MAMBA_BWD_OPS * steps / PEAK_F32_FLOPS)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", nbytes,
+            {"exp2": steps, "f32": MAMBA_BWD_OPS * steps, "sfu_per_s": sfu,
+             "sms": sms, "exp2_ms": steps / sfu * 1e3,
+             "f32_ms": MAMBA_BWD_OPS * steps / PEAK_F32_FLOPS * 1e3,
+             "bytes_ms": t_bytes * 1e3,
+             "design_exp2": MAMBA_BWD_DESIGN_EXPS * steps,
+             "design_exp2_ms": MAMBA_BWD_DESIGN_EXPS * steps / sfu * 1e3})
+
+
+def check_mamba_scan_bwd(dev, smi):
+    """mamba_scan_bwd against the plain backward and against autograd of
+    the plain version (each gradient's largest error over its largest
+    magnitude within ``ops.TOL_BWD``), a relaunch bit for bit: jamba's
+    training shape (``JAMBA_TRAIN_SCAN``, no cotangent on the final state,
+    as in training) in bf16 and f32, decays underflowing (dt up to
+    ``MAMBA_UNDERFLOW_DT``), d_state 8, S 70 (a ragged last chunk), S 1,
+    di 200 (a partial block) and 201 (bf16 rows not 4-byte aligned: dt
+    and x staged element by element), the others from h0 != 0 with a
+    cotangent on the final state.  Autograd of the plain version keeps
+    about 10.6 B S di ds f32 (22.8 GB at the training shape): it fits a
+    card that holds nothing else, as here.  Then
+    its CUDA-event time at the training shape in bf16 and f32, each of
+    its kernels' device time a launch (torch.profiler over 20 calls), the
+    plain backward's time, the forward's at the same shape and
+    ``mamba_bwd_bound``.  Raises on any failure; returns the training
+    shape's line."""
+    import re
+
+    import torch
+    from repro_torch.kernels.mamba_scan import mamba_scan as scan
+    from repro_torch.kernels.mamba_scan import ops
+    from repro_torch.kernels.mamba_scan.ref import (mamba_scan_bwd_ref,
+                                                    mamba_scan_ref)
+
+    small = ops.SPEC.default_problems[0]
+    cases = [
+        ("jamba training bf16", JAMBA_TRAIN_SCAN, False),
+        ("jamba training f32", dict(JAMBA_TRAIN_SCAN, dtype="float32"),
+         False),
+        ("underflow", small, True),
+        ("underflow bf16", dict(small, dtype="bfloat16"), True),
+        ("ds 8", dict(small, ds=8), True),
+        ("ds 8 bf16", dict(small, ds=8, dtype="bfloat16"), True),
+        ("S 70, di 200", small, True),
+        ("S 70, di 200 bf16", dict(small, dtype="bfloat16"), True),
+        ("di 201 bf16", dict(small, di=201, dtype="bfloat16"), True),
+        ("S 1", dict(JAMBA_TRAIN_SCAN, s=1, dtype="float32"), True),
+        ("S 1 bf16", dict(small, s=1, dtype="bfloat16"), True),
+    ]
+    names = ("ddt", "dx", "dBm", "dCm", "dA", "dD", "dh0")
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp_min(1e-30)).item()
+    results, failures, timed = {}, [], {}
+    for i, (label, problem, with_dhT) in enumerate(cases):
+        gen = torch.Generator().manual_seed(140 + i)
+        arrays = (mamba_underflow_case(problem, gen, dev)
+                  if label.startswith("underflow")
+                  else ops.SPEC.make_call(problem, gen, dev))
+        B, S, di = arrays[0].shape
+        dy = torch.randn((B, S, di), generator=gen).to(dev)
+        dhT = (torch.randn(tuple(arrays[6].shape), generator=gen).to(dev)
+               if with_dhT else None)
+        got = scan.mamba_scan_bwd(*arrays, dy, dhT)
+        again = scan.mamba_scan_bwd(*arrays, dy, dhT)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        want = mamba_scan_bwd_ref(*arrays, dy, dhT)
+        tol = ops.TOL_BWD[arrays[0].dtype]
+        res = {"vs_plain_backward": {n: rel(a, b) for n, a, b in
+                                     zip(names, got, want)},
+               "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                  for a, b in zip(got, want)),
+               "finite": all(bool(torch.isfinite(a.float()).all())
+                             for a in got),
+               "dtypes_match": all(a.dtype == b.dtype
+                                   for a, b in zip(got, arrays)),
+               "bit_identical_relaunch": same, "tol": tol, "dhT": with_dhT,
+               "launch": scan.bwd_launch_shape(B, S, di)}
+        del want
+        torch.cuda.empty_cache()
+        leaves = [a.clone().requires_grad_() for a in arrays]
+        y, hT = mamba_scan_ref(*leaves)
+        auto = torch.autograd.grad(
+            (y, hT) if with_dhT else (y,), leaves,
+            (dy, dhT) if with_dhT else (dy,))
+        del leaves, y, hT
+        res["vs_autograd_of_plain"] = {n: rel(a, b) for n, a, b in
+                                       zip(names, got, auto)}
+        del auto
+        torch.cuda.empty_cache()
+        results[label] = res
+        if not (same and res["finite"] and res["dtypes_match"]
+                and max(res["vs_plain_backward"].values()) <= tol
+                and max(res["vs_autograd_of_plain"].values()) <= tol):
+            failures.append(f"mamba_scan_bwd {label}: {res}")
+        if label.startswith("jamba training"):
+            timed[problem["dtype"]] = (arrays, dy)
+        del got
+    line = dict(cases=results, shape=JAMBA_TRAIN_SCAN, design=MAMBA_BWD_DESIGN,
+                max_abs_err=results["jamba training bf16"]["max_abs_err"],
+                launch=scan.bwd_launch_shape(*(JAMBA_TRAIN_SCAN[k]
+                                               for k in ("b", "s", "di"))),
+                library_ms=None)
+    for dtype, (arrays, dy) in timed.items():
+        problem = dict(JAMBA_TRAIN_SCAN, dtype=dtype)
+
+        def kernel():
+            return scan.mamba_scan_bwd(*arrays, dy)
+        ms = cuda_ms(kernel, 10)
+        *_, by = device_busy(lambda: [kernel() for _ in range(20)], {})
+        kernels_ms = {}
+        for name, secs, n in by["top_kernels"]:
+            m = re.search(r"mamba_bwd_\w+", name)
+            if m:
+                kernels_ms[m.group(0)] = {"ms": secs * 1e3 / n,
+                                          "launches_traced": n, "calls": 20}
+        bound_ms, bound_by, nbytes, operations = mamba_bwd_bound(problem)
+        out = dict(ms=ms, kernels_ms=kernels_ms,
+                   plain_ms=cuda_ms(lambda: mamba_scan_bwd_ref(*arrays, dy),
+                                    1, warmup=1),
+                   fwd_ms=cuda_ms(lambda: ops.SPEC.run_call(problem, arrays,
+                                                            {}), 10),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   share_of_bound=bound_ms / ms, bytes=nbytes,
+                   operations=operations)
+        if dtype == "bfloat16":
+            line.update(out)
+        else:
+            line.update({f"f32_{k}": v for k, v in out.items()})
+    del timed
+    line["ok"] = not failures
+    emit("kernel", kernel="mamba_scan_bwd", nvidia_smi=smi, **line)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return line
+
+
+def plain_scan_pair():
+    """The scan op's plain pair: ``mamba_scan_ref`` forward and
+    ``mamba_scan_bwd_ref`` backward in one autograd function with the op's
+    signature, the reference the jamba gradients are held to (autograd of
+    ``mamba_scan_ref`` keeps about 10.6 B S di ds f32 a layer: 22.8 GB at
+    the training shape)."""
+    import torch
+    from repro_torch.kernels.mamba_scan.ref import (mamba_scan_bwd_ref,
+                                                    mamba_scan_ref)
+
+    class PlainScan(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *arrays):
+            ctx.save_for_backward(*arrays)
+            return mamba_scan_ref(*arrays)
+
+        @staticmethod
+        def backward(ctx, dy, dhT):
+            return mamba_scan_bwd_ref(*ctx.saved_tensors, dy, dhT)
+    return PlainScan.apply
+
+
 @contextlib.contextmanager
 def routes_from(calls):
     """``blocks.moe_route`` choosing, call by call, the experts of
@@ -5302,6 +5524,9 @@ def train_cell(cfg, dev, counts, seed):
     groups = (dict(STEP_KERNEL_GROUPS,
                    routing=PREFILL_KERNEL_GROUPS["routing"])
               if has_moe(cfg) else STEP_KERNEL_GROUPS)
+    if any(spec.mixer == "mamba" for spec in (*cfg.prefix, *cfg.pattern)):
+        # first: routing's "scan" would take mamba_scan_kernel
+        groups = dict(SCAN_KERNEL_GROUPS, **groups)
     steps = []
     try:
         registry.reset_counts()
@@ -5424,6 +5649,61 @@ def resume_drill(dev, work):
                     if not torch.equal(a, b)])
 
 
+def run_jamba_train_part(dev, smi, attn_counts):
+    """jamba-v0.1-52b's part of the LM training slice:
+    :func:`check_mamba_scan_bwd`, then every leaf's gradient of the 3-layer
+    cut (``JAMBA_TRAIN_SLOTS``, full width) in bf16 and f32 with the scan
+    on its kernels against the plain scan pair (:func:`plain_scan_pair`),
+    the MoE routes taken from the plain run, and ``LMT_STEPS`` train steps
+    of the cut counting the scan's and attention's launches
+    (``attn_counts`` and the scan's own).  Returns ``(the backward
+    kernel's line, grads by dtype, steps, numbers, the cut's config)``."""
+    import gc
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.mamba_scan import ops as mamba_ops
+    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_bwd
+
+    mamba_line = check_mamba_scan_bwd(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(JAMBA_ARCH)
+    lo, hi = JAMBA_TRAIN_SLOTS
+    cfg = full.replace(pattern=full.pattern[lo:hi], n_layers=hi - lo)
+    grads = {}
+    for dtype, tol in (("bfloat16", LMT_GRAD_TOL_BF16),
+                       ("float32", LMT_GRAD_TOL_F32)):
+        res = grads_against_plain(cfg.replace(dtype=dtype), dev,
+                                  "mamba_scan_op", plain_scan_pair(),
+                                  mamba_scan_bwd)
+        res["tol"] = tol
+        grads[dtype] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("lm_train_slice", part="grads", arch=cfg.name,
+         n_layers=cfg.n_layers, slots=list(JAMBA_TRAIN_SLOTS),
+         batch=LMT_BATCH, seq=LMT_SEQ, plain="mamba_scan_ref forward, "
+         "mamba_scan_bwd_ref backward", nvidia_smi=smi, **grads)
+    counts = dict(attn_counts,
+                  mamba_scan=lambda: mamba_ops.SPEC.launches,
+                  mamba_scan_bwd=lambda: mamba_scan_bwd.launches,
+                  mamba_scan_plain=lambda: mamba_ops.SPEC.plain_calls)
+    steps, numbers = train_cell(cfg, dev, counts, 8)
+    emit("lm_train_slice", part="train", arch=cfg.name,
+         n_layers=cfg.n_layers, d_model=cfg.d_model, d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, dtype=cfg.dtype, policy=cfg.opt_policy,
+         batch=LMT_BATCH, seq=LMT_SEQ, at_step=LMT_AT_STEP, steps=steps,
+         nvidia_smi=smi, slots=list(JAMBA_TRAIN_SLOTS),
+         layers=[f"{spec.mixer}+{spec.mlp}" for spec in cfg.pattern],
+         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         d_inner=cfg.mamba_d_inner, d_state=cfg.mamba_d_state,
+         experts=cfg.n_experts, top_k=cfg.top_k, moe_d_ff=cfg.moe_d_ff,
+         scan_bwd_ms=mamba_line["ms"], scan_fwd_ms=mamba_line["fwd_ms"],
+         **numbers)
+    return mamba_line, grads, steps, numbers, cfg
+
+
 def run_lm_train_slice(dev, smi, work):
     """LM training on the card: the backward kernel at the two training
     shapes, the full-width gradients against plain attention at depth 2,
@@ -5433,9 +5713,13 @@ def run_lm_train_slice(dev, smi, work):
     rwkv6-1.6b at full width and depth; then deepseek-v2-lite-16b (MLA
     and MoE) at full width: its gradients at depth 2 against plain
     attention, routes recorded, and 4 steps at ``DEEPSEEK_TRAIN_REPEATS``
-    MoE layers; and the train_lm example's resume drill.  Returns the
-    backward kernels' lines and the launches of the training steps by
-    kernel and model: ``{kernel: {model: launches}}``."""
+    MoE layers; then the selective scan's backward kernel at jamba's
+    training shape, the gradients of jamba-v0.1-52b's 3-layer cut
+    (``JAMBA_TRAIN_SLOTS``, full width) against the plain scan pair
+    (:func:`plain_scan_pair`), routes recorded, and 4 steps of that cut;
+    and the train_lm example's resume drill.  Returns the backward
+    kernels' lines and the launches of the training steps by kernel and
+    model: ``{kernel: {model: launches}}``."""
     import gc
 
     import torch
@@ -5444,6 +5728,8 @@ def run_lm_train_slice(dev, smi, work):
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_bwd)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.mamba_scan import ops as mamba_ops
+    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_bwd
     from repro_torch.kernels.rwkv6_chunk import ops as rwkv_ops
     from repro_torch.kernels.rwkv6_chunk.ref import rwkv6_chunk_ref
     from repro_torch.kernels.rwkv6_chunk.rwkv6_chunk import rwkv6_chunk_bwd
@@ -5529,6 +5815,17 @@ def run_lm_train_slice(dev, smi, work):
     launches["flash_attention_bwd"][dcfg.name] = flash_attention_bwd.launches
     record_flash_launches("lm_train_slice_deepseek")
 
+    # jamba-v0.1-52b: the selective scan's backward kernel
+    gc.collect()
+    torch.cuda.empty_cache()
+    mamba_line, jgrads, jsteps, jnumbers, jcfg = run_jamba_train_part(
+        dev, smi, attn_counts)
+    launches["mamba_scan"] = {jcfg.name: mamba_ops.SPEC.launches}
+    launches["mamba_scan_bwd"] = {jcfg.name: mamba_scan_bwd.launches}
+    launches["flash_attention"][jcfg.name] = ops.SPEC.launches
+    launches["flash_attention_bwd"][jcfg.name] = flash_attention_bwd.launches
+    record_flash_launches("lm_train_slice_jamba")
+
     drill = resume_drill(dev, work)
     emit("lm_train_slice", part="resume_drill", preset="20m",
          steps=DRILL_STEPS, fail_at=DRILL_FAIL_AT, nvidia_smi=smi, **drill)
@@ -5539,9 +5836,12 @@ def run_lm_train_slice(dev, smi, work):
     # dense first layer), as the reference's jax.checkpoint covers only
     # the scanned pattern
     L, RL, DL = cfg.n_layers, rcfg.n_layers, dcfg.n_layers
+    JM = sum(spec.mixer == "mamba" for spec in jcfg.pattern)
+    JG = jcfg.n_layers - JM
     losses = [r["loss"] for r in steps]
     rlosses = [r["loss"] for r in rsteps]
     dlosses = [r["loss"] for r in dsteps]
+    jlosses = [r["loss"] for r in jsteps]
     checks = {
         "grads_bf16_match_plain_attention":
         grads["bfloat16"]["worst"] <= LMT_GRAD_TOL_BF16,
@@ -5587,6 +5887,25 @@ def run_lm_train_slice(dev, smi, work):
             and r["flash_attention_bwd_launches"] == DL
             and r["flash_attention_plain_launches"] == 0 for r in dsteps),
         "deepseek_peak_under_80_gib": dnumbers["peak_gib"] < 80,
+        "jamba_grads_bf16_match_plain_scan":
+        jgrads["bfloat16"]["worst"] <= LMT_GRAD_TOL_BF16,
+        "jamba_grads_f32_match_plain_scan":
+        jgrads["float32"]["worst"] <= LMT_GRAD_TOL_F32,
+        "jamba_route_flips_near_ties":
+        all(g["flips_near_ties"] for g in jgrads.values()),
+        "jamba_grads_one_backward_launch_per_mamba_layer":
+        all(g["kernel_launches"] == JM and g["plain_launches"] == 0
+            for g in jgrads.values()),
+        "jamba_loss_finite": finite(jlosses),
+        "jamba_loss_falling": jlosses[-1] < jlosses[0],
+        "jamba_launches_per_step": all(
+            r["mamba_scan_launches"] == 2 * JM
+            and r["mamba_scan_bwd_launches"] == JM
+            and r["mamba_scan_plain_launches"] == 0
+            and r["flash_attention_launches"] == 2 * JG
+            and r["flash_attention_bwd_launches"] == JG
+            and r["flash_attention_plain_launches"] == 0 for r in jsteps),
+        "jamba_peak_under_80_gib": jnumbers["peak_gib"] < 80,
         "drill_exit_17": drill["exit_code"] == 17,
         "drill_checkpoint_at_fail_step":
         drill["checkpoint_step"] == DRILL_FAIL_AT
@@ -5598,7 +5917,7 @@ def run_lm_train_slice(dev, smi, work):
          seconds=time.perf_counter() - t_phase, launches=launches, **checks)
     if not all(checks.values()):
         raise AssertionError(f"lm train slice checks failed: {checks}")
-    return bwd_lines, rwkv_line, launches
+    return bwd_lines, rwkv_line, mamba_line, launches
 
 
 def _cast(tree, dtype):
@@ -5699,7 +6018,7 @@ def main():
     train_work = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(train_work, ignore_errors=True)
     train_work.mkdir(parents=True)
-    bwd_lines, rwkv_bwd, lm_train_launches = run_lm_train_slice(
+    bwd_lines, rwkv_bwd, mamba_bwd, lm_train_launches = run_lm_train_slice(
         dev, smi, train_work)
     bwd, mla_bwd = bwd_lines["llama3.2-3b"], bwd_lines["mla"]
     shutil.rmtree(train_work)
@@ -5862,8 +6181,11 @@ def main():
         "replaces": mamba.REPLACES,
         "replaces_note": "no Pallas kernel: the jnp associative scan of "
                          "mamba_seq",
-        "launches": jamba_launches[0],
-        "launches_by_path": {"jamba_lm_slice": jamba_launches[0]},
+        "launches": jamba_launches[0]
+        + sum(lm_train_launches["mamba_scan"].values()),
+        "launches_by_path": {
+            "jamba_lm_slice": jamba_launches[0],
+            "lm_train_slice": lm_train_launches["mamba_scan"]},
         "max_abs_err": mamba_errs["jamba prefill bf16"]["max_abs_err"],
         "worst_vs_terms": mamba_errs["jamba prefill bf16"]["worst_vs_terms"],
         "rtol": mamba_ops.SPEC.tol[0], "atol": mamba_ops.SPEC.tol[1],
@@ -5903,7 +6225,26 @@ def main():
         "bound_ms": rwkv_bwd["bound_ms"], "bound_by": rwkv_bwd["bound_by"],
         "bound_f32_ms": rwkv_bwd["bound_f32_ms"],
         "kernels_ms": rwkv_bwd["kernels_ms"],
-        "library_ms": None, "launch": rwkv_bwd["launch"]}]
+        "library_ms": None, "launch": rwkv_bwd["launch"]}, {
+        "name": "mamba_scan_bwd", "route": "cuda",
+        "source": mamba.BWD_SOURCE, "replaces": mamba.BWD_REPLACES,
+        "replaces_note": "no Pallas kernel: the gradient XLA takes of the "
+                         "chunked associative scan of mamba_seq",
+        "launches": sum(lm_train_launches["mamba_scan_bwd"].values()),
+        "launches_by_path": {
+            "lm_train_slice": lm_train_launches["mamba_scan_bwd"]},
+        "max_abs_err": mamba_bwd["max_abs_err"],
+        "max_err_of_largest": max(mamba_bwd["cases"]["jamba training bf16"][
+            "vs_plain_backward"].values()),
+        "tol": mamba_ops.TOL_BWD[torch.bfloat16],
+        "tol_f32": mamba_ops.TOL_BWD[torch.float32],
+        "shape": mamba_bwd["shape"], "ms": mamba_bwd["ms"],
+        "plain_ms": mamba_bwd["plain_ms"], "bound_ms": mamba_bwd["bound_ms"],
+        "bound_by": mamba_bwd["bound_by"], "library_ms": None,
+        "f32_ms": mamba_bwd["f32_ms"], "f32_plain_ms": mamba_bwd["f32_plain_ms"],
+        "f32_bound_ms": mamba_bwd["f32_bound_ms"],
+        "fwd_ms": mamba_bwd["fwd_ms"], "kernels_ms": mamba_bwd["kernels_ms"],
+        "launch": mamba_bwd["launch"]}]
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels the main paths never launched: {idle}")

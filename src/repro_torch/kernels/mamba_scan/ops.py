@@ -4,16 +4,24 @@ No tunable parameters: the grid is (channel blocks, batch) and the time
 loop runs inside the kernel, so there is nothing to sweep
 (:func:`repro_torch.tune.autotune_registered` skips the spec).  The
 registry still owns the dispatch: the plain version on the CPU, the
-kernel on the card, which has no backward (``registry.dispatch`` raises
-there for an input that requires grad).
+kernel on the card.
+
+The op is differentiable on both devices: the spec's ``backward`` makes
+``registry.dispatch`` wrap the call in an autograd function whose
+backward is :func:`~.mamba_scan.mamba_scan_bwd` on the card and
+:func:`~.ref.mamba_scan_bwd_ref` on the CPU, through both outputs (y and
+the final state).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import registry
-from repro_torch.kernels.mamba_scan.mamba_scan import MAX_STATE, mamba_scan
-from repro_torch.kernels.mamba_scan.ref import check_shapes, mamba_scan_ref
+from repro_torch.kernels.mamba_scan.mamba_scan import (MAX_STATE, mamba_scan,
+                                                       mamba_scan_bwd)
+from repro_torch.kernels.mamba_scan.ref import (check_shapes,
+                                                mamba_scan_bwd_ref,
+                                                mamba_scan_ref)
 
 #: (rtol, atol) against the plain version, the relative part taken
 #: against the scale of the terms (:func:`term_scale`): both compute in
@@ -22,6 +30,21 @@ from repro_torch.kernels.mamba_scan.ref import check_shapes, mamba_scan_ref
 #: version), in the order of y's sum over the states, and in the
 #: exponential (``ex2.approx``, within 2 ulp, of a prescaled argument).
 TOL = (1e-5, 1e-5)
+#: the backward (kernel) against the plain backward, or either against
+#: autograd of the plain version: each gradient's largest error over its
+#: largest magnitude, by input dtype.  f32: all compute in f32 and differ
+#: in the order of the sums over the channels (dBm, dCm: a tree over a
+#: warp's 8 channels, then warps, then blocks of 64, where the plain
+#: backward runs one einsum), over time (dA, dD: a chain within a chunk
+#: of 16 steps, then the chunks in order; the states and cotangents
+#: chained across chunks by one exp of the chunk's summed dt, where the
+#: plain backward composes the steps' decays in an associative scan's
+#: tree), over the states (du, ddt), and in the exponential (``ex2.approx``,
+#: within 2 ulp, of a prescaled argument): relative differences of the
+#: order of 1e-6, which 1e-4 bounds.  bf16: f32 results that agree that
+#: closely round at most one bf16 step apart, and one ulp of the largest
+#: magnitude is at most 2**-7 of it.
+TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -70,6 +93,14 @@ def _ref(problem, arrays):
     return mamba_scan_ref(*arrays)
 
 
+def _bwd_run(problem, arrays, outs, grads):
+    return mamba_scan_bwd(*arrays, *grads)
+
+
+def _bwd_ref(problem, arrays, outs, grads):
+    return mamba_scan_bwd_ref(*arrays, *grads)
+
+
 def _make(problem, generator, device):
     """Inputs shaped like a Mamba layer's: dt = softplus(normal - 3) (the
     model's ``b_dt`` is -4.6), normal x, Bm, Cm and D, ``A = -exp(log(1
@@ -103,6 +134,8 @@ SPEC = registry.register(registry.KernelSpec(
     kernel=mamba_scan, run_call=_run, ref_call=_ref, make_call=_make,
     cache_key=_key, candidates=lambda problem: [{}],
     fits=lambda problem, params: True, supports=_supports, tol=TOL,
+    backward=registry.Backward(kernel=mamba_scan_bwd, run_call=_bwd_run,
+                               ref_call=_bwd_ref),
     default_problems=(
         {"b": 2, "s": 70, "di": 200, "ds": 16, "dtype": "float32"},
     )))
@@ -112,7 +145,8 @@ def mamba_scan_op(dt, x, Bm, Cm, A, D, h0):
     """The selective scan of dt, x ``[B, S, di]`` with Bm, Cm ``[B, S,
     ds]``, decays ``A`` ``[di, ds]`` and skip ``D`` ``[di]`` from state h0
     ``[B, di, ds]``: the plain version on the CPU, the kernel on the card.
-    Returns ``(y [B, S, di] f32, hT [B, di, ds] f32)``."""
+    Returns ``(y [B, S, di] f32, hT [B, di, ds] f32)``; differentiable in
+    every input on both (the backward kernel on the card)."""
     check_shapes(dt, x, Bm, Cm, A, D, h0)
     return registry.dispatch(SPEC, inspect_call(dt, x, Bm, Cm, A, D, h0),
                              (dt, x, Bm, Cm, A, D, h0), dt.device)

@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the Mamba selective scan, and the shape check
-every path shares.
+"""Plain PyTorch version of the Mamba selective scan, its plain backward,
+and the shape check every path shares.
 
 The reference has no Pallas kernel for this scan: its Mamba mixer
 computes it in jnp (``repro/models/blocks.py:538-588``), an inclusive
@@ -80,6 +80,14 @@ def _combine(e1, e2):
     return [a1 * a2, a2 * b1 + b2]
 
 
+def _chunk_terms(dtb, xb, Bb, Af):
+    """One chunk's decays ``a = exp(dt A)`` and inputs ``b = (dt x) Bm``
+    ``[B, c, di, ds]``, and ``u = dt x`` ``[B, c, di]``, all f32."""
+    a = torch.exp(dtb[..., None] * Af)
+    u = dtb * xb
+    return a, u[..., None] * Bb[:, :, None, :], u
+
+
 def mamba_scan_ref(dt, x, Bm, Cm, A, D, h0):
     """The selective scan in f32, chunk by chunk, per batch ``b`` and
     channel ``d``::
@@ -105,11 +113,81 @@ def mamba_scan_ref(dt, x, Bm, Cm, A, D, h0):
     y = torch.empty((B, S + pad, di), dtype=f32, device=dt.device)
     for t0 in range(0, S + pad, CHUNK):
         sl = slice(t0, t0 + CHUNK)
-        dtb = dtp[:, sl]
-        a = torch.exp(dtb[..., None] * Af)                    # [B, c, di, ds]
-        b = (dtb * xp[:, sl])[..., None] * Bp[:, sl, None, :]
+        a, b, _ = _chunk_terms(dtp[:, sl], xp[:, sl], Bp[:, sl], Af)
         Ac, Bc = associative_scan(_combine, [a, b], axis=1)
         hs = Ac * h[:, None] + Bc                             # inclusive
         y[:, sl] = torch.einsum("bcds,bcs->bcd", hs, Cp[:, sl])
         h = hs[:, -1]
     return y[:, :S] + x.to(f32) * D.to(f32), h
+
+
+def mamba_scan_bwd_ref(dt, x, Bm, Cm, A, D, h0, dy, dhT=None):
+    """The scan's gradient in f32: the cotangents of every input given
+    ``dy`` (y's, ``[B, S, di]``) and ``dhT`` (the final state's, ``[B, di,
+    ds]``; None is zeros).  With ``g_t`` the cotangent of the state after
+    step t, a reverse scan::
+
+        g_t   = dy_t Cm_t + a_{t+1} g_{t+1}       (g_{S-1} = dy Cm + dhT)
+        dh0   = a_0 g_0
+        dCm_t = sum_d dy_t h_t        dBm_t = sum_d u_t g_t    (u = dt x)
+        du_t  = sum_s g_t Bm_t        dx_t  = dt_t du_t + D dy_t
+        q_t   = g_t a_t h_{t-1}       ddt_t = x_t du_t + sum_s q_t A
+        dA    = sum_{b,t} q_t dt_t    dD    = sum_{b,t} dy_t x_t
+
+    Chunk by chunk (:data:`CHUNK` steps, the last padded as the forward
+    pads it): a forward pass keeps only the state before each chunk; then,
+    from the last chunk back, each chunk's states are recomputed from it
+    by :func:`mamba_scan_ref`'s associative scan and g by the same scan
+    over the reversed chunk, so the memory is one chunk's.  No decay is
+    divided by: decays that underflow to 0 give zeros, not NaN.  Returns
+    ``(ddt, dx, dBm, dCm, dA, dD, dh0)``, each in its input's dtype."""
+    check_shapes(dt, x, Bm, Cm, A, D, h0)
+    B, S, di = dt.shape
+    if tuple(dy.shape) != (B, S, di):
+        raise ValueError(f"dy must be {(B, S, di)}, got {tuple(dy.shape)}")
+    if dhT is not None and tuple(dhT.shape) != tuple(h0.shape):
+        raise ValueError(f"dhT must be {tuple(h0.shape)}, got "
+                         f"{tuple(dhT.shape)}")
+    f32 = torch.float32
+    Af, Df = A.to(f32), D.to(f32)
+    pad = -S % CHUNK
+    dtp, xp, Bp, Cp, dyp = (torch.nn.functional.pad(t.to(f32),
+                                                     (0, 0, 0, pad))
+                            for t in (dt, x, Bm, Cm, dy))
+    starts = range(0, S + pad, CHUNK)
+    h, before = h0.to(f32, copy=True), []
+    for t0 in starts:
+        before.append(h)
+        sl = slice(t0, t0 + CHUNK)
+        a, b, _ = _chunk_terms(dtp[:, sl], xp[:, sl], Bp[:, sl], Af)
+        Ac, Bc = associative_scan(_combine, [a, b], axis=1)
+        h = Ac[:, -1] * h + Bc[:, -1]
+    G = torch.zeros_like(h) if dhT is None else dhT.to(f32, copy=True)
+    ddt, dx = (torch.empty_like(dtp) for _ in range(2))
+    dB, dC = (torch.empty_like(Bp) for _ in range(2))
+    dA = torch.zeros_like(Af)
+    dD = torch.zeros_like(Df)
+    for t0, hb in zip(reversed(starts), reversed(before)):
+        sl = slice(t0, t0 + CHUNK)
+        dtb, xb, Bb, Cb, dyb = (t[:, sl] for t in (dtp, xp, Bp, Cp, dyp))
+        a, b, u = _chunk_terms(dtb, xb, Bb, Af)
+        Ac, Bc = associative_scan(_combine, [a, b], axis=1)
+        hs = Ac * hb[:, None] + Bc                          # h_t
+        prev = torch.cat([hb[:, None], hs[:, :-1]], dim=1)  # h_{t-1}
+        # g over the reversed chunk: G enters the last step with factor 1
+        nxt = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], dim=1)
+        e = dyb[..., None] * Cb[:, :, None, :]
+        Ar, Br = associative_scan(_combine, [nxt.flip(1), e.flip(1)], axis=1)
+        g = (Ar * G[:, None] + Br).flip(1)
+        G = a[:, 0] * g[:, 0]
+        q = g * a * prev
+        du = torch.einsum("bcds,bcs->bcd", g, Bb)
+        ddt[:, sl] = xb * du + torch.einsum("bcds,ds->bcd", q, Af)
+        dx[:, sl] = dtb * du + Df * dyb
+        dA += (q * dtb[..., None]).sum((0, 1))
+        dD += (dyb * xb).sum((0, 1))
+        dB[:, sl] = torch.einsum("bcd,bcds->bcs", u, g)
+        dC[:, sl] = torch.einsum("bcd,bcds->bcs", dyb, hs)
+    return (ddt[:, :S].to(dt.dtype), dx[:, :S].to(x.dtype),
+            dB[:, :S].to(Bm.dtype), dC[:, :S].to(Cm.dtype), dA.to(A.dtype),
+            dD.to(D.dtype), G.to(h0.dtype))

@@ -1684,19 +1684,105 @@ def test_mamba_scan_wrapper_refuses_what_it_cannot_take(dev):
         mamba_scan(*(arrays[:6] + (arrays[6].cpu(),)))
 
 
-def test_mamba_scan_refuses_grad_on_the_card(dev):
-    """No backward kernel: an input that requires grad raises on the card
-    (under no_grad the kernel runs)."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_op_differentiates_on_the_card(dev, dtype):
+    """An input that requires grad: the op runs the forward kernel once
+    and, through the registry's autograd function, the backward kernel
+    once, with no plain call; the gradients are the kernel's own (bit for
+    bit a direct launch on the same cotangents, zeros for the unread
+    final state) and within TOL_BWD of the plain backward."""
     from repro_torch.kernels.mamba_scan import ops
-    arrays = ops.SPEC.make_call(dict(b=1, s=8, di=16, ds=4,
-                                     dtype="float32"),
-                                torch.Generator().manual_seed(0), dev)
-    dt = arrays[0].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Backward kernels"):
-        ops.mamba_scan_op(dt, *arrays[1:])
-    with torch.no_grad():
-        y, _ = ops.mamba_scan_op(dt, *arrays[1:])
-    assert y.grad_fn is None
+    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_bwd
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_bwd_ref
+    arrays = ops.SPEC.make_call(dict(b=2, s=70, di=200, ds=16, dtype=dtype),
+                                torch.Generator().manual_seed(5), dev)
+    leaves = [a.clone().requires_grad_(True) for a in arrays]
+    ops.SPEC.reset_counts()
+    before = mamba_scan_bwd.launches
+    y, _ = ops.mamba_scan_op(*leaves)
+    dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(6)
+                     ).to(dev)
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert ops.SPEC.launches == 1 and ops.SPEC.plain_calls == 0
+    assert mamba_scan_bwd.launches == before + 1
+    direct = mamba_scan_bwd(*arrays, dy, torch.zeros_like(arrays[6]))
+    want = mamba_scan_bwd_ref(*arrays, dy)
+    tol = ops.TOL_BWD[arrays[0].dtype]
+    for g, k, w, a in zip(got, direct, want, arrays):
+        assert g.dtype == a.dtype and torch.equal(g, k)
+        err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert err.item() <= tol
+
+
+def test_mamba_scan_bwd_wrapper_refuses_what_it_cannot_take(dev):
+    """A state of 17, mixed dtypes and a CPU tensor: each raises before
+    any launch."""
+    from repro_torch.kernels.mamba_scan import ops
+    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_bwd
+    problem = dict(b=1, s=8, di=16, ds=16, dtype="float32")
+    arrays = ops.SPEC.make_call(problem, torch.Generator().manual_seed(0),
+                                dev)
+    wide = ops.SPEC.make_call(dict(problem, ds=17),
+                              torch.Generator().manual_seed(0), dev)
+    dy = torch.ones((1, 8, 16), device=dev)
+    before = mamba_scan_bwd.launches
+    with pytest.raises(ValueError, match="state size"):
+        mamba_scan_bwd(*wide, dy)
+    mixed = (arrays[0].to(torch.bfloat16),) + arrays[1:]
+    with pytest.raises(ValueError, match="one dtype"):
+        mamba_scan_bwd(*mixed, dy)
+    with pytest.raises(ValueError, match="CUDA"):
+        mamba_scan_bwd(*arrays, dy.cpu())
+    assert mamba_scan_bwd.launches == before
+
+
+MAMBA_BWD_CASES = [
+    # jamba's training width (d_inner 8,192, d_state 16) at a shorter
+    # sequence, without a cotangent on the final state (as in training)
+    dict(b=1, s=300, di=8192, ds=16, dhT=False),
+    # a ragged last chunk of 16 steps, a partial block of 64 channels
+    dict(b=2, s=70, di=200, ds=16),
+    dict(b=2, s=1, di=200, ds=16),
+    dict(b=2, s=70, di=200, ds=8),
+    dict(b=2, s=33, di=7, ds=5),
+    dict(b=2, s=70, di=200, ds=16, dt_max=200.0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MAMBA_BWD_CASES,
+                         ids=lambda c: "-".join(f"{k}{v}" for k, v in
+                                                c.items()))
+def test_mamba_scan_bwd_kernel_matches_plain_backward(dev, case, dtype):
+    """The backward kernel against the plain backward from h0 != 0, with
+    a cotangent on the final state unless the case says otherwise: each
+    gradient in its input's dtype, finite, within ``ops.TOL_BWD`` of the
+    plain backward's largest magnitude; a second launch bit for bit."""
+    from repro_torch.kernels.mamba_scan import ops
+    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_bwd
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_bwd_ref
+    problem = {k: v for k, v in case.items() if k != "dhT"}
+    arrays = _mamba_arrays(dict(problem, dtype=dtype), dev, 7)
+    gen = torch.Generator().manual_seed(8)
+    B, S, di = arrays[0].shape
+    dy = torch.randn((B, S, di), generator=gen).to(dev)
+    dhT = (torch.randn(tuple(arrays[6].shape), generator=gen).to(dev)
+           if case.get("dhT", True) else None)
+    before = mamba_scan_bwd.launches
+    got = mamba_scan_bwd(*arrays, dy, dhT)
+    again = mamba_scan_bwd(*arrays, dy, dhT)
+    want = mamba_scan_bwd_ref(*arrays, dy, dhT)
+    torch.cuda.synchronize()
+    assert mamba_scan_bwd.launches == before + 2
+    tol = ops.TOL_BWD[arrays[0].dtype]
+    for g, a2, w, a in zip(got, again, want, arrays):
+        assert g.dtype == a.dtype and g.shape == a.shape
+        assert torch.equal(g, a2)
+        assert torch.isfinite(g.float()).all()
+        err = (g.float() - w.float()).abs().max() / \
+            w.float().abs().max().clamp_min(1e-30)
+        assert err.item() <= tol
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

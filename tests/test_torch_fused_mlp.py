@@ -249,8 +249,9 @@ def test_build_raises_without_nvcc(monkeypatch):
                                      "flash_attention_bwd",
                                      "flash_attention_int8",
                                      "fused_mlp", "fused_mlp_int8",
-                                     "mamba_scan", "rwkv6_chunk",
-                                     "rwkv6_chunk_bwd", "stencil_gather"}
+                                     "mamba_scan", "mamba_scan_bwd",
+                                     "rwkv6_chunk", "rwkv6_chunk_bwd",
+                                     "stencil_gather"}
 
 
 # ------------------------------------------------------ 3xTF32 numerics ---

@@ -289,7 +289,8 @@ def test_jamba_decode_matches_forward_f32():
 def test_jamba_train_loss_and_every_grad_match_reference():
     """f32: the loss within rtol 1e-5 and every leaf's gradient within
     1e-4 of its largest magnitude of ``jax.value_and_grad`` (the scan's
-    gradient through the plain version's autograd)."""
+    gradient through the registry's autograd function and the plain
+    backward, ``mamba_scan_bwd_ref``)."""
     m = _jamba("float32")
     rng = np.random.default_rng(1)
     toks = rng.integers(0, m.cfg.vocab_size, (2, 25)).astype(np.int32)

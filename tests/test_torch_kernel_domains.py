@@ -23,14 +23,15 @@ device), through each op's own ``inspect_call``:
 - Mamba: ``mamba_scan`` at ``mamba_d_state`` in prefill (its step is
   plain torch).
 
-A backward has no spec of its own: ``flash_attention_bwd`` and
-``rwkv6_chunk_bwd`` each take their forward's domain (``bwd_takes``:
-q.k 1 to 256 over v 1 to ``min(hd, 128)``; hd 1 to 128 in f32 and
-bf16).  :data:`KNOWN_OUTSIDE` lists
-the problems that lie outside today, each with the queued work that
-closes it (ROADMAP queue 1, "Backward kernels"); the test fails both for
-a new problem outside a domain and for a listed one that has come
-inside, so the list stays exact.
+A backward has no spec of its own: ``flash_attention_bwd``,
+``rwkv6_chunk_bwd`` and ``mamba_scan_bwd`` each take their forward's
+domain (``bwd_takes``: q.k 1 to 256 over v 1 to ``min(hd, 128)``; hd 1
+to 128 in f32 and bf16; ds 1 to 16 in f32 and bf16, any S and di).
+:data:`KNOWN_OUTSIDE` lists the problems that lie outside today, each
+with the queued work that closes it (ROADMAP queue 1, "Backward
+kernels"); it is empty now, and the test fails both for a new problem
+outside a domain and for a listed one that has come inside, so the list
+stays exact.
 """
 import pytest
 
@@ -49,10 +50,7 @@ DTYPES = ("bfloat16", "float32")
 
 #: (config, phase, kernel) outside its kernel's domain on the card today,
 #: and the work that closes it
-KNOWN_OUTSIDE = {
-    ("jamba-v0.1-52b", "train", "mamba_scan_bwd"):
-        "backward kernel 4: mamba_scan has no backward kernel",
-}
+KNOWN_OUTSIDE = {}
 
 
 def _meta(shape, dtype):
@@ -142,8 +140,9 @@ def outside(phase, kernel, problem):
     it leaves: the forward's ``spec.supports`` and, in training, the
     backward's (``flash_attention_bwd``'s ``bwd_takes``, the forward's
     widths; ``rwkv6_chunk_bwd``'s is the forward's, ``bwd_launch_shape``'s
-    hd 1 to 128 in f32 and bf16; a spec without a backward kernel takes
-    none)."""
+    hd 1 to 128 in f32 and bf16; ``mamba_scan_bwd``'s is the forward's
+    too, ds 1 to ``MAX_STATE`` in f32 and bf16, as its wrapper checks; a
+    spec without a backward kernel takes none)."""
     spec = SPECS[kernel]
     found = [] if spec.supports(problem) else [kernel]
     if phase == "train":
@@ -152,8 +151,9 @@ def outside(phase, kernel, problem):
         elif kernel == "flash_attention" and not bwd_takes(
                 problem["hd"], problem.get("hdv", problem["hd"])):
             found.append("flash_attention_bwd")
-        elif kernel == "rwkv6_chunk" and not spec.supports(problem):
-            found.append("rwkv6_chunk_bwd")
+        elif kernel in ("rwkv6_chunk", "mamba_scan") and not \
+                spec.supports(problem):
+            found.append(f"{kernel}_bwd")
     return found
 
 
@@ -205,10 +205,11 @@ def test_a_config_outside_a_domain_is_found():
     and backward, an MLA q.k head past 256), and MLA inside it at q.k 128
     over v 128 as at its own 192 over 128."""
     jamba = all_configs()["jamba-v0.1-52b"]
-    wide_state = [k for ph, kernel, p in kernel_problems(
+    wide_state = {(ph, k) for ph, kernel, p in kernel_problems(
         jamba.replace(mamba_d_state=17), "bfloat16")
-        for k in outside(ph, kernel, p)]
-    assert "mamba_scan" in wide_state
+        for k in outside(ph, kernel, p)}
+    assert wide_state == {("prefill", "mamba_scan"), ("train", "mamba_scan"),
+                          ("train", "mamba_scan_bwd")}
     llama = all_configs()["llama3.2-3b"]
     wide = {(ph, k) for ph, kernel, p in kernel_problems(
         llama.replace(head_dim=192), "bfloat16")

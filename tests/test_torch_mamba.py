@@ -260,9 +260,10 @@ def test_cpu_dispatch_takes_plain_version_and_counts():
 
 
 def test_plain_version_differentiates_on_the_cpu():
-    """No backward kernel: on the CPU the op's plain version carries the
-    gradient, here of every input, equal (1e-4 of the largest) to the
-    gradient of the kernel's sequential order."""
+    """On the CPU the op differentiates through the registry's autograd
+    function and the plain backward (``mamba_scan_bwd_ref``): the gradient
+    of every input equal (1e-4 of the largest) to autograd of the
+    forward kernel's sequential order."""
     arrays = _scan_inputs(1, 9, 6, 4, seed=4)
     w = torch.from_numpy(_normal(5, 1, 9, 6))
     grads = []

@@ -387,9 +387,8 @@ def test_train_state_and_shardings():
 
 
 # ------------------------------------------------------- registry guard ---
-@pytest.mark.parametrize("kernel", ["mamba_scan", "fused_mlp",
-                                    "fused_mlp_int8", "stencil_gather",
-                                    "flash_attention_int8"])
+@pytest.mark.parametrize("kernel", ["fused_mlp", "fused_mlp_int8",
+                                    "stencil_gather", "flash_attention_int8"])
 def test_kernel_without_backward_refuses_grad_on_the_card(kernel):
     """On CUDA a spec without a backward raises for an input that
     requires grad (before any launch: no card is needed to reach it);
