@@ -630,19 +630,23 @@ MAMBA_UNDERFLOW_DT = 200.0
 # term, dBm and dCm (a fused multiply-add each, 10); beside them one exp2
 # a state and step on the SFUs (each decay computed at least once)
 MAMBA_BWD_OPS = 17
-# the exp2 a state and step the kernel's design computes: one in its
-# local pass, two in its chunk pass (the states recomputed, then the
-# decays again on the walk back)
-MAMBA_BWD_DESIGN_EXPS = 3
-MAMBA_BWD_DESIGN = ("chunks of 16 steps: each chunk from a zero state and "
-                    "cotangent (its decays in registers), boundary states "
-                    "and cotangents chained by exp2(A log2e sum dt), every "
+# the exp2 a state and step the kernel's design computes: the states
+# recomputed from the forward's kept ones, then the decays again on the
+# walk back
+MAMBA_BWD_DESIGN_EXPS = 2
+MAMBA_BWD_DESIGN = ("one reverse walk a block of 64 channels of a batch "
+                    "row, chunks of 16 steps from the last, the cotangent "
+                    "carried across chunks in registers (dhT to dh0); each "
                     "chunk's states recomputed in registers (4 lanes a "
-                    "channel, 4 states each) and its cotangent walked back; "
-                    "4 chunks a block, staged by cp.async, double-buffered; "
-                    "dBm/dCm summed over a warp's 8 channels by shuffles, "
-                    "over warps in shared memory, over blocks and dA/dD "
-                    "over chunk groups by an ordered sum kernel")
+                    "channel, 4 states each) from the state before it that "
+                    "the forward kept under grad, then its cotangent walked "
+                    "back, each step's sums one shuffle level deep into "
+                    "shared memory and finished after the chunk (dx, ddt, "
+                    "dBm/dCm over the block's channel pairs in order); "
+                    "inputs staged by cp.async, double-buffered, the "
+                    "boundary states prefetched into registers, two blocks "
+                    "an SM; dBm/dCm over blocks and dA/dD over the batch by "
+                    "an ordered sum kernel")
 # the LM training slice: llama3.2-3b at full width and depth trained on
 # one repeated TokenPipeline batch of 2 x 2,048 tokens, 4 steps past the
 # warmup (policy full); attention's backward at that shape
@@ -3461,27 +3465,23 @@ def check_mamba_scan(dev):
     return results, failures, prefill
 
 
-def sass_loops(so_path):
-    """Instructions of one step of each ``mamba_scan_kernel`` (one a
-    dtype) in the library at ``so_path``, from ``cuobjdump -sass``: the
-    innermost loop holding the exps (a backward ``BRA`` and its target),
-    its instructions (``NOP`` aside) over the steps an iteration (its
-    ``MUFU.EX2`` over a lane's 8 exps a step), per lane and per channel
-    (times its 2 lanes), with the loop's opcodes counted.  None where the
-    toolkit has no ``cuobjdump``."""
+def sass_functions(path, kernel):
+    """``(name, loop)`` for each function of the library or cubin at
+    ``path`` whose name holds ``kernel``, from ``cuobjdump -sass``:
+    ``loop`` the instructions (``NOP`` aside) of its shortest loop (a
+    backward ``BRA`` and its target) that holds a ``MUFU.EX2``.  None
+    where the toolkit has no ``cuobjdump``."""
     import re
-    from repro_torch.kernels.mamba_scan import mamba_scan as scan
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.access(tool, os.X_OK):
         return None
-    text = subprocess.run([tool, "-sass", str(so_path)], capture_output=True,
+    text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    lanes, out = scan.LANES, {}
+    found = []
     for block in text.split("Function : ")[1:]:
         name = block.split("\n", 1)[0].strip()
-        if "mamba_scan_kernel" not in name:
+        if kernel not in name:
             continue
-        elt = "bf16" if "bfloat16" in name.split("EvPK")[0] else "f32"
         instrs = [(int(a, 16), op.strip()) for a, op in re.findall(
             r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
         loops = []
@@ -3491,23 +3491,84 @@ def sass_loops(so_path):
                 body = [o for a, o in instrs
                         if int(m.group(1), 16) <= a <= addr
                         and not o.startswith("NOP")]
-                mufu = sum("MUFU.EX2" in o for o in body)
-                if mufu:
-                    loops.append((len(body), mufu, body))
-        if not loops:
-            continue
-        n, mufu, body = min(loops, key=lambda loop: loop[0])
+                if any("MUFU.EX2" in o for o in body):
+                    loops.append(body)
+        if loops:
+            found.append((name, min(loops, key=len)))
+    return found
+
+
+def _opcodes(body):
+    """Opcode counts of SASS instructions (predicates dropped)."""
+    import re
+    counts = {}
+    for o in body:
+        key = re.sub(r"^@!?U?P\w+\s+", "", o).split()[0]
+        counts[key] = counts.get(key, 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def sass_loops(so_path):
+    """Instructions of one step of each ``mamba_scan_kernel`` (one a
+    dtype, and one a dtype that keeps states for the backward, ``keep``)
+    in the library at ``so_path`` (``sass_functions``): its loop's
+    instructions over the steps an iteration (its ``MUFU.EX2`` over a
+    lane's 8 exps a step), per lane and per channel (times its 2 lanes),
+    with the loop's opcodes counted.  None where the toolkit has no
+    ``cuobjdump``."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as scan
+    loops = sass_functions(so_path, "mamba_scan_kernel")
+    if loops is None:
+        return None
+    lanes, out = scan.LANES, {}
+    for name, body in loops:
+        head = name.split("EvPK")[0]
+        elt = "bf16" if "bfloat16" in head else "f32"
+        if "Lb1E" in head:
+            elt += " keep"  # the instance that keeps states for the backward
+        n, mufu = len(body), sum("MUFU.EX2" in o for o in body)
         steps = mufu / (scan.MAX_STATE // lanes)
-        ops_count = {}
-        for o in body:
-            key = re.sub(r"^@!?U?P\w+\s+", "", o).split()[0]
-            ops_count[key] = ops_count.get(key, 0) + 1
         out[elt] = {
             "loop_instructions": n, "steps_an_iteration": steps,
             "per_lane_step": n / steps, "per_channel_step": n / steps * lanes,
             "mufu_per_channel_step": mufu / steps * lanes,
-            "opcodes": dict(sorted(ops_count.items(),
-                                   key=lambda kv: -kv[1]))}
+            "opcodes": _opcodes(body)}
+    return out
+
+
+def bwd_sass_loops(path, kernel="mamba_bwd_walk"):
+    """Instructions of one lane-step of the selective scan backward's
+    chunk loop in each instance of ``kernel`` (one a dtype) in the library
+    or cubin at ``path`` (``sass_functions``), cut at the loop's first
+    ``MUFU.EX2``, at its ``BWD_CHUNK x 4``-th (the last of the states'
+    recompute) and at its last ``SHFL`` (the walk back's last reduction),
+    each part over the chunk's ``BWD_CHUNK`` steps: ``recompute``,
+    ``walk_back`` and ``chunk_rest`` (staging, barriers, the block's sums
+    and the stores; the scheduler may move a few instructions across the
+    cuts), with each part's opcodes.  ``kernel`` ``mamba_bwd_chunks``
+    reads the earlier design's chunk pass (the backward before the
+    forward kept its states), which has the same two loops.  None where
+    the toolkit has no ``cuobjdump``."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as scan
+    loops = sass_functions(path, kernel)
+    if loops is None:
+        return None
+    C, out = scan.BWD_CHUNK, {}
+    recompute_exps = C * scan.MAX_STATE // scan.BWD_LANES
+    for name, body in loops:
+        elt = "bf16" if "bfloat16" in name else "f32"
+        exps = [i for i, o in enumerate(body) if "MUFU.EX2" in o]
+        shfl = [i for i, o in enumerate(body) if "SHFL" in o]
+        cut = exps[recompute_exps - 1] + 1
+        end = shfl[-1] + 1 if shfl else len(body)
+        parts = {"recompute": body[exps[0]:cut], "walk_back": body[cut:end],
+                 "chunk_rest": body[:exps[0]] + body[end:]}
+        out[elt] = {"loop_instructions": len(body),
+                    "per_lane_step": len(body) / C,
+                    "mufu_per_lane_step": len(exps) / C,
+                    **{f"{k}_per_lane_step": len(v) / C
+                       for k, v in parts.items()},
+                    "opcodes": {k: _opcodes(v) for k, v in parts.items()}}
     return out
 
 
@@ -5207,17 +5268,22 @@ def check_mamba_scan_bwd(dev, smi):
     ``MAMBA_UNDERFLOW_DT``), d_state 8, S 70 (a ragged last chunk), S 1,
     di 200 (a partial block) and 201 (bf16 rows not 4-byte aligned: dt
     and x staged element by element), the others from h0 != 0 with a
-    cotangent on the final state.  Autograd of the plain version keeps
+    cotangent on the final state; each from the states the forward kernel
+    kept (``keep_states``).  Autograd of the plain version keeps
     about 10.6 B S di ds f32 (22.8 GB at the training shape): it fits a
     card that holds nothing else, as here.  Then
     its CUDA-event time at the training shape in bf16 and f32, each of
     its kernels' device time a launch (torch.profiler over 20 calls), the
-    plain backward's time, the forward's at the same shape and
-    ``mamba_bwd_bound``.  Raises on any failure; returns the training
+    plain backward's time, the forward's at the same shape without and
+    with its kept states (in turns: without, with, with, without), the
+    backward at B 1 (half the blocks: one an SM) and
+    ``mamba_bwd_bound``; and the SASS of one lane-step of the walk
+    (``bwd_sass_loops``).  Raises on any failure; returns the training
     shape's line."""
     import re
 
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels.mamba_scan import mamba_scan as scan
     from repro_torch.kernels.mamba_scan import ops
     from repro_torch.kernels.mamba_scan.ref import (mamba_scan_bwd_ref,
@@ -5253,8 +5319,9 @@ def check_mamba_scan_bwd(dev, smi):
         dy = torch.randn((B, S, di), generator=gen).to(dev)
         dhT = (torch.randn(tuple(arrays[6].shape), generator=gen).to(dev)
                if with_dhT else None)
-        got = scan.mamba_scan_bwd(*arrays, dy, dhT)
-        again = scan.mamba_scan_bwd(*arrays, dy, dhT)
+        states = scan.mamba_scan(*arrays, keep_states=True)[2]
+        got = scan.mamba_scan_bwd(*arrays, dy, dhT, states=states)
+        again = scan.mamba_scan_bwd(*arrays, dy, dhT, states=states)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         del again
@@ -5288,18 +5355,18 @@ def check_mamba_scan_bwd(dev, smi):
                 and max(res["vs_autograd_of_plain"].values()) <= tol):
             failures.append(f"mamba_scan_bwd {label}: {res}")
         if label.startswith("jamba training"):
-            timed[problem["dtype"]] = (arrays, dy)
-        del got
+            timed[problem["dtype"]] = (arrays, dy, states)
+        del got, states
     line = dict(cases=results, shape=JAMBA_TRAIN_SCAN, design=MAMBA_BWD_DESIGN,
                 max_abs_err=results["jamba training bf16"]["max_abs_err"],
                 launch=scan.bwd_launch_shape(*(JAMBA_TRAIN_SCAN[k]
                                                for k in ("b", "s", "di"))),
                 library_ms=None)
-    for dtype, (arrays, dy) in timed.items():
+    for dtype, (arrays, dy, states) in timed.items():
         problem = dict(JAMBA_TRAIN_SCAN, dtype=dtype)
 
         def kernel():
-            return scan.mamba_scan_bwd(*arrays, dy)
+            return scan.mamba_scan_bwd(*arrays, dy, states=states)
         ms = cuda_ms(kernel, 10)
         *_, by = device_busy(lambda: [kernel() for _ in range(20)], {})
         kernels_ms = {}
@@ -5309,11 +5376,21 @@ def check_mamba_scan_bwd(dev, smi):
                 kernels_ms[m.group(0)] = {"ms": secs * 1e3 / n,
                                           "launches_traced": n, "calls": 20}
         bound_ms, bound_by, nbytes, operations = mamba_bwd_bound(problem)
+        # the forward without and with its kept states, in turns
+        fwd = [cuda_ms(lambda: scan.mamba_scan(*arrays, keep_states=keep),
+                       10) for keep in (False, True, True, False)]
+        one = [a[:1] for a in arrays[:4]] + [arrays[4], arrays[5],
+                                             arrays[6][:1]]
         out = dict(ms=ms, kernels_ms=kernels_ms,
                    plain_ms=cuda_ms(lambda: mamba_scan_bwd_ref(*arrays, dy),
                                     1, warmup=1),
-                   fwd_ms=cuda_ms(lambda: ops.SPEC.run_call(problem, arrays,
-                                                            {}), 10),
+                   fwd_ms=(fwd[0] + fwd[3]) / 2,
+                   fwd_keep_ms=(fwd[1] + fwd[2]) / 2,
+                   fwd_in_turns_ms=fwd,
+                   b1_ms=cuda_ms(lambda: scan.mamba_scan_bwd(
+                       *one, dy[:1], states=states[:1]), 10),
+                   b1_launch=scan.bwd_launch_shape(1, *(
+                       JAMBA_TRAIN_SCAN[k] for k in ("s", "di"))),
                    bound_ms=bound_ms, bound_by=bound_by,
                    share_of_bound=bound_ms / ms, bytes=nbytes,
                    operations=operations)
@@ -5321,6 +5398,8 @@ def check_mamba_scan_bwd(dev, smi):
             line.update(out)
         else:
             line.update({f"f32_{k}": v for k, v in out.items()})
+    line["sass"] = bwd_sass_loops(_build.build_all(["mamba_scan_bwd"])[
+        "mamba_scan_bwd"].so_path)
     del timed
     line["ok"] = not failures
     emit("kernel", kernel="mamba_scan_bwd", nvidia_smi=smi, **line)
@@ -6243,7 +6322,8 @@ def main():
         "bound_by": mamba_bwd["bound_by"], "library_ms": None,
         "f32_ms": mamba_bwd["f32_ms"], "f32_plain_ms": mamba_bwd["f32_plain_ms"],
         "f32_bound_ms": mamba_bwd["f32_bound_ms"],
-        "fwd_ms": mamba_bwd["fwd_ms"], "kernels_ms": mamba_bwd["kernels_ms"],
+        "fwd_ms": mamba_bwd["fwd_ms"], "fwd_keep_ms": mamba_bwd["fwd_keep_ms"],
+        "b1_ms": mamba_bwd["b1_ms"], "kernels_ms": mamba_bwd["kernels_ms"],
         "launch": mamba_bwd["launch"]}]
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:

@@ -57,6 +57,15 @@
 // of the decays on the f32 pipe (a Cody-Waite reduction and a degree-6
 // polynomial) were each measured slower at jamba's prefill.
 //
+// Under grad the wrapper passes `hs`, and the kernel also stores each
+// channel's state before every KEEP_EVERY-th step, [B, ceil(S /
+// KEEP_EVERY), di, MAX_STATE] f32: the states the backward
+// (mamba_scan_bwd.cu) starts its chunks from, so that it recomputes no
+// boundary state.  A lane stores its SPL states with two 16-byte stores
+// at the first step of a chunk; KEEP_EVERY divides STEPS and is even, so
+// that step is the first of a pair or an odd last step.  Without `hs`
+// (the serving path) the kernel is the instance that stores nothing.
+//
 // Rounding: dt * x is rounded before it scales Bm, as in the reference;
 // the state update is one fused multiply-add a * h + b.  y's sum: in a
 // lane, state slot j goes into chain j mod 2 by a fused multiply-add, in
@@ -79,11 +88,15 @@
 #define CHANNELS 128  // channels a block, LANES lanes each
 #define STEPS 32      // steps a staged chunk
 #define LANES 2       // lanes a channel
+#define KEEP_EVERY 16 // steps between the states kept for the backward
 
 constexpr int SPL = MAX_STATE / LANES;  // states a lane
 static_assert(LANES == 2 && SPL % 4 == 0,
               "meet() and the stores of a step pair take two lanes a "
               "channel; a lane takes whole 16-byte loads of the rows");
+static_assert(STEPS % KEEP_EVERY == 0 && KEEP_EVERY % 2 == 0,
+              "a kept state falls on the first step of a pair or on an odd "
+              "last step of a staged chunk");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -202,14 +215,27 @@ __device__ __forceinline__ float meet(float v) {
   return __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
 }
 
-template <typename Elt>
+// This lane's SPL states, the state before step t (t a multiple of
+// KEEP_EVERY), into hs [B, nk, di, MAX_STATE].
+__device__ __forceinline__ void keep_state(float* __restrict__ hs,
+                                           const float* h, int b, int t,
+                                           int nk, int d, int di, int g) {
+  float4* p = reinterpret_cast<float4*>(
+      hs + (((long long)b * nk + t / KEEP_EVERY) * di + d) * MAX_STATE +
+      g * SPL);
+#pragma unroll
+  for (int q = 0; q < SPL / 4; ++q)
+    p[q] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
+}
+
+template <typename Elt, bool Keep>
 __global__ void __launch_bounds__(CHANNELS * LANES)
 mamba_scan_kernel(const Elt* __restrict__ dt, const Elt* __restrict__ x,
                   const float* __restrict__ Bm, const float* __restrict__ Cm,
                   const float* __restrict__ A, const float* __restrict__ D,
                   const float* __restrict__ h0, float* __restrict__ y,
-                  float* __restrict__ hT, int S, int di, int ds,
-                  int in_width) {
+                  float* __restrict__ hT, float* __restrict__ hs, int S,
+                  int di, int ds, int in_width) {
   constexpr int NT = CHANNELS * LANES;
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -246,6 +272,7 @@ mamba_scan_kernel(const Elt* __restrict__ dt, const Elt* __restrict__ x,
   };
 
   const int nc = (S + STEPS - 1) / STEPS;
+  const int nk = (S + KEEP_EVERY - 1) / KEEP_EVERY;  // kept states a row
   if (nc > 0) stage(0);
   cp_async_commit();
   if (nc > 1) stage(1);
@@ -273,6 +300,8 @@ mamba_scan_kernel(const Elt* __restrict__ dt, const Elt* __restrict__ x,
     float* const yp = y + (row0 + t0) * di + d;
     int cc = 0;
     for (; cc + 1 < n; cc += 2) {
+      if (Keep && live && cc % KEEP_EVERY == 0)
+        keep_state(hs, h, b, t0 + cc, nk, d, di, g);
       float x0, x1;
       const float s0 = lane_step(buf, cc, ch, g, a2, h, x0);
       const float s1 = lane_step(buf, cc + 1, ch, g, a2, h, x1);
@@ -282,6 +311,8 @@ mamba_scan_kernel(const Elt* __restrict__ dt, const Elt* __restrict__ x,
       if (live && g == LANES - 1) yp[(long long)(cc + 1) * di] = y1;
     }
     if (cc < n) {  // an odd last step
+      if (Keep && live && cc % KEEP_EVERY == 0)
+        keep_state(hs, h, b, t0 + cc, nk, d, di, g);
       float x0;
       const float s0 = lane_step(buf, cc, ch, g, a2, h, x0);
       const float y0 = __fadd_rn(meet(s0), __fmul_rn(dskip, x0));
@@ -303,14 +334,14 @@ static bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <typename Elt>
+template <typename Elt, bool Keep>
 static int launch(const void* dt, const void* x, const void* Bm,
                   const void* Cm, const float* A, const float* D,
-                  const float* h0, float* y, float* hT, int B, int S, int di,
-                  int ds, cudaStream_t stream) {
+                  const float* h0, float* y, float* hT, float* hs, int B,
+                  int S, int di, int ds, cudaStream_t stream) {
   const size_t smem = smem_bytes<Elt>();
   cudaError_t err = cudaFuncSetAttribute(
-      mamba_scan_kernel<Elt>,
+      mamba_scan_kernel<Elt, Keep>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int esz = (int)sizeof(Elt);
@@ -323,10 +354,10 @@ static int launch(const void* dt, const void* x, const void* Bm,
   else if (di * esz % 4 == 0 && aligned(dt, 4) && aligned(x, 4))
     in_width = 4;
   const dim3 grid((unsigned)((di + CHANNELS - 1) / CHANNELS), (unsigned)B);
-  mamba_scan_kernel<Elt><<<grid, CHANNELS * LANES, smem, stream>>>(
+  mamba_scan_kernel<Elt, Keep><<<grid, CHANNELS * LANES, smem, stream>>>(
       static_cast<const Elt*>(dt), static_cast<const Elt*>(x),
       static_cast<const float*>(Bm), static_cast<const float*>(Cm), A, D, h0,
-      y, hT, S, di, ds, in_width);
+      y, hT, hs, S, di, ds, in_width);
   return (int)cudaGetLastError();
 }
 
@@ -335,18 +366,22 @@ extern "C" int mamba_scan_max_state() { return MAX_STATE; }
 extern "C" int mamba_scan_channels() { return CHANNELS; }
 extern "C" int mamba_scan_steps() { return STEPS; }
 extern "C" int mamba_scan_lanes() { return LANES; }
+extern "C" int mamba_scan_keep_every() { return KEEP_EVERY; }
 
 // dt, x: [B, S, di], device pointers of elem_bytes (4: f32, 2: bf16)
 // elements; Bm, Cm: [B, S, MAX_STATE] f32, zero past ds, 16-byte
 // aligned.  A [di, ds], D [di], h0 and hT [B, di, ds], y [B, S, di]:
-// f32.  All contiguous.  Returns a cudaError_t (0 on success); the
+// f32.  hs: null, or [B, ceil(S / KEEP_EVERY), di, MAX_STATE] f32,
+// 16-byte aligned, for the states before every KEEP_EVERY-th step (zero
+// past ds).  All contiguous.  Returns a cudaError_t (0 on success); the
 // launch is asynchronous on `stream`.
 extern "C" int mamba_scan(const void* dt, const void* x, const void* Bm,
                           const void* Cm, const void* A, const void* D,
-                          const void* h0, void* y, void* hT, int B, int S,
-                          int di, int ds, int elem_bytes, void* stream) {
+                          const void* h0, void* y, void* hT, void* hs, int B,
+                          int S, int di, int ds, int elem_bytes,
+                          void* stream) {
   if (B < 1 || B > 65535 || S < 0 || di < 1 || ds < 1 || ds > MAX_STATE ||
-      !aligned(Bm, 16) || !aligned(Cm, 16) ||
+      !aligned(Bm, 16) || !aligned(Cm, 16) || !aligned(hs, 16) ||
       (elem_bytes != 4 && elem_bytes != 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -355,9 +390,14 @@ extern "C" int mamba_scan(const void* dt, const void* x, const void* Bm,
   const float* h0f = static_cast<const float*>(h0);
   float* yf = static_cast<float*>(y);
   float* hTf = static_cast<float*>(hT);
+  float* hsf = static_cast<float*>(hs);
   if (elem_bytes == 4)
-    return launch<float>(dt, x, Bm, Cm, Af, Df, h0f, yf, hTf, B, S, di, ds,
-                         s);
-  return launch<__nv_bfloat16>(dt, x, Bm, Cm, Af, Df, h0f, yf, hTf, B, S, di,
-                               ds, s);
+    return hs ? launch<float, true>(dt, x, Bm, Cm, Af, Df, h0f, yf, hTf, hsf,
+                                    B, S, di, ds, s)
+              : launch<float, false>(dt, x, Bm, Cm, Af, Df, h0f, yf, hTf,
+                                     hsf, B, S, di, ds, s);
+  return hs ? launch<__nv_bfloat16, true>(dt, x, Bm, Cm, Af, Df, h0f, yf, hTf,
+                                          hsf, B, S, di, ds, s)
+            : launch<__nv_bfloat16, false>(dt, x, Bm, Cm, Af, Df, h0f, yf,
+                                           hTf, hsf, B, S, di, ds, s);
 }

@@ -10,7 +10,9 @@ The op is differentiable on both devices: the spec's ``backward`` makes
 ``registry.dispatch`` wrap the call in an autograd function whose
 backward is :func:`~.mamba_scan.mamba_scan_bwd` on the card and
 :func:`~.ref.mamba_scan_bwd_ref` on the CPU, through both outputs (y and
-the final state).
+the final state).  Under grad the forward keeps the states before every
+``BWD_CHUNK``-th step (``keep_states``) as the backward's residual, which
+the backward starts its chunks from.
 """
 from __future__ import annotations
 
@@ -33,17 +35,17 @@ TOL = (1e-5, 1e-5)
 #: the backward (kernel) against the plain backward, or either against
 #: autograd of the plain version: each gradient's largest error over its
 #: largest magnitude, by input dtype.  f32: all compute in f32 and differ
-#: in the order of the sums over the channels (dBm, dCm: a tree over a
-#: warp's 8 channels, then warps, then blocks of 64, where the plain
-#: backward runs one einsum), over time (dA, dD: a chain within a chunk
-#: of 16 steps, then the chunks in order; the states and cotangents
-#: chained across chunks by one exp of the chunk's summed dt, where the
-#: plain backward composes the steps' decays in an associative scan's
-#: tree), over the states (du, ddt), and in the exponential (``ex2.approx``,
-#: within 2 ulp, of a prescaled argument): relative differences of the
-#: order of 1e-6, which 1e-4 bounds.  bf16: f32 results that agree that
-#: closely round at most one bf16 step apart, and one ulp of the largest
-#: magnitude is at most 2**-7 of it.
+#: in the order of the sums over the channels (dBm, dCm: pairs of
+#: channels, then a block's 32 pairs in order, then blocks of 64, where
+#: the plain backward runs one einsum), over time (dA, dD: one chain over a batch
+#: row's steps, then the rows in order), in the states (the forward
+#: kernel's sequential chain, kept every 16 steps and recomputed from
+#: there, where the plain backward composes the steps' decays in an
+#: associative scan's tree), over the states (du, ddt), and in the
+#: exponential (``ex2.approx``, within 2 ulp, of a prescaled argument):
+#: relative differences of the order of 1e-6, which 1e-4 bounds.  bf16:
+#: f32 results that agree that closely round at most one bf16 step apart,
+#: and one ulp of the largest magnitude is at most 2**-7 of it.
 TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -93,12 +95,23 @@ def _ref(problem, arrays):
     return mamba_scan_ref(*arrays)
 
 
-def _bwd_run(problem, arrays, outs, grads):
-    return mamba_scan_bwd(*arrays, *grads)
+def _keep_run(problem, arrays, params):
+    del params  # no tunables
+    y, hT, states = mamba_scan(*arrays, keep_states=True)
+    return (y, hT), (states,)
 
 
-def _bwd_ref(problem, arrays, outs, grads):
-    return mamba_scan_bwd_ref(*arrays, *grads)
+def _keep_ref(problem, arrays):
+    y, hT, states = mamba_scan_ref(*arrays, keep_states=True)
+    return (y, hT), (states,)
+
+
+def _bwd_run(problem, arrays, outs, grads, states):
+    return mamba_scan_bwd(*arrays, *grads, states=states)
+
+
+def _bwd_ref(problem, arrays, outs, grads, states):
+    return mamba_scan_bwd_ref(*arrays, *grads, states=states)
 
 
 def _make(problem, generator, device):
@@ -135,7 +148,8 @@ SPEC = registry.register(registry.KernelSpec(
     cache_key=_key, candidates=lambda problem: [{}],
     fits=lambda problem, params: True, supports=_supports, tol=TOL,
     backward=registry.Backward(kernel=mamba_scan_bwd, run_call=_bwd_run,
-                               ref_call=_bwd_ref),
+                               ref_call=_bwd_ref, keep_run=_keep_run,
+                               keep_ref=_keep_ref),
     default_problems=(
         {"b": 2, "s": 70, "di": 200, "ds": 16, "dtype": "float32"},
     )))

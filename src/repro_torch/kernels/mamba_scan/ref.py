@@ -17,6 +17,11 @@ import torch
 #: Steps a chunk of the scan: the default ``chunk`` of the reference's
 #: ``mamba_seq`` (blocks.py:537).
 CHUNK = 64
+#: Steps between the states a forward keeps for its backward
+#: (``keep_states``): the backward kernel's chunk (``BWD_CHUNK``).  It
+#: divides :data:`CHUNK`, so the plain backward finds the state before
+#: each of its chunks among them.
+KEEP_EVERY = 16
 
 
 def check_shapes(dt, x, Bm, Cm, A, D, h0) -> None:
@@ -88,7 +93,16 @@ def _chunk_terms(dtb, xb, Bb, Af):
     return a, u[..., None] * Bb[:, :, None, :], u
 
 
-def mamba_scan_ref(dt, x, Bm, Cm, A, D, h0):
+def kept_states(h, hs, t0, S):
+    """The states before the steps ``t`` in ``[t0, t0 + CHUNK)``, ``t <
+    S``, that are multiples of :data:`KEEP_EVERY`, from a chunk's
+    incoming state ``h`` and its inclusive states ``hs`` ``[B, CHUNK, di,
+    ds]``."""
+    return [h if t == t0 else hs[:, t - t0 - 1]
+            for t in range(t0, min(t0 + CHUNK, S), KEEP_EVERY)]
+
+
+def mamba_scan_ref(dt, x, Bm, Cm, A, D, h0, keep_states=False):
     """The selective scan in f32, chunk by chunk, per batch ``b`` and
     channel ``d``::
 
@@ -101,7 +115,9 @@ def mamba_scan_ref(dt, x, Bm, Cm, A, D, h0):
     :func:`associative_scan` of ``(a, b)``, applied to the chunk's
     incoming state; the last chunk is padded with zero steps (a = 1,
     b = 0), as the reference pads it.  Returns ``(y [B, S, di] f32,
-    hT [B, di, ds] f32)``."""
+    hT [B, di, ds] f32)``; with ``keep_states`` also the states before
+    every :data:`KEEP_EVERY`-th step, ``[B, ceil(S / KEEP_EVERY), di,
+    ds]`` f32, which :func:`mamba_scan_bwd_ref` takes."""
     check_shapes(dt, x, Bm, Cm, A, D, h0)
     f32 = torch.float32
     B, S, di = dt.shape
@@ -111,17 +127,24 @@ def mamba_scan_ref(dt, x, Bm, Cm, A, D, h0):
     dtp, xp, Bp, Cp = (torch.nn.functional.pad(t.to(f32), (0, 0, 0, pad))
                        for t in (dt, x, Bm, Cm))
     y = torch.empty((B, S + pad, di), dtype=f32, device=dt.device)
+    kept = []
     for t0 in range(0, S + pad, CHUNK):
         sl = slice(t0, t0 + CHUNK)
         a, b, _ = _chunk_terms(dtp[:, sl], xp[:, sl], Bp[:, sl], Af)
         Ac, Bc = associative_scan(_combine, [a, b], axis=1)
         hs = Ac * h[:, None] + Bc                             # inclusive
         y[:, sl] = torch.einsum("bcds,bcs->bcd", hs, Cp[:, sl])
+        if keep_states:
+            kept += kept_states(h, hs, t0, S)
         h = hs[:, -1]
-    return y[:, :S] + x.to(f32) * D.to(f32), h
+    y = y[:, :S] + x.to(f32) * D.to(f32)
+    if not keep_states:
+        return y, h
+    return y, h, (torch.stack(kept, 1) if kept else
+                  h.new_empty((B, 0) + tuple(h.shape[1:])))
 
 
-def mamba_scan_bwd_ref(dt, x, Bm, Cm, A, D, h0, dy, dhT=None):
+def mamba_scan_bwd_ref(dt, x, Bm, Cm, A, D, h0, dy, dhT=None, states=None):
     """The scan's gradient in f32: the cotangents of every input given
     ``dy`` (y's, ``[B, S, di]``) and ``dhT`` (the final state's, ``[B, di,
     ds]``; None is zeros).  With ``g_t`` the cotangent of the state after
@@ -135,7 +158,9 @@ def mamba_scan_bwd_ref(dt, x, Bm, Cm, A, D, h0, dy, dhT=None):
         dA    = sum_{b,t} q_t dt_t    dD    = sum_{b,t} dy_t x_t
 
     Chunk by chunk (:data:`CHUNK` steps, the last padded as the forward
-    pads it): a forward pass keeps only the state before each chunk; then,
+    pads it): a forward pass keeps only the state before each chunk (or,
+    given the forward's kept ``states``, ``mamba_scan_ref(...,
+    keep_states=True)``'s third output, takes them from there); then,
     from the last chunk back, each chunk's states are recomputed from it
     by :func:`mamba_scan_ref`'s associative scan and g by the same scan
     over the reversed chunk, so the memory is one chunk's.  No decay is
@@ -148,6 +173,10 @@ def mamba_scan_bwd_ref(dt, x, Bm, Cm, A, D, h0, dy, dhT=None):
     if dhT is not None and tuple(dhT.shape) != tuple(h0.shape):
         raise ValueError(f"dhT must be {tuple(h0.shape)}, got "
                          f"{tuple(dhT.shape)}")
+    want = (B, -(-S // KEEP_EVERY)) + tuple(h0.shape[1:])
+    if states is not None and tuple(states.shape) != want:
+        raise ValueError(f"states must be the forward's kept states "
+                         f"{want}, got {tuple(states.shape)}")
     f32 = torch.float32
     Af, Df = A.to(f32), D.to(f32)
     pad = -S % CHUNK
@@ -155,14 +184,18 @@ def mamba_scan_bwd_ref(dt, x, Bm, Cm, A, D, h0, dy, dhT=None):
                                                      (0, 0, 0, pad))
                             for t in (dt, x, Bm, Cm, dy))
     starts = range(0, S + pad, CHUNK)
-    h, before = h0.to(f32, copy=True), []
-    for t0 in starts:
-        before.append(h)
-        sl = slice(t0, t0 + CHUNK)
-        a, b, _ = _chunk_terms(dtp[:, sl], xp[:, sl], Bp[:, sl], Af)
-        Ac, Bc = associative_scan(_combine, [a, b], axis=1)
-        h = Ac[:, -1] * h + Bc[:, -1]
-    G = torch.zeros_like(h) if dhT is None else dhT.to(f32, copy=True)
+    if states is not None:
+        before = [states[:, t0 // KEEP_EVERY].to(f32) for t0 in starts]
+    else:
+        h, before = h0.to(f32, copy=True), []
+        for t0 in starts:
+            before.append(h)
+            sl = slice(t0, t0 + CHUNK)
+            a, b, _ = _chunk_terms(dtp[:, sl], xp[:, sl], Bp[:, sl], Af)
+            Ac, Bc = associative_scan(_combine, [a, b], axis=1)
+            h = Ac[:, -1] * h + Bc[:, -1]
+    G = torch.zeros_like(h0, dtype=f32) if dhT is None \
+        else dhT.to(f32, copy=True)
     ddt, dx = (torch.empty_like(dtp) for _ in range(2))
     dB, dC = (torch.empty_like(Bp) for _ in range(2))
     dA = torch.zeros_like(Af)

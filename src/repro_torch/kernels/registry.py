@@ -10,7 +10,10 @@ Dispatch is decided by where the data lies:
 Gradients: a spec with a ``backward`` is differentiable on both devices
 (:class:`_Differentiable`), through one output or a tuple of them: when
 grad mode is on and an input requires grad, its backward runs the
-backward kernel on the card and the plain backward on the CPU.  On the card a spec without one raises
+backward kernel on the card and the plain backward on the CPU.  A
+backward may keep residuals: under grad its spec's forward then also
+returns tensors that are saved for the backward and never reach the
+caller (:class:`Backward`'s ``keep_run`` / ``keep_ref``).  On the card a spec without one raises
 ``NotImplementedError`` for such inputs rather than return an output
 that autograd cannot see past (the kernel's output has no ``grad_fn``);
 on the CPU its plain version differentiates through autograd as before.
@@ -76,10 +79,23 @@ class Backward:
     cotangent; for a kernel that returns a tuple, both are tuples, one
     entry per output.  A cotangent autograd did not compute (an output
     the loss does not reach) arrives as zeros: autograd materialises
-    it."""
+    it.
+
+    Where the backward starts from what its forward computed (the scan's
+    states before each chunk), ``keep_run(problem, arrays, params)`` and
+    ``keep_ref(problem, arrays)`` are the forward on the card and on the
+    CPU under grad: each returns ``(out, residuals)``, ``out`` what
+    ``run_call`` / ``ref_call`` of the spec return and ``residuals`` a
+    tuple of tensors.  They are saved beside the inputs and outputs, kept
+    from the caller, and passed to the backward after ``grad``:
+    ``run_call(problem, arrays, out, grad, *residuals)``.  Without them
+    (None, both) the forward is the spec's own and the backward takes
+    four arguments."""
     kernel: Callable
     run_call: Callable
     ref_call: Callable
+    keep_run: Optional[Callable] = None
+    keep_ref: Optional[Callable] = None
 
 
 @dataclasses.dataclass
@@ -337,27 +353,33 @@ class _Differentiable(torch.autograd.Function):
     """A dispatch whose backward is the spec's: the kernel's backward on
     the card, the plain backward on the CPU.  The kernel returns one
     output or a tuple of them; every output is saved and carries a
-    ``grad_fn``.  An input that needs no gradient
+    ``grad_fn``, and so are the residuals of a backward that keeps them
+    (saved only).  An input that needs no gradient
     (``ctx.needs_input_grad``) gets None."""
 
     @staticmethod
     def forward(ctx, spec, problem, device, overrides, *arrays):
-        out = _dispatch(spec, problem, arrays, device, overrides)
+        keep = spec.backward.keep_run is not None
+        out = _dispatch(spec, problem, arrays, device, overrides, keep=keep)
+        out, residuals = out if keep else (out, ())
         ctx.spec, ctx.problem, ctx.device = spec, problem, device
         ctx.n_arrays, ctx.several = len(arrays), isinstance(out, tuple)
-        ctx.save_for_backward(*arrays, *(out if ctx.several else (out,)))
+        outs = out if ctx.several else (out,)
+        ctx.n_outs = len(outs)
+        ctx.save_for_backward(*arrays, *outs, *residuals)
         return out
 
     @staticmethod
     def backward(ctx, *grads):
         saved = ctx.saved_tensors
-        arrays, outs = saved[:ctx.n_arrays], saved[ctx.n_arrays:]
+        n, m = ctx.n_arrays, ctx.n_arrays + ctx.n_outs
+        arrays, outs, residuals = saved[:n], saved[n:m], saved[m:]
         grads = tuple(g.contiguous() for g in grads)
         if not ctx.several:
             outs, grads = outs[0], grads[0]
         bwd = ctx.spec.backward
         call = bwd.ref_call if ctx.device.type == "cpu" else bwd.run_call
-        found = call(ctx.problem, tuple(arrays), outs, grads)
+        found = call(ctx.problem, tuple(arrays), outs, grads, *residuals)
         return (None, None, None, None,
                 *(g if need else None
                   for g, need in zip(found, ctx.needs_input_grad[4:])))
@@ -396,7 +418,12 @@ def dispatch(spec: KernelSpec, problem: dict, arrays: tuple, device, *,
 
 
 def _dispatch(spec: KernelSpec, problem: dict, arrays: tuple, device,
-              overrides: Optional[dict]):
+              overrides: Optional[dict], keep: bool = False):
+    """The dispatch itself; with ``keep`` (under grad, a backward that
+    keeps residuals) the forward is the backward's ``keep_run`` /
+    ``keep_ref`` and returns ``(out, residuals)``."""
+    run = spec.backward.keep_run if keep else spec.run_call
+    ref = spec.backward.keep_ref if keep else spec.ref_call
     if FAULTS.enabled:
         FAULTS.fire("kernel.dispatch", key=spec.name)
     if device.type == "cpu":
@@ -407,7 +434,7 @@ def _dispatch(spec: KernelSpec, problem: dict, arrays: tuple, device,
             TRACER.instant("kernel.dispatch", cat="kernel",
                            args={"kernel": spec.name, "path": "ref",
                                  "tier": spec.tier})
-        return spec.ref_call(problem, arrays)
+        return ref(problem, arrays)
     if device.type != "cuda":
         raise ValueError(f"{spec.name}: no kernel for device {device}")
     if not spec.supports(problem):
@@ -419,4 +446,4 @@ def _dispatch(spec: KernelSpec, problem: dict, arrays: tuple, device,
         TRACER.instant("kernel.dispatch", cat="kernel",
                        args={"kernel": spec.name, "params": dict(params),
                              "provenance": provenance, "tier": spec.tier})
-    return spec.run_call(problem, arrays, params)
+    return run(problem, arrays, params)

@@ -1685,14 +1685,41 @@ def test_mamba_scan_wrapper_refuses_what_it_cannot_take(dev):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [dict(b=2, s=70, di=200, ds=16),
+                                  dict(b=2, s=33, di=7, ds=5),
+                                  dict(b=1, s=0, di=16, ds=16)],
+                         ids=lambda c: "-".join(f"{k}{v}" for k, v in
+                                                c.items()))
+def test_mamba_scan_keeps_its_states_on_the_card(dev, case, dtype):
+    """``keep_states``: y and hT bit for bit as without; the state before
+    every BWD_CHUNK-th step bit for bit the final state of the kernel over
+    the steps before it, zero past ds."""
+    from repro_torch.kernels.mamba_scan.mamba_scan import (
+        BWD_CHUNK, MAX_STATE, kept_chunks, mamba_scan)
+    arrays = _mamba_arrays(dict(case, dtype=dtype), dev, 4)
+    y, hT, states = mamba_scan(*arrays, keep_states=True)
+    y2, hT2 = mamba_scan(*arrays)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(hT, hT2)
+    S, ds = case["s"], case["ds"]
+    assert states.shape == (case["b"], kept_chunks(S), case["di"], MAX_STATE)
+    assert not states[..., ds:].any()
+    for c in range(kept_chunks(S)):
+        prefix = [a[:, :c * BWD_CHUNK] for a in arrays[:4]] + list(arrays[4:])
+        assert torch.equal(states[:, c, :, :ds], mamba_scan(*prefix)[1]), c
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mamba_scan_op_differentiates_on_the_card(dev, dtype):
     """An input that requires grad: the op runs the forward kernel once
-    and, through the registry's autograd function, the backward kernel
-    once, with no plain call; the gradients are the kernel's own (bit for
-    bit a direct launch on the same cotangents, zeros for the unread
-    final state) and within TOL_BWD of the plain backward."""
+    (keeping its states) and, through the registry's autograd function,
+    the backward kernel once, with no plain call; the gradients are the
+    kernel's own (bit for bit a direct launch on the same cotangents and
+    the forward's kept states, zeros for the unread final state) and
+    within TOL_BWD of the plain backward."""
     from repro_torch.kernels.mamba_scan import ops
-    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_bwd
+    from repro_torch.kernels.mamba_scan.mamba_scan import (mamba_scan,
+                                                           mamba_scan_bwd)
     from repro_torch.kernels.mamba_scan.ref import mamba_scan_bwd_ref
     arrays = ops.SPEC.make_call(dict(b=2, s=70, di=200, ds=16, dtype=dtype),
                                 torch.Generator().manual_seed(5), dev)
@@ -1706,7 +1733,9 @@ def test_mamba_scan_op_differentiates_on_the_card(dev, dtype):
     torch.cuda.synchronize()
     assert ops.SPEC.launches == 1 and ops.SPEC.plain_calls == 0
     assert mamba_scan_bwd.launches == before + 1
-    direct = mamba_scan_bwd(*arrays, dy, torch.zeros_like(arrays[6]))
+    states = mamba_scan(*arrays, keep_states=True)[2]
+    direct = mamba_scan_bwd(*arrays, dy, torch.zeros_like(arrays[6]),
+                            states=states)
     want = mamba_scan_bwd_ref(*arrays, dy)
     tol = ops.TOL_BWD[arrays[0].dtype]
     for g, k, w, a in zip(got, direct, want, arrays):
@@ -1716,8 +1745,8 @@ def test_mamba_scan_op_differentiates_on_the_card(dev, dtype):
 
 
 def test_mamba_scan_bwd_wrapper_refuses_what_it_cannot_take(dev):
-    """A state of 17, mixed dtypes and a CPU tensor: each raises before
-    any launch."""
+    """A state of 17, mixed dtypes, a CPU tensor and kept states that are
+    not the kernel forward's: each raises before any launch."""
     from repro_torch.kernels.mamba_scan import ops
     from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_bwd
     problem = dict(b=1, s=8, di=16, ds=16, dtype="float32")
@@ -1726,14 +1755,19 @@ def test_mamba_scan_bwd_wrapper_refuses_what_it_cannot_take(dev):
     wide = ops.SPEC.make_call(dict(problem, ds=17),
                               torch.Generator().manual_seed(0), dev)
     dy = torch.ones((1, 8, 16), device=dev)
+    states = torch.zeros((1, 1, 16, 16), device=dev)
     before = mamba_scan_bwd.launches
     with pytest.raises(ValueError, match="state size"):
-        mamba_scan_bwd(*wide, dy)
+        mamba_scan_bwd(*wide, dy, states=states)
     mixed = (arrays[0].to(torch.bfloat16),) + arrays[1:]
     with pytest.raises(ValueError, match="one dtype"):
-        mamba_scan_bwd(*mixed, dy)
+        mamba_scan_bwd(*mixed, dy, states=states)
     with pytest.raises(ValueError, match="CUDA"):
-        mamba_scan_bwd(*arrays, dy.cpu())
+        mamba_scan_bwd(*arrays, dy.cpu(), states=states)
+    with pytest.raises(ValueError, match="CUDA"):
+        mamba_scan_bwd(*arrays, dy, states=states.cpu())
+    with pytest.raises(ValueError, match="states must be"):
+        mamba_scan_bwd(*arrays, dy, states=states[..., :8])
     assert mamba_scan_bwd.launches == before
 
 
@@ -1755,12 +1789,14 @@ MAMBA_BWD_CASES = [
                          ids=lambda c: "-".join(f"{k}{v}" for k, v in
                                                 c.items()))
 def test_mamba_scan_bwd_kernel_matches_plain_backward(dev, case, dtype):
-    """The backward kernel against the plain backward from h0 != 0, with
-    a cotangent on the final state unless the case says otherwise: each
-    gradient in its input's dtype, finite, within ``ops.TOL_BWD`` of the
-    plain backward's largest magnitude; a second launch bit for bit."""
+    """The backward kernel, from the forward kernel's kept states, against
+    the plain backward from h0 != 0, with a cotangent on the final state
+    unless the case says otherwise: each gradient in its input's dtype,
+    finite, within ``ops.TOL_BWD`` of the plain backward's largest
+    magnitude; a second launch bit for bit."""
     from repro_torch.kernels.mamba_scan import ops
-    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_bwd
+    from repro_torch.kernels.mamba_scan.mamba_scan import (mamba_scan,
+                                                           mamba_scan_bwd)
     from repro_torch.kernels.mamba_scan.ref import mamba_scan_bwd_ref
     problem = {k: v for k, v in case.items() if k != "dhT"}
     arrays = _mamba_arrays(dict(problem, dtype=dtype), dev, 7)
@@ -1769,9 +1805,10 @@ def test_mamba_scan_bwd_kernel_matches_plain_backward(dev, case, dtype):
     dy = torch.randn((B, S, di), generator=gen).to(dev)
     dhT = (torch.randn(tuple(arrays[6].shape), generator=gen).to(dev)
            if case.get("dhT", True) else None)
+    states = mamba_scan(*arrays, keep_states=True)[2]
     before = mamba_scan_bwd.launches
-    got = mamba_scan_bwd(*arrays, dy, dhT)
-    again = mamba_scan_bwd(*arrays, dy, dhT)
+    got = mamba_scan_bwd(*arrays, dy, dhT, states=states)
+    again = mamba_scan_bwd(*arrays, dy, dhT, states=states)
     want = mamba_scan_bwd_ref(*arrays, dy, dhT)
     torch.cuda.synchronize()
     assert mamba_scan_bwd.launches == before + 2

@@ -12,16 +12,26 @@
   (one Mamba layer of the reduced jamba): f32 within
   ``MIXER_GRAD_TOL_F32`` of each leaf's largest magnitude, bf16 within
   ``MIXER_GRAD_TOL_BF16``;
-- the registry's two-output autograd function: ``needs_input_grad``
-  honoured, zeros for a final state the loss does not read;
-- a model of the backward kernel's arithmetic (``_kernel_model``: chunks
-  of ``BWD_CHUNK`` steps from a zero state and a zero cotangent, the
-  boundary states and cotangents chained across chunks by
-  ``exp2(A log2(e) sum dt)``, then every chunk from its boundary, as
+- the states the forward keeps for the backward (``keep_states``): the
+  plain forward's are the states ``mamba_scan_ref`` passes through at
+  every ``BWD_CHUNK``-th step, and the plain backward given them is the
+  plain backward without them, bit for bit;
+- the registry's two-output autograd function: the residual kept by the
+  forward under grad and handed to the backward (never to the caller),
+  ``needs_input_grad`` honoured, zeros for a final state the loss does
+  not read; specs without residuals called as before;
+- a model of the backward kernel's arithmetic (``_kernel_model``: the
+  states before every chunk of ``BWD_CHUNK`` steps from the forward's
+  sequential chain, then one reverse walk over the chunks, each chunk's
+  states recomputed from its boundary state and its cotangent walked
+  back from the one carried from the chunk after it, as
   ``csrc/mamba_scan_bwd.cu`` computes them) at the training length, S
   2,048, and with a padded last chunk, against the plain backward within
   a quarter of ``ops.TOL_BWD``.
 """
+import dataclasses
+from unittest import mock
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -33,8 +43,8 @@ from repro.models import blocks as jblocks  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops  # noqa: E402
 from repro_torch.kernels.mamba_scan.mamba_scan import (  # noqa: E402
-    BWD_CHANNELS, BWD_CHUNK, BWD_CHUNKS_A_BLOCK, BWD_LANES, MAX_STATE,
-    bwd_launch_shape, bwd_smem_bytes, mamba_scan_bwd)
+    BWD_CHANNELS, BWD_CHUNK, BWD_LANES, MAX_STATE, bwd_launch_shape,
+    bwd_smem_bytes, kept_chunks, mamba_scan_bwd)
 from repro_torch.kernels.mamba_scan.ref import (  # noqa: E402
     mamba_scan_bwd_ref, mamba_scan_ref)
 from repro_torch.models import blocks  # noqa: E402
@@ -143,6 +153,39 @@ def test_plain_backward_checks_its_cotangents():
         mamba_scan_bwd_ref(*arrays, dy, dhT[..., :2])
 
 
+# ------------------------------------- the states kept for the backward ---
+@pytest.mark.parametrize("S", [70, 64, 17, 1, 0])
+def test_plain_forward_keeps_the_states_it_passes_through(S):
+    """``keep_states``: the state before every BWD_CHUNK-th step, bit for
+    bit the final state of ``mamba_scan_ref`` over the steps before it,
+    in f32 and unpadded; y and hT bit for bit as without."""
+    arrays, _, _ = _inputs(2, S, 6, 5, dtype="bfloat16", seed=50 + S)
+    y, hT, states = mamba_scan_ref(*arrays, keep_states=True)
+    want_y, want_h = mamba_scan_ref(*arrays)
+    assert torch.equal(y, want_y) and torch.equal(hT, want_h)
+    assert states.shape == (2, kept_chunks(S), 6, 5)
+    assert states.dtype == torch.float32
+    for c in range(kept_chunks(S)):
+        t = c * BWD_CHUNK
+        prefix = [a[:, :t] for a in arrays[:4]] + list(arrays[4:])
+        assert torch.equal(states[:, c], mamba_scan_ref(*prefix)[1]), c
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_backward_from_kept_states_is_the_plain_backward(case):
+    """Given the plain forward's kept states, the plain backward takes
+    the state before each of its chunks from them: the same gradients,
+    bit for bit; states of another shape are refused."""
+    arrays, dy, dhT = _inputs(**CASES[case], seed=60 + len(case))
+    states = mamba_scan_ref(*arrays, keep_states=True)[2]
+    got = mamba_scan_bwd_ref(*arrays, dy, dhT, states=states)
+    want = mamba_scan_bwd_ref(*arrays, dy, dhT)
+    for name, g, w in zip(NAMES, got, want):
+        assert torch.equal(g, w), name
+    with pytest.raises(ValueError, match="states must be"):
+        mamba_scan_bwd_ref(*arrays, dy, dhT, states=states[:, 1:])
+
+
 # ------------------------------------------------ against the reference ---
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mamba_seq_grads_match_jax_vjp(dtype):
@@ -239,32 +282,106 @@ def test_needs_input_grad_is_honoured():
         *arrays, torch.zeros_like(dy), torch.ones_like(hT))[6])
 
 
+def test_op_keeps_states_for_its_backward_not_for_the_caller():
+    """Under grad the op's forward is the backward's ``keep_ref``: the
+    caller gets (y, hT) alone, the backward gets the plain forward's kept
+    states and gives the plain backward's gradients bit for bit; without
+    grad nothing is kept."""
+    arrays, dy, dhT = _inputs(2, 40, 6, 4, seed=14)
+    bwd, seen = ops.SPEC.backward, {"keep": 0, "residuals": []}
+
+    def keep_ref(problem, arrays):
+        seen["keep"] += 1
+        return bwd.keep_ref(problem, arrays)
+
+    def ref_call(problem, arrays, outs, grads, *residuals):
+        seen["residuals"].append(residuals)
+        return bwd.ref_call(problem, arrays, outs, grads, *residuals)
+    patched = dataclasses.replace(bwd, keep_ref=keep_ref, ref_call=ref_call)
+    with mock.patch.object(ops.SPEC, "backward", patched):
+        assert len(ops.mamba_scan_op(*arrays)) == 2  # nothing requires grad
+        assert seen["keep"] == 0
+        leaves = _leaves(arrays)
+        out = ops.mamba_scan_op(*leaves)
+        assert seen["keep"] == 1 and len(out) == 2
+        got = torch.autograd.grad(out, leaves, (dy, dhT))
+    ((states,),) = seen["residuals"]
+    assert torch.equal(states, mamba_scan_ref(*arrays, keep_states=True)[2])
+    want = mamba_scan_bwd_ref(*arrays, dy, dhT)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _rwkv6_call(g):
+    r, k, v = (torch.randn(1, 6, 2, 8, generator=g) for _ in range(3))
+    w = torch.rand(1, 6, 2, 8, generator=g) * 0.25 + 0.7
+    u, s0 = torch.randn(2, 8, generator=g), torch.randn(1, 2, 8, 8,
+                                                        generator=g)
+    return "rwkv6_chunk", "rwkv6_chunk_op", (r, k, v, w, u, s0)
+
+
+def _flash_call(g):
+    q = torch.randn(1, 6, 4, 8, generator=g)
+    k, v = (torch.randn(1, 6, 2, 8, generator=g) for _ in range(2))
+    return "flash_attention", "flash_attention_op", (q, k, v)
+
+
+@pytest.mark.parametrize("make", [_rwkv6_call, _flash_call],
+                         ids=["rwkv6_chunk", "flash_attention"])
+def test_a_backward_without_residuals_is_called_as_before(make):
+    """A spec whose backward keeps no residuals: its own forward under
+    grad (no ``keep_ref``), its backward called with (problem, arrays,
+    out, grad) alone."""
+    import importlib
+    name, op, arrays = make(torch.Generator().manual_seed(15))
+    spec = registry.get_spec(name)
+    module = importlib.import_module(f"repro_torch.kernels.{name}.ops")
+    assert spec.backward.keep_run is None and spec.backward.keep_ref is None
+    calls, ref_call = [], spec.backward.ref_call
+
+    def counted(*args):
+        calls.append(len(args))
+        return ref_call(*args)
+    patched = dataclasses.replace(spec.backward, ref_call=counted)
+    leaves = [a.clone().requires_grad_() for a in arrays]
+    with mock.patch.object(spec, "backward", patched):
+        out = getattr(module, op)(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        torch.autograd.grad(outs, leaves, [torch.ones_like(o) for o in outs])
+    assert calls == [4]
+
+
 def test_kernel_wrapper_refuses_before_any_launch():
-    """On CPU tensors, and with cotangents of the wrong shape, the
-    wrapper raises without launching."""
+    """On CPU tensors, with cotangents of the wrong shape, and with kept
+    states that are not the kernel forward's (the plain forward's are not
+    padded to MAX_STATE), the wrapper raises without launching."""
     arrays, dy, dhT = _inputs(1, 4, 6, 4, seed=13)
+    states = torch.zeros(1, kept_chunks(4), 6, MAX_STATE)
     before = mamba_scan_bwd.launches
     with pytest.raises(ValueError, match="CUDA"):
-        mamba_scan_bwd(*arrays, dy, dhT)
+        mamba_scan_bwd(*arrays, dy, dhT, states=states)
     with pytest.raises(ValueError, match="dy must be"):
-        mamba_scan_bwd(*arrays, dy[:, :2])
+        mamba_scan_bwd(*arrays, dy[:, :2], states=states)
     with pytest.raises(ValueError, match="dhT must be"):
-        mamba_scan_bwd(*arrays, dy, dhT[0])
+        mamba_scan_bwd(*arrays, dy, dhT[0], states=states)
+    plain = mamba_scan_ref(*arrays, keep_states=True)[2]
+    for wrong in (plain, states[:, :0], states.double()):
+        with pytest.raises(ValueError, match="states must be"):
+            mamba_scan_bwd(*arrays, dy, dhT, states=wrong)
     assert mamba_scan_bwd.launches == before
 
 
-@pytest.mark.parametrize("b,s,di,chunks,blocks,groups", [
-    (2, 2048, 8192, 128, 128, 32),   # jamba's training shape
-    (2, 1, 8192, 1, 128, 1),
-    (1, 70, 200, 5, 4, 2),           # a ragged chunk, a partial block
-    (3, 17, 7, 2, 1, 1)])
-def test_bwd_launch_shape(b, s, di, chunks, blocks, groups):
+@pytest.mark.parametrize("b,s,di,chunks,blocks", [
+    (2, 2048, 8192, 128, 128),   # jamba's training shape: 256 blocks
+    (2, 1, 8192, 1, 128),
+    (1, 70, 200, 5, 4),          # a ragged chunk, a partial block
+    (3, 17, 7, 2, 1)])
+def test_bwd_launch_shape(b, s, di, chunks, blocks):
+    """One walk a (channel block, batch row), over every chunk."""
     shape = bwd_launch_shape(b, s, di)
-    assert (shape["chunks"], shape["channel_blocks"],
-            shape["chunk_groups"]) == (chunks, blocks, groups)
+    assert (shape["chunks"], shape["channel_blocks"]) == (chunks, blocks)
+    assert shape["chunks"] == kept_chunks(s)
     assert shape["threads"] == BWD_CHANNELS * BWD_LANES == 256
-    assert shape["grids"]["local"] == (blocks, groups, b)
-    assert shape["grids"]["chunks"] == (blocks, groups, b)
+    assert shape["grid"] == (blocks, b)
     # a lane holds MAX_STATE / BWD_LANES states, a warp 8 channels (the
     # kernel's reductions), and a chunk's recomputed states in registers
     assert MAX_STATE // BWD_LANES == 4 and 32 // BWD_LANES == 8
@@ -272,24 +389,39 @@ def test_bwd_launch_shape(b, s, di, chunks, blocks, groups):
 
 
 def test_bwd_shared_memory_fits_two_blocks_an_sm():
-    """The chunk kernel's dynamic shared memory (the source's
-    ``ChunkSmem``, which the wrapper's ``_bwd_lib`` checks against the
-    built library): 69,632 bytes in f32, 61,440 in bf16, so that two
-    blocks of 256 threads fit an SM's 228 KB beside their registers."""
-    assert bwd_smem_bytes(torch.float32) == 69_632
-    assert bwd_smem_bytes(torch.bfloat16) == 61_440
-    assert 2 * bwd_smem_bytes(torch.float32) <= registry.SMEM_PER_BLOCK
+    """The walk's dynamic shared memory (the source's ``WalkSmem``, which
+    the wrapper's ``_bwd_lib`` checks against the built library): 110,592
+    bytes in f32, 102,400 in bf16, so that two blocks of 256 threads, each
+    with the 1 KB the card reserves a block, fit an SM's 228 KB (233,472
+    bytes) beside their registers."""
+    assert bwd_smem_bytes(torch.float32) == 110_592
+    assert bwd_smem_bytes(torch.bfloat16) == 102_400
+    assert 2 * (bwd_smem_bytes(torch.float32) + 1024) <= 233_472
 
 
 def test_bwd_source_constants_are_the_wrappers():
     """csrc/mamba_scan_bwd.cu's constants are the ones mamba_scan.py
-    declares (the wrapper checks the built library's against them too)."""
+    declares, and the forward keeps its states every BWD_CHUNK steps (the
+    wrappers check the built libraries' against them too)."""
     import re
     text = BWD_SOURCE.read_text()
     for name, value in (("MAX_STATE", MAX_STATE), ("CHUNK", BWD_CHUNK),
-                        ("CHANNELS", BWD_CHANNELS), ("LANES", BWD_LANES),
-                        ("CHUNKS_A_BLOCK", BWD_CHUNKS_A_BLOCK)):
+                        ("CHANNELS", BWD_CHANNELS), ("LANES", BWD_LANES)):
         assert re.search(rf"#define {name} {value}\b", text), name
+    assert re.search(rf"#define KEEP_EVERY {BWD_CHUNK}\b",
+                     SOURCE.read_text())
+
+
+def test_bwd_source_is_one_walk_and_its_sum():
+    """The backward is two kernels: the reverse walk, which reads the
+    forward's kept states (no local pass, no chain, no boundary scratch),
+    and the ordered sum of its partials."""
+    import re
+    text = BWD_SOURCE.read_text()
+    kernels = re.findall(
+        r"__global__ void __launch_bounds__\([^)]*\)\s*(\w+)\(", text)
+    assert kernels == ["mamba_bwd_walk", "mamba_bwd_sum"]
+    assert not re.search(r"\b(GC|DTS|HB)\b", text)
 
 
 # ------------------------------------ a model of the kernel's arithmetic ---
@@ -300,13 +432,13 @@ def _kernel_model(dt, x, Bm, Cm, A, D, h0, dy, dhT=None):
     """csrc/mamba_scan_bwd.cu's arithmetic in f32 (sums over channels and
     states in torch's order, not the kernel's trees; exact exp2, not the
     SFU's), at the kernel's chunk C (``BWD_CHUNK``), the last chunk padded
-    with zero steps (a = 1, no input).  Pass 1: every chunk from a zero
-    state forward and a zero cotangent back, and its sum of dt.  Pass 2:
-    the states before each chunk chained from h0, the cotangents entering
-    each chunk's last step chained from dhT, both by the chunk's decay
-    ``exp2(dt_sum fl(A log2 e))``.  Pass 3: every chunk's states
-    recomputed from its boundary state and its cotangent walked back from
-    its incoming one, dx, ddt and the sums of dBm, dCm, dA and dD."""
+    with zero steps (a = 1, no input).  The states before every chunk
+    from the forward kernel's sequential chain (``csrc/mamba_scan.cu``
+    keeps them under grad); then one reverse walk over the chunks: each
+    chunk's states recomputed from its boundary state, its cotangent
+    walked back from the one carried from the chunk after it (dhT first;
+    it ends as dh0), dx, ddt and the sums of dBm, dCm, dA (over each batch
+    row's steps, then the rows) and dD."""
     f32 = torch.float32
     B, S, di = dt.shape
     C = BWD_CHUNK
@@ -323,52 +455,39 @@ def _kernel_model(dt, x, Bm, Cm, A, D, h0, dy, dhT=None):
     u = DT * X
     ub = u[..., None] * BM[:, :, :, None, :]        # dt x Bm
     e = DY[..., None] * CM[:, :, :, None, :]        # dy Cm
-    # pass 1
-    h = torch.zeros_like(a[:, :, 0])
-    dts = torch.zeros_like(DT[:, :, 0])
-    for t in range(C):
-        h = a[:, :, t] * h + ub[:, :, t]
-        dts = dts + DT[:, :, t]
-    gg = torch.zeros_like(h)
-    for t in reversed(range(C)):
-        gg = a[:, :, t] * (e[:, :, t] + gg)
-    # pass 2
-    P = torch.exp2(dts[..., None] * a2)             # [B, nc, di, ds]
-    state, before = h0.to(f32), []
+    # the forward's chain, the state before each chunk kept
+    h, kept = h0.to(f32), []
     for c in range(nc):
-        before.append(state)
-        state = P[:, c] * state + h[:, c]
-    G = torch.zeros_like(state) if dhT is None else dhT.to(f32)
-    entering = [None] * nc
-    for c in reversed(range(nc)):
-        entering[c] = G
-        G = P[:, c] * G + gg[:, c]
-    dh0 = G
-    # pass 3
-    hc, prev = torch.stack(before, 1), []
+        kept.append(h)
+        for t in range(C):
+            h = a[:, c, t] * h + ub[:, c, t]
+    # every chunk's states recomputed from its boundary: prev[t] = h_{t-1}
+    hc, prev = torch.stack(kept, 1), []
     for t in range(C):
         prev.append(hc)
         hc = a[:, :, t] * hc + ub[:, :, t]
-    gg = torch.stack(entering, 1)
+    prev.append(hc)
+    # the reverse walk, the cotangent carried across chunks
+    gg = torch.zeros_like(h) if dhT is None else dhT.to(f32)
     ddt, dx = (torch.empty_like(DT) for _ in range(2))
     dB, dC = (torch.empty_like(BM) for _ in range(2))
-    dA = torch.zeros_like(Af)
-    for t in reversed(range(C)):
-        g = e[:, :, t] + gg
-        gg = a[:, :, t] * g
-        q = gg * prev[t]
-        du = (g * BM[:, :, t, None, :]).sum(-1)
-        ddt[:, :, t] = X[:, :, t] * du + (q * Af).sum(-1)
-        dx[:, :, t] = DT[:, :, t] * du + D.to(f32) * DY[:, :, t]
-        dA = dA + (q * DT[:, :, t, :, None]).sum((0, 1))
-        dB[:, :, t] = (u[:, :, t, :, None] * g).sum(-2)
-        dC[:, :, t] = (DY[:, :, t, :, None] * hc).sum(-2)
-        hc = prev[t]
-    dD = (DY * X).sum((0, 1, 2))
+    dA = torch.zeros_like(h)                        # [B, di, ds]
+    for c in reversed(range(nc)):
+        for t in reversed(range(C)):
+            g = e[:, c, t] + gg
+            gg = a[:, c, t] * g
+            q = gg * prev[t][:, c]
+            du = (g * BM[:, c, t, None, :]).sum(-1)
+            ddt[:, c, t] = X[:, c, t] * du + (q * Af).sum(-1)
+            dx[:, c, t] = DT[:, c, t] * du + D.to(f32) * DY[:, c, t]
+            dA = dA + q * DT[:, c, t, :, None]
+            dB[:, c, t] = (u[:, c, t, :, None] * g).sum(-2)
+            dC[:, c, t] = (DY[:, c, t, :, None] * prev[t + 1][:, c]).sum(-2)
+    dD = (DY * X).sum((1, 2)).sum(0)
 
     def back(t):  # [B, nc, C, k] -> [B, S, k]
         return t.reshape(B, nc * C, t.shape[-1])[:, :S]
-    return back(ddt), back(dx), back(dB), back(dC), dA, dD, dh0
+    return back(ddt), back(dx), back(dB), back(dC), dA.sum(0), dD, gg
 
 
 @pytest.mark.parametrize("decays", ["model", "underflow"])
