@@ -264,6 +264,31 @@ source, all started together), and prints one JSON line per phase:
     restored bit for bit, the run resumed; the last losses of both runs
     and whether they agree bit for bit; the gradient leaves that differ
     between two evaluations of one batch; part ``resume_drill``);
+    ``dist_slice`` -- the sharding substrate (``repro_torch.dist``) on
+    the card: ``DIST_RANKS`` ranks of one gloo group, each a process of
+    this script (``chip_smoke.py --dist-rank RANK WORLD PORT CONFIG``,
+    started after the kernels are built and the int8 bundle gated here)
+    share the one H100 (NCCL takes no two ranks of one device; the
+    collectives go through host memory, the compute stays on the card).
+    Part ``serve``: a full-width minibude bundle in each tier through
+    ``InferenceEngine.apply_batched`` under ``use_mesh`` (data 4 x model
+    1) at 65,536 rows (16,384 a rank) and at 65,533 (bucketed), every row
+    bit for bit the one-rank kernel's, the kernel's launches a rank, the
+    collectives, rows/s sharded and on one rank. Part ``train``:
+    llama3.2-3b at full width cut to 2 layers on data 2 x model 2 (12 q
+    and 4 kv heads a rank) in bf16 and f32, one batch of 2 x 2,048: step
+    1's loss and every gradient against one rank's with the same kernels
+    (``DIST_GRAD_TOL``), then 2 train_steps (the attention kernels'
+    launches a rank, collectives by kind, seconds a step, ``peak_gib`` a
+    rank). Part ``restore``: the bf16 state saved (gathered whole) and
+    restored onto data 4 x model 1, every rank's block of every leaf on
+    both meshes equal to the file's bit for bit. Part ``smoke``: the dry
+    run's tiny train cell on the card, on a fake group of 256 ranks in
+    this process (non-zero bytes of every kind, the attention kernels
+    and their backward launched), and the host seconds of its step
+    with and without the collective mode (``DIST_MODE_REPS`` each,
+    alternated). Sharded times are the cost of sharding on one card,
+    not a speedup;
 11. the ``kernels`` line (``flash_attention`` there is its f32 design;
     ``flash_attention_bf16``, ``_bf16_decode`` and ``_bf16_combine`` the
     bf16 one's three kernels, each with its launches by path;
@@ -301,7 +326,8 @@ Launch counts are set to 0 just before each main path (the f32 slice's
 region calls, each int8 slice's infer region, the train slice's infer
 regions, the serve slice's traced coalesced run, the control slice's
 adaptive run, the ``run_tune`` call, each LM's prefill and its generate
-loop, the training steps) and read just after.  Any failure raises, so
+loop, the training steps, each dist rank's sharded applies and sharded
+train steps) and read just after.  Any failure raises, so
 the script exits
 non-zero and prints no result.  Outside the train slice the bundle weights are
 random: nothing there measures surrogate accuracy.
@@ -5999,6 +6025,538 @@ def run_lm_train_slice(dev, smi, work):
     return bwd_lines, rwkv_line, mamba_line, launches
 
 
+# the dist slice: the sharding substrate over DIST_RANKS ranks of a gloo
+# group that share the one card (NCCL takes no two ranks on one device;
+# the collectives go through host memory, the compute stays on the card)
+DIST_RANKS = 4
+# minibude served at 65,536 rows on a data 4 x model 1 mesh (16,384 a
+# rank), and at a row count 4 does not divide (bucketed to 65,536)
+DIST_SERVE_MESH = (4, 1)
+DIST_ROWS, DIST_ODD_ROWS = INFER_POSES, INFER_POSES - 3
+DIST_TIMING_REPS = 5
+# llama3.2-3b at full width cut to 2 layers, trained on data 2 x model 2
+# (12 q and 4 kv heads a rank) for 2 steps of one batch of 2 x 2,048,
+# step 1's loss and gradients held to one rank's with the same kernels:
+# f32 within 1e-4 of each leaf's largest magnitude (summation order:
+# the shards sum their products in another order), bf16 within
+# LMT_GRAD_TOL_BF16 (tests/test_torch_train.py BF16_GRAD_TOL); the bf16
+# state saved, then restored onto data 4 x model 1 bit for bit
+DIST_TRAIN_MESH, DIST_RESTORE_MESH = (2, 2), (4, 1)
+DIST_TRAIN_DEPTH, DIST_TRAIN_STEPS = 2, 2
+DIST_GRAD_TOL = {"float32": 1e-4, "bfloat16": LMT_GRAD_TOL_BF16}
+DIST_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the smoke cell's steps timed each way, with and without the mode
+DIST_MODE_REPS = 5
+
+
+def dist_config(work):
+    """The dist slice's sizes, for the ranks (a rehearsal on the CPU
+    writes smaller ones)."""
+    return {"device": "cuda", "work": str(work),
+            "tune_dir": str(work / "tune_torch"), "ranks": DIST_RANKS,
+            "serve_mesh": DIST_SERVE_MESH, "rows": DIST_ROWS,
+            "odd_rows": DIST_ODD_ROWS, "reps": DIST_TIMING_REPS,
+            "arch": LMT_ARCH, "depth": DIST_TRAIN_DEPTH,
+            "batch": LMT_BATCH, "seq": LMT_SEQ, "steps": DIST_TRAIN_STEPS,
+            "at_step": LMT_AT_STEP, "train_mesh": DIST_TRAIN_MESH,
+            "restore_mesh": DIST_RESTORE_MESH,
+            "dtypes": ["bfloat16", "float32"], "restore_dtype": "bfloat16"}
+
+
+def dist_bundles(work, dev):
+    """The minibude serving bundles of the dist slice, made and gated
+    here before the ranks start: an f32 one and a gated int8 one (full
+    width, seeded weights, normalization from seeded poses)."""
+    import torch
+    from repro_torch.apps import minibude
+    from repro_torch.core import InferenceEngine
+    from repro_torch.nn import MLP, save_model
+    from repro_torch.quant.budgets import set_rmse_budget
+    from repro_torch.quant.gate import gate_bundle
+    X = minibude.make_inputs(COLLECT_POSES, seed=1, device=dev)
+    Y = minibude.energies(X)[:, None]
+    stats = {"x_mu": X.mean(0).tolist(),
+             "x_sd": (X.std(0) + 1e-6).tolist(),
+             "y_mu": Y.mean(0).tolist(), "y_sd": (Y.std(0) + 1e-6).tolist()}
+    out = {}
+    for tier, seed in (("f32", 0), ("int8", 1)):
+        net = MLP((1, 6), list(BUDE_HIDDEN), 1).init(seed=seed)
+        out[tier] = save_model(work / f"bundle_{tier}", net, extra=stats)
+    set_rmse_budget(out["int8"], 1e30)  # the tier, not its accuracy
+    gate = gate_bundle(out["int8"], X.cpu().numpy(), device=dev)
+    if gate["exact"] is not True:
+        raise AssertionError(f"the dist slice's int8 gate failed: {gate}")
+    for tier, path in out.items():
+        eng = InferenceEngine.get(path, dev)
+        if eng.tier != tier:
+            raise AssertionError(f"{path} serves tier {eng.tier}")
+    InferenceEngine.invalidate()
+    del X, Y
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_dist_slice(dev, smi):
+    """The sharding substrate on the card: ``DIST_RANKS`` ranks of one
+    gloo group on the one H100 (each rank a process), minibude served
+    sharded in both tiers, llama3.2-3b trained sharded and its state
+    restored onto another mesh (:func:`dist_rank_main`), then the dry
+    run's smoke cell on a fake group of 256 ranks in this process.  Every
+    sharded time here is the cost of sharding on one card (four ranks
+    share its SMs and move their collectives through host memory), not a
+    speedup.  Returns the launches of the ranks' main runs, summed over
+    the ranks, by kernel wrapper."""
+    work = ROOT / "build" / "chip_smoke_dist"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    conf = dist_config(work)
+    # the slice's own tune cache (the gate verdict of its int8 bundle),
+    # which the ranks read too: whatever cache earlier phases set is gone
+    tcache = importlib.import_module("repro_torch.tune.cache")
+    tcache.ART = pathlib.Path(conf["tune_dir"])
+    tcache._default.clear()
+    conf["bundles"] = {k: str(v) for k, v in dist_bundles(work, dev).items()}
+    (work / "config.json").write_text(json.dumps(conf))
+    reports = spawn_dist_ranks(work / "config.json", conf["ranks"])
+    launches = dist_report(reports, conf, smi)
+    shutil.rmtree(work)
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch import dryrun
+    smoke_kernels = fa.KERNELS + (fa.flash_attention_bwd,)
+    for f in smoke_kernels:
+        f.launches = 0
+    rec = dryrun.run_smoke(ROOT / "build" / "chip_smoke_dryrun", force=True,
+                           device=dev.type)
+    smoke_launches = {f.__name__: f.launches for f in smoke_kernels}
+    shutil.rmtree(ROOT / "build" / "chip_smoke_dryrun", ignore_errors=True)
+    mode_s = time_collective_mode(dev)
+    checks = {"status_ok": rec["status"] == "ok",
+              "on_the_card": rec.get("device") == dev.type,
+              "attention_launched": sum(
+                  v for k, v in smoke_launches.items() if "bwd" not in k) > 0,
+              "backward_launched": smoke_launches["flash_attention_bwd"] > 0,
+              "collective_bytes": rec.get("coll_bytes", 0) > 0,
+              "every_kind_moves_bytes": all(
+                  b > 0 for b in rec.get("coll_bytes_per_kind", {}).values())}
+    emit("dist_slice", part="smoke", mesh=rec.get("mesh_shape"),
+         device=rec.get("device"), seconds=rec.get("run_s"),
+         launches=smoke_launches, coll_counts=rec.get("coll_counts"),
+         coll_bytes_per_kind=rec.get("coll_bytes_per_kind"),
+         coll_bytes=rec.get("coll_bytes"),
+         coll_bytes_corrected=rec.get("coll_bytes_corrected"),
+         resident_per_rank_bytes=rec.get("resident_per_rank_bytes"),
+         step_s_without_mode=mode_s["without"],
+         step_s_with_mode=mode_s["with"],
+         note="a fake group of 256 ranks in this process: its collectives "
+              "move nothing", nvidia_smi=smi, **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"dist smoke checks failed: {checks}")
+    return launches
+
+
+def time_collective_mode(dev, reps=DIST_MODE_REPS):
+    """Host seconds of the smoke cell's sharded train step on the card,
+    without the collective mode (the fake group needs no staging, so
+    DTensor issues its collectives directly) and with it (under
+    ``collective_stats``), alternated, every step timed; the median of
+    each after one warm step."""
+    import torch
+    from repro_torch.dist.hlo_analysis import collective_stats
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import build_cell
+    cfg, shape = dryrun.smoke_cell()
+    secs = {"without": [], "with": []}
+    with dryrun.fake_group(dryrun.SMOKE_RANKS):
+        mesh = make_production_mesh(device=dev.type)
+        with use_mesh(mesh):
+            cell = build_cell(cfg, shape, mesh, device=dev.type)
+            cell["fn"](*cell["args"])
+            for _ in range(reps):
+                for label in secs:
+                    ctx = collective_stats() if label == "with" \
+                        else contextlib.nullcontext()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with ctx:
+                        cell["fn"](*cell["args"])
+                    torch.cuda.synchronize()
+                    secs[label].append(time.perf_counter() - t0)
+        del cell
+    torch.cuda.empty_cache()
+    return {k: {"median": sorted(v)[len(v) // 2], "all": v}
+            for k, v in secs.items()}
+
+
+def spawn_dist_ranks(config, ranks):
+    """Start ``ranks`` processes of this script as the ranks of one gloo
+    group (``--dist-rank``), wait for all, and return each rank's report;
+    a rank that fails fails the slice (every rank is stopped)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank", str(r),
+         str(ranks), str(port), str(config)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(ranks)]
+    reports, errors = [], []
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=900)
+            if p.returncode != 0:
+                errors.append(f"rank {r} exited {p.returncode}:\n"
+                              f"{err[-4000:]}")
+                continue
+            reports.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            p.kill()
+    if errors:
+        raise AssertionError("dist slice ranks failed:\n" + "\n".join(errors))
+    return reports
+
+
+def dist_rank_main(argv):
+    """One rank of the dist slice: ``--dist-rank RANK WORLD PORT CONFIG``.
+    Joins the gloo group, runs the serving and training parts on its
+    device and prints its report as the last line."""
+    rank, world, port, config = (int(argv[0]), int(argv[1]), argv[2],
+                                 argv[3])
+    sys.path.insert(0, str(ROOT / "src"))
+    import warnings
+    warnings.filterwarnings("ignore")
+    import torch
+    import torch.distributed as dist
+    conf = json.loads(pathlib.Path(config).read_text())
+    if conf["device"] == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("the dist slice's ranks need the card")
+        torch.cuda.set_device(0)
+    from repro_torch.device import resolve_device
+    from repro_torch.tune import cache as tcache
+    tcache.ART = pathlib.Path(conf["tune_dir"])
+    dev = resolve_device(conf["device"])
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        report = {"rank": rank, "serve": dist_serve_part(conf, dev),
+                  "train": dist_train_part(conf, dev)}
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dist_serve_part(conf, dev):
+    """Both minibude tiers through ``InferenceEngine.apply_batched`` under
+    ``use_mesh`` (data 4 x model 1) at ``rows`` and at ``odd_rows``: every
+    row bit for bit the one-rank kernel's (both kernels keep a row's bits
+    whatever its batch), the kernel's launches a rank, the collectives,
+    and rows/s sharded (all ranks together, through the gather) and
+    unsharded (rank 0 alone, the others waiting)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.apps import minibude
+    from repro_torch.core import InferenceEngine
+    from repro_torch.dist import collective_stats, use_mesh
+    from repro_torch.kernels import registry
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(tuple(conf["serve_mesh"]), device=dev.type)
+    rank, out = dist.get_rank(), {}
+    x = minibude.make_inputs(conf["rows"], seed=2, device=dev)
+    x_odd = x[:conf["odd_rows"]]
+    for tier, path in conf["bundles"].items():
+        eng = InferenceEngine.get(path, dev)
+        kernel = {"f32": "fused_mlp", "int8": "fused_mlp_int8"}[tier]
+        one, one_odd = eng.apply_batched(x), eng.apply_batched(x_odd)
+        registry.reset_counts()
+        with use_mesh(mesh), collective_stats() as st:
+            y, y_odd = eng.apply_batched(x), eng.apply_batched(x_odd)
+        _sync(dev)
+        launches = registry.get_spec(kernel).launches
+        rates = {}
+        for label, ctx in (("unsharded", contextlib.nullcontext()),
+                           ("sharded", use_mesh(mesh))):
+            dist.barrier()
+            secs = []
+            if label == "sharded" or rank == 0:
+                with ctx:
+                    for _ in range(conf["reps"]):
+                        _sync(dev)
+                        t0 = time.perf_counter()
+                        eng.apply_batched(x)
+                        _sync(dev)
+                        secs.append(time.perf_counter() - t0)
+            dist.barrier()
+            if secs:
+                rates[label] = conf["rows"] / sorted(secs)[len(secs) // 2]
+        out[tier] = {
+            "route": eng.route, "tier": eng.tier, "rows": conf["rows"],
+            "odd_rows": conf["odd_rows"],
+            "rows_a_rank": conf["rows"] // mesh.size(),
+            "bits_equal": bool(torch.equal(y, one)),
+            "odd_bits_equal": bool(torch.equal(y_odd, one_odd)),
+            "finite": bool(torch.isfinite(y).all()),
+            "launches": launches, "applies": len(eng._applies),
+            "collectives": st.per_kind_count,
+            "collective_bytes": st.per_kind_bytes,
+            "rows_per_s": rates}
+        del one, one_odd, y, y_odd
+    return out
+
+
+def dist_train_part(conf, dev):
+    """llama3.2-3b at full width cut to ``depth`` layers, on data 2 x
+    model 2, in each dtype: step 1's loss and every gradient (gathered
+    leaf by leaf) against one rank's with the same kernels (rank 0,
+    unsharded); then ``steps`` train_steps with the launch counts reset
+    just before and read just after (each rank's flash_attention kernels
+    and backward), their collectives, seconds a step and the rank's peak
+    memory; the last dtype's state saved, then restored onto data 4 x
+    model 1, each rank's block of every leaf checked against the file,
+    before and after, bit for bit."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt.checkpoint import leaf_paths
+    from repro_torch.configs.base import get_config, with_repeats
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.dist import collective_stats, use_mesh
+    from repro_torch.dist.sharding import full_tensor
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import trainer
+    rank = dist.get_rank()
+    mesh = make_local_mesh(tuple(conf["train_mesh"]), device=dev.type)
+    batch = trainer.to_device(TokenPipeline(
+        get_config(conf["arch"]).vocab_size, conf["seq"], conf["batch"],
+        seed=11).batch_at(0), dev)
+    out = {}
+    for dtype in conf["dtypes"]:
+        cfg = with_repeats(get_config(conf["arch"]),
+                           conf["depth"]).replace(dtype=dtype)
+        res = {"n_layers": cfg.n_layers, "mesh": list(mesh.shape)}
+        if rank == 0:  # the one-rank step, with the same kernels
+            params = lm.init_params(0, cfg, device=dev)
+            for t in tree_leaves(params):
+                t.requires_grad_(True)
+            loss1, want = trainer.compute_grads(cfg, params, batch)
+            want = [g.detach() for g in tree_leaves(want)]
+            del params
+        state = trainer.make_train_state(0, cfg, device=dev, mesh=mesh)
+        p0 = state["params"]["stack"][0][0]["mixer"]["wq"]
+        res["wq_placements"] = repr(p0.placements)
+        res["wq_local_shape"] = list(p0.to_local().shape)
+        with use_mesh(mesh) as ctx:
+            b = {k: ctx.make_global(v, ("batch", None))
+                 for k, v in batch.items()}
+            loss, got = trainer.compute_grads(cfg, state["params"], b)
+            res["loss"] = float(full_tensor(loss))
+            errs = {}
+            for key, g in zip(leaf_paths(got), tree_leaves(got)):
+                g = full_tensor(g.detach())
+                if rank == 0:
+                    w = want.pop(0)
+                    errs[key] = ((g.float() - w.float()).abs().max()
+                                 / w.float().abs().max().clamp_min(1e-30)
+                                 ).item()
+                del g
+            del got
+        if rank == 0:
+            where = max(errs, key=errs.get)
+            res.update(loss_one_rank=float(loss1), worst=errs[where],
+                       worst_leaf=where, leaves=len(errs),
+                       tol=DIST_GRAD_TOL[dtype])
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for f in fa.KERNELS + (fa.flash_attention_bwd,):
+            f.launches = 0
+        with use_mesh(mesh) as ctx, collective_stats() as st:
+            b = {k: ctx.make_global(v, ("batch", None))
+                 for k, v in batch.items()}
+            for i in range(conf["steps"]):
+                _sync(dev)
+                t0 = time.perf_counter()
+                state, m = trainer.train_step(cfg, state, b,
+                                              step=conf["at_step"] + i)
+                _sync(dev)
+                steps.append({"seconds": time.perf_counter() - t0,
+                              "loss": float(m["loss"]),
+                              "grad_norm": float(m["grad_norm"])})
+        res["launches"] = {f.__name__: f.launches
+                           for f in fa.KERNELS + (fa.flash_attention_bwd,)}
+        res["steps"] = steps
+        res["collectives"] = st.per_kind_count
+        res["collective_bytes"] = st.per_kind_bytes
+        res["collective_bytes_corrected"] = st.corrected_bytes
+        if dev.type == "cuda":
+            res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if dtype == conf["restore_dtype"]:
+            res["restore"] = dist_restore_drill(conf, cfg, state)
+        out[dtype] = res
+        del state, m
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def dist_restore_drill(conf, cfg, state):
+    """Save a sharded state (gathered whole, written by rank 0), restore
+    it onto the restore mesh; each rank's block of every leaf, on the
+    mesh that saved it and on the one that restored it, equal to the
+    file's bit for bit (read leaf by leaf, no gather)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt.checkpoint import CheckpointManager, leaf_paths
+    from repro_torch.dist.sharding import local_block
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import trainer
+    mgr = CheckpointManager(pathlib.Path(conf["work"]) / "ckpt", keep=1,
+                            async_write=False)
+    t0 = time.perf_counter()
+    trainer.save_train_state(mgr, 1, state)
+    save_s = time.perf_counter() - t0
+    rows = make_local_mesh(tuple(conf["restore_mesh"]),
+                           device=conf["device"])
+    t0 = time.perf_counter()
+    back, step = trainer.restore_train_state(mgr, cfg, state, mesh=rows)
+    restore_s = time.perf_counter() - t0
+    d = mgr.dir / f"step_{step:08d}"
+    meta = json.loads((d / "meta.json").read_text())
+    index = {k: f"a{i}" for i, k in enumerate(meta["keys"])}
+    same, moved = True, 0
+    with np.load(d / "arrays.npz") as z:
+        for key, old, new in zip(leaf_paths(state), tree_leaves(state),
+                                 tree_leaves(back)):
+            a = z[index[key]]
+            full = torch.from_numpy(a.view(np.int16)).view(old.dtype) \
+                if old.dtype == torch.bfloat16 else torch.from_numpy(a)
+            for t in (old, new):
+                block = local_block(full, t.device_mesh, t.placements)
+                same &= torch.equal(t.to_local().detach().cpu(), block)
+            moved += tuple(old.placements) != tuple(new.placements)
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(mgr.dir, ignore_errors=True)
+    return {"bits_equal": bool(same), "step": step, "leaves": len(meta["keys"]),
+            "leaves_laid_out_otherwise": moved,
+            "from_mesh": list(tree_leaves(state)[0].device_mesh.shape),
+            "onto_mesh": list(rows.shape), "save_s": save_s,
+            "restore_s": restore_s,
+            "bytes": sum(t.numel() * t.element_size()
+                         for t in tree_leaves(state))}
+
+
+def dist_report(reports, conf, smi):
+    """The ranks' reports as ``dist_slice`` lines (serve, train,
+    restore), each checked; returns the main runs' launches summed over
+    the ranks by kernel wrapper."""
+    checks, launches = {}, {}
+    serve = {tier: [r["serve"][tier] for r in reports]
+             for tier in conf["bundles"]}
+    for tier, rs in serve.items():
+        kernel = {"f32": "fused_mlp", "int8": "fused_mlp_int8"}[tier]
+        checks.update({
+            f"{tier}_bits_equal": all(r["bits_equal"] and r["odd_bits_equal"]
+                                      for r in rs),
+            f"{tier}_finite": all(r["finite"] for r in rs),
+            f"{tier}_route": all(r["route"] == kernel for r in rs),
+            f"{tier}_launched_every_rank": all(r["launches"] >= 1
+                                               for r in rs),
+            f"{tier}_gathered": all(r["collective_bytes"].get(
+                "all-gather", 0) > 0 for r in rs)})
+        launches[kernel] = sum(r["launches"] for r in rs)
+        emit("dist_slice", part="serve", tier=tier, ranks=len(rs),
+             mesh=list(conf["serve_mesh"]), rows=rs[0]["rows"],
+             odd_rows=rs[0]["odd_rows"], rows_a_rank=rs[0]["rows_a_rank"],
+             launches_by_rank=[r["launches"] for r in rs],
+             collectives=rs[0]["collectives"],
+             collective_bytes=rs[0]["collective_bytes"],
+             rows_per_s_sharded=rs[0]["rows_per_s"]["sharded"],
+             rows_per_s_unsharded=rs[0]["rows_per_s"]["unsharded"],
+             note="sharded rows/s are the cost of sharding on one card "
+                  "(four ranks share it, gathers through host memory), "
+                  "not a speedup", nvidia_smi=smi,
+             **{k: v for k, v in checks.items() if k.startswith(tier)})
+    for dtype in conf["dtypes"]:
+        rs = [r["train"][dtype] for r in reports]
+        r0 = rs[0]
+        steps = [s for r in rs for s in r["steps"]]
+        kernels = [k for k in rs[0]["launches"] if "bwd" not in k
+                   and rs[0]["launches"][k]]
+        checks.update({
+            f"{dtype}_grads_within_tol": r0["worst"] <= r0["tol"],
+            f"{dtype}_loss_matches_one_rank": abs(
+                r0["loss"] - r0["loss_one_rank"])
+            <= DIST_LOSS_RTOL[dtype] * abs(r0["loss_one_rank"]),
+            f"{dtype}_finite": all(
+                s["loss"] == s["loss"] and s["grad_norm"] == s["grad_norm"]
+                for s in steps),
+            f"{dtype}_attention_launched": all(
+                sum(v for k, v in r["launches"].items() if "bwd" not in k)
+                > 0 for r in rs),
+            f"{dtype}_backward_launched": all(
+                r["launches"]["flash_attention_bwd"] > 0 for r in rs),
+            f"{dtype}_collective_bytes_every_kind": all(
+                b > 0 for b in r0["collective_bytes"].values())
+            and len(r0["collective_bytes"]) >= 2})
+        for k in r0["launches"]:
+            launches[k] = launches.get(k, 0) + sum(r["launches"][k]
+                                                   for r in rs)
+        emit("dist_slice", part="train", arch=conf["arch"], dtype=dtype,
+             n_layers=r0["n_layers"], mesh=r0["mesh"], ranks=len(rs),
+             batch=conf["batch"], seq=conf["seq"],
+             wq_placements=r0["wq_placements"],
+             wq_local_shape=r0["wq_local_shape"], loss=r0["loss"],
+             loss_one_rank=r0["loss_one_rank"], worst=r0["worst"],
+             worst_leaf=r0["worst_leaf"], leaves=r0["leaves"],
+             tol=r0["tol"], forward_kernels=kernels,
+             launches_by_rank=[r["launches"] for r in rs],
+             collectives=r0["collectives"],
+             collective_bytes=r0["collective_bytes"],
+             collective_bytes_corrected=r0["collective_bytes_corrected"],
+             seconds_a_step=[s["seconds"] for s in r0["steps"]],
+             losses=[s["loss"] for s in r0["steps"]],
+             peak_gib_by_rank=[r.get("peak_gib") for r in rs],
+             note="seconds a step are the cost of sharding on one card "
+                  "(four ranks share it, collectives through host "
+                  "memory), not a speedup", nvidia_smi=smi,
+             **{k: v for k, v in checks.items() if k.startswith(dtype)})
+        if "restore" in r0:
+            rr = [r["restore"] for r in rs]
+            checks["restore_bits_equal"] = all(x["bits_equal"] for x in rr)
+            checks["restore_relaid"] = r0["restore"][
+                "leaves_laid_out_otherwise"] > 0
+            emit("dist_slice", part="restore", dtype=dtype,
+                 **{k: v for k, v in r0["restore"].items()
+                    if k != "bits_equal"},
+                 bits_equal=checks["restore_bits_equal"],
+                 relaid=checks["restore_relaid"])
+    if not all(checks.values()):
+        raise AssertionError("dist slice checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return launches
+
+
 def _cast(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast(v, dtype) for k, v in tree.items()}
@@ -6101,6 +6659,7 @@ def main():
         dev, smi, train_work)
     bwd, mla_bwd = bwd_lines["llama3.2-3b"], bwd_lines["mla"]
     shutil.rmtree(train_work)
+    dist_launches = run_dist_slice(dev, smi)
     if rwkv_failures or mamba_failures:
         raise AssertionError("; ".join(rwkv_failures + mamba_failures))
     # each flash_attention kernel's launches over the main paths
@@ -6123,8 +6682,11 @@ def main():
             new_rows[-1]["bound_tc_ms"] = t["bound_tc_ms"]
         if name == "flash_attention":  # the f32 design
             new_rows[-1].update(
-                launches=flash_launches["flash_attention_f32"],
-                launches_by_path=flash_by_path["flash_attention_f32"],
+                launches=flash_launches["flash_attention_f32"]
+                + dist_launches["flash_attention_f32"],
+                launches_by_path=dict(
+                    flash_by_path["flash_attention_f32"],
+                    dist_slice=dist_launches["flash_attention_f32"]),
                 max_abs_err=errs_new[name]["llama3.2-3b prefill 4096 f32"])
         if "step_ms" in t:
             new_rows[-1].update(step_ms=t["step_ms"],
@@ -6140,8 +6702,11 @@ def main():
         "source": flash.BF16_SOURCE, "replaces": flash.REPLACES,
         "replaces_note": "its bf16 forward; f32 runs flash_attention",
         "design": FLASH_BF16_DESIGN,
-        "launches": flash_launches["flash_attention_bf16_prefill"],
-        "launches_by_path": flash_by_path["flash_attention_bf16_prefill"],
+        "launches": flash_launches["flash_attention_bf16_prefill"]
+        + dist_launches["flash_attention_bf16_prefill"],
+        "launches_by_path": dict(
+            flash_by_path["flash_attention_bf16_prefill"],
+            dist_slice=dist_launches["flash_attention_bf16_prefill"]),
         "max_abs_err": lm_p["max_abs_err"], "rtol": BF16_RTOL,
         "atol": flash_ops.TOL[1], "shape": lm_p["problem"],
         "params": lm_p["params"], "ms": lm_p["ms"],
@@ -6205,11 +6770,13 @@ def main():
         "name": "fused_mlp", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES,
         "launches": launches["fused_mlp"] + train_launches
-        + serve_launches["fused_mlp"] + control_launches["fused_mlp"],
+        + serve_launches["fused_mlp"] + control_launches["fused_mlp"]
+        + dist_launches["fused_mlp"],
         "launches_by_path": {"slice": launches["fused_mlp"],
                              "train_slice": train_launches,
                              "serve_slice": serve_launches["fused_mlp"],
-                             "control_slice": control_launches["fused_mlp"]},
+                             "control_slice": control_launches["fused_mlp"],
+                             "dist_slice": dist_launches["fused_mlp"]},
         "max_abs_err": errs[INFER_POSES], "rtol": SPEC.tol[0],
         "atol": SPEC.tol[1],
         "batch": INFER_POSES, "ms": timings["ms"],
@@ -6221,11 +6788,13 @@ def main():
         "name": "fused_mlp_int8", "route": "cuda", "source": int8.SOURCE,
         "replaces": int8.REPLACES,
         "launches": int8_launches + serve_launches["fused_mlp_int8"]
-        + control_launches["fused_mlp_int8"],
+        + control_launches["fused_mlp_int8"]
+        + dist_launches["fused_mlp_int8"],
         "launches_by_path": {
             "int8_slice": int8_launches,
             "serve_slice": serve_launches["fused_mlp_int8"],
-            "control_slice": control_launches["fused_mlp_int8"]},
+            "control_slice": control_launches["fused_mlp_int8"],
+            "dist_slice": dist_launches["fused_mlp_int8"]},
         "max_abs_err": errs8[INFER_POSES], "rtol": int8.SPEC.tol[0],
         "atol": int8.SPEC.tol[1],
         "batch": INFER_POSES, "ms": timings8["ms"],
@@ -6277,9 +6846,11 @@ def main():
         "name": "flash_attention_bwd", "route": "cuda",
         "source": flash.BWD_SOURCE, "replaces": flash.BWD_REPLACES,
         "replaces_note": "no Pallas kernel: jax.grad of full_attention",
-        "launches": sum(lm_train_launches["flash_attention_bwd"].values()),
+        "launches": sum(lm_train_launches["flash_attention_bwd"].values())
+        + dist_launches["flash_attention_bwd"],
         "launches_by_path": {
-            "lm_train_slice": lm_train_launches["flash_attention_bwd"]},
+            "lm_train_slice": lm_train_launches["flash_attention_bwd"],
+            "dist_slice": dist_launches["flash_attention_bwd"]},
         "max_abs_err": bwd["max_abs_err"], "tol": bwd["tol"],
         "tol_autograd": bwd["tol_autograd"], "shape": bwd["shape"],
         "dtype": bwd["dtype"], "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
@@ -6337,4 +6908,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-rank"]:
+        sys.exit(dist_rank_main(sys.argv[2:]))
     sys.exit(main())

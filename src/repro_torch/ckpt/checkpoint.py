@@ -8,12 +8,15 @@
   file write on a background writer thread;
 * exact: every leaf is stored with its dtype (bf16 as its ``uint16``
   bits, the dtype named in ``meta.json``), and ``restore`` lays the
-  arrays onto the devices and dtypes of ``state_like``.
+  arrays onto the devices and dtypes of ``state_like``;
+* elastic: a sharded state (DTensor leaves) is gathered to whole host
+  arrays on save, so a checkpoint holds no topology, and ``restore``
+  with ``shardings`` (``trainer.state_shardings``) lays each leaf out
+  for the current mesh, whatever mesh wrote it.
 
-States are trees of tensors (dicts, lists and tuples).  The reference's
-elastic re-shard on load (``shardings``) needs a mesh, which the port
-does not have yet (ROADMAP queue 1 item 9): ``restore`` takes
-``shardings=None`` only.
+States are trees of tensors (dicts, lists and tuples).  Every rank of a
+sharded state takes part in the gather; rank 0 writes, and a restore
+waits at a barrier until it has.
 """
 from __future__ import annotations
 
@@ -25,7 +28,9 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.dist.sharding import distribute, full_tensor, is_dtensor
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
 # dtypes numpy cannot hold, stored as the raw bits of a 16-bit integer
@@ -47,8 +52,8 @@ def leaf_paths(tree):
 
 def _to_host(t):
     """A host copy of a leaf (never a view of memory the caller goes on
-    updating in place): ``(numpy array, dtype name)``."""
-    t = torch.as_tensor(t).detach()
+    updating in place): ``(numpy array, dtype name)``; a DTensor whole."""
+    t = full_tensor(torch.as_tensor(t).detach())
     name = str(t.dtype).removeprefix("torch.")
     t = t.to("cpu", copy=True)
     if t.dtype in _BITS:
@@ -67,6 +72,10 @@ class CheckpointManager:
     # ---------------------------------------------------------- save ------
     def save(self, step: int, state) -> None:
         keys = leaf_paths(state)
+        if _sharded(state) and dist.get_rank() != 0:
+            for x in tree_leaves(state):  # every rank takes part in the
+                full_tensor(x)            # gathers; rank 0 writes
+            return
         host = [_to_host(x) for x in tree_leaves(state)]  # caller's thread
         self.wait()
         if self.async_write:
@@ -117,13 +126,15 @@ class CheckpointManager:
 
     def restore(self, state_like, step: int | None = None, shardings=None):
         """Restore into the structure of ``state_like``: each leaf on that
-        leaf's device, in its dtype, with its ``requires_grad``.  Returns
-        ``(state, step)``; the latest step when ``step`` is None."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto shardings needs a device mesh, which the "
-                "port does not have yet (ROADMAP queue 1 item 9)")
+        leaf's device, in its dtype, with its ``requires_grad``, and with
+        ``shardings`` (a tree of
+        :class:`~repro_torch.dist.sharding.NamedSharding` matching it) a
+        DTensor laid out on its mesh.  Returns ``(state, step)``; the
+        latest step when ``step`` is None."""
         self.wait()
+        if (shardings is not None or _sharded(state_like)) and \
+                dist.is_initialized():
+            dist.barrier()  # rank 0's write of a sharded save is done
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -131,11 +142,16 @@ class CheckpointManager:
         meta = json.loads((d / "meta.json").read_text())
         dt_by_key = dict(zip(meta["keys"], meta["dtypes"]))
         keys, leaves = leaf_paths(state_like), tree_leaves(state_like)
+        sh_leaves = (_sharding_leaves(shardings) if shardings is not None
+                     else [None] * len(leaves))
+        if len(sh_leaves) != len(leaves):
+            raise ValueError(f"{len(sh_leaves)} shardings for a state of "
+                             f"{len(leaves)} leaves")
         out = []
-        with np.load(d / "arrays.npz") as z:
-            by_key = {k: z[f"a{i}"] for i, k in enumerate(meta["keys"])}
-        for k, ref in zip(keys, leaves):
-            a = by_key[k]
+        index = {k: f"a{i}" for i, k in enumerate(meta["keys"])}
+        z = np.load(d / "arrays.npz")  # read leaf by leaf below
+        for k, ref, sh in zip(keys, leaves, sh_leaves):
+            a = z[index[k]]
             dtype = getattr(torch, dt_by_key[k])
             if dtype in _BITS:
                 t = torch.from_numpy(a.view(np.int16)).view(dtype)
@@ -143,6 +159,24 @@ class CheckpointManager:
                 t = torch.from_numpy(a)
             ref = torch.as_tensor(ref)
             t = t.to(device=ref.device, dtype=ref.dtype)
+            if sh is not None:
+                t = distribute(t, sh.mesh, sh.placements)
             out.append(t.requires_grad_(ref.requires_grad))
+            del a, t
+        z.close()
         it = iter(out)
         return tree_map(lambda _: next(it), state_like), step
+
+
+def _sharded(state) -> bool:
+    return any(is_dtensor(x) for x in tree_leaves(state))
+
+
+def _sharding_leaves(shardings) -> list:
+    """The shardings in ``tree_leaves`` order (each one a leaf)."""
+    if isinstance(shardings, dict):
+        return [x for k in sorted(shardings)
+                for x in _sharding_leaves(shardings[k])]
+    if isinstance(shardings, (list, tuple)):
+        return [x for v in shardings for x in _sharding_leaves(v)]
+    return [shardings]

@@ -40,8 +40,19 @@ leaves its load-time int8 layers.  Every load meters the bytes the
 engine holds on its device against the residency manager
 (:mod:`repro_torch.serve.residency`), and evicted bundles leave through
 :meth:`invalidate`.  XLA's buffer donation has no torch counterpart:
-``apply_batched`` takes no ``donate``.  Sharded serving waits for the
-port of ``dist/``.
+``apply_batched`` takes no ``donate``.
+
+Under a mesh (:func:`~repro_torch.dist.sharding.use_mesh`, one rank a
+device) the rows are placed on the data axis (:meth:`_place`, the
+placement cached per shape and mesh: each rank keeps its own rows of a
+batch every rank holds) and served by an apply built once per mesh
+(:meth:`_apply_for`): the normalization on the row shards, then the
+sharded op of the route, each rank running its kernel on its own rows
+(``fused_mlp_sharded``, ``fused_mlp_int8_sharded``; the ``Sequential``
+on each rank's rows otherwise).  ``apply_batched`` raises its bucket
+floor to the data-shard count, and both entry points return every row
+to every rank (an all-gather of the row shards), bit for bit what one
+rank would serve.  Without a mesh nothing changes.
 """
 from __future__ import annotations
 
@@ -52,6 +63,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import (constrain, current_ctx, distribute,
+                                       full_tensor, is_dtensor,
+                                       rows_sharded)
 from repro_torch.kernels import registry
 from repro_torch.kernels.fused_mlp import int8 as int8_ops
 from repro_torch.kernels.fused_mlp import ops as fused_ops
@@ -118,6 +132,9 @@ class InferenceEngine:
         # buckets already served once since load: a batch at an unseen
         # bucket is marked ``compile`` in its engine.apply span
         self._seen_buckets: set = set()
+        # per-mesh applies and row placements (dropped at every load)
+        self._applies: dict = {}
+        self._shardings: dict = {}
         self._load()
 
     def _load(self):
@@ -132,6 +149,8 @@ class InferenceEngine:
         else:
             self.route, self._packed = self._route()
         self._seen_buckets.clear()
+        self._applies.clear()
+        self._shardings.clear()
         # residency accounting: meter this load's bytes against the LRU
         # byte budget and drop whatever the manager says must go.  The
         # victims leave through invalidate(): eviction and retrain
@@ -256,8 +275,81 @@ class InferenceEngine:
 
     def __call__(self, x):
         """Surrogate rows ``[B, *in_shape[1:]]`` -> outputs, on the
-        engine's device, normalized as the bundle says."""
-        return self._serve(x, int(x.shape[0]))
+        engine's device, normalized as the bundle says (under a mesh,
+        sharded over its data axis, every row back on every rank)."""
+        return self._run(x, int(x.shape[0]), current_ctx())
+
+    def _run(self, x, rows: int, ctx):
+        """:meth:`_serve`, or under a mesh the mesh's apply on the placed
+        rows, gathered whole."""
+        if ctx is None or ctx.mesh is None:
+            return self._serve(x, rows)
+        with torch.no_grad():
+            y = self._apply_for(ctx)(self._place(x, ctx))
+            if self.route == "fused_mlp_int8":
+                _SERVED.inc(rows, bundle=self.path)
+            return full_tensor(y)
+
+    def _apply_for(self, ctx):
+        """The apply for a mesh, built once per ``(mesh, multi_pod)``."""
+        key = (ctx.mesh, ctx.multi_pod)
+        fn = self._applies.get(key)
+        if fn is None:
+            fn = self._applies[key] = self._build(ctx)
+        return fn
+
+    def _build(self, ctx):
+        """The sharded apply: rows constrained to the data axis, the
+        normalization (replicated on the mesh) on the row shards, the
+        route's sharded op, rows constrained again."""
+        from torch.distributed.tensor import Replicate
+        mesh, data_axes = ctx.mesh, ctx.mesh_axes_for("data")
+        norm = None if self.norm is None else tuple(
+            distribute(t, mesh, [Replicate()] * mesh.ndim)
+            for t in self.norm)
+        if self.route == "fused_mlp_int8":
+            def raw(x):
+                return int8_ops.fused_mlp_int8_from_spec(
+                    self.spec, self._packed, x, mesh=mesh,
+                    data_axes=data_axes)
+        elif self.route == "fused_mlp":
+            def raw(x):
+                return fused_ops.fused_mlp_from_spec(
+                    self.spec, None, x, packed=self._packed, mesh=mesh,
+                    data_axes=data_axes)
+        else:
+            def raw(x):
+                return rows_sharded(self._plain_rows, x, mesh=mesh,
+                                    data_axes=data_axes)
+
+        def apply(x):
+            rows = ("data",) + (None,) * (x.ndim - 1)
+            x = constrain(x, *rows)
+            if norm is not None:
+                x = (x - norm[0]) / norm[1]
+            y = raw(x)
+            if norm is not None:
+                y = y * norm[3] + norm[2]
+            return constrain(y, *(("data",) + (None,) * (y.ndim - 1)))
+        return apply
+
+    def _plain_rows(self, x):
+        """The ``Sequential`` on rows (in tiles on the CPU)."""
+        if self.device.type == "cpu" and self._is_pure_mlp():
+            return self._tiled(x)
+        return self.net(x)
+
+    def _place(self, x, ctx):
+        """Rows placed over the data axis of ``ctx``'s mesh, the
+        placements cached per (shape, mesh): every rank holds the batch
+        and keeps its own rows.  A DTensor is already placed."""
+        if is_dtensor(x):
+            return x
+        key = (tuple(x.shape), ctx.mesh, ctx.multi_pod)
+        if key not in self._shardings:
+            self._shardings[key] = ctx.sharding_for(
+                tuple(x.shape), ("data",) + (None,) * (x.ndim - 1))
+        return distribute(x, ctx.mesh, self._shardings[key])
 
     @torch.no_grad()
     def _serve(self, x, rows: int):
@@ -272,10 +364,8 @@ class InferenceEngine:
         elif self.route == "fused_mlp":
             y = fused_ops.fused_mlp_from_spec(self.spec, None, x,
                                               packed=self._packed)
-        elif self.device.type == "cpu" and self._is_pure_mlp():
-            y = self._tiled(x)
         else:
-            y = self.net(x)
+            y = self._plain_rows(x)
         if self.norm is not None:
             y = y * self.norm[3] + self.norm[2]
         return y
@@ -303,15 +393,21 @@ class InferenceEngine:
         rows equal an unpadded :meth:`__call__`'s, and so on the
         ``fused_mlp_int8`` route, where a row's sums are exact integers.
         ``prepadded=True`` says ``x`` is already bucket-shaped (the
-        batcher pads while it gathers).
+        batcher pads while it gathers).  Under a mesh the bucket floor is
+        raised to the data-shard count (and rounded to a multiple of it),
+        so a batch never loses the data axis to the divisibility
+        fallback.
 
         The ``engine.apply`` fault site fires here, once per batch:
         ``raise``/``stall`` act inside the injector, ``nan``/``inf``
         poison every output row, ``corrupt`` perturbs the weights until
         the next load (:meth:`_corrupt`)."""
         n = int(x.shape[0])
+        ctx = current_ctx()
         if not prepadded:
-            b = bucket_for(n, min_bucket)
+            shards = (ctx.axis_size("data")
+                      if ctx is not None and ctx.mesh is not None else 1)
+            b = bucket_for(n, min_bucket, shards)
             if b != n:
                 x = torch.cat([x, x.new_zeros((b - n,) + tuple(x.shape[1:]))])
         fault = None
@@ -327,10 +423,10 @@ class InferenceEngine:
                                    "route": self.route,
                                    "compile": bucket not in
                                    self._seen_buckets}):
-                y = self._serve(x, n)
+                y = self._run(x, n, ctx)
             self._seen_buckets.add(bucket)
         else:
-            y = self._serve(x, n)
+            y = self._run(x, n, ctx)
         if fault is not None and fault.mode in ("nan", "inf"):
             y = y * float(fault.value)
         return y if n == int(y.shape[0]) else y[:n]

@@ -20,8 +20,9 @@ take layers of any width whose rows fit a block.  Both read one pack
 (:func:`pack_words`): each layer in the order of the mma's B fragments.
 
 The plain version is :func:`repro_torch.quant.quantize.quant_mlp_ref`;
-:func:`fused_mlp_int8` counts its launches in ``fused_mlp_int8.launches``.
-``fused_mlp_int8_sharded`` waits for the port of ``dist/``.
+:func:`fused_mlp_int8` counts its launches in ``fused_mlp_int8.launches``;
+:func:`fused_mlp_int8_sharded` runs it on each rank's rows of a batch
+split over a mesh's data axes.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import rows_sharded
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.fused_mlp.fused_mlp import ACT_CODES
 from repro_torch.kernels.fused_mlp.ops import (DEFAULT_PROBLEMS,
@@ -354,8 +356,21 @@ def fused_mlp_int8_op(x, packed: PackedInt8MLP, *, block_rows=None):
                              x.device, overrides={"block_rows": block_rows})
 
 
-def fused_mlp_int8_from_spec(spec, packed: PackedInt8MLP, x):
+def fused_mlp_int8_sharded(x, packed: PackedInt8MLP, *, mesh, data_axes):
+    """Batch-sharded int8 fused MLP: the quantized pack replicates, the
+    rows split over the mesh axes ``data_axes``, each rank runs the
+    kernel on its own rows; the int8 twin of ``fused_mlp_sharded``."""
+    return rows_sharded(lambda rows: fused_mlp_int8_op(rows, packed), x,
+                        mesh=mesh, data_axes=tuple(data_axes))
+
+
+def fused_mlp_int8_from_spec(spec, packed: PackedInt8MLP, x, *, mesh=None,
+                             data_axes=()):
     """Adapter: run a pure-dense bundle through the int8 kernel with the
-    stack the engine quantized and packed once at load."""
+    stack the engine quantized and packed once at load; with ``mesh``,
+    per rank over ``data_axes`` (:func:`fused_mlp_int8_sharded`)."""
     x = mlp_stack_from_spec(spec, None, x)[0]
+    if mesh is not None:
+        return fused_mlp_int8_sharded(x, packed, mesh=mesh,
+                                      data_axes=data_axes)
     return fused_mlp_int8_op(x, packed)

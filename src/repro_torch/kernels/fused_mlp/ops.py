@@ -5,13 +5,15 @@ The tunable keeps the name the engine, tuner and cache know,
 ``block_rows``; its ladder is what the kernel instantiates (16 or 32 rows
 a block, one or two m16 tiles of tensor-core fragments, for layers up to
 1,024 wide; 1 to 8 rows for any width), not the reference's
-``batch_tile`` ladder.  ``fused_mlp_sharded`` waits for the port of
-``dist/``.
+``batch_tile`` ladder.  :func:`fused_mlp_sharded` runs the kernel on
+each rank's rows of a batch split over a mesh's data axes, the stack
+replicated: its tuned-tile lookup keys on the rows a rank serves.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.sharding import rows_sharded
 from repro_torch.kernels import registry
 from repro_torch.kernels.fused_mlp.fused_mlp import (BLOCK_ROWS, MAX_LAYERS,
                                                      PackedMLP, fits_smem,
@@ -135,6 +137,17 @@ def fused_mlp_op(x, packed: PackedMLP, *, block_rows=None):
                              x.device, overrides={"block_rows": block_rows})
 
 
+def fused_mlp_sharded(x, packed: PackedMLP, *, mesh, data_axes):
+    """Batch-sharded fused MLP: the packed stack replicates (the whole
+    net fits a block's shared memory, the kernel's premise), the rows
+    split over the mesh axes ``data_axes``, and each rank runs the
+    kernel on its own rows (a DTensor back, rows split the same way).
+    Rows that do not divide the shard count run unsharded on every rank,
+    the reference's rule."""
+    return rows_sharded(lambda rows: fused_mlp_op(rows, packed), x,
+                        mesh=mesh, data_axes=tuple(data_axes))
+
+
 def mlp_stack_from_spec(spec, params, x):
     """Walk a pure-dense Sequential bundle spec into the fused kernel's
     call shape: ``(x, weights, biases, acts)``.
@@ -174,12 +187,16 @@ def pack_from_spec(spec, params, device=None) -> PackedMLP:
     return pack_mlp(weights, biases, acts, device=device)
 
 
-def fused_mlp_from_spec(spec, params, x, *, packed: PackedMLP | None = None):
+def fused_mlp_from_spec(spec, params, x, *, packed: PackedMLP | None = None,
+                        mesh=None, data_axes=()):
     """Adapter: run a pure-dense Sequential bundle through the kernel;
     ``packed`` reuses a stack packed by :func:`pack_from_spec` (then
-    ``params`` may be None)."""
+    ``params`` may be None); with ``mesh``, per rank over ``data_axes``
+    (:func:`fused_mlp_sharded`; rows replicated when it names none)."""
     x, weights, biases, acts = mlp_stack_from_spec(spec, params, x)
     if packed is None:
         packed = pack_mlp(weights, biases, acts, device=x.device)
+    if mesh is not None:
+        return fused_mlp_sharded(x, packed, mesh=mesh, data_axes=data_axes)
     return fused_mlp_op(x, packed)
 

@@ -33,10 +33,17 @@ chunked associative scan in jnp, blocks.py:563-586) runs through
 :func:`~repro_torch.kernels.mamba_scan.ops.mamba_scan_op`, a kernel the
 port adds; its one-token step stays plain torch, which rounds where the
 reference's step rounds (it rounds ``dt * x`` to the model dtype, where
-the sequence form takes both in f32).  The reference's sharding hints (``constrain``) are no-ops
-without a mesh and are dropped: the port runs on one device, so it pads
-no query heads either (:func:`_padded_heads`) and routes MoE tokens in
-one group (:func:`_moe_groups`).
+the sequence form takes both in f32).
+The reference's sharding hints (``constrain``) stand at its sites in
+the GQA mixer and the dense MLPs: no-ops without a mesh, a DTensor
+redistribution under one.  Under a mesh the attention kernel runs on
+each rank's local heads and rows (:func:`_attention`, a ``local_map``
+on the heads' placement), so the registry dispatches only local tensors,
+and MoE tokens route in groups aligned to the batch shards
+(:func:`_moe_groups`).  The port pads no query heads
+(:func:`_padded_heads`): its kernel takes K/V at their own head count.
+The MLA, MoE-expert, Mamba and RWKV6 sites are not placed yet (ROADMAP
+item 9b); under a mesh those mixers run on DTensor's own layouts.
 """
 from __future__ import annotations
 
@@ -46,6 +53,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import (block_offset, constrain, current_ctx,
+                                       is_dtensor, matmul)
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.kernels.mamba_scan.ops import mamba_scan_op
 from repro_torch.kernels.rwkv6_chunk.ops import rwkv6_chunk_op
@@ -134,14 +143,11 @@ def _project_qkv(cfg, p, x, positions, position_ids=None):
     """q ``[B, S, H, hd]`` and k, v ``[B, S, KV, hd]`` of x ``[B, S, d]``,
     with bias, qk-norm and the rotary embedding at ``positions`` ``[S]``
     (``position_ids`` ``[3, B, S]`` for mrope)."""
-    B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q, k, v = matmul(x, p["wq"]), matmul(x, p["wk"]), matmul(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    q, k, v = _heads(q, H, hd), _heads(k, KV, hd), _heads(v, KV, hd)
     if cfg.qk_norm and "q_norm" in p:
         q = rms_head(q, p["q_norm"])
         k = rms_head(k, p["k_norm"])
@@ -159,14 +165,31 @@ def _project_qkv(cfg, p, x, positions, position_ids=None):
     return q, k, v
 
 
+def _heads(t, n: int, hd: int):
+    """``[B, S, n * hd]`` as ``[B, S, n, hd]``.  A DTensor whose last dim
+    is split finer than whole heads (``n`` does not divide its shards)
+    is gathered on it first: DTensor cannot split a shard across the
+    head boundary."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+        pl, sizes = t.placements, t.device_mesh.shape
+        m = 1
+        for i, pi in enumerate(pl):
+            if pi.is_shard(t.ndim - 1):
+                m *= sizes[i]
+        if n % m:
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if pi.is_shard(t.ndim - 1) else pi for pi in pl])
+    return t.reshape(*t.shape[:-1], n, hd)
+
+
 def _cross_q(cfg, p, x):
     """A cross attention's query ``[B, S, H, hd]``: x's projection (with
     ``bq`` under ``qkv_bias``), no norm and no rotation."""
-    B, S, _ = x.shape
-    q = x @ p["wq"]
+    q = matmul(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
-    return q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    return _heads(q, cfg.n_heads, cfg.head_dim)
 
 
 def gqa_seq(cfg, p, x, *, positions, position_ids=None, causal=True,
@@ -181,8 +204,42 @@ def gqa_seq(cfg, p, x, *, positions, position_ids=None, causal=True,
         q, (k, v), causal = _cross_q(cfg, p, x), cross_kv, False
     else:
         q, k, v = _project_qkv(cfg, p, x, positions, position_ids)
-    o = flash_attention_op(q, k, v, causal=causal, q_offset=0)
-    return o.reshape(B, S, -1) @ p["wo"], (k, v)
+    q = constrain(q, "batch", None, "heads", None)
+    k_h = constrain(k, "batch", None, "heads", None)
+    v_h = constrain(v, "batch", None, "heads", None)
+    o = _attention(q, k_h, v_h, causal=causal)
+    return matmul(o.reshape(B, S, -1), p["wo"]), (k, v)
+
+
+def _attention(q, k, v, *, causal):
+    """``flash_attention_op`` on plain tensors; on DTensors (under a
+    mesh) on each rank's local rows and heads, through ``local_map`` on
+    q's placement.  A rank whose query heads cover whole groups of its
+    kv heads' block reads that block; otherwise (kv heads replicated
+    where their count does not divide the shards) its kv heads are
+    repeated to the query heads it holds."""
+    if not is_dtensor(q):
+        return flash_attention_op(q, k, v, causal=causal, q_offset=0)
+    from torch.distributed.tensor.experimental import local_map
+    H, KV = q.shape[2], k.shape[2]
+    mesh = q.device_mesh
+    q_off = block_offset(mesh, q.placements, 2, H)
+    k_off = block_offset(mesh, k.placements, 2, KV)
+
+    def local(ql, kl, vl):
+        hq, hk, group = ql.shape[2], kl.shape[2], H // KV
+        if (q_off // group, hq // group) != (k_off, hk) or hq % group:
+            # the rank's query heads read kv heads outside its block:
+            # take each query head's kv head explicitly
+            heads = (torch.arange(q_off, q_off + hq, device=ql.device)
+                     // group) - k_off
+            kl, vl = kl[:, :, heads], vl[:, :, heads]
+        return flash_attention_op(ql, kl, vl, causal=causal, q_offset=0)
+
+    return local_map(local, out_placements=list(q.placements),
+                     in_placements=(list(q.placements), list(k.placements),
+                                    list(v.placements)),
+                     device_mesh=mesh)(q, k, v)
 
 
 def gqa_init_cache(cfg, batch, cache_len, dtype, device):
@@ -662,12 +719,12 @@ def mlp_init(gen, cfg, kind):
 
 # --------------------------------------------------------------- MoE -------
 def _moe_groups(T: int) -> int:
-    """Routing groups: 1.  The reference aligns its groups to a mesh's
-    data shards (GShard-style local dispatch) and takes 1 without a mesh;
-    the port has no mesh until ROADMAP queue 1 item 9 brings one, so every
-    token routes in one group."""
-    del T
-    return 1
+    """Routing groups, aligned to the batch shards of the active mesh
+    (GShard-style local dispatch: tokens scatter only within their
+    group); 1 without a mesh or when ``T`` does not divide."""
+    ctx = current_ctx()
+    g = ctx.axis_size("batch") if ctx is not None else 1
+    return g if g > 1 and T % g == 0 else 1
 
 
 def moe_route(cfg, p, x):
@@ -736,13 +793,15 @@ def mlp_apply(cfg, p, x, kind, cm_prev=None):
     channel mix, ``cm`` is ``x[:, -1:]``, the next call's token-shift
     input ``cm_prev`` (zeros when None); for the others it is None."""
     if kind == "swiglu":
-        h = _act(cfg.act)(x @ p["w1"]) * (x @ p["w3"])
-        return h @ p["w2"], None
+        h = _act(cfg.act)(matmul(x, p["w1"])) * matmul(x, p["w3"])
+        h = constrain(h, "batch", "seq", "ffn")
+        return matmul(h, p["w2"]), None
     if kind == "gelu":
-        h = x @ p["w_up"]
+        h = matmul(x, p["w_up"])
         if "b_up" in p:
             h = h + p["b_up"]
-        y = F.gelu(h, approximate="tanh") @ p["w_down"]
+        h = constrain(F.gelu(h, approximate="tanh"), "batch", "seq", "ffn")
+        y = matmul(h, p["w_down"])
         return (y + p["b_down"] if "b_down" in p else y), None
     if kind == "moe":
         return moe_apply(cfg, p, x)
@@ -753,8 +812,10 @@ def mlp_apply(cfg, p, x, kind, cm_prev=None):
     x_prev = torch.cat([prev, x[:, :-1]], dim=1) if S > 1 else prev
     xk = x + (x_prev - x) * p["cm_mu_k"]
     xr = x + (x_prev - x) * p["cm_mu_r"]
-    h = torch.square(F.relu(xk @ p["wk_cm"]))
-    return torch.sigmoid(xr @ p["wr_cm"]) * (h @ p["wv_cm"]), x[:, -1:]
+    h = constrain(torch.square(F.relu(matmul(xk, p["wk_cm"]))), "batch",
+                  "seq", "ffn")
+    return torch.sigmoid(matmul(xr, p["wr_cm"])) * matmul(h, p["wv_cm"]), \
+        x[:, -1:]
 
 
 MIXER_INIT = {"gqa": gqa_init, "mla": mla_init, "rwkv6": rwkv6_init,

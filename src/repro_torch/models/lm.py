@@ -33,7 +33,13 @@ cache buffers it is given.
 With ``cfg.remat`` each pattern layer of a
 differentiated forward runs under ``torch.utils.checkpoint`` (the
 reference's ``jax.checkpoint`` of its scan body): only the layer inputs
-are kept, and each layer runs again in the backward.
+are kept, and each layer runs again in the backward, under the mesh the
+forward ran under.
+Under a mesh (:func:`~repro_torch.dist.sharding.use_mesh`) parameters
+and batches are DTensors, and ``constrain`` at the reference's sites
+lays out the residual stream (batch on ``data``, the sequence on
+``model`` for attention models, Megatron-SP style) and the logits
+(vocabulary on ``model``).
 """
 from __future__ import annotations
 
@@ -43,6 +49,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import (constrain, current_ctx, matmul,
+                                       reinstall)
 from repro_torch.models.blocks import (MIXER_CACHE, MIXER_INIT, MIXER_SEQ,
                                        MIXER_STEP, _dense_init,
                                        _quantize_kv,
@@ -81,6 +89,14 @@ def _check_supported(cfg):
 def _is_recurrent_only(cfg):
     return all(s.mixer in ("rwkv6", "mamba")
                for s in list(cfg.prefix) + list(cfg.pattern))
+
+
+def _seq_ax(cfg):
+    """SSM/hybrid models keep the sequence unsharded (sequential chunk
+    scans); attention models shard the residual stream's sequence."""
+    return None if any(s.mixer in ("rwkv6", "mamba")
+                       for s in list(cfg.pattern) + list(cfg.prefix)) \
+        else "seq"
 
 
 def _get(tree, slot, r):
@@ -204,7 +220,7 @@ def _cross_kv(cfg, pc, enc_out):
     the encoder output ``enc_out`` ``[B, Se, d]`` (with ``bk``/``bv``
     under ``qkv_bias``)."""
     B, Se, _ = enc_out.shape
-    k, v = enc_out @ pc["wk"], enc_out @ pc["wv"]
+    k, v = matmul(enc_out, pc["wk"]), matmul(enc_out, pc["wv"])
     if cfg.qkv_bias:
         k, v = k + pc["bk"], v + pc["bv"]
     shape = (B, Se, cfg.n_kv_heads, cfg.head_dim)
@@ -219,7 +235,7 @@ def _apply_layer_seq(cfg, p, spec, x, *, positions, position_ids,
     h, mc = mixer(MIXER_SEQ, spec.mixer)(
         cfg, p["mixer"], apply_norm(cfg, p["ln1"], x), positions=positions,
         position_ids=position_ids)
-    x = x + h
+    x = constrain(x + h, "batch", _seq_ax(cfg), None)
     if spec.cross_attn and enc_out is not None:
         h, _ = gqa_seq(cfg, p["cross"], apply_norm(cfg, p["ln_cross"], x),
                        positions=positions,
@@ -227,7 +243,7 @@ def _apply_layer_seq(cfg, p, spec, x, *, positions, position_ids,
         x = x + h
     h, cm_new = mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x),
                           spec.mlp)
-    x = x + h
+    x = constrain(x + h, "batch", _seq_ax(cfg), None)
     cache = {"mixer": mc}
     if spec.mlp == "rwkv_cm":
         cache["cm_x_last"] = cm_new
@@ -235,10 +251,15 @@ def _apply_layer_seq(cfg, p, spec, x, *, positions, position_ids,
 
 
 def _remat_layer(cfg, p, spec, x, positions, position_ids, enc_out=None):
-    """One layer's output, its activations recomputed in the backward."""
+    """One layer's output, its activations recomputed in the backward
+    (under the forward's mesh: the backward runs on another thread)."""
+    ctx = current_ctx()
+
     def body(h, lp, e):
-        return _apply_layer_seq(cfg, lp, spec, h, positions=positions,
-                                position_ids=position_ids, enc_out=e)[0]
+        with reinstall(ctx):
+            return _apply_layer_seq(cfg, lp, spec, h, positions=positions,
+                                    position_ids=position_ids,
+                                    enc_out=e)[0]
     return checkpoint(body, x, p, enc_out, use_reentrant=False), None
 
 
@@ -254,6 +275,7 @@ def encode(cfg, params, enc_embeds, *, remat=None):
     S = enc_embeds.shape[1]
     x = enc_embeds + sinusoidal(S, cfg.d_model, enc_embeds.device).to(
         enc_embeds.dtype)[None]
+    x = constrain(x, "batch", None, None)
     positions = torch.arange(S, device=x.device)
     if remat is None:
         remat = cfg.remat and torch.is_grad_enabled()
@@ -288,6 +310,7 @@ def hidden_states(cfg, params, tokens, *, position_ids=None,
             raise ValueError(f"{S} tokens past the {max_pos} learned "
                              f"positions")
         x = x + params["pos_embed"][:S]
+    x = constrain(x, "batch", _seq_ax(cfg), None)
     positions = torch.arange(tokens.shape[1], device=x.device)
     caches = {"prefix": [], "stack": tuple([] for _ in cfg.pattern)}
     if enc_out is not None:
@@ -313,7 +336,8 @@ def _head_matrix(cfg, params, dtype):
 
 
 def _logits_from_hidden(cfg, params, x):
-    logits = x @ _head_matrix(cfg, params, x.dtype)
+    logits = constrain(matmul(x, _head_matrix(cfg, params, x.dtype)),
+                       "batch", None, "vocab")
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= \
             cfg.vocab_size
@@ -423,6 +447,7 @@ def serve_step(cfg, params, caches, tokens, pos, *, position_ids=None):
     if "pos_embed" in params:  # clamped, as lax.dynamic_slice_in_dim
         table = params["pos_embed"]
         x = x + table[min(max(int(pos), 0), table.shape[0] - 1)]
+    x = constrain(x, "batch", None, None)
     new = {"prefix": [], "stack": tuple([] for _ in cfg.pattern)}
     for slot, r, spec in _layers(cfg):
         x, c = _apply_layer_step(cfg, _get(params, slot, r), spec, x,

@@ -10,7 +10,7 @@ Also here: the HTTP endpoint (:mod:`repro_torch.obs.server`:
 ``/metrics``, ``/healthz``, ``/varz``, ``/tracez``), the metrics report
 (:mod:`repro_torch.obs.metrics_report`) and the single-process half of
 the pod snapshots (:mod:`repro_torch.obs.pod`).  Still to be ported
-(ROADMAP queue 1 item 9): ``pod_snapshot``'s all-gather across ranks
+(ROADMAP item 9b): ``pod_snapshot``'s all-gather across ranks
 and the pod health ``/healthz`` reads from ``launch/multihost``.
 """
 from .trace import (TRACER, Span, Tracer, disable_tracing, enable_tracing,

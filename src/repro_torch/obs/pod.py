@@ -6,7 +6,7 @@ shadow quality and SLO state as one JSON-able dict;
 :func:`merge_pod_trace` and :func:`pod_quality_report` read a list of
 such snapshots.  In the reference ``pod_snapshot()`` all-gathers every
 host's snapshot over ``launch.multihost.allgather_bytes``; the port's
-multi-host transport is ROADMAP queue 1 item 9, so here it returns
+multi-host transport is ROADMAP item 9b, so here it returns
 ``[local]`` in a single process and raises in a
 ``torch.distributed`` group of more than one rank rather than pass off
 one rank's view as the pod's.
@@ -61,14 +61,14 @@ def pod_snapshot() -> List[dict]:
     """Every process's :func:`local_snapshot`, in process order.
 
     A single process returns ``[local]``.  Across ranks the snapshots
-    need the all-gather of ROADMAP queue 1 item 9 (multi-host
+    need the all-gather of ROADMAP item 9b (multi-host
     transport); until it lands this raises ``NotImplementedError``.
     """
     world = _world()
     if world is not None and world[1] > 1:
         raise NotImplementedError(
             f"pod_snapshot across {world[1]} ranks needs the multi-host "
-            f"all-gather (ROADMAP queue 1 item 9), not yet ported")
+            f"all-gather (ROADMAP item 9b), not yet ported")
     return [local_snapshot()]
 
 

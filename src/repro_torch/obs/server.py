@@ -24,7 +24,7 @@ sample values, duplicate samples, and the histogram contract
 present).
 
 What the port does differently: ``/healthz`` reads the pod's health
-from :mod:`repro_torch.launch.multihost`, which ROADMAP queue 1 item 9
+from :mod:`repro_torch.launch.multihost`, which ROADMAP item 9b
 ports, so ``pod`` reads ``{}`` until then; the demo serves its bundle
 through the port's queue on the card (``--device cpu`` to serve it on
 the CPU) and shadow-scores against the bundle's ``Sequential``.

@@ -13,7 +13,10 @@ Each leaf's arithmetic keeps the reference's order of operations (``upd``,
 adamw.py:36-44), and the bias corrections and the schedule are f32
 tensors, not Python floats, so f32 results match XLA's to the rounding.
 Parameters, states and gradients are trees of tensors: dicts, lists and
-tuples.
+tuples.  DTensor leaves (a sharded state) are updated on each rank's
+local shards; each gradient comes laid out as its parameter (the
+trainer lays it out), and another layout is refused.  The global norm
+of the clip sums the shards' squares and all-reduces the sum.
 """
 from __future__ import annotations
 
@@ -49,19 +52,32 @@ def tree_leaves(tree):
 
 def init_opt_state(params, policy: str = "full"):
     """Zero moments (f32 for ``full``, with an f32 master copy; bf16 for
-    ``lean``) and the step counter, a 0-d int32 tensor."""
-    dev = tree_leaves(params)[0].device
-    step = torch.zeros((), dtype=torch.int32, device=dev)
+    ``lean``) and the step counter, a 0-d int32 tensor; of DTensor
+    parameters, DTensors laid out as each parameter (the step
+    replicated)."""
+    lead = tree_leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=lead.device)
+    if hasattr(lead, "device_mesh"):
+        from torch.distributed.tensor import Replicate
+
+        from repro_torch.dist.sharding import distribute
+        step = distribute(step, lead.device_mesh,
+                          [Replicate()] * lead.device_mesh.ndim)
 
     def zeros(dtype):
-        return tree_map(lambda p: torch.zeros(p.shape, dtype=dtype,
-                                              device=p.device), params)
+        return tree_map(lambda p: torch.zeros_like(p, dtype=dtype), params)
     if policy == "full":
         return {"step": step, "m": zeros(F32), "v": zeros(F32),
                 "master": tree_map(lambda p: p.detach().to(F32).clone(),
                                    params)}
     return {"step": step, "m": zeros(torch.bfloat16),
             "v": zeros(torch.bfloat16)}
+
+
+def _local(t):
+    """A DTensor's local shard (the same storage: writes land in the
+    DTensor); a plain tensor as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 def _upd(p, g, m, v, master, lr, c1, c2, b1, b2, eps, weight_decay):
@@ -90,16 +106,22 @@ def adamw_update(params, grads, state, lr, *, b1=0.9, b2=0.95, eps=1e-8,
     number): updates ``params`` and ``state`` in place, leaf by leaf, and
     returns them, as the reference returns its new trees."""
     step = state["step"] + 1
-    stepf = step.to(F32)
+    stepf = _local(step).to(F32)
     c1 = 1.0 - torch.tensor(b1, dtype=F32, device=stepf.device) ** stepf
     c2 = 1.0 - torch.tensor(b2, dtype=F32, device=stepf.device) ** stepf
-    lr = torch.as_tensor(lr, dtype=F32, device=stepf.device)
+    lr = torch.as_tensor(_local(lr), dtype=F32, device=stepf.device)
     masters = (tree_leaves(state["master"]) if policy == "full"
                else [None] * len(tree_leaves(params)))
     for p, g, m, v, w in zip(tree_leaves(params), tree_leaves(grads),
                              tree_leaves(state["m"]), tree_leaves(state["v"]),
                              masters):
-        _upd(p, g, m, v, w, lr, c1, c2, b1, b2, eps, weight_decay)
+        if hasattr(g, "to_local") and tuple(g.placements) != tuple(
+                p.placements):
+            raise ValueError(f"a gradient laid out as {g.placements} for a "
+                             f"parameter laid out as {p.placements}")
+        _upd(_local(p), _local(g), _local(m), _local(v),
+             None if w is None else _local(w), lr, c1, c2, b1, b2, eps,
+             weight_decay)
     state["step"] = step
     return params, state
 
@@ -111,9 +133,19 @@ def clip_by_global_norm(grads, max_norm: float = 1.0):
     ``(grads, norm)``, the norm of the unscaled gradients as an f32
     tensor."""
     leaves = tree_leaves(grads)
-    sq = torch.zeros((), dtype=F32, device=leaves[0].device)
+    # DTensor leaves' sums are partial over their sharded mesh dims: sum
+    # each layout's leaves, then make each layout's sum whole (one
+    # all-reduce a layout), then add them
+    by_layout = {}
     for g in leaves:
-        sq = sq + g.to(F32).square().sum()
+        part = g.to(F32).square().sum()
+        key = tuple(part.placements) if hasattr(part, "placements") else None
+        by_layout[key] = part if key not in by_layout \
+            else by_layout[key] + part
+    sq = torch.zeros((), dtype=F32, device=leaves[0].device)
+    for part in by_layout.values():
+        sq = sq + (part.full_tensor() if hasattr(part, "full_tensor")
+                   else part)
     norm = torch.sqrt(sq)
     # true divisions by tensors: a Python number over a tensor is a
     # reciprocal times it, and on the card a tensor over a Python number

@@ -3,7 +3,7 @@
 buffers, weight residency and tenancy.
 
 Still to be ported: the cross-host pod paths (``pod_flush``,
-``dispatch_pod``; ROADMAP queue 1 item 9).  The adaptive flush
+``dispatch_pod``; ROADMAP item 9b).  The adaptive flush
 controller is :mod:`repro_torch.tune.controller`.
 """
 from repro_torch.serve.batcher import Batcher, bucket_for, bucket_size

@@ -36,9 +36,10 @@ What the port does differently:
 
 After each served batch the drift re-sweep hook reports the bucket to
 :mod:`repro_torch.tune.resweep` (a no-op unless ``REPRO_RESWEEP`` is
-on).  Left out until the pod paths are ported (ROADMAP queue 1 item 9):
-``dispatch_pod``/``_slab_layout`` and the mesh contexts of the
-submitters.
+on).  A batch is served under the mesh its first request was submitted
+under (:meth:`Batcher._request_ctx`), its bucket a multiple of that
+mesh's data shards.  Left out until the pod paths are ported (ROADMAP
+item 9b): ``dispatch_pod`` and ``_slab_layout``.
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ from typing import Callable, List, Optional
 
 import torch
 
+from repro_torch.dist.sharding import reinstall, use_mesh
 from repro_torch.obs import TRACER
 from repro_torch.obs import metrics as _metrics
 from repro_torch.resilience.breaker import BREAKERS
@@ -144,6 +146,20 @@ class Batcher:
         for r in requests:
             if r.ready is not None:
                 torch.cuda.current_stream(r.x.device).wait_event(r.ready)
+
+    @staticmethod
+    def _request_ctx(requests):
+        """Install the submitters' ShardCtx around the batched apply.
+
+        Sharding contexts are thread-local; a deadline/max-batch flush
+        runs on the dispatcher thread, which would otherwise serve the
+        batch unsharded.  The submit-time ctx governs even when it is
+        None (a no-mesh submit flushed inline from inside someone else's
+        ``use_mesh`` must not pick up that ambient mesh).  Requests of
+        one key arrive FIFO, so the first request's ctx speaks for the
+        batch."""
+        ctx = requests[0].ctx
+        return reinstall(ctx) if ctx is not None else use_mesh(None)
 
     def _gather(self, requests, n: int, bucket: int):
         """Assemble the mega-batch; returns ``(x, prepadded)``.
@@ -300,7 +316,10 @@ class Batcher:
                            time.monotonic() - t0, record_breaker_key=key)
             return
         n = sum(r.n for r in requests)
-        bucket = bucket_for(n, self.min_bucket)
+        ctx = requests[0].ctx
+        shards = (ctx.axis_size("data")
+                  if ctx is not None and ctx.mesh is not None else 1)
+        bucket = bucket_for(n, self.min_bucket, shards)
         attempts = self.retry.max_attempts if _attempts is None \
             else max(1, _attempts)
         Y = finite = rule = None
@@ -316,8 +335,9 @@ class Batcher:
                              args={"key": key, "batch": bid,
                                    "bucket": bucket, "reason": reason,
                                    "attempt": attempt}):
-                    Y = eng.apply_batched(X, min_bucket=self.min_bucket,
-                                          prepadded=owned)
+                    with self._request_ctx(requests):
+                        Y = eng.apply_batched(X, min_bucket=self.min_bucket,
+                                              prepadded=owned)
                     if traced and Y.is_cuda:
                         # the span ends with the kernel; untraced, the
                         # landing's sync is the batch's only one

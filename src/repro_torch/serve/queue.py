@@ -40,8 +40,10 @@ or from that device; the dispatcher thread selects the device
 the stream each CUDA request was produced on.  Futures resolve to CPU
 tensors, row views of the batch landed on the host.
 
-Left out until the pod paths are ported (ROADMAP queue 1 item 9):
-``pod_flush``, its cross-host key agreement and watchdog.  The
+A request carries its submitter's sharding context (``current_ctx()``),
+which the batcher re-installs around the apply.  Left out until the pod
+paths are ported (ROADMAP item 9b): ``pod_flush``, its cross-host key
+agreement and watchdog.  The
 ``controller=`` hook takes any object with ``delay_for``/
 ``batch_rows_for``, such as
 :class:`~repro_torch.tune.controller.AdaptiveFlushController`; a
@@ -58,6 +60,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import current_ctx
 from repro_torch.obs import TRACER
 from repro_torch.obs.metrics import note_static_fallback
 from repro_torch.obs.quality import SHADOW
@@ -138,11 +141,12 @@ class ServeFuture:
 
 class _Request:
     __slots__ = ("key", "x", "n", "future", "t_enqueue", "ready", "trace",
-                 "tenant")
+                 "tenant", "ctx")
 
     def __init__(self, key, x, n, future, t_enqueue, ready=None, trace=None,
-                 tenant=None):
+                 tenant=None, ctx=None):
         self.key, self.x, self.n = key, x, n
+        self.ctx = ctx  # submitter's ShardCtx: sharding is thread-local
         self.future, self.t_enqueue = future, t_enqueue
         # CUDA event on the submitter's side stream (None on the default
         # stream or the host): the gather waits for it on the card
@@ -355,7 +359,8 @@ class ServeQueue:
         t_sub = time.monotonic()
         trace = TRACER.new_trace_id() if TRACER.enabled else None
         fut.trace = trace  # shadow scoring rides the same id
-        req = _Request(key, x, n, fut, t_sub, ready, trace, tenant)
+        req = _Request(key, x, n, fut, t_sub, ready, trace, tenant,
+                       current_ctx())
         deadline = t_sub + self.policy.block_timeout_s
         while True:
             admitted, drain_inline, flush_inline = False, False, False

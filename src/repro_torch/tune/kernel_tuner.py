@@ -203,15 +203,19 @@ def serve_buckets(min_bucket: int = 8, max_batch_rows: int = 1024,
 
 
 def autotune(target, buckets: Optional[Sequence[int]] = None, *,
-             dtype="float32", reps: int = 5, warmup: int = 2,
-             cache: Optional[TuneCache] = None, force: bool = False,
-             verbose: bool = False, device=None) -> List[dict]:
+             dtype="float32", n_shards: int = 1, reps: int = 5,
+             warmup: int = 2, cache: Optional[TuneCache] = None,
+             force: bool = False, verbose: bool = False,
+             device=None) -> List[dict]:
     """Warm the fused-MLP tune cache for everything an engine will serve.
 
     ``target`` is a bundle path (widths from its ``spec.json``) or a
     widths sequence.  ``buckets`` defaults to the serve-path buckets of
-    the default :class:`~repro_torch.serve.queue.FlushPolicy`.  Returns
-    the per-bucket records.
+    the default :class:`~repro_torch.serve.queue.FlushPolicy` (raised to
+    ``n_shards``).  With ``n_shards`` > 1 the per-shard rows of each
+    bucket are swept too: a sharded engine's ranks each run the kernel
+    on their own rows (``fused_mlp_sharded``), and its tuned-tile lookup
+    keys on them.  Returns the per-bucket records.
     """
     if isinstance(target, (list, tuple)):
         widths = [int(w) for w in target]
@@ -225,9 +229,14 @@ def autotune(target, buckets: Optional[Sequence[int]] = None, *,
     if buckets is None:
         from repro_torch.serve.queue import FlushPolicy
         policy = FlushPolicy()
-        buckets = serve_buckets(policy.min_bucket, policy.max_batch_rows)
+        buckets = serve_buckets(policy.min_bucket, policy.max_batch_rows,
+                                n_shards)
+    buckets = set(int(b) for b in buckets)
+    if n_shards > 1:
+        buckets |= {b // n_shards for b in buckets
+                    if b % n_shards == 0 and b // n_shards >= 1}
     recs = []
-    for b in sorted(set(int(b) for b in buckets)):
+    for b in sorted(buckets):
         rec = sweep_fused_mlp(widths, b, dtype=dtype, reps=reps,
                               warmup=warmup, cache=cache, force=force,
                               device=device)

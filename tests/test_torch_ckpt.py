@@ -16,7 +16,9 @@ from repro.data import pipeline as jpipe  # noqa: E402
 from repro_torch.ckpt.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import archs, base  # noqa: E402
 from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
-from repro_torch.optim.adamw import tree_leaves  # noqa: E402
+from repro_torch.dist.sharding import NamedSharding  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.optim.adamw import tree_leaves, tree_map  # noqa: E402
 from repro_torch.train import trainer  # noqa: E402
 
 
@@ -73,10 +75,27 @@ def test_round_trip_is_bit_exact(tmp_path, async_write):
 
 
 def test_restore_refuses_shardings(tmp_path):
+    """Shardings that do not match the state are refused; matching ones
+    lay each leaf out on its mesh (a one-rank gloo group here): a
+    DTensor equal to the saved leaf bit for bit, in its dtype, with its
+    ``requires_grad``."""
+    from torch.distributed.tensor import Replicate
+    from test_torch_dist import one_rank_group
     mgr = CheckpointManager(tmp_path)
     mgr.save(1, _state(1))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="shardings"):
         mgr.restore(_state(0), shardings={})
+    with one_rank_group():
+        mesh = make_local_mesh(device="cpu")
+        sh = tree_map(lambda t: NamedSharding(mesh, (Replicate(),) * 2),
+                      _state(0))
+        restored, step = mgr.restore(_state(0), shardings=sh)
+        assert step == 1
+        for a, b, like in zip(tree_leaves(restored), tree_leaves(_state(1)),
+                              tree_leaves(_state(0))):
+            assert hasattr(a, "to_local") and a.dtype == b.dtype
+            assert a.requires_grad == like.requires_grad
+            assert torch.equal(a.to_local(), b)
 
 
 def test_crash_before_rename_keeps_the_last_checkpoint(tmp_path,
@@ -150,5 +169,13 @@ def test_exact_resume_equals_uninterrupted_training(tmp_path, dtype):
     assert losses + more == full_losses
     for a, b in zip(tree_leaves(resumed), tree_leaves(full)):
         assert torch.equal(a.detach(), b.detach())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        trainer.restore_train_state(mgr, cfg, fresh, mesh=object())
+    # onto a mesh (a one-rank group): the same leaves, laid out on it
+    from test_torch_dist import one_rank_group
+    with one_rank_group():
+        mesh = make_local_mesh(device="cpu")
+        on_mesh, start = trainer.restore_train_state(mgr, cfg, fresh,
+                                                     mesh=mesh)
+        assert start == N
+        for a, b in zip(tree_leaves(on_mesh), tree_leaves(first)):
+            assert a.device_mesh is mesh
+            assert torch.equal(a.to_local().detach(), b.detach())

@@ -1901,3 +1901,131 @@ def test_jamba_on_the_card_matches_the_cpu(dev, dtype):
         for gc_, wc in zip(got_c["stack"][slot], want_c["stack"][slot]):
             for key in wc["mixer"]:
                 close(gc_["mixer"][key], wc["mixer"][key])
+
+
+# ------------------------------------------------ sharding on the card ----
+_SHARDED_WORKER = r"""
+import json, sys, warnings
+warnings.filterwarnings("ignore")
+import numpy as np
+import torch
+import torch.distributed as dist
+rank, world, port, tmp = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                          sys.argv[4])
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=world)
+from repro_torch.device import resolve_device
+from repro_torch.dist import use_mesh
+from repro_torch.dist.sharding import full_tensor, local_block
+from repro_torch.kernels.fused_mlp import int8 as qops
+from repro_torch.kernels.fused_mlp import ops as fops
+from repro_torch.kernels.fused_mlp.fused_mlp import pack_mlp
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.quant.quantize import quantize_params
+out = {}
+try:
+    dev = resolve_device(None)
+    mesh = make_local_mesh(device="cuda")
+    rng = np.random.default_rng(0)
+    widths = (6, 1024, 819, 655, 1)
+    ws = [torch.from_numpy((rng.standard_normal((a, b)) * np.sqrt(2.0 / a))
+                           .astype(np.float32))
+          for a, b in zip(widths[:-1], widths[1:])]
+    bs = [torch.from_numpy((rng.standard_normal(b) * 0.1).astype(np.float32))
+          for b in widths[1:]]
+    acts = ("relu", "relu", "relu", "identity")
+    x = torch.from_numpy(rng.standard_normal((4096, 6)).astype(np.float32)
+                         ).to(dev)
+    packed = pack_mlp(ws, bs, acts, device=dev)
+    q = qops.pack_int8_mlp(quantize_params(ws, bs, device=dev), acts)
+    for tier, shard, one, pk in (
+            ("f32", fops.fused_mlp_sharded, fops.fused_mlp_op, packed),
+            ("int8", qops.fused_mlp_int8_sharded, qops.fused_mlp_int8_op, q)):
+        spec = fops.SPEC if tier == "f32" else qops.SPEC
+        before = spec.launches
+        with use_mesh(mesh):
+            y = shard(x, pk, mesh=mesh, data_axes=("data",))
+            whole = full_tensor(y)
+        launched = spec.launches - before
+        out[tier] = {"bits_equal": bool(torch.equal(whole, one(x, pk))),
+                     "local_rows": int(y.to_local().shape[0]),
+                     "launches": launched}
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs.base import LayerSpec, ModelConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import trainer
+    cfg = ModelConfig(name="tiny", n_layers=2, d_model=64, n_heads=4,
+                      n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256,
+                      pattern=(LayerSpec(),))
+    grid = make_local_mesh((1, world), device="cuda")
+    state = trainer.make_train_state(0, cfg, device=dev, mesh=grid)
+    mgr = CheckpointManager(f"{tmp}/ckpt", async_write=False)
+    trainer.save_train_state(mgr, 3, state)
+    back, step = trainer.restore_train_state(mgr, cfg, state, mesh=mesh)
+    same = all(torch.equal(full_tensor(a).detach(), full_tensor(b).detach())
+               for a, b in zip(tree_leaves(state), tree_leaves(back)))
+    out["restore"] = {"step": step, "bits_equal": same,
+                      "on_card": all(t.to_local().is_cuda
+                                     for t in tree_leaves(back)),
+                      "relaid": any(tuple(a.placements) != tuple(b.placements)
+                                    for a, b in zip(tree_leaves(state),
+                                                    tree_leaves(back)))}
+finally:
+    dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def sharded_run(tmp_path_factory):
+    """Two gloo ranks on the one card (``_SHARDED_WORKER``), run once for
+    the module: each rank's report."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    tmp_path = tmp_path_factory.mktemp("sharded")
+    import json
+    import os
+    import pathlib
+    import socket
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src"), os.environ.get("PYTHONPATH", "")]))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _SHARDED_WORKER, str(r), "2", str(port),
+         str(tmp_path)], env=env, cwd=str(root), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    reports = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=600)
+            assert p.returncode == 0, err[-3000:]
+            reports.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            p.kill()
+    return reports
+
+
+@pytest.mark.parametrize("tier", ["f32", "int8"])
+def test_sharded_fused_mlp_equals_one_rank_on_the_card(sharded_run, tier):
+    """Two ranks on cuda:0 each run the kernel on their own 2,048 of
+    4,096 rows: gathered, bit for bit one rank's launch on all of them
+    (neither kernel splits a row's sums)."""
+    for r in sharded_run:
+        assert r[tier]["bits_equal"] and r[tier]["local_rows"] == 2048
+        assert r[tier]["launches"] == 1
+
+
+def test_restore_onto_shardings_on_the_card(sharded_run):
+    """A state sharded on data 1 x model 2, saved and restored onto data
+    2 x model 1: every leaf bit for bit, on the card, laid out anew."""
+    for r in sharded_run:
+        rr = r["restore"]
+        assert rr["step"] == 3 and rr["bits_equal"] and rr["on_card"]
+        assert rr["relaid"]

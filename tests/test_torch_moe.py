@@ -16,6 +16,8 @@ tests/test_torch_mla.py's tolerances (f32 elementwise 1e-4; bf16 within
 The reduced grok-1 has 3 layers of GQA + MoE (4 experts top-2, gelu, no
 shared experts), d_model 64.
 """
+import types
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -148,7 +150,8 @@ def test_capacity_at_deepseek_sizes_drops_at_decode():
     deepseek-v2-lite's 64 experts top-6 and capacity 1.25: one decode
     step of 4 sequences gets C = 1 for 24 routes and drops a route for
     every second pick of an expert; a prefill of 4 x 2,048 tokens gets C
-    = 960.  ``_moe_groups`` is 1 without a mesh."""
+    = 960.  ``_moe_groups`` is 1 without a mesh, the batch shards under
+    one."""
     cfg = base.get_config(DEEPSEEK).replace(d_model=8)
     assert (cfg.n_experts, cfg.top_k, cfg.capacity_factor) == (64, 6, 1.25)
     g = torch.Generator().manual_seed(0)
@@ -163,6 +166,14 @@ def test_capacity_at_deepseek_sizes_drops_at_decode():
     assert blocks.moe_route(cfg, p, torch.randn(1, 8192, 8,
                                                 generator=g))[4] == 960
     assert blocks._moe_groups(8192) == 1
+    # under a mesh: groups aligned to its batch shards, as the reference
+    from repro.dist import sharding as jsharding
+    from repro_torch.dist.sharding import use_mesh
+    mesh = types.SimpleNamespace(shape={"data": 4, "model": 2})
+    with jsharding.use_mesh(mesh):
+        want = jblocks._moe_groups(8192)
+    with use_mesh(mesh):
+        assert blocks._moe_groups(8192) == want == 4
 
 
 def test_moe_drops_match_the_reference_at_capacity_one(monkeypatch):

@@ -49,6 +49,7 @@ Tolerances, each gradient's largest error over its largest magnitude:
   magnifies to a few ulps of the rate).
 """
 import functools
+import types
 
 import pytest
 
@@ -378,8 +379,17 @@ def test_train_state_and_shardings():
     assert all(t.dtype == torch.float32 for k in ("m", "v", "master")
                for t in tree_leaves(st["opt"][k]))
     assert trainer.state_shardings(cfg, st) is None
-    with pytest.raises(NotImplementedError, match="item 9"):
-        trainer.state_shardings(cfg, st, mesh=object())
+    # on a mesh: the reference's rules by leaf name, the optimizer's
+    # mirrors as their parameters, the step replicated
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 2})
+    sh = trainer.state_shardings(cfg, st, mesh=mesh)
+    assert sh["params"]["tok_embed"].placements == (Shard(1), Shard(0))
+    assert sh["params"]["final_norm"]["scale"].placements == (
+        Replicate(), Replicate())
+    for k in ("m", "v", "master"):
+        assert sh["opt"][k] == sh["params"]
+    assert sh["opt"]["step"].placements == (Replicate(), Replicate())
     lean = trainer.make_train_state(0, cfg.replace(opt_policy="lean"),
                                     device="cpu")
     assert "master" not in lean["opt"]

@@ -314,6 +314,26 @@ def test_autotune_sweeps_bundle_buckets(tmp_path, monkeypatch):
             8, 16, 32, 64, 128, 256, 512, 1024]
 
 
+@pytest.mark.parametrize("n_shards,buckets", [(4, None), (2, [8, 24]),
+                                               (8, [16, 64])])
+def test_autotune_warms_per_shard_buckets_as_the_reference(
+        monkeypatch, n_shards, buckets):
+    """With ``n_shards`` the buckets are raised to the shard count and
+    each bucket's per-shard rows are swept too (a sharded engine's ranks
+    each run the kernel on their own rows): the reference's buckets."""
+    swept, jswept = [], []
+    monkeypatch.setattr(kt, "sweep", lambda kernel, problem, **kw:
+                        swept.append(problem["batch"]) or {"exact": True})
+    monkeypatch.setattr(jkt, "sweep_fused_mlp", lambda widths, b, **kw:
+                        jswept.append(b) or {"exact": True, "params": {},
+                                             "us": 0, "default_us": 0,
+                                             "speedup_x": 1})
+    autotune([3, 8, 1], buckets, n_shards=n_shards)
+    jkt.autotune([3, 8, 1], buckets, n_shards=n_shards)
+    assert swept == jswept
+    assert min(swept) * n_shards in swept
+
+
 def test_autotune_rejects_non_mlp_bundle(tmp_path):
     (tmp_path / "conv").mkdir()
     (tmp_path / "conv" / "spec.json").write_text(json.dumps(
