@@ -289,6 +289,23 @@ source, all started together), and prints one JSON line per phase:
     with and without the collective mode (``DIST_MODE_REPS`` each,
     alternated). Sharded times are the cost of sharding on one card,
     not a speedup;
+    ``pod_slice`` -- the multi-host pod (``repro_torch.launch.multihost``)
+    on the card, its processes spawned by ``spawn_local_pod`` (each a
+    rank of one gloo group, all sharing the one H100). Part ``smoke``:
+    ``run_smoke`` on 2 processes with the flight recorder and shadow
+    scoring on (rows bit for bit one-process serving, remote rows, the
+    bucket past the local rows, every host's drift ``OK``, both hosts'
+    ``pod.agree`` in the merged trace, ``fused_mlp`` launched on each).
+    Part ``minibude``: the full-width bundles in both tiers (the int8
+    one gated first) on ``POD_PROCESSES`` processes of 8 callers x 2,048
+    rows, 65,536 global rows a ``pod_flush``: rows bit for bit one
+    rank's, each process's kernel launches, no collective inside the
+    apply, seconds a ``pod_flush`` against rank 0 serving the 65,536 rows
+    alone (``pod_bude_worker``). Part ``host_drop``: the drill at the
+    reference's defaults (stall 15 s, watchdog 2 s): zero lost, rows
+    equal, host 0 degraded within the watchdog + 5 s naming host 1,
+    ``/healthz`` critical with ``pod:host-1``. Pod times are the cost of
+    the pod on one card, not a speedup;
 11. the ``kernels`` line (``flash_attention`` there is its f32 design;
     ``flash_attention_bf16``, ``_bf16_decode`` and ``_bf16_combine`` the
     bf16 one's three kernels, each with its launches by path;
@@ -6557,6 +6574,277 @@ def dist_report(reports, conf, smi):
     return launches
 
 
+# the pod slice: the reference's smoke (2 processes, flight recorder and
+# shadow scoring on), minibude at full width on 4 pod processes (8
+# callers x 2,048 rows each: 65,536 global rows a pod_flush, both tiers,
+# POD_REPS timed flushes against one rank serving the same rows), and the
+# host-drop drill at the reference's defaults
+POD_SMOKE_PROCESSES, POD_PROCESSES = 2, 4
+POD_CALLERS, POD_CALLER_ROWS = 8, 2048
+POD_REPS = 5
+POD_DRILL_STALL_S, POD_DRILL_WATCHDOG_S = 15.0, 2.0
+
+
+def run_pod_slice(dev, smi):
+    """The multi-host pod (``repro_torch.launch.multihost``) on the card:
+    every pod process a rank of one gloo group, all of them sharing the
+    one H100, spawned by ``spawn_local_pod`` after the kernels are built
+    here.  Part ``smoke``: ``run_smoke`` as the reference runs it, with
+    ``--obs`` and ``--shadow-rate 1.0``.  Part ``minibude``: both tiers
+    through ``pod_flush`` on ``POD_PROCESSES`` processes
+    (:func:`pod_bude_worker`).  Part ``host_drop``:
+    ``run_host_drop_drill``.  Pod times are the cost of the pod on one
+    card (the processes share it), not a speedup.  Returns the launches
+    of the pod flushes, summed over the processes, by kernel wrapper."""
+    from repro_torch.launch import multihost
+    work = ROOT / "build" / "chip_smoke_pod"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    checks, launches = {}, {"fused_mlp": 0, "fused_mlp_int8": 0}
+
+    t0 = time.perf_counter()
+    trace = work / "pod_trace.json"
+    res = multihost.run_smoke(processes=POD_SMOKE_PROCESSES,
+                              tmpdir=str(work / "smoke"),
+                              obs_out=str(trace), shadow_rate=1.0,
+                              device=dev.type)
+    smoke_s = time.perf_counter() - t0
+    snaps = res[0]["obs"]
+    agree = {s["process"]: sum(e["name"] == "pod.agree"
+                               for e in s["events"]) for s in snaps}
+    merged = json.loads(trace.read_text())
+    merged = merged.get("traceEvents", merged) \
+        if isinstance(merged, dict) else merged
+    for r in res:
+        launches["fused_mlp"] += r["launches"].get("fused_mlp", 0)
+    checks_smoke = {
+        "smoke_bits_equal": all(r["equal"] for r in res),
+        "smoke_remote_rows": all(r["remote_rows"] > 0 for r in res),
+        "smoke_bucket_past_local": all(r["bucket"] > r["local_rows"]
+                                       for r in res),
+        "smoke_drift_ok": all(r["quality_state"] == "OK" for r in res),
+        "smoke_agree_every_host": sorted(agree) == list(
+            range(POD_SMOKE_PROCESSES)) and all(agree.values()),
+        "smoke_agree_in_trace": sum(e.get("name") == "pod.agree"
+                                    for e in merged)
+        >= POD_SMOKE_PROCESSES,
+        "smoke_on_the_card": all(r["device"].startswith("cuda")
+                                 and r["route"] == "fused_mlp"
+                                 and r["launches"].get("fused_mlp", 0) >= 1
+                                 for r in res)}
+    checks.update(checks_smoke)
+    emit("pod_slice", part="smoke", processes=POD_SMOKE_PROCESSES,
+         device=res[0]["device"], route=res[0]["route"],
+         local_rows=res[0]["local_rows"], bucket=res[0]["bucket"],
+         remote_rows=[r["remote_rows"] for r in res],
+         launches_by_process=[r["launches"] for r in res],
+         quality=[r["quality_state"] for r in res],
+         pod_agree_by_process=agree, trace_events=len(merged),
+         seconds=smoke_s, nvidia_smi=smi, **checks_smoke)
+
+    # the slice's own tune cache (the gate verdict of its int8 bundle),
+    # which the pod processes read too
+    tcache = importlib.import_module("repro_torch.tune.cache")
+    tcache.ART = work / "tune_torch"
+    tcache._default.clear()
+    conf = {"tune_dir": str(tcache.ART), "callers": POD_CALLERS,
+            "caller_rows": POD_CALLER_ROWS, "reps": POD_REPS,
+            "bundles": {k: str(v)
+                        for k, v in dist_bundles(work, dev).items()}}
+    t0 = time.perf_counter()
+    # under the drill's watchdog: a healthy pod, fresh processes
+    # included, must serve every flush without a false degrade
+    reports = multihost.spawn_local_pod(
+        POD_PROCESSES, "chip_smoke:pod_bude_worker", (conf,),
+        timeout_s=600.0, device=dev.type,
+        extra_env={multihost.ENV_POD_WATCHDOG: str(POD_DRILL_WATCHDOG_S)})
+    bude_s = time.perf_counter() - t0
+    for tier, kernel in (("f32", "fused_mlp"), ("int8", "fused_mlp_int8")):
+        rs = [r[tier] for r in reports]
+        launches[kernel] += sum(r["launches"] for r in rs)
+        tier_checks = {
+            f"{tier}_first_flush_in_watchdog": all(
+                r["first_pod_flush_s"] < POD_DRILL_WATCHDOG_S for r in rs),
+            f"{tier}_never_degraded": not any(r["degraded"] for r in rs),
+            f"{tier}_bits_equal": all(r["bits_equal"] for r in rs),
+            f"{tier}_finite": all(r["finite"] for r in rs),
+            f"{tier}_route": all(r["route"] == kernel for r in rs),
+            f"{tier}_launched_every_process": all(r["launches"] >= 1
+                                                  for r in rs),
+            f"{tier}_no_collective_in_apply": all(
+                r["applies"] >= 1 and not r["collectives"] for r in rs),
+            f"{tier}_global_rows": all(r["bucket"] == POD_PROCESSES
+                                       * POD_CALLERS * POD_CALLER_ROWS
+                                       for r in rs)}
+        checks.update(tier_checks)
+        emit("pod_slice", part="minibude", tier=tier,
+             processes=POD_PROCESSES, callers_a_process=POD_CALLERS,
+             rows_a_caller=POD_CALLER_ROWS, global_rows=rs[0]["bucket"],
+             remote_rows=rs[0]["remote_rows"],
+             launches_by_process=[r["launches"] for r in rs],
+             collectives_by_process=[r["collectives"] for r in rs],
+             first_pod_flush_s_by_process=[r["first_pod_flush_s"]
+                                           for r in rs],
+             watchdog_s=POD_DRILL_WATCHDOG_S,
+             pod_flush_s=rs[0]["pod_flush_s"],
+             pod_flush_s_all=rs[0]["pod_flush_s_all"],
+             pod_flush_s_by_process=[r["pod_flush_s"] for r in rs],
+             traced_flush_span_ms_by_process=[r["span_ms"] for r in rs],
+             one_rank_flush_s=rs[0]["one_rank_s"],
+             one_rank_flush_s_all=rs[0]["one_rank_s_all"],
+             seconds=bude_s,
+             note="pod_flush seconds are the cost of the pod on one card "
+                  "(four processes share it, the agreement through host "
+                  "memory), not a speedup", nvidia_smi=smi, **tier_checks)
+
+    t0 = time.perf_counter()
+    drill = multihost.run_host_drop_drill(
+        processes=2, tmpdir=str(work / "drill"), stall_s=POD_DRILL_STALL_S,
+        watchdog_s=POD_DRILL_WATCHDOG_S, device=dev.type)
+    drill_s = time.perf_counter() - t0
+    failures = multihost.host_drop_failures(drill, POD_DRILL_STALL_S,
+                                            POD_DRILL_WATCHDOG_S)
+    drill_checks = {
+        "drill_contract": not failures,
+        "drill_zero_lost": all(r["resolved"] == r["submitted"]
+                               for r in drill),
+        "drill_rows_equal": all(r["equal"] for r in drill),
+        "drill_degraded_in_time": drill[0]["degraded"] and drill[0][
+            "degrade_latency_s"] < POD_DRILL_WATCHDOG_S + 5.0,
+        "drill_offenders": drill[0]["offenders"] == [1],
+        "drill_healthz_names_host_1": "pod:host-1" in drill[0]["critical"]}
+    checks.update(drill_checks)
+    emit("pod_slice", part="host_drop", processes=2,
+         stall_s=POD_DRILL_STALL_S, watchdog_s=POD_DRILL_WATCHDOG_S,
+         degrade_latency_s=[r["degrade_latency_s"] for r in drill],
+         flush_s=[r["elapsed_s"] for r in drill],
+         setup_s=[r["setup_s"] for r in drill],
+         degraded=[r["degraded"] for r in drill],
+         offenders=drill[0]["offenders"], critical=drill[0]["critical"],
+         failures=failures, seconds=drill_s, nvidia_smi=smi,
+         **drill_checks)
+    shutil.rmtree(work)
+    if not all(checks.values()):
+        raise AssertionError("pod slice checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return launches
+
+
+def pod_bude_worker(conf):
+    """One pod process of the pod slice's minibude part: 8 callers of
+    2,048 rows submitted to a thread-free queue and served by one
+    ``pod_flush`` under the pod mesh, in each tier.  The tier's first
+    flush is timed as it comes, its engine loaded and its mesh apply
+    built inside it (in the f32 tier the first flush of a fresh
+    process, past its first entry into the mesh); whether the pod
+    watchdog ever degraded this process is read at the end.  Rows
+    against the one-rank engine's on each caller's rows, bit for bit;
+    the kernel's launches and the collectives inside the apply (counted
+    on the thread that runs it) over one flush; seconds a flush, warm,
+    ``reps`` times, and the host ms of one more flush's spans, traced;
+    then rank 0 alone serves the global rows through a mesh-less queue
+    (the others wait), ``reps`` times."""
+    import torch
+    from repro_torch.apps import minibude
+    from repro_torch.core import InferenceEngine
+    from repro_torch.dist import collective_stats, use_mesh
+    from repro_torch.kernels import registry
+    from repro_torch.launch import multihost
+    from repro_torch.launch.mesh import make_pod_mesh
+    from repro_torch.obs import TRACER
+    from repro_torch.serve import FlushPolicy, ServeQueue
+    from repro_torch.tune import cache as tcache
+    tcache.ART = pathlib.Path(conf["tune_dir"])
+    dev = multihost.pod_device()
+    pid, nproc = multihost.process_index(), multihost.process_count()
+    callers, rows = conf["callers"], conf["caller_rows"]
+    mesh = make_pod_mesh(device=dev.type)
+    full = minibude.make_inputs(nproc * callers * rows, seed=3, device=dev)
+    xs = list(full.reshape(nproc, callers, rows, -1)[pid].unbind(0))
+    policy = FlushPolicy(max_batch_rows=1 << 30, max_pending_rows=1 << 30)
+    out = {"pid": pid}
+    for tier, path in conf["bundles"].items():
+        kernel = {"f32": "fused_mlp", "int8": "fused_mlp_int8"}[tier]
+        q = ServeQueue(policy, device=dev)
+
+        def pod_round():
+            with use_mesh(mesh, multi_pod=True):
+                futs = [q.submit(path, x) for x in xs]
+                _sync(dev)
+                t0 = time.perf_counter()
+                q.pod_flush(path)
+                secs = time.perf_counter() - t0
+            return [f.result(60) for f in futs], secs
+
+        multihost.barrier()
+        first = pod_round()[1]
+        eng = InferenceEngine.get(path, dev)
+        ref = [eng(x).cpu() for x in xs]
+        stats, apply = [], eng.apply_batched
+
+        def counted(*a, **kw):
+            with collective_stats() as st:
+                y = apply(*a, **kw)
+            stats.append(st.per_kind_count)
+            return y
+
+        eng.apply_batched = counted
+        registry.reset_counts()
+        got, _ = pod_round()
+        launches = registry.get_spec(kernel).launches
+        del eng.apply_batched
+        snap = q.stats(path).snapshot()
+        secs = []
+        for _ in range(conf["reps"]):
+            multihost.barrier()
+            secs.append(pod_round()[1])
+        # one more round traced: host ms of the flush's spans by name
+        # (batch.apply ends with a sync when traced)
+        TRACER.enable()
+        TRACER.clear()
+        multihost.barrier()
+        pod_round()
+        span_ms = {}
+        for sp in TRACER.events():
+            if sp.cat in ("pod", "engine"):
+                span_ms[sp.name] = span_ms.get(sp.name, 0.0) + sp.dur_s * 1e3
+        TRACER.disable()
+        TRACER.clear()
+        one = []
+        multihost.barrier()
+        if pid == 0:
+            q1 = ServeQueue(policy, device=dev)
+            everyone = list(full.reshape(nproc * callers, rows, -1).unbind(0))
+            for _ in range(conf["reps"] + 1):
+                futs = [q1.submit(path, x) for x in everyone]
+                _sync(dev)
+                t0 = time.perf_counter()
+                q1.flush(path)
+                one.append(time.perf_counter() - t0)
+                for f in futs:
+                    f.result(60)
+            one = one[1:]
+            q1.close()
+        multihost.barrier()
+        q.close()
+        out[tier] = {
+            "route": eng.route, "launches": launches,
+            "bits_equal": all(torch.equal(g, r) for g, r in zip(got, ref)),
+            "finite": all(bool(torch.isfinite(g).all()) for g in got),
+            "applies": len(stats), "collectives": {
+                k: v for st in stats for k, v in st.items()},
+            "bucket": snap["bucket_rows"] // snap["pod_batches"],
+            "remote_rows": snap["remote_rows"] // snap["pod_batches"],
+            "first_pod_flush_s": first,
+            "pod_flush_s": sorted(secs)[len(secs) // 2],
+            "pod_flush_s_all": secs, "span_ms": span_ms,
+            "one_rank_s": sorted(one)[len(one) // 2] if one else None,
+            "one_rank_s_all": one,
+            "degraded": multihost.POD_HEALTH.degraded}
+    multihost.barrier()
+    return out
+
+
 def _cast(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast(v, dtype) for k, v in tree.items()}
@@ -6660,6 +6948,7 @@ def main():
     bwd, mla_bwd = bwd_lines["llama3.2-3b"], bwd_lines["mla"]
     shutil.rmtree(train_work)
     dist_launches = run_dist_slice(dev, smi)
+    pod_launches = run_pod_slice(dev, smi)
     if rwkv_failures or mamba_failures:
         raise AssertionError("; ".join(rwkv_failures + mamba_failures))
     # each flash_attention kernel's launches over the main paths
@@ -6771,12 +7060,13 @@ def main():
         "replaces": REPLACES,
         "launches": launches["fused_mlp"] + train_launches
         + serve_launches["fused_mlp"] + control_launches["fused_mlp"]
-        + dist_launches["fused_mlp"],
+        + dist_launches["fused_mlp"] + pod_launches["fused_mlp"],
         "launches_by_path": {"slice": launches["fused_mlp"],
                              "train_slice": train_launches,
                              "serve_slice": serve_launches["fused_mlp"],
                              "control_slice": control_launches["fused_mlp"],
-                             "dist_slice": dist_launches["fused_mlp"]},
+                             "dist_slice": dist_launches["fused_mlp"],
+                             "pod_slice": pod_launches["fused_mlp"]},
         "max_abs_err": errs[INFER_POSES], "rtol": SPEC.tol[0],
         "atol": SPEC.tol[1],
         "batch": INFER_POSES, "ms": timings["ms"],
@@ -6789,12 +7079,13 @@ def main():
         "replaces": int8.REPLACES,
         "launches": int8_launches + serve_launches["fused_mlp_int8"]
         + control_launches["fused_mlp_int8"]
-        + dist_launches["fused_mlp_int8"],
+        + dist_launches["fused_mlp_int8"] + pod_launches["fused_mlp_int8"],
         "launches_by_path": {
             "int8_slice": int8_launches,
             "serve_slice": serve_launches["fused_mlp_int8"],
             "control_slice": control_launches["fused_mlp_int8"],
-            "dist_slice": dist_launches["fused_mlp_int8"]},
+            "dist_slice": dist_launches["fused_mlp_int8"],
+            "pod_slice": pod_launches["fused_mlp_int8"]},
         "max_abs_err": errs8[INFER_POSES], "rtol": int8.SPEC.tol[0],
         "atol": int8.SPEC.tol[1],
         "batch": INFER_POSES, "ms": timings8["ms"],

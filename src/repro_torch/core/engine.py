@@ -52,7 +52,9 @@ sharded op of the route, each rank running its kernel on its own rows
 on each rank's rows otherwise).  ``apply_batched`` raises its bucket
 floor to the data-shard count, and both entry points return every row
 to every rank (an all-gather of the row shards), bit for bit what one
-rank would serve.  Without a mesh nothing changes.
+rank would serve; ``apply_batched(gather=False)`` returns the row shards
+instead, for the pod path, which reads only its own.  Without a mesh
+nothing changes.
 """
 from __future__ import annotations
 
@@ -279,16 +281,16 @@ class InferenceEngine:
         sharded over its data axis, every row back on every rank)."""
         return self._run(x, int(x.shape[0]), current_ctx())
 
-    def _run(self, x, rows: int, ctx):
+    def _run(self, x, rows: int, ctx, gather: bool = True):
         """:meth:`_serve`, or under a mesh the mesh's apply on the placed
-        rows, gathered whole."""
+        rows, gathered whole unless ``gather`` is False."""
         if ctx is None or ctx.mesh is None:
             return self._serve(x, rows)
         with torch.no_grad():
             y = self._apply_for(ctx)(self._place(x, ctx))
             if self.route == "fused_mlp_int8":
                 _SERVED.inc(rows, bundle=self.path)
-            return full_tensor(y)
+            return full_tensor(y) if gather else y
 
     def _apply_for(self, ctx):
         """The apply for a mesh, built once per ``(mesh, multi_pod)``."""
@@ -386,7 +388,7 @@ class InferenceEngine:
         return y[:n] if pad else y
 
     def apply_batched(self, x, *, min_bucket: int = 8,
-                      prepadded: bool = False):
+                      prepadded: bool = False, gather: bool = True):
         """Serve a batch padded up to its power-of-two bucket, sliced back
         to the caller's rows.  On the ``fused_mlp`` route the padding is
         invisible to the bit: the kernel never splits a row's sums, so
@@ -396,7 +398,10 @@ class InferenceEngine:
         batcher pads while it gathers).  Under a mesh the bucket floor is
         raised to the data-shard count (and rounded to a multiple of it),
         so a batch never loses the data axis to the divisibility
-        fallback.
+        fallback.  ``gather=False`` under a mesh returns the rows as
+        the apply leaves them, a DTensor split over the data axis, with no
+        all-gather: the pod path reads its own block of it
+        (``Batcher.dispatch_pod``).
 
         The ``engine.apply`` fault site fires here, once per batch:
         ``raise``/``stall`` act inside the injector, ``nan``/``inf``
@@ -423,10 +428,10 @@ class InferenceEngine:
                                    "route": self.route,
                                    "compile": bucket not in
                                    self._seen_buckets}):
-                y = self._run(x, n, ctx)
+                y = self._run(x, n, ctx, gather)
             self._seen_buckets.add(bucket)
         else:
-            y = self._run(x, n, ctx)
+            y = self._run(x, n, ctx, gather)
         if fault is not None and fault.mode in ("nan", "inf"):
             y = y * float(fault.value)
         return y if n == int(y.shape[0]) else y[:n]

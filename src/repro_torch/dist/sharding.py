@@ -32,7 +32,8 @@ mesh's (every entry the table yields does).
 
 Tensors under a mesh are DTensors: a parameter or a batch is laid out by
 :func:`distribute` or :meth:`ShardCtx.make_global` (each rank slices its
-own block of a full tensor every rank holds, no communication);
+own block of a full tensor every rank holds or, with ``global_shape``,
+contributes its own block to the whole; no communication either way);
 :func:`constrain` redistributes a DTensor to the resolved placements
 (the reference's ``with_sharding_constraint``) and passes a plain
 tensor through, as the reference passes an eager array.  :func:`use_mesh`
@@ -58,6 +59,7 @@ import threading
 from typing import Any, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 # ------------------------------------------------------- logical mapping ---
 
@@ -162,17 +164,47 @@ class ShardCtx:
             return None
         return placements_for(self.spec_for(shape, logical_axes), self.mesh)
 
-    def make_global(self, x, logical_axes):
-        """A DTensor on the mesh from ``x``, the whole tensor, which every
-        rank holds: each rank keeps its own block under the resolved
-        placements (:func:`distribute`, no communication).  Without a
-        mesh ``x`` comes back as it is."""
+    def make_global(self, x, logical_axes, *, global_shape=None):
+        """A DTensor on the mesh, placed under the resolved placements
+        of ``logical_axes``; no communication either way.  Without a
+        mesh ``x`` comes back as it is.
+
+        Without ``global_shape``, ``x`` is the whole tensor, which every
+        rank holds, and each rank keeps its own block
+        (:func:`distribute`).  With it, ``x`` is this process's block
+        (in a pod, its slab of the leading dimension) and the DTensor is
+        assembled from every process's block (``DTensor.from_local``
+        with the shape and stride given, no check): the per-host feeding
+        primitive of the ``pod`` axis.  One process holds the whole, so
+        there a block that is not the global shape is refused."""
         x = torch.as_tensor(x)
         if self.mesh is None:
             return x
-        return distribute(x, self.mesh,
-                          self.sharding_for(tuple(x.shape),
-                                            tuple(logical_axes)))
+        shape = tuple(x.shape) if global_shape is None else \
+            tuple(int(s) for s in global_shape)
+        placements = self.sharding_for(shape, tuple(logical_axes))
+        if global_shape is None or not (dist.is_initialized()
+                                        and dist.get_world_size() > 1):
+            if shape != tuple(x.shape):
+                raise ValueError(
+                    f"make_global: single-process local block "
+                    f"{tuple(x.shape)} must equal the global shape {shape}")
+            return distribute(x, self.mesh, placements)
+        from torch.distributed.tensor import DTensor
+        sizes = list(mesh_shape(self.mesh).values())
+        block = list(shape)
+        for i, pl in enumerate(placements):
+            if pl.is_shard():
+                block[pl.dim] //= sizes[i]
+        if tuple(block) != tuple(x.shape):
+            raise ValueError(
+                f"make_global: local block {tuple(x.shape)} is not this "
+                f"process's block {tuple(block)} of {shape} under "
+                f"{placements}")
+        local = x.to(mesh_device(self.mesh)).contiguous()
+        return DTensor.from_local(local, self.mesh, placements,
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=_contiguous_stride(shape))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,1 +1,2 @@
-"""Launch entry points of the port (so far the deploy-time tuner)."""
+"""Launch entry points of the port: the dry run and deploy-time tuner,
+meshes, the multi-process pod and LM serving."""

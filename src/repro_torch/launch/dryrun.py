@@ -6,6 +6,8 @@
     PYTHONPATH=src python -m repro_torch.launch.dryrun --tune \\
         [--tune-bundle PATH] [--tune-buckets 64,256,1024] \\
         [--tune-kernels all|name,...] [--force]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --pod-smoke \\
+        [--pod-processes 2] [--obs] [--shadow-rate F] [--device cpu]
 
 ``--smoke`` runs the reference's tiny train cell (2 layers, d 256, 16 /
 8 heads of 16, vocab 1,024, batch 256 x 512 tokens) once on the
@@ -22,9 +24,15 @@ traceback on failure) as JSON under ``artifacts/dryrun_torch/``.
 ``--tune`` sweeps the fused MLP over a bundle's serving buckets (or the
 two representative NAS widths), then every registered kernel's
 representative problems, and writes the winners under
-``artifacts/tune_torch/``; it needs a CUDA card.  The full cell matrix
-(``--all``, ``--arch``/``--shape``/``--multi-pod``) is ROADMAP item 10.6,
-the pod smoke item 9b.
+``artifacts/tune_torch/``; it needs a CUDA card.  ``--pod-smoke`` spawns
+a real pod of ``--pod-processes`` processes (a gloo group, one rank a
+process, on the card unless ``--device cpu``) and runs the cross-host
+serve round-trip (:func:`repro_torch.launch.multihost.run_smoke`);
+``--obs`` runs it with tracing on and writes the merged Chrome trace of
+every host to ``artifacts/obs/pod_trace.json``, ``--shadow-rate``
+shadow-scores that fraction of each host's requests (1.0 with
+``--obs``).  The full cell matrix (``--all``,
+``--arch``/``--shape``/``--multi-pod``) is ROADMAP item 10.6.
 """
 from __future__ import annotations
 
@@ -186,6 +194,19 @@ def main(argv=None):
                     help="run the tiny sharded train cell on a fake "
                          "256-rank group; non-zero exit unless it runs "
                          "with non-zero collective bytes")
+    ap.add_argument("--pod-smoke", action="store_true",
+                    help="spawn a real pod (a gloo group of processes) "
+                         "and run the cross-host serve round-trip")
+    ap.add_argument("--pod-processes", type=int, default=2)
+    ap.add_argument("--obs", action="store_true",
+                    help="with --pod-smoke: run the pod with tracing on, "
+                         "all-gather every host's spans/metrics "
+                         "(obs.pod_snapshot) and write the merged Chrome "
+                         "trace to artifacts/obs/pod_trace.json")
+    ap.add_argument("--shadow-rate", type=float, default=None,
+                    help="with --pod-smoke: shadow-score this fraction of "
+                         "served requests per host (default 1.0 with "
+                         "--obs) and report cross-host drift state")
     ap.add_argument("--tune", action="store_true",
                     help="sweep the kernels and persist the winners")
     ap.add_argument("--force", action="store_true",
@@ -194,8 +215,8 @@ def main(argv=None):
     ap.add_argument("--out", default=str(ARTIFACTS),
                     help="--smoke: directory of the cell records")
     ap.add_argument("--device", default=None,
-                    help="--smoke: the device type of the mesh (default: "
-                         "cuda; cpu runs it on the host)")
+                    help="--smoke/--pod-smoke: the device type of the mesh "
+                         "(default: cuda; cpu runs it on the host)")
     ap.add_argument("--tune-bundle", default=None,
                     help="--tune: autotune this bundle's widths instead of "
                          "the representative NAS widths")
@@ -205,12 +226,23 @@ def main(argv=None):
                     help="--tune: comma-separated registered kernels to "
                          "sweep, or 'all'")
     args = ap.parse_args(argv)
+    if args.pod_smoke:
+        from repro_torch.launch.multihost import run_smoke as run_pod_smoke
+        obs_out = None
+        if args.obs:
+            obs_out = str(ARTIFACTS.parent / "obs" / "pod_trace.json")
+        run_pod_smoke(processes=args.pod_processes, obs_out=obs_out,
+                      shadow_rate=args.shadow_rate, device=args.device)
+        return
+    if args.obs:
+        ap.error("--obs needs --pod-smoke (the flight recorder is a pod "
+                 "collective)")
     if args.smoke:
         run_smoke(pathlib.Path(args.out), force=args.force,
                   device=args.device)
         return
     if not args.tune:
-        ap.error("pass --smoke or --tune")
+        ap.error("pass --smoke, --pod-smoke or --tune")
     run_tune(args.tune_bundle,
              [int(b) for b in args.tune_buckets.split(",")],
              force=args.force, kernels=args.tune_kernels)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import math
 
+import torch
 import torch.distributed as dist
 
 
@@ -38,12 +39,26 @@ def make_local_mesh(shape=None, axes=("data", "model"), device=None):
 
 
 def make_pod_mesh(axes=("pod", "data"), device=None):
-    """``pod`` x local over the group's ranks.  Every rank of a torch
-    group is its own process, so the mesh is ``1 x world`` until the
-    multi-host bootstrap gives ranks a host of their own (ROADMAP item
-    9b): everything degrades to the ordinary data-parallel path."""
+    """``pod`` x ``data`` over the group's ranks: one pod row per
+    process, in process order (the reference's process-major contract),
+    each process one rank on one device, so ``(processes, 1)``; 1 x 1
+    for one process.  The pod processes are the ranks of the default
+    group (:func:`repro_torch.launch.multihost.bootstrap`).
+
+    The mesh comes back with one empty DTensor built on it, which issues
+    no collective: the first DTensor a process builds imports
+    ``torch._dynamo`` (a second or more on a cold host), a cost of
+    set-up that must not land under the pod watchdog of the first
+    ``pod_flush``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.dist.sharding import mesh_device
     world = dist.get_world_size() if dist.is_initialized() else 1
-    return _mesh(device, (1, world), axes)
+    mesh = _mesh(device, (world, 1), axes)
+    DTensor.from_local(torch.empty(0, device=mesh_device(mesh)), mesh,
+                       [Replicate()] * mesh.ndim, run_check=False,
+                       shape=torch.Size([0]), stride=(1,))
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):

@@ -43,7 +43,7 @@ and MoE tokens route in groups aligned to the batch shards
 (:func:`_moe_groups`).  The port pads no query heads
 (:func:`_padded_heads`): its kernel takes K/V at their own head count.
 The MLA, MoE-expert, Mamba and RWKV6 sites are not placed yet (ROADMAP
-item 9b); under a mesh those mixers run on DTensor's own layouts.
+item 9b-ii); under a mesh those mixers run on DTensor's own layouts.
 """
 from __future__ import annotations
 

@@ -8,10 +8,8 @@ it), and nothing of torch at import time.
 
 Also here: the HTTP endpoint (:mod:`repro_torch.obs.server`:
 ``/metrics``, ``/healthz``, ``/varz``, ``/tracez``), the metrics report
-(:mod:`repro_torch.obs.metrics_report`) and the single-process half of
-the pod snapshots (:mod:`repro_torch.obs.pod`).  Still to be ported
-(ROADMAP item 9b): ``pod_snapshot``'s all-gather across ranks
-and the pod health ``/healthz`` reads from ``launch/multihost``.
+(:mod:`repro_torch.obs.metrics_report`) and the pod snapshots
+(:mod:`repro_torch.obs.pod`, all-gathered across the pod's processes).
 """
 from .trace import (TRACER, Span, Tracer, disable_tracing, enable_tracing,
                     export_chrome_trace, get_tracer, merge_chrome_traces,

@@ -1,18 +1,19 @@
-"""Pod-wide flight recorder, single-process half (counterpart of
-``repro/obs/pod.py``).
+"""Pod-wide flight recorder (counterpart of ``repro/obs/pod.py``):
+all-gather every host's recent spans and metrics so a stalled
+``pod_flush`` is attributable to a specific host.
 
-``local_snapshot()`` gathers this process's recent spans, metrics,
-shadow quality and SLO state as one JSON-able dict;
-:func:`merge_pod_trace` and :func:`pod_quality_report` read a list of
-such snapshots.  In the reference ``pod_snapshot()`` all-gathers every
-host's snapshot over ``launch.multihost.allgather_bytes``; the port's
-multi-host transport is ROADMAP item 9b, so here it returns
-``[local]`` in a single process and raises in a
-``torch.distributed`` group of more than one rank rather than pass off
-one rank's view as the pod's.
+``pod_snapshot()`` serializes the local tracer ring, metrics registry,
+shadow quality and SLO state (:func:`local_snapshot`) to JSON bytes,
+all-gathers them over the transport ``pod_flush`` already rides
+(:func:`repro_torch.launch.multihost.allgather_bytes`), and returns one
+dict per process.  Like every pod collective it is SPMD: **all
+processes must call it together**, or the gather deadlocks.  A single
+process returns ``[local]``.  :func:`merge_pod_trace` and
+:func:`pod_quality_report` read a list of such snapshots.
 """
 from __future__ import annotations
 
+import json
 import os
 import socket
 from typing import List, Optional
@@ -23,24 +24,13 @@ from .slo import MONITOR
 from .trace import TRACER, merge_chrome_traces
 
 
-def _world():
-    """``(rank, world size)`` of an initialized ``torch.distributed``
-    group, else None (obs must stay importable before any bootstrap)."""
-    try:
-        import torch.distributed as dist
-        if dist.is_available() and dist.is_initialized():
-            return dist.get_rank(), dist.get_world_size()
-    except ImportError:
-        pass
-    return None
-
-
 def _process_index() -> int:
-    """Pod process id: the live ``torch.distributed`` rank when a group
-    is up, else the bootstrap env var."""
-    world = _world()
-    if world is not None:
-        return int(world[0])
+    """Pod process id: this process's rank in a pod of several, else
+    the bootstrap env var (obs must stay importable before any
+    bootstrap)."""
+    from repro_torch.launch import multihost
+    if multihost.is_multiprocess():
+        return multihost.process_index()
     return int(os.environ.get("REPRO_PROCESS_ID", 0) or 0)
 
 
@@ -60,16 +50,16 @@ def local_snapshot() -> dict:
 def pod_snapshot() -> List[dict]:
     """Every process's :func:`local_snapshot`, in process order.
 
-    A single process returns ``[local]``.  Across ranks the snapshots
-    need the all-gather of ROADMAP item 9b (multi-host
-    transport); until it lands this raises ``NotImplementedError``.
-    """
-    world = _world()
-    if world is not None and world[1] > 1:
-        raise NotImplementedError(
-            f"pod_snapshot across {world[1]} ranks needs the multi-host "
-            f"all-gather (ROADMAP item 9b), not yet ported")
-    return [local_snapshot()]
+    Collective: call from all pod processes together (same contract as
+    ``ServeQueue.pod_flush``); index ``i`` is process ``i``'s view.  A
+    failed gather raises rather than pass one rank's view off as the
+    pod's."""
+    from repro_torch.launch import multihost
+    local = local_snapshot()
+    if not multihost.is_multiprocess():
+        return [local]
+    blobs = multihost.allgather_bytes(json.dumps(local).encode("utf-8"))
+    return [json.loads(b.decode("utf-8")) for b in blobs]
 
 
 def merge_pod_trace(snapshots: List[dict], path: Optional[str] = None

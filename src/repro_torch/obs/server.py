@@ -24,8 +24,8 @@ sample values, duplicate samples, and the histogram contract
 present).
 
 What the port does differently: ``/healthz`` reads the pod's health
-from :mod:`repro_torch.launch.multihost`, which ROADMAP item 9b
-ports, so ``pod`` reads ``{}`` until then; the demo serves its bundle
+from :mod:`repro_torch.launch.multihost` (``POD_HEALTH``), never from
+the reference's; the demo serves its bundle
 through the port's queue on the card (``--device cpu`` to serve it on
 the CPU) and shadow-scores against the bundle's ``Sequential``.
 
@@ -148,14 +148,10 @@ class ObsServer:
                 dead += [f"tenant:{t}" for t in offenders()]
             except Exception:
                 pass
-        pod: dict = {}
-        try:
-            # lazy, and the port's own multihost (ROADMAP queue 1 item
-            # 9): until it lands the import fails and ``pod`` reads {}
-            from repro_torch.launch.multihost import POD_HEALTH
-            pod = POD_HEALTH.snapshot()
-        except Exception:
-            pod = {}
+        # lazy: multihost imports nothing heavy, and obs must not
+        # import the launch layer at module level
+        from repro_torch.launch.multihost import POD_HEALTH
+        pod = POD_HEALTH.snapshot()
         if pod.get("degraded"):
             dead += ([f"pod:host-{k}" for k in pod.get("offenders") or ()]
                      or ["pod:degraded"])

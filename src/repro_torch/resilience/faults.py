@@ -12,7 +12,7 @@ site                      where it fires
 ``engine.apply``          ``InferenceEngine.apply_batched`` (per batch)
 ``kernel.dispatch``       ``repro_torch.kernels.registry.dispatch`` (per call)
 ``batcher.scatter``       ``Batcher.dispatch`` after device->host, pre-scatter
-``pod.flush``             reserved for ``ServeQueue.pod_flush`` (not ported)
+``pod.flush``             ``ServeQueue.pod_flush`` entry (before the heartbeat)
 ========================  ====================================================
 
 Spec grammar (``;``-separated rules)::
@@ -38,9 +38,8 @@ Examples::
 
 The reference's ``kernel.dispatch`` fires once per jit trace (a compile
 failure on the serve path); the port dispatches eagerly, so the site
-fires once per kernel call.  ``pod.flush`` and the ``drop`` mode keep
-the reference's grammar; no ported code calls that site until the pod
-paths are ported.  ``np.random.default_rng(seed)`` per rule, as in the
+fires once per kernel call.  ``pod.flush`` with the ``drop`` mode is
+the host-drop drill's fault (``launch/multihost.py``).  ``np.random.default_rng(seed)`` per rule, as in the
 reference, makes the same plan fire on the same calls in both packages.
 
 Disabled (no rules) the injector costs one attribute read at each site

@@ -1,10 +1,8 @@
 """Async batched surrogate serving of the port (counterpart of
 ``repro/serve``): the queue, the coalescing batcher, stats, pooled host
-buffers, weight residency and tenancy.
-
-Still to be ported: the cross-host pod paths (``pod_flush``,
-``dispatch_pod``; ROADMAP item 9b).  The adaptive flush
-controller is :mod:`repro_torch.tune.controller`.
+buffers, weight residency and tenancy, and the cross-host pod paths
+(``ServeQueue.pod_flush``, ``Batcher.dispatch_pod``).  The adaptive
+flush controller is :mod:`repro_torch.tune.controller`.
 """
 from repro_torch.serve.batcher import Batcher, bucket_for, bucket_size
 from repro_torch.serve.queue import (Backpressure, FlushPolicy, ServeFuture,

@@ -38,8 +38,18 @@ After each served batch the drift re-sweep hook reports the bucket to
 :mod:`repro_torch.tune.resweep` (a no-op unless ``REPRO_RESWEEP`` is
 on).  A batch is served under the mesh its first request was submitted
 under (:meth:`Batcher._request_ctx`), its bucket a multiple of that
-mesh's data shards.  Left out until the pod paths are ported (ROADMAP
-item 9b): ``dispatch_pod`` and ``_slab_layout``.
+mesh's data shards.
+
+:meth:`Batcher.dispatch_pod` serves one cross-host mega-batch: the pod
+processes agree on their row counts and the row dtype (one all-gather
+of host integers; a dtype travels as its index in :data:`POD_DTYPES`,
+since torch dtypes have no type number), each assembles its slab, the
+slabs form one DTensor split over the ``pod`` axis
+(``ShardCtx.make_global(global_shape=)``), each process's kernel serves
+its own slab, and each lands only its own rows of the result (no
+all-gather of the result).  Each process is one rank on one device, so
+a slab is ``bucket_for(max(counts), min_bucket, 1)`` rows, where the
+reference rounds it to its host's data devices.
 """
 from __future__ import annotations
 
@@ -57,6 +67,12 @@ from repro_torch.resilience.faults import FAULTS
 from repro_torch.resilience.retry import DEFAULT_RETRY, RetryPolicy
 from repro_torch.serve.scratch import ScratchPool
 from repro_torch.serve.stats import ServeStats
+
+#: the row dtypes a pod agrees on, by index (``dispatch_pod`` gathers the
+#: index; torch dtypes have no type number to gather)
+POD_DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16,
+              torch.int8, torch.int16, torch.int32, torch.int64,
+              torch.uint8, torch.bool, torch.complex64, torch.complex128)
 
 # process-wide dispatch sequence: ties a request's spans to the batch
 # that served it in a trace without threading ids through call sites
@@ -102,6 +118,36 @@ def bucket_for(n: int, min_bucket: int, n_shards: int = 1) -> int:
     if n_shards > 1 and b % n_shards:
         b += -b % n_shards
     return b
+
+
+def _dtype_num(dtype: torch.dtype) -> int:
+    """``dtype``'s index in :data:`POD_DTYPES`; past the table for a
+    dtype it lacks, which a peer that has to adopt it refuses."""
+    return POD_DTYPES.index(dtype) if dtype in POD_DTYPES \
+        else len(POD_DTYPES)
+
+
+def _local_rows(Y, rows):
+    """Rows ``[rows[0], rows[1])`` of ``Y`` (all of them for None) as a
+    plain tensor; of a DTensor, read from this rank's block, which must
+    hold them."""
+    from repro_torch.dist.sharding import block_offset, is_dtensor
+    if is_dtensor(Y):
+        n_rows = int(Y.shape[0])
+        local = Y.to_local()
+        base = block_offset(Y.device_mesh, Y.placements, 0, n_rows)
+        start, stop = (0, n_rows) if rows is None else \
+            (int(rows[0]), int(rows[1]))
+        if start < base or stop > base + int(local.shape[0]):
+            raise RuntimeError(
+                f"_to_host: this rank's block holds rows [{base}, "
+                f"{base + int(local.shape[0])}) of a {tuple(Y.shape)} "
+                f"output, not [{start}, {stop}); the rest is owned by "
+                f"other processes.  A multi-process dispatch must read "
+                f"only its own slab (ServeQueue.pod_flush / "
+                f"Batcher.dispatch_pod)")
+        return local[start - base:stop - base]
+    return Y if rows is None else Y[int(rows[0]):int(rows[1])]
 
 
 class Batcher:
@@ -174,26 +220,39 @@ class Batcher:
         if len(requests) == 1:
             return requests[0].x, False
         x0 = requests[0].x
-        feat = tuple(x0.shape[1:])
-        if all(r.x.is_cuda for r in requests):
+        return self._padded(requests, n, bucket, tuple(x0.shape[1:]),
+                            x0.dtype), True
+
+    def _padded(self, requests, n: int, rows: int, feat, dtype):
+        """The requests' ``n`` rows then zeros, ``rows`` long (the rows
+        the engine's own pad makes): concatenated on the card when every
+        request is a CUDA tensor, else gathered in a pooled host buffer
+        (page-locked when serving a CUDA device)."""
+        if requests and all(r.x.is_cuda for r in requests):
             parts = [r.x for r in requests]
-            if bucket > n:
-                parts.append(x0.new_zeros((bucket - n,) + feat))
-            return torch.cat(parts), True
-        buf = self.scratch.take((bucket,) + feat, x0.dtype, pin=self._pin())
+            if rows > n:
+                parts.append(requests[0].x.new_zeros((rows - n,) + feat))
+            return torch.cat(parts)
+        buf = self.scratch.take((rows,) + feat, dtype, pin=self._pin())
         off = 0
         for r in requests:
             buf[off:off + r.n] = r.x
             off += r.n
-        buf[off:] = 0  # zero padding: the rows the engine's own pad makes
-        return buf, True
+        buf[off:] = 0
+        return buf
 
-    def _to_host(self, Y):
-        """Land ``Y`` in pooled host memory with one copy, beside a
-        per-row finite flag computed on ``Y``'s device (None for
-        non-float outputs).  On CUDA both copies are finished (a stream
-        sync) before this returns: futures get row views of the buffer,
-        and the pool will not reuse it while any view is alive."""
+    def _to_host(self, Y, *, rows=None):
+        """Land rows ``[rows[0], rows[1])`` of ``Y`` (default: all) in
+        pooled host memory with one copy, beside a per-row finite flag
+        computed on ``Y``'s device (None for non-float outputs).  On CUDA
+        both copies are finished (a stream sync) before this returns:
+        futures get row views of the buffer, and the pool will not reuse
+        it while any view is alive.
+
+        Of a DTensor only this rank's block can be read, and that is
+        enforced: rows outside it raise instead of landing another
+        process's rows (``dispatch_pod`` asks for its own slab)."""
+        Y = _local_rows(Y, rows)
         pin = Y.is_cuda
         out = self.scratch.take(tuple(Y.shape), Y.dtype, pin=pin)
         finite = None
@@ -385,6 +444,32 @@ class Batcher:
             if finite is not None:
                 finite = finite.clone()
                 finite[:requests[0].n] = False
+        rargs = {"key": key, "batch": bid, "reason": reason} if traced \
+            else None
+        if self._scatter(key, requests, Y, finite, stats, bucket=bucket,
+                         reason=reason, t0=t0, bid=bid, rargs=rargs):
+            # drift re-sweep trigger: a sustained bucket with no tune
+            # entry enqueues a background sweep of that exact cell.
+            # Lazy import + disabled fast path keep this a no-op unless
+            # REPRO_RESWEEP is on.
+            from repro_torch.tune.resweep import get_resweeper
+            rs = get_resweeper()
+            if rs.enabled:
+                rs.observe(eng, bucket, stats)
+
+    def _scatter(self, key: str, requests: List, Y, finite,
+                 stats: ServeStats, *, bucket: int, reason: str, t0: float,
+                 bid: int, rargs: Optional[dict],
+                 remote_rows: int = 0) -> bool:
+        """Hand a landed batch to its futures: each request's rows of
+        ``Y`` (the landed host buffer), or :class:`NonFiniteOutput` where
+        ``finite`` flags a NaN/Inf row; then the tenant attribution, the
+        breaker and the stats.  ``rargs`` are the per-request spans'
+        args, None when untraced.  Returns whether the batch served any
+        rows (an idle pod host serves none and still counts its batch,
+        with ``remote_rows`` from its peers)."""
+        tr = TRACER
+        traced = rargs is not None
         bad = self._screen_nonfinite(requests, finite)
         t1 = time.monotonic()
         off = 0
@@ -394,8 +479,6 @@ class Batcher:
         # it tiles the request's whole enqueue->resolve window.  One args
         # dict serves every request of the batch (rec() documents that
         # shared args are safe).
-        rargs = {"key": key, "batch": bid, "reason": reason} if traced \
-            else None
         for i, r in enumerate(requests):
             if i in bad:
                 r.future.set_exception(NonFiniteOutput(key, r.n))
@@ -423,15 +506,135 @@ class Batcher:
             BREAKERS.record_failure(key)
         else:
             BREAKERS.record_success(key)
-        if len(bad) < len(requests):
-            stats.on_batch(requests=len(requests) - len(bad),
-                           rows=n - bad_rows, bucket=bucket, reason=reason,
-                           busy_s=t1 - t0, latencies_s=lats)
-            # drift re-sweep trigger: a sustained bucket with no tune
-            # entry enqueues a background sweep of that exact cell.
-            # Lazy import + disabled fast path keep this a no-op unless
-            # REPRO_RESWEEP is on.
-            from repro_torch.tune.resweep import get_resweeper
-            rs = get_resweeper()
-            if rs.enabled:
-                rs.observe(eng, bucket, stats)
+        if requests and len(bad) == len(requests):
+            return False
+        stats.on_batch(requests=len(requests) - len(bad),
+                       rows=sum(r.n for r in requests) - bad_rows,
+                       bucket=bucket, reason=reason, busy_s=t1 - t0,
+                       latencies_s=lats, remote_rows=remote_rows)
+        return True
+
+    # ------------------------------------------------------------- pod ---
+    @staticmethod
+    def _dtype_from_num(num: int) -> torch.dtype:
+        """The dtype a pod peer gathered as its index in
+        :data:`POD_DTYPES`."""
+        if 0 <= num < len(POD_DTYPES):
+            return POD_DTYPES[num]
+        raise ValueError(f"dispatch_pod: unknown dtype num {num} gathered "
+                         f"from a pod peer")
+
+    def _slab_layout(self, requests, eng, agreed_num: int = -1):
+        """(feature shape, dtype) of one slab row.
+
+        From the local requests when this host has any; an idle host
+        derives the feature shape from the engine's bundle spec and the
+        dtype from the pod-agreed index, so every process contributes a
+        block of the same dtype to the global DTensor."""
+        if requests:
+            return tuple(requests[0].x.shape[1:]), requests[0].x.dtype
+        dtype = (self._dtype_from_num(agreed_num) if agreed_num >= 0
+                 else torch.float32)
+        return tuple(eng.spec["in_shape"][1:]), dtype
+
+    def dispatch_pod(self, key: str, requests: List, stats: ServeStats, *,
+                     ctx=None, reason: str = "pod") -> None:
+        """Serve one cross-host mega-batch (collective).
+
+        Every process in the pod must call this at the same point for the
+        same key: it contains a collective.  The hosts agree on a common
+        per-host slab through an all-gather of their pending row counts;
+        each host assembles its slab (its callers' rows + zero padding,
+        ``bucket_for(max(counts))`` rows so slabs match), the slabs form
+        one batch whose leading dim is split over ``("pod", "data")``
+        (``ShardCtx.make_global``), and after the batched apply each host
+        reads back *only its own slab*: no cross-host result gather.
+
+        A host with nothing pending still participates (zero slab, no
+        futures): collectives cannot be skipped unilaterally.  ``ctx``
+        overrides the serving ShardCtx for exactly that case: with no
+        local requests there is no submit-time ctx to recover.
+        """
+        from repro_torch.dist.sharding import current_ctx
+        from repro_torch.launch import multihost
+        t0 = time.monotonic()
+        tr = TRACER
+        traced = tr.enabled
+        bid = next(_BATCH_IDS)
+        if ctx is None:
+            ctx = requests[0].ctx if requests else current_ctx()
+        local_n = sum(r.n for r in requests)
+        my_num = _dtype_num(requests[0].x.dtype) if requests else -1
+        # pod.agree: the count/dtype all-gather is where a straggling
+        # host shows up: every peer's span stretches to the slowest one
+        with tr.span("pod.agree", cat="pod",
+                     args={"key": key, "batch": bid, "local_rows": local_n}):
+            gathered = multihost.allgather_ints([local_n, my_num])
+        counts, dtype_nums = gathered[:, 0], gathered[:, 1]
+        total = int(counts.sum())
+        if total == 0:
+            return
+        pid, nproc = multihost.process_index(), len(counts)
+        Yh = finite = None
+        try:
+            if nproc > 1 and (ctx is None or ctx.mesh is None):
+                raise RuntimeError(
+                    "dispatch_pod: cross-process serving needs a pod "
+                    "mesh; submit under use_mesh(make_pod_mesh(), "
+                    "multi_pod=True) or pass ctx=")
+            # hosts with rows must agree on the row dtype; idle hosts
+            # adopt it so every process contributes the same dtype
+            active = {int(c) for c, k in zip(dtype_nums, counts) if k > 0}
+            if len(active) > 1:
+                raise ValueError(
+                    f"dispatch_pod: pod hosts submitted mixed row dtypes "
+                    f"for {key!r} (dtype nums {sorted(active)})")
+            eng = self._engine_for(key)
+            feat, dtype = self._slab_layout(requests, eng,
+                                            next(iter(active), -1))
+            # one rank a process: a slab needs no rounding to data shards
+            per_slab = bucket_for(int(counts.max()), self.min_bucket, 1)
+            bucket = per_slab * nproc
+            self._wait_ready(requests)
+            slab = self._padded(requests, local_n, per_slab, feat, dtype)
+            if ctx is not None and ctx.mesh is not None:
+                X = ctx.make_global(slab, ("data",) + (None,) * len(feat),
+                                    global_shape=(bucket,) + feat)
+            else:
+                X = slab
+            with tr.span("batch.apply", cat="pod",
+                         args={"key": key, "batch": bid, "bucket": bucket,
+                               "pid": pid, "nproc": nproc,
+                               "local_rows": local_n, "total_rows": total}):
+                with reinstall(ctx) if ctx is not None else use_mesh(None):
+                    Y = eng.apply_batched(X, min_bucket=self.min_bucket,
+                                          prepadded=True, gather=False)
+                if traced and Y.is_cuda:
+                    torch.cuda.current_stream(Y.device).synchronize()
+            del X, slab
+            if requests:
+                base = pid * per_slab
+                with tr.span("batch.to_host", cat="pod",
+                             args={"key": key, "batch": bid}):
+                    Yh, finite = self._to_host(Y, rows=(base, base + local_n))
+        except Exception as e:
+            tr.instant("batch.error", cat="pod",
+                       args={"key": key, "batch": bid, "error": repr(e)})
+            for r in requests:
+                r.future.set_exception(e)
+            self._note_dropped(requests)
+            stats.on_failure(requests=len(requests), rows=local_n,
+                             reason=reason, busy_s=time.monotonic() - t0)
+            BREAKERS.record_failure(key)
+            if nproc > 1:
+                # pod-fatal: a host that bails after the count all-gather
+                # (bundle read failure, bad dtype, ...) has left the
+                # collective schedule its peers follow; swallowing the
+                # error would leave them hung in their next collective
+                raise
+            return
+        rargs = {"key": key, "batch": bid, "reason": reason,
+                 "pid": pid, "nproc": nproc} if traced else None
+        self._scatter(key, requests, Yh, finite, stats, bucket=bucket,
+                      reason=reason, t0=t0, bid=bid, rargs=rargs,
+                      remote_rows=total - local_n)

@@ -41,9 +41,10 @@ the stream each CUDA request was produced on.  Futures resolve to CPU
 tensors, row views of the batch landed on the host.
 
 A request carries its submitter's sharding context (``current_ctx()``),
-which the batcher re-installs around the apply.  Left out until the pod
-paths are ported (ROADMAP item 9b): ``pod_flush``, its cross-host key
-agreement and watchdog.  The
+which the batcher re-installs around the apply.  :meth:`ServeQueue.
+pod_flush` serves a key's rows of every pod process as one cross-host
+mega-batch (:meth:`Batcher.dispatch_pod`), with the reference's key
+agreement, heartbeats and watchdog.  The
 ``controller=`` hook takes any object with ``delay_for``/
 ``batch_rows_for``, such as
 :class:`~repro_torch.tune.controller.AdaptiveFlushController`; a
@@ -88,9 +89,10 @@ class ServeFuture:
     """Resolves to the engine-output rows ``[n, ...]`` for one request.
 
     Resolution is first-wins: once set, later ``set_result`` /
-    ``set_exception`` calls are dropped (the reference's pod watchdog
-    relies on it; so does any caller that races two resolvers).  The
-    rows are a CPU tensor, a view of the batch landed on the host.
+    ``set_exception`` calls are dropped.  The pod watchdog relies on
+    this: a zombie collective thread that finishes after the watchdog
+    already re-dispatched locally cannot overwrite the delivered rows.
+    The rows are a CPU tensor, a view of the batch landed on the host.
     """
 
     __slots__ = ("_event", "_value", "_exc", "_queue", "_key", "_lock",
@@ -158,13 +160,12 @@ class _Request:
 class _StatsGate:
     """Revocable forwarding proxy for :class:`ServeStats`.
 
-    A watchdog hands a dispatch it may abandon this gate instead of the
-    real stats object; on timeout it calls :meth:`kill` before
-    re-dispatching, so the abandoned dispatch, should it ever finish,
-    cannot double-account the batch it lost.  ``kill()`` returns False
-    when the dispatch already delivered through the gate.  (The
-    reference's pod watchdog is its one user; the port keeps the gate
-    for it.)
+    The pod watchdog hands the collective dispatch this gate instead of
+    the real stats object; on timeout it calls :meth:`kill` before
+    re-dispatching locally, so the zombie collective thread, should it
+    ever finish, cannot double-account the batch it lost.  ``kill()``
+    returns False when the dispatch already delivered through the gate,
+    in which case the watchdog treats the round as completed instead.
     """
 
     def __init__(self, stats):
@@ -462,6 +463,177 @@ class ServeQueue:
                 self._batcher.dispatch(k, reqs, st, reason)
                 dispatched += rows
         return dispatched
+
+    def pod_flush(self, key: Optional[str] = None, *, ctx=None) -> int:
+        """Collective flush: this host's pending rows join one cross-host
+        mega-batch with every other pod process's rows for ``key``.
+
+        SPMD contract: every process in the pod must call ``pod_flush``
+        at the same point with the same key sequence (with ``key=None``
+        the hosts agree on the union of their pending key sets, and keys
+        dispatch in sorted order so the collectives line up).  A host
+        with nothing pending still participates with a zero slab.
+        Returns the number of *local* rows dispatched.
+
+        Only thread-free queues may pod-flush: a per-host dispatcher
+        thread firing on its own clock would run the collectives in
+        different orders on different hosts and deadlock the pod.
+        ``ctx`` pins the serving ShardCtx; without it the first
+        request's submit-time ctx governs, and a host with no pending
+        requests serves under the caller's ``current_ctx()`` (captured
+        here: the watchdog dispatches on a thread of its own).
+
+        Dropout tolerance (multi-process only): each flush round writes
+        a heartbeat to the bootstrap store and runs the collective under
+        a watchdog (``REPRO_POD_WATCHDOG_S``).  If the collective stalls
+        past it (a peer dropped or hung), the survivors mark the pod
+        degraded (``/healthz`` names the offending ``pod:host-<k>``),
+        abandon the collective to a zombie daemon thread, and re-dispatch
+        their local rows through the ordinary single-host path, so no
+        request is lost and no host deadlocks.  The agreement moves host
+        tensors, so the torn collective holds no device and the local
+        dispatch runs at once.  While degraded, flushes stay local-only
+        until ``POD_HEALTH.try_rejoin`` clears.
+        """
+        from repro_torch.launch import multihost
+        from repro_torch.resilience.faults import FAULTS
+        with self._cv:
+            if self._thread is not None:
+                raise RuntimeError(
+                    "pod_flush on a started queue: cross-host flushes are "
+                    "collective and must run from the serving loop, not a "
+                    "per-host dispatcher thread (use a thread-free queue)")
+            keys = [key] if key is not None else sorted(self._pending)
+        if FAULTS.enabled:
+            # fires before the heartbeat on purpose: a dropped host must
+            # look dropped; it never writes this round's beat
+            FAULTS.fire("pod.flush", key=key)
+        ambient = current_ctx()
+        multi = multihost.is_multiprocess()
+        if key is None and multi and not multihost.POD_HEALTH.degraded:
+            # cross-host key agreement: each host flushes the *union* of
+            # everyone's pending key sets; hosts with disjoint keys would
+            # otherwise run different collective sequences and deadlock
+            keys = self._agree_pod_keys(keys)
+        dispatched = 0
+        for k in keys:
+            with self._cv:
+                reqs = self._pending.pop(k, [])
+                rows = sum(r.n for r in reqs)
+                self._rows_total -= rows
+                st = self._stat_locked(k)
+                if rows:
+                    self._cv.notify_all()  # wake backpressured submitters
+            self._note_dispatch(reqs)
+            kctx = ctx if ctx is not None else \
+                (reqs[0].ctx if reqs else ambient)
+            if not multi:
+                # single process: the collective is trivially local and
+                # cannot stall on a peer, so no watchdog
+                self._batcher.dispatch_pod(k, reqs, st, ctx=kctx)
+            elif multihost.POD_HEALTH.degraded:
+                # survivors serve local-only: entering a collective with
+                # a dead peer would hang again
+                if reqs:
+                    self._dispatch_local_degraded(k, reqs, st)
+            else:
+                # always dispatch: a zero-row host still owes the pod its
+                # collective (dispatch_pod returns early only when every
+                # host is empty)
+                self._dispatch_pod_guarded(k, reqs, st, kctx)
+            dispatched += rows
+        return dispatched
+
+    def _guarded(self, name: str, fn) -> tuple:
+        """Run ``fn`` on a daemon thread (on this queue's card) under the
+        pod watchdog; ``(finished, result, exception)``."""
+        from repro_torch.launch import multihost
+        box: Dict[str, object] = {}
+        done = threading.Event()
+        dev = self.device
+
+        def run():
+            try:
+                if dev is not None and dev.type == "cuda":
+                    torch.cuda.set_device(dev)
+                box["got"] = fn()
+            except BaseException as e:
+                box["exc"] = e
+            finally:
+                done.set()
+
+        threading.Thread(target=run, daemon=True, name=name).start()
+        finished = done.wait(timeout=multihost.pod_watchdog_s())
+        return finished, box.get("got"), box.get("exc")
+
+    def _agree_pod_keys(self, local: List[str]) -> List[str]:
+        """All-gather every host's pending key set; return the sorted
+        union (collective: all hosts call it together, which
+        ``pod_flush(None)``'s SPMD contract guarantees).
+
+        Runs under the pod watchdog like any other collective: if a peer
+        dropped before the gather, the survivors degrade the pod and fall
+        back to their local key list (whose requests the caller then
+        serves through the degraded local-only path).
+        """
+        import json
+        from repro_torch.launch import multihost
+        health = multihost.POD_HEALTH
+        round_id = health.beat()
+        finished, got, exc = self._guarded(
+            "repro-pod-key-agree", lambda: multihost.allgather_bytes(
+                json.dumps(sorted(local)).encode()))
+        if finished:
+            if exc is not None:
+                raise exc  # transport failure is pod-fatal, as in dispatch
+            agreed = set()
+            for blob in got:
+                agreed.update(json.loads(bytes(blob).decode()))
+            return sorted(agreed)
+        offenders = health.check_round(round_id)
+        health.mark_degraded(offenders)
+        TRACER.instant("pod.watchdog", cat="pod",
+                       args={"phase": "key_agreement", "round": round_id,
+                             "offenders": list(offenders)})
+        return sorted(local)
+
+    def _dispatch_pod_guarded(self, k: str, reqs: List, st, ctx) -> None:
+        """Run one collective dispatch under the pod watchdog."""
+        from repro_torch.launch import multihost
+        health = multihost.POD_HEALTH
+        round_id = health.beat()
+        gate = _StatsGate(st)
+        finished, _, exc = self._guarded(
+            "repro-pod-dispatch",
+            lambda: self._batcher.dispatch_pod(k, reqs, gate, ctx=ctx))
+        if finished:
+            if exc is not None:
+                raise exc  # pod-fatal contract preserved
+            return
+        # watchdog fired.  kill() returning False means the collective
+        # delivered in the race window between timeout and now: take it.
+        if not gate.kill():
+            return
+        offenders = health.check_round(round_id)
+        health.mark_degraded(offenders)
+        TRACER.instant("pod.watchdog", cat="pod",
+                       args={"key": k, "round": round_id,
+                             "offenders": list(offenders)})
+        if reqs:
+            # zero-lost: the abandoned collective can no longer win;
+            # first-wins futures drop anything the zombie produces late
+            self._dispatch_local_degraded(k, reqs, st)
+
+    def _dispatch_local_degraded(self, k: str, reqs: List, st) -> None:
+        """Serve pod-submitted requests through the single-host path.
+
+        Their submit-time ShardCtx names the (now torn) pod mesh; strip
+        it so the batch serves mesh-less.  Row-wise surrogates make the
+        results bit-identical either way.
+        """
+        for r in reqs:
+            r.ctx = None
+        self._batcher.dispatch(k, reqs, st, reason="pod_degraded")
 
     def _flush_order(self) -> List[str]:
         """Key order for an all-keys flush: FIFO insertion order, unless

@@ -14,8 +14,8 @@ rather than a single call:
 All mutation goes through the queue/batcher under this object's own
 lock, so stats stay consistent when a dispatcher thread and caller
 threads flush concurrently.  The pod counters (``pod_batches``,
-``remote_rows``) keep the reference's snapshot layout; they stay 0 until
-the cross-host serving path is ported.
+``remote_rows``) count ``ServeQueue.pod_flush``'s cross-host batches and
+the other hosts' rows they carried.
 """
 from __future__ import annotations
 

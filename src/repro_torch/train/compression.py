@@ -5,7 +5,7 @@ Each leaf is quantized to int8 at a per-leaf scale and dequantized; the
 quantization error is carried in an f32 error-feedback residual added
 to the next step's gradient.  ``wire_bytes`` gives the analytic wire
 saving of one cross-pod all-reduce: the port runs on one card, so no
-collective carries the int8 payload yet (ROADMAP item 9b).
+collective carries the int8 payload yet (ROADMAP item 9b-ii).
 """
 from __future__ import annotations
 

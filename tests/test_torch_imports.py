@@ -55,7 +55,7 @@ def test_port_imports_with_jax_and_repro_blocked():
         "        'repro_torch.dist.hlo_analysis',\n"
         "        'repro_torch.tune.controller', 'repro_torch.tune.resweep',\n"
         "        'repro_torch.obs.server', 'repro_torch.obs.metrics_report',\n"
-        "        'repro_torch.obs.pod',\n"
+        "        'repro_torch.obs.pod', 'repro_torch.launch.multihost',\n"
         "        'repro_torch.models.loss', 'repro_torch.optim.adamw',\n"
         "        'repro_torch.train.trainer',\n"
         "        'repro_torch.train.compression',\n"

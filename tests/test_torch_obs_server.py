@@ -12,8 +12,9 @@ exposition edge cases.  On top of them:
   and for a list of snapshots;
 * ``ObsServer.health()`` imports nothing of ``repro`` (the reference's
   lazy ``repro.launch.multihost`` import must not have been copied);
-* ``pod_snapshot`` raises in a ``torch.distributed`` group of two ranks
-  (its all-gather is ROADMAP queue 1 item 9);
+* ``pod_snapshot`` all-gathers every rank's snapshot in a
+  ``torch.distributed`` group of two ranks, and raises when that gather
+  fails rather than pass one rank's view off as the pod's;
 * the CLI's demo self-check passes on the CPU (``--device cpu``).
 """
 import json
@@ -109,7 +110,9 @@ def test_obs_server_routes_and_healthz_flip():
         assert code == 404
         code, body = _get(server.url("/healthz"))
         assert code == 200 and json.loads(body)["status"] == "ok"
-        assert json.loads(body)["pod"] == {}
+        from repro_torch.launch.multihost import POD_HEALTH
+        assert json.loads(body)["pod"] == POD_HEALTH.snapshot()
+        assert not json.loads(body)["pod"]["degraded"]
         SHADOW.set_budget("kbad", 0.01)
         for _ in range(5):
             SHADOW.observe("kbad", rmse=9.0)
@@ -211,7 +214,8 @@ def test_health_imports_nothing_of_repro():
         "import sys\n"
         "from repro_torch.obs.server import ObsServer\n"
         "ready, detail = ObsServer().health()\n"
-        "assert ready and detail['pod'] == {}, detail\n"
+        "assert ready and detail['pod'] == {'round': 0, 'degraded': False,\n"
+        "                                   'offenders': []}, detail\n"
         "bad = [m for m in sys.modules if m == 'repro'\n"
         "       or m.startswith('repro.') or m == 'jax']\n"
         "assert not bad, bad\n")
@@ -388,10 +392,21 @@ def test_process_index_reads_the_env_without_a_group(monkeypatch):
 
 
 def test_pod_snapshot_raises_past_one_rank(monkeypatch):
-    monkeypatch.setattr(tpod, "_world", lambda: (1, 2))
+    """Past one rank the snapshots ride ``multihost.allgather_bytes``: a
+    failed gather raises, a working one returns every rank's view in
+    process order."""
+    from repro_torch.launch import multihost
+    monkeypatch.setattr(multihost, "is_multiprocess", lambda: True)
+    monkeypatch.setattr(multihost, "process_index", lambda: 1)
     assert tpod._process_index() == 1
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pod_snapshot()
+    with pytest.raises((RuntimeError, ValueError)):
+        pod_snapshot()  # no group: the all-gather cannot run
+    peer = json.dumps({"process": 0, "events": []}).encode()
+    monkeypatch.setattr(multihost, "allgather_bytes",
+                        lambda data: [peer, data])
+    snaps = pod_snapshot()
+    assert [s["process"] for s in snaps] == [0, 1]
+    assert set(snaps[1]) == set(local_snapshot())
 
 
 _POD_WORKER = r"""
@@ -403,11 +418,8 @@ dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                         rank=rank, world_size=world)
 try:
     assert local_snapshot()["process"] == rank
-    try:
-        snaps = pod_snapshot()
-        print("snapshots", len(snaps))
-    except NotImplementedError as e:
-        print("raised", e)
+    snaps = pod_snapshot()
+    print("snapshots", [s["process"] for s in snaps])
     dist.barrier()
 finally:
     dist.destroy_process_group()
@@ -417,7 +429,7 @@ finally:
 @pytest.mark.parametrize("world", [1, 2])
 def test_pod_snapshot_in_a_gloo_group(world):
     """Rank from ``torch.distributed``; one rank snapshots itself, two
-    raise rather than pass one rank's view off as the pod's."""
+    all-gather both ranks' snapshots, in rank order, on every rank."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -434,10 +446,7 @@ def test_pod_snapshot_in_a_gloo_group(world):
     finally:
         for p in procs:
             p.kill()
-    if world == 1:
-        assert outs == ["snapshots 1"]
-    else:
-        assert all(o.startswith("raised") and "item 9" in o for o in outs)
+    assert outs == [f"snapshots {list(range(world))}"] * world
 
 
 def test_merge_pod_trace_and_quality_report(tmp_path):
