@@ -4207,18 +4207,20 @@ def record_routes(probs=False):
     """Every ``blocks.moe_route`` call in the block, in order: a list of
     (experts ``[T, k]``, keep ``[T, k]``), one per MoE layer a forward or
     step walks, and with ``probs`` the router's probabilities ``[T,
-    E]``."""
+    E]`` (whole tensors, gathered under a mesh)."""
     from unittest import mock
 
     import torch
+    from repro_torch.dist.sharding import full_tensor
     from repro_torch.models import blocks
     calls, route = [], blocks.moe_route
 
     def recorded(cfg, p, x):
         out = route(cfg, p, x)
-        calls.append((out[1].reshape(-1, cfg.top_k),
-                      out[3].reshape(-1, cfg.top_k))
-                     + ((torch.softmax(x.float() @ p["w_router"], -1)
+        calls.append((full_tensor(out[1]).reshape(-1, cfg.top_k),
+                      full_tensor(out[3]).reshape(-1, cfg.top_k))
+                     + ((full_tensor(torch.softmax(
+                         x.float() @ p["w_router"], -1))
                          .reshape(-1, cfg.n_experts),) if probs else ()))
         return out
     with mock.patch.object(blocks, "moe_route", recorded):
@@ -5481,6 +5483,9 @@ def routes_from(calls):
     at those experts; yields a list of (the experts its own top-k would
     have chosen, its probabilities, the experts taken), one a call."""
     import torch
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.dist.sharding import full_tensor, is_dtensor, lay_out
     from repro_torch.models import blocks
     route, it, seen = blocks.moe_route, iter(calls), []
     topk = torch.topk
@@ -5490,9 +5495,25 @@ def routes_from(calls):
 
         def pick(probs, k, dim=-1):
             idx = taken.reshape(probs.shape[:-1] + (k,))
-            seen.append((topk(probs, k, dim=dim).indices.reshape(-1, k),
-                         probs.reshape(-1, probs.shape[-1]), taken))
-            return probs.gather(dim, idx), idx
+            if is_dtensor(probs):  # laid out as the router's output
+                probs = lay_out(probs, probs.device_mesh, [
+                    Replicate() if p.is_shard(probs.ndim - 1) else p
+                    for p in probs.placements])
+                idx = lay_out(idx, probs.device_mesh, probs.placements)
+            seen.append((full_tensor(topk(probs, k, dim=dim).indices)
+                         .reshape(-1, k),
+                         full_tensor(probs).reshape(-1, probs.shape[-1]),
+                         taken))
+            if not is_dtensor(probs):
+                return probs.gather(dim, idx), idx
+            # on each rank's block (the experts whole on it): torch
+            # 2.11's DTensor takes gather's backward through a view that
+            # flattens a sharded dimension
+            return local_map(lambda p, i: p.gather(dim, i),
+                             out_placements=list(probs.placements),
+                             in_placements=(list(probs.placements),
+                                            list(idx.placements)),
+                             device_mesh=probs.device_mesh)(probs, idx), idx
         with mock.patch.object(torch, "topk", pick):
             return route(cfg, p, x)
     with mock.patch.object(blocks, "moe_route", forced):
@@ -5502,11 +5523,12 @@ def routes_from(calls):
                              "the recorded one")
 
 
-def route_flips(seen, ref, cfg):
+def route_flips(seen, ref, cfg, calls=None):
     """The routes the kernel run would have taken against the plain run's
     (``seen`` from :func:`routes_from`, ``ref`` from
-    :func:`record_routes` with probabilities), over the forward's MoE
-    layers (the first calls; remat's recomputation repeats them): each
+    :func:`record_routes` with probabilities), over ``calls`` MoE calls
+    (default the forward's MoE layers: the first calls; remat's
+    recomputation repeats them): each
     token whose experts differ as a set, with the experts only one run
     chose and the kernel run's top-k margin (its k-th router probability
     less the next), and per layer the largest change of a probability
@@ -5515,6 +5537,7 @@ def route_flips(seen, ref, cfg):
     moe = (sum(spec.mlp == "moe" for spec in cfg.prefix)
            + cfg.pattern_repeats * sum(spec.mlp == "moe"
                                        for spec in cfg.pattern))
+    moe = moe if calls is None else calls
     flips, drift = [], []
     for n, ((own, pa, _), (eb, _, pb)) in enumerate(zip(seen[:moe], ref)):
         k = cfg.top_k
@@ -6064,6 +6087,33 @@ DIST_GRAD_TOL = {"float32": 1e-4, "bfloat16": LMT_GRAD_TOL_BF16}
 DIST_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # the smoke cell's steps timed each way, with and without the mode
 DIST_MODE_REPS = 5
+# the sharded model paths (item 9b-ii) on data 2 x model 2, bf16, at full
+# width, each held to rank 0's unsharded run with the same kernels (its
+# MoE layers grouped as the mesh groups them, so the same capacity and
+# drops; the sharded MoE runs take rank 0's routes, each route it would
+# have taken otherwise named with its margin): logits and every cache
+# within LM_TOL_BF16 of their largest magnitude, gradients within
+# DIST_GRAD_TOL.  deepseek-v2-lite-16b at its dense layer and one MoE
+# layer (1.0 B parameters): a prefill of 2 x 2,048 tokens, 8 decode steps
+# (MLA's absorbed step: no kernel), one gradient check and one
+# train_step of 2 x 2,048; jamba-v0.1-52b serving slots 3-5 of its period
+# (Mamba, attention + MoE, Mamba: 3.96 B) the same way, and training its
+# two Mamba layers with dense MLPs (slots 3 and 5: the MoE slot's Adam
+# state does not fit beside four ranks on one card); llama3.2-3b at the
+# slice's 2 layers decoding 8 steps at batch 1 after an 8,192-token
+# prompt, its 32,768-position cache laid out with long_ctx (the sequence
+# on data and model)
+DIST_MODEL_MESH = (2, 2)
+DIST_MODELS = {
+    "deepseek": {"arch": "deepseek-v2-lite-16b", "repeats": 1, "batch": 2,
+                 "prompt": 2048, "steps": 8, "train_slots": "all",
+                 "train_batch": 2, "train_seq": 2048},
+    "jamba": {"arch": "jamba-v0.1-52b", "slots": [3, 4, 5], "batch": 2,
+              "prompt": 2048, "steps": 8, "train_slots": [3, 5],
+              "train_batch": 2, "train_seq": 2048},
+    "long": {"arch": "llama3.2-3b", "repeats": 2, "batch": 1,
+             "prompt": 8192, "cache": 32768, "steps": 8, "long_ctx": True},
+}
 
 
 def dist_config(work):
@@ -6077,7 +6127,8 @@ def dist_config(work):
             "batch": LMT_BATCH, "seq": LMT_SEQ, "steps": DIST_TRAIN_STEPS,
             "at_step": LMT_AT_STEP, "train_mesh": DIST_TRAIN_MESH,
             "restore_mesh": DIST_RESTORE_MESH,
-            "dtypes": ["bfloat16", "float32"], "restore_dtype": "bfloat16"}
+            "dtypes": ["bfloat16", "float32"], "restore_dtype": "bfloat16",
+            "model_mesh": DIST_MODEL_MESH, "models": DIST_MODELS}
 
 
 def dist_bundles(work, dev):
@@ -6117,8 +6168,10 @@ def run_dist_slice(dev, smi):
     """The sharding substrate on the card: ``DIST_RANKS`` ranks of one
     gloo group on the one H100 (each rank a process), minibude served
     sharded in both tiers, llama3.2-3b trained sharded and its state
-    restored onto another mesh (:func:`dist_rank_main`), then the dry
-    run's smoke cell on a fake group of 256 ranks in this process.  Every
+    restored onto another mesh, the sharded model paths
+    (``DIST_MODELS``: deepseek and jamba serving and training, a long
+    context decode; :func:`dist_rank_main`), then the dry run's smoke
+    cell on a fake group of 256 ranks in this process.  Every
     sharded time here is the cost of sharding on one card (four ranks
     share its SMs and move their collectives through host memory), not a
     speedup.  Returns the launches of the ranks' main runs, summed over
@@ -6239,8 +6292,8 @@ def spawn_dist_ranks(config, ranks):
 
 def dist_rank_main(argv):
     """One rank of the dist slice: ``--dist-rank RANK WORLD PORT CONFIG``.
-    Joins the gloo group, runs the serving and training parts on its
-    device and prints its report as the last line."""
+    Joins the gloo group, runs the serving, training and model parts on
+    its device and prints its report as the last line."""
     rank, world, port, config = (int(argv[0]), int(argv[1]), argv[2],
                                  argv[3])
     sys.path.insert(0, str(ROOT / "src"))
@@ -6261,7 +6314,8 @@ def dist_rank_main(argv):
                             rank=rank, world_size=world)
     try:
         report = {"rank": rank, "serve": dist_serve_part(conf, dev),
-                  "train": dist_train_part(conf, dev)}
+                  "train": dist_train_part(conf, dev),
+                  "models": dist_models_part(conf, dev)}
     finally:
         dist.destroy_process_group()
     print(json.dumps(report), flush=True)
@@ -6483,6 +6537,315 @@ def dist_restore_drill(conf, cfg, state):
                          for t in tree_leaves(state))}
 
 
+def dist_model_cfg(m, train=False):
+    """The bf16 config of one of ``DIST_MODELS``: its slots of the
+    pattern (serving's, or with ``train`` training's; ``"all"`` the cut
+    serving runs), or its pattern repeated ``repeats`` times."""
+    from repro_torch.configs.base import get_config, with_repeats
+    cfg = get_config(m["arch"]).replace(dtype="bfloat16")
+    slots = m.get("train_slots") if train else None
+    if slots in (None, "all"):
+        slots = m.get("slots")
+    if slots is None:
+        return with_repeats(cfg, m["repeats"])
+    pattern = tuple(cfg.pattern[i] for i in slots)
+    return cfg.replace(pattern=pattern,
+                       n_layers=len(cfg.prefix) + len(pattern))
+
+
+def dist_kernels():
+    """The kernel wrappers whose launches the model part counts."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.mamba_scan import mamba_scan as ms
+    return fa.KERNELS + (fa.flash_attention_bwd, ms.mamba_scan,
+                         ms.mamba_scan_bwd)
+
+
+@contextlib.contextmanager
+def mesh_groups(mesh):
+    """``blocks._moe_groups`` as it resolves under ``mesh`` (groups of the
+    batch axis's size), for a run without one: the sharded run's routing
+    groups, so its capacity and drops."""
+    from repro_torch.dist.sharding import ShardCtx
+    from repro_torch.models import blocks
+    g = ShardCtx(mesh).axis_size("batch")
+    with mock.patch.object(blocks, "_moe_groups",
+                           lambda T: g if g > 1 and T % g == 0 else 1):
+        yield
+
+
+def _share_routes(routes, path, dev):
+    """Rank 0's recorded routes (None elsewhere) on every rank, through a
+    file under the slice's work directory."""
+    import torch
+    import torch.distributed as dist
+    if dist.get_rank() == 0:
+        torch.save([tuple(t.cpu() for t in c) for c in routes], path)
+    dist.barrier()
+    return [tuple(t.to(dev) for t in c) for c in torch.load(path)]
+
+
+def dist_models_part(conf, dev):
+    """The sharded model paths of ``conf["models"]`` on the model mesh
+    (:func:`dist_serve_model`, and :func:`dist_train_model` where a model
+    trains).  Returns each model's report (rank 0's holds the checks),
+    each path's with the seconds it took, its one-rank run and checks
+    included."""
+    import gc
+
+    import torch
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(tuple(conf["model_mesh"]), device=dev.type)
+    out = {}
+    for name, m in conf["models"].items():
+        out[name] = {}
+        paths = (("serve", dist_serve_model),) + (
+            (("train", dist_train_model),) if m.get("train_slots") else ())
+        for path, run in paths:
+            t0 = time.perf_counter()
+            res = run(name, m, dev, mesh, conf["work"])
+            res["seconds"] = time.perf_counter() - t0
+            out[name][path] = res
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
+def _real(cfg, t):
+    return t[..., :cfg.vocab_size]
+
+
+def _within(cmp, tol):
+    return cmp[0] <= tol * (1 + cmp[1])
+
+
+def dist_serve_model(name, m, dev, mesh, work):
+    """One model's prefill and ``steps`` decode steps (greedy inputs: the
+    seeded tokens after the prompt) on ``mesh``, against rank 0's
+    unsharded run with the same kernels: seconds, the collectives, the
+    rank's peak memory and its kernels' launches in the sharded run
+    (counts set to 0 just before, read just after); on rank 0 every
+    logit and cache leaf against its unsharded run (``LM_TOL_BF16``) and,
+    in an MoE model, the routes the sharded run would have taken (it
+    takes rank 0's)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt.checkpoint import leaf_paths
+    from repro_torch.dist import collective_stats, use_mesh
+    from repro_torch.dist.sharding import full_tensor, param_shardings
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import trainer
+    rank, cfg = dist.get_rank(), dist_model_cfg(m)
+    B, S, n = m["batch"], m["prompt"], m["steps"]
+    L, long_ctx = m.get("cache", S + n), m.get("long_ctx", False)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + n),
+                         generator=torch.Generator().manual_seed(5)).to(dev)
+    moe = has_moe(cfg)
+    params = lm.init_params(0, cfg, device=dev)
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "pattern": [f"{s.mixer}+{s.mlp}"
+                       for s in cfg.prefix + cfg.pattern],
+           "params": sum(t.numel() for t in tree_leaves(params)),
+           "batch": B, "prompt": S, "cache": L, "steps": n,
+           "long_ctx": long_ctx, "mesh": list(mesh.shape)}
+    ref = want = None
+    if rank == 0:  # the unsharded run, grouped as the mesh groups
+        with torch.no_grad(), mesh_groups(mesh), (
+                record_routes(probs=True) if moe
+                else contextlib.nullcontext([])) as ref:
+            _sync(dev)
+            t0 = time.perf_counter()
+            logits, caches = lm.prefill(cfg, params, toks[:, :S],
+                                        cache_len=L)
+            _sync(dev)
+            res["one_rank_prefill_s"] = time.perf_counter() - t0
+            want, step_s = [_real(cfg, logits)], []
+            for i in range(n):
+                _sync(dev)
+                t0 = time.perf_counter()
+                logits, caches = lm.serve_step(cfg, params, caches,
+                                               toks[:, S + i:S + i + 1],
+                                               S + i)
+                _sync(dev)
+                step_s.append(time.perf_counter() - t0)
+                want.append(_real(cfg, logits))
+            res["one_rank_step_ms"] = sorted(step_s)[n // 2] * 1e3
+        want_caches = dict(zip(leaf_paths(caches), tree_leaves(caches)))
+    routes = _share_routes(ref, pathlib.Path(work) / f"routes_{name}.pt",
+                           dev) if moe else None
+    sharded = trainer.shard_state(params, param_shardings(params, cfg,
+                                                          mesh))
+    del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for f in dist_kernels():
+        f.launches = 0
+    with use_mesh(mesh) as ctx, torch.no_grad(), collective_stats() as st, (
+            routes_from(routes) if moe
+            else contextlib.nullcontext([])) as seen:
+        tk = ctx.make_global(toks, ("batch", None))
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, caches = lm.prefill(cfg, sharded, tk[:, :S], cache_len=L)
+        caches = lm.lay_out_caches(cfg, caches, long_ctx=long_ctx)
+        _sync(dev)
+        res["prefill_s"] = time.perf_counter() - t0
+        got, step_s = [_real(cfg, full_tensor(logits))], []
+        for i in range(n):
+            _sync(dev)
+            t0 = time.perf_counter()
+            logits, caches = lm.serve_step(cfg, sharded, caches,
+                                           tk[:, S + i:S + i + 1], S + i,
+                                           long_ctx=long_ctx)
+            _sync(dev)
+            step_s.append(time.perf_counter() - t0)
+            got.append(_real(cfg, full_tensor(logits)))
+    res["launches"] = {f.__name__: f.launches for f in dist_kernels()}
+    res["step_ms"] = sorted(step_s)[n // 2] * 1e3
+    res["step_ms_all"] = [s * 1e3 for s in step_s]
+    res["collectives"] = st.per_kind_count
+    res["collective_bytes"] = st.per_kind_bytes
+    if dev.type == "cuda":
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    kv = [t for key, t in zip(leaf_paths(caches), tree_leaves(caches))
+          if key.endswith(("mixer/k", "mixer/ckv"))]
+    res["cache_placements"] = repr(kv[0].placements) if kv else None
+    errs = {}
+    for key, t in zip(leaf_paths(caches), tree_leaves(caches)):
+        t = full_tensor(t)
+        if rank == 0:
+            errs[key] = lm_compare(t, want_caches[key])
+    if rank == 0:
+        logit_errs = [lm_compare(g, w) for g, w in zip(got, want)]
+        worst_cache = max(errs, key=lambda k: errs[k][0]
+                          / (1 + errs[k][1]))
+        res.update(
+            tol=LM_TOL_BF16, prefill_logits=logit_errs[0],
+            step_logits_worst=max(logit_errs[1:],
+                                  key=lambda c: c[0] / (1 + c[1])),
+            caches=len(errs), worst_cache_leaf=worst_cache,
+            worst_cache=errs[worst_cache],
+            checks={"logits_within_tol": all(_within(c, LM_TOL_BF16)
+                                             for c in logit_errs),
+                    "caches_within_tol": all(_within(c, LM_TOL_BF16)
+                                             for c in errs.values()),
+                    "finite": all(bool(torch.isfinite(g).all())
+                                  for g in got)})
+        if moe:
+            flips, drift, near = route_flips(seen, ref, cfg,
+                                             calls=len(ref))
+            res.update(route_calls=len(ref), tokens_flipped=len(flips),
+                       flips=flips[:20], flip_margin_max=max(
+                           (f["margin"] for f in flips), default=0.0),
+                       prob_drift_max=max(drift), routes_from_rank0=True)
+            res["checks"]["flips_near_ties"] = near
+    return res
+
+
+def dist_train_model(name, m, dev, mesh, work):
+    """One model's training cut (``train_slots``) on ``mesh``: every
+    leaf's gradient of one TokenPipeline batch against rank 0's unsharded
+    gradient with the same kernels (``DIST_GRAD_TOL``; an MoE model's
+    sharded run takes rank 0's routes, each route it would have taken
+    otherwise named with its margin), then one train_step: seconds, the
+    collectives, the rank's peak memory and its kernels' launches (counts
+    set to 0 just before, read just after)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt.checkpoint import leaf_paths
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.dist import collective_stats, use_mesh
+    from repro_torch.dist.sharding import full_tensor
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import trainer
+    rank, cfg = dist.get_rank(), dist_model_cfg(m, train=True)
+    batch = trainer.to_device(TokenPipeline(
+        cfg.vocab_size, m["train_seq"], m["train_batch"],
+        seed=11).batch_at(0), dev)
+    moe = has_moe(cfg)
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "pattern": [f"{s.mixer}+{s.mlp}"
+                       for s in cfg.prefix + cfg.pattern],
+           "batch": m["train_batch"], "seq": m["train_seq"],
+           "mesh": list(mesh.shape), "tol": DIST_GRAD_TOL["bfloat16"]}
+    ref = want = None
+    if rank == 0:
+        params = lm.init_params(0, cfg, device=dev)
+        for t in tree_leaves(params):
+            t.requires_grad_(True)
+        with mesh_groups(mesh), (record_routes(probs=True) if moe
+                                 else contextlib.nullcontext([])) as ref:
+            loss1, want = trainer.compute_grads(cfg, params, batch)
+        want = [g.detach() for g in tree_leaves(want)]
+        res["loss_one_rank"] = float(loss1)
+        del params
+    routes = _share_routes(ref, pathlib.Path(work) / f"routes_{name}_t.pt",
+                           dev) if moe else None
+    state = trainer.make_train_state(0, cfg, device=dev, mesh=mesh)
+    res["params"] = sum(t.numel() for t in tree_leaves(state["params"]))
+    errs = {}
+    with use_mesh(mesh) as ctx, (routes_from(routes) if moe
+                                 else contextlib.nullcontext([])) as seen:
+        b = {k: ctx.make_global(v, ("batch", None)) for k, v in batch.items()}
+        loss, got = trainer.compute_grads(cfg, state["params"], b)
+        res["loss"] = float(full_tensor(loss))
+        for key, g in zip(leaf_paths(got), tree_leaves(got)):
+            g = full_tensor(g.detach())
+            if rank == 0:
+                w = want.pop(0)
+                errs[key] = ((g.float() - w.float()).abs().max()
+                             / w.float().abs().max().clamp_min(1e-30)).item()
+            del g
+        del got
+    if rank == 0:
+        where = max(errs, key=errs.get)
+        res.update(worst=errs[where], worst_leaf=where, leaves=len(errs),
+                   checks={"grads_within_tol": errs[where] <= res["tol"],
+                           "loss_matches_one_rank": abs(
+                               res["loss"] - res["loss_one_rank"])
+                           <= DIST_LOSS_RTOL["bfloat16"]
+                           * abs(res["loss_one_rank"])})
+        if moe:
+            flips, drift, near = route_flips(seen, ref, cfg)
+            res.update(route_calls=len(ref), tokens_flipped=len(flips),
+                       flips=flips[:20], flip_margin_max=max(
+                           (f["margin"] for f in flips), default=0.0),
+                       prob_drift_max=max(drift), routes_from_rank0=True)
+            res["checks"]["flips_near_ties"] = near
+    del want
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for f in dist_kernels():
+        f.launches = 0
+    with use_mesh(mesh) as ctx, collective_stats() as st:
+        b = {k: ctx.make_global(v, ("batch", None)) for k, v in batch.items()}
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, mt = trainer.train_step(cfg, state, b, step=LMT_AT_STEP)
+        _sync(dev)
+        res["step_s"] = time.perf_counter() - t0
+    res["launches"] = {f.__name__: f.launches for f in dist_kernels()}
+    res["step_loss"] = float(mt["loss"])
+    res["grad_norm"] = float(mt["grad_norm"])
+    res["collectives"] = st.per_kind_count
+    res["collective_bytes"] = st.per_kind_bytes
+    if dev.type == "cuda":
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state
+    return res
+
+
 def dist_report(reports, conf, smi):
     """The ranks' reports as ``dist_slice`` lines (serve, train,
     restore), each checked; returns the main runs' launches summed over
@@ -6568,10 +6931,64 @@ def dist_report(reports, conf, smi):
                     if k != "bits_equal"},
                  bits_equal=checks["restore_bits_equal"],
                  relaid=checks["restore_relaid"])
+    checks.update(dist_models_report(reports, conf, smi, launches))
     if not all(checks.values()):
         raise AssertionError("dist slice checks failed: "
                              f"{[k for k, v in checks.items() if not v]}")
     return launches
+
+
+# the kernels each model path must launch on every rank of the sharded
+# run: attention's prefill kernel wherever a layer attends, the decode
+# kernels wherever a GQA layer decodes (MLA's absorbed step is torch), the
+# selective scan wherever a Mamba layer runs; training, attention's
+# backward and the scan's backward where their layers train
+DIST_MODEL_KERNELS = {
+    ("deepseek", "serve"): ("flash_attention_bf16_prefill",),
+    ("deepseek", "train"): ("flash_attention_bf16_prefill",
+                            "flash_attention_bwd"),
+    ("jamba", "serve"): ("flash_attention_bf16_prefill",
+                         "flash_attention_bf16_decode",
+                         "flash_attention_bf16_combine", "mamba_scan"),
+    ("jamba", "train"): ("mamba_scan", "mamba_scan_bwd"),
+    ("long", "serve"): ("flash_attention_bf16_prefill",
+                        "flash_attention_bf16_decode",
+                        "flash_attention_bf16_combine"),
+}
+
+
+def dist_models_report(reports, conf, smi, launches):
+    """The model part's ``dist_slice`` lines (one a model and path) and
+    their checks: rank 0's comparisons, and each path's kernels launched
+    on every rank; adds the ranks' launches to ``launches`` by kernel
+    wrapper."""
+    checks = {}
+    for name in conf["models"]:
+        for path in ("serve", "train"):
+            rs = [r["models"][name].get(path) for r in reports]
+            if rs[0] is None:
+                continue
+            r0, tag = rs[0], f"{name}_{path}"
+            for k, v in r0.get("checks", {}).items():
+                checks[f"{tag}_{k}"] = v
+            for k in DIST_MODEL_KERNELS[(name, path)]:
+                checks[f"{tag}_{k}_every_rank"] = all(
+                    r["launches"][k] > 0 for r in rs)
+            checks[f"{tag}_collective_bytes"] = sum(
+                r0["collective_bytes"].values()) > 0
+            for r in rs:
+                for k, v in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            emit("dist_slice", part="models", model=name, path=path,
+                 ranks=len(rs), launches_by_rank=[r["launches"] for r in rs],
+                 peak_gib_by_rank=[r.get("peak_gib") for r in rs],
+                 **{k: v for k, v in r0.items()
+                    if k not in ("launches", "peak_gib", "checks")},
+                 note="times are the cost of sharding on one card (four "
+                      "ranks share it, collectives through host memory), "
+                      "not a speedup", nvidia_smi=smi,
+                 **{k: v for k, v in checks.items() if k.startswith(tag)})
+    return checks
 
 
 # the pod slice: the reference's smoke (2 processes, flight recorder and
@@ -7020,8 +7437,11 @@ def main():
         "source": flash.BF16_SOURCE, "replaces": flash.REPLACES,
         "replaces_note": "its bf16 forward at most 16 rows a kv head (a "
                          "decode step); partials for the combine",
-        "launches": flash_launches["flash_attention_bf16_decode"],
-        "launches_by_path": flash_by_path["flash_attention_bf16_decode"],
+        "launches": flash_launches["flash_attention_bf16_decode"]
+        + dist_launches["flash_attention_bf16_decode"],
+        "launches_by_path": dict(
+            flash_by_path["flash_attention_bf16_decode"],
+            dist_slice=dist_launches["flash_attention_bf16_decode"]),
         "max_abs_err": dk["decode_max_abs_err"],
         "tol_of_scale": 1e-4, "shape": lm_d["problem"],
         "splits": dk["splits"], "keys": dk["keys"],
@@ -7048,8 +7468,11 @@ def main():
         "replaces_note": "the decode kernel's partials added in ascending "
                          "order (no Pallas counterpart: the TPU kernel "
                          "walks every key in one grid)",
-        "launches": flash_launches["flash_attention_bf16_combine"],
-        "launches_by_path": flash_by_path["flash_attention_bf16_combine"],
+        "launches": flash_launches["flash_attention_bf16_combine"]
+        + dist_launches["flash_attention_bf16_combine"],
+        "launches_by_path": dict(
+            flash_by_path["flash_attention_bf16_combine"],
+            dist_slice=dist_launches["flash_attention_bf16_combine"]),
         "max_abs_err": dk["combine_max_abs_err"], "rtol": BF16_RTOL,
         "atol": 2e-5, "shape": lm_d["problem"], "ms": dk["combine_ms"],
         "plain_ms": dk["combine_plain_ms"],
@@ -7121,10 +7544,12 @@ def main():
         "replaces_note": "no Pallas kernel: the jnp associative scan of "
                          "mamba_seq",
         "launches": jamba_launches[0]
-        + sum(lm_train_launches["mamba_scan"].values()),
+        + sum(lm_train_launches["mamba_scan"].values())
+        + dist_launches["mamba_scan"],
         "launches_by_path": {
             "jamba_lm_slice": jamba_launches[0],
-            "lm_train_slice": lm_train_launches["mamba_scan"]},
+            "lm_train_slice": lm_train_launches["mamba_scan"],
+            "dist_slice": dist_launches["mamba_scan"]},
         "max_abs_err": mamba_errs["jamba prefill bf16"]["max_abs_err"],
         "worst_vs_terms": mamba_errs["jamba prefill bf16"]["worst_vs_terms"],
         "rtol": mamba_ops.SPEC.tol[0], "atol": mamba_ops.SPEC.tol[1],
@@ -7171,9 +7596,11 @@ def main():
         "source": mamba.BWD_SOURCE, "replaces": mamba.BWD_REPLACES,
         "replaces_note": "no Pallas kernel: the gradient XLA takes of the "
                          "chunked associative scan of mamba_seq",
-        "launches": sum(lm_train_launches["mamba_scan_bwd"].values()),
+        "launches": sum(lm_train_launches["mamba_scan_bwd"].values())
+        + dist_launches["mamba_scan_bwd"],
         "launches_by_path": {
-            "lm_train_slice": lm_train_launches["mamba_scan_bwd"]},
+            "lm_train_slice": lm_train_launches["mamba_scan_bwd"],
+            "dist_slice": dist_launches["mamba_scan_bwd"]},
         "max_abs_err": mamba_bwd["max_abs_err"],
         "max_err_of_largest": max(mamba_bwd["cases"]["jamba training bf16"][
             "vs_plain_backward"].values()),

@@ -289,6 +289,32 @@ def distribute(full: torch.Tensor, mesh, placements, *,
     return out.requires_grad_(rg) if rg else out
 
 
+def lay_out(t, mesh, placements):
+    """``t`` under ``placements`` on ``mesh``: a plain tensor (which
+    every rank holds whole) distributed, a DTensor redistributed where
+    its placements differ."""
+    if not is_dtensor(t):
+        return distribute(t, mesh, placements)
+    if tuple(t.placements) == tuple(placements):
+        return t
+    return t.redistribute(mesh, placements)
+
+
+def resolve(mesh, shape, *logical_axes) -> list:
+    """Placements of ``shape`` on ``mesh`` by the active context's
+    resolution of ``logical_axes`` (the mesh's own without one)."""
+    ctx = current_ctx()
+    if ctx is None or ctx.mesh is None:
+        ctx = ShardCtx(mesh)
+    return placements_for(ctx.spec_for(tuple(shape), logical_axes), mesh)
+
+
+def place(t, mesh, *logical_axes):
+    """``t`` laid out on ``mesh`` (:func:`lay_out`) by :func:`resolve`:
+    :func:`constrain` for a plain tensor too."""
+    return lay_out(t, mesh, resolve(mesh, t.shape, *logical_axes))
+
+
 def block_offset(mesh, placements, dim: int, size: int) -> int:
     """Where this rank's block of dimension ``dim`` (of global extent
     ``size``) starts under ``placements``."""

@@ -19,9 +19,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import (ShardCtx, cache_spec_tree,
-                                       distribute, param_spec_tree,
-                                       placements_for)
+from repro_torch.dist.sharding import (ShardCtx, distribute,
+                                       param_spec_tree, placements_for)
 from repro_torch.models import lm
 from repro_torch.optim.adamw import tree_map
 from repro_torch.train import trainer
@@ -88,8 +87,12 @@ def build_cell(cfg: ModelConfig, shape: ShapeCell, mesh=None,
     """``{"fn", "args"}`` of one cell: ``fn(*args)`` runs its step (the
     train step, a prefill, or a decode step at position 0) on tensors
     laid out on ``mesh`` (under :func:`~repro_torch.dist.sharding.
-    use_mesh`, which the caller installs)."""
+    use_mesh`, which the caller installs).  A cell whose shape's name
+    starts with ``long`` lays out its decode cache and runs its step with
+    ``long_ctx`` (the KV sequence on data and model), as the reference
+    derives it."""
     dev = resolve_device(device)
+    long_ctx = shape.name.startswith("long")
     batch = _inputs(cfg, input_specs(cfg, shape, mesh, multi_pod), mesh,
                     seed, dev)
     if shape.kind == "train":
@@ -122,10 +125,11 @@ def build_cell(cfg: ModelConfig, shape: ShapeCell, mesh=None,
                                 params=params if cfg.enc_dec else None,
                                 device=dev)
     if mesh is not None:
-        caches = _laid_out(caches, cache_spec_tree(caches, cfg, mesh,
-                                                   multi_pod), mesh)
+        caches = lm.lay_out_caches(cfg, caches, long_ctx=long_ctx, mesh=mesh,
+                                   multi_pod=multi_pod)
 
     def fn(p, c, b, pos):
         return lm.serve_step(cfg, p, c, b["tokens"], pos,
-                             position_ids=b.get("position_ids"))
+                             position_ids=b.get("position_ids"),
+                             long_ctx=long_ctx)
     return {"fn": fn, "args": (params, caches, batch, 0)}

@@ -34,16 +34,25 @@ chunked associative scan in jnp, blocks.py:563-586) runs through
 port adds; its one-token step stays plain torch, which rounds where the
 reference's step rounds (it rounds ``dt * x`` to the model dtype, where
 the sequence form takes both in f32).
-The reference's sharding hints (``constrain``) stand at its sites in
-the GQA mixer and the dense MLPs: no-ops without a mesh, a DTensor
-redistribution under one.  Under a mesh the attention kernel runs on
-each rank's local heads and rows (:func:`_attention`, a ``local_map``
-on the heads' placement), so the registry dispatches only local tensors,
-and MoE tokens route in groups aligned to the batch shards
-(:func:`_moe_groups`).  The port pads no query heads
+The reference's sharding hints (``constrain``) stand at its sites: no-ops
+without a mesh, a DTensor redistribution under one.  They are GQA's and
+MLA's heads, their decode caches (``"kvseq"``, or ``"longseq"`` with
+``long_ctx``, int8 scales included), Mamba's inner channels, the MoE
+dispatch, experts and combine, and the dense MLPs.  Under a mesh every
+kernel runs on each rank's local blocks through ``local_map``
+(:func:`_per_rank`): attention on its rows and heads
+(:func:`_attention`), the selective scan on its rows and channels, the
+WKV recurrence on its rows and heads.  The registry dispatches only
+local tensors.  A decode step writes its token into the rank's own
+block of a sequence-sharded cache (:func:`_write_seq`) and gathers the
+step's K/V (MLA: its latent and rotated key) along the sequence before
+attention.  MoE tokens route in groups aligned to the batch shards
+(:func:`_moe_groups`), and the dispatch and combine are the reference's
+adjoint pair (:class:`_DispatchScatter`, :class:`_CombineGather`), each
+rank scattering and gathering its own groups.  RWKV6 has no site in the
+reference; its 5-way token-shift split gathers a mix whose shards cut
+across the split (:func:`_heads`).  The port pads no query heads
 (:func:`_padded_heads`): its kernel takes K/V at their own head count.
-The MLA, MoE-expert, Mamba and RWKV6 sites are not placed yet (ROADMAP
-item 9b-ii); under a mesh those mixers run on DTensor's own layouts.
 """
 from __future__ import annotations
 
@@ -54,7 +63,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist.sharding import (block_offset, constrain, current_ctx,
-                                       is_dtensor, matmul)
+                                       is_dtensor, lay_out, local_block,
+                                       matmul, place, reinstall, resolve)
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.kernels.mamba_scan.ops import mamba_scan_op
 from repro_torch.kernels.rwkv6_chunk.ops import rwkv6_chunk_op
@@ -211,16 +221,36 @@ def gqa_seq(cfg, p, x, *, positions, position_ids=None, causal=True,
     return matmul(o.reshape(B, S, -1), p["wo"]), (k, v)
 
 
-def _attention(q, k, v, *, causal):
+def _per_rank(fn, args, outs, main):
+    """``fn`` on each rank's local blocks of ``args`` (DTensors on one
+    mesh, or None), through ``local_map``, its results laid out by
+    ``outs`` (one list of placements a result).  An input whole on a
+    mesh dimension along which ``main`` is split (a weight, or K/V every
+    query head of a rank reads) gets, in the backward, a cotangent that
+    is a partial sum over that dimension."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    split = [p.is_shard() for p in main.placements]
+    ins = tuple(list(a.placements) if is_dtensor(a) else None
+                for a in args)
+    grads = tuple(None if pl is None else
+                  [Partial() if s and not p.is_shard() else p
+                   for p, s in zip(pl, split)] for pl in ins)
+    return local_map(fn, out_placements=outs, in_placements=ins,
+                     in_grad_placements=grads,
+                     device_mesh=main.device_mesh)(*args)
+
+
+def _attention(q, k, v, *, causal, kv_valid_len=None):
     """``flash_attention_op`` on plain tensors; on DTensors (under a
-    mesh) on each rank's local rows and heads, through ``local_map`` on
-    q's placement.  A rank whose query heads cover whole groups of its
+    mesh) on each rank's local rows and heads (:func:`_per_rank` on q's
+    placement).  A rank whose query heads cover whole groups of its
     kv heads' block reads that block; otherwise (kv heads replicated
     where their count does not divide the shards) its kv heads are
     repeated to the query heads it holds."""
     if not is_dtensor(q):
-        return flash_attention_op(q, k, v, causal=causal, q_offset=0)
-    from torch.distributed.tensor.experimental import local_map
+        return flash_attention_op(q, k, v, causal=causal, q_offset=0,
+                                  kv_valid_len=kv_valid_len)
     H, KV = q.shape[2], k.shape[2]
     mesh = q.device_mesh
     q_off = block_offset(mesh, q.placements, 2, H)
@@ -234,12 +264,45 @@ def _attention(q, k, v, *, causal):
             heads = (torch.arange(q_off, q_off + hq, device=ql.device)
                      // group) - k_off
             kl, vl = kl[:, :, heads], vl[:, :, heads]
-        return flash_attention_op(ql, kl, vl, causal=causal, q_offset=0)
+        return flash_attention_op(ql, kl, vl, causal=causal, q_offset=0,
+                                  kv_valid_len=kv_valid_len)
 
-    return local_map(local, out_placements=list(q.placements),
-                     in_placements=(list(q.placements), list(k.placements),
-                                    list(v.placements)),
-                     device_mesh=mesh)(q, k, v)
+    return _per_rank(local, (q, k, v), list(q.placements), q)
+
+
+def _step_heads(q, k, v):
+    """A decode step's q ``[B, 1, H, hd]`` and its K/V ``[B, L, KV,
+    hd]`` at the heads' site: under a mesh the K/V are gathered along
+    the sequence (the cache's shards) and split by head."""
+    return tuple(constrain(t, "batch", None, "heads", None)
+                 for t in (q, k, v))
+
+
+def _write_seq(cache, t, start: int):
+    """``t`` ``[B, n, ...]`` written into ``cache`` ``[B, L, ...]`` at
+    positions ``start .. start + n - 1``, in place; returns ``cache``
+    (a pinned divergence: the reference returns an updated copy, and
+    clamps a position past the cache, where the port raises).  A DTensor
+    cache sharded on its sequence is written by the ranks whose blocks
+    hold those positions, each into its own block, from ``t`` laid out
+    as the cache with its sequence whole."""
+    n, L = t.shape[1], cache.shape[1]
+    if start < 0 or start + n > L:
+        raise IndexError(f"positions {start}..{start + n - 1} past a "
+                         f"cache of {L}")
+    if not is_dtensor(cache):
+        cache[:, start:start + n] = t
+        return cache
+    from torch.distributed.tensor import Replicate
+    mesh, pl = cache.device_mesh, list(cache.placements)
+    t = lay_out(t, mesh, [Replicate() if p.is_shard(1) else p for p in pl])
+    off = block_offset(mesh, pl, 1, L)
+    with torch.no_grad():
+        mine, new = cache.to_local(), t.to_local()
+        lo, hi = max(start, off), min(start + n, off + mine.shape[1])
+        if lo < hi:
+            mine[:, lo - off:hi - off] = new[:, lo - start:hi - start]
+    return cache
 
 
 def gqa_init_cache(cfg, batch, cache_len, dtype, device):
@@ -310,24 +373,28 @@ def _int8_decode_attention(cfg, q, kq, vq, ks, vs, valid, *, chunk=2048):
     return out.transpose(1, 2).to(q.dtype)
 
 
-def gqa_step(cfg, p, x, cache, pos, *, position_ids=None, cross_kv=None):
+def gqa_step(cfg, p, x, cache, pos, *, position_ids=None, cross_kv=None,
+             long_ctx=False):
     """One token x ``[B, 1, d]`` at position ``pos`` against the cache
     (k, v ``[B, S, KV, hd]``; int8 with per-token scales when
     ``cfg.kv_cache_dtype == "int8"``).  The token's K/V are written into
-    the cache's buffers in place (the reference returns updated copies),
-    and attention runs over the whole cache with ``kv_valid_len = pos +
-    1``; an int8 cache is dequantized to bf16 first, as the reference
-    does, then cast to q's dtype for the kernel.  For mrope without
-    ``position_ids``, every component is ``pos``.  With ``cross_kv``
-    (the cross cache's k and v ``[B, Se, KV, hd]``, in the model's dtype
-    whatever the cache's) only q is projected, it sees all ``Se`` keys,
-    and ``cache`` is returned as given."""
+    the cache's buffers in place (:func:`_write_seq`; the reference
+    returns updated copies), and attention runs over the whole cache
+    with ``kv_valid_len = pos + 1``; an int8 cache is dequantized to
+    bf16 first, as the reference does, then cast to q's dtype for the
+    kernel.  For mrope without ``position_ids``, every component is
+    ``pos``.  Under a mesh the cache stands on ``("batch", "kvseq")``
+    (``"longseq"`` with ``long_ctx``), the reference's sites, and the
+    step's K/V are gathered along the sequence for the kernel.  With
+    ``cross_kv`` (the cross cache's k and v ``[B, Se, KV, hd]``, in the
+    model's dtype whatever the cache's) only q is projected, it sees all
+    ``Se`` keys, and ``cache`` is returned as given."""
     B = x.shape[0]
     if cross_kv is not None:
         k, v = cross_kv
-        o = flash_attention_op(_cross_q(cfg, p, x), k, v, causal=False,
-                               kv_valid_len=k.shape[1])
-        return o.reshape(B, 1, -1) @ p["wo"], cache
+        o = _attention(*_step_heads(_cross_q(cfg, p, x), k, v),
+                       causal=False, kv_valid_len=k.shape[1])
+        return matmul(o.reshape(B, 1, -1), p["wo"]), cache
     pid = position_ids
     if cfg.rope == "mrope" and pid is None:
         pid = torch.full((3, B, 1), int(pos), dtype=torch.int64,
@@ -335,20 +402,27 @@ def gqa_step(cfg, p, x, cache, pos, *, position_ids=None, cross_kv=None):
     positions = torch.full((1,), int(pos), dtype=torch.int64,
                            device=x.device)
     q, k_new, v_new = _project_qkv(cfg, p, x, positions, pid)
+    seq_ax = "longseq" if long_ctx else "kvseq"
     if cfg.kv_cache_dtype == "int8":
         kq, ks_new = _quantize_kv(k_new)
         vq, vs_new = _quantize_kv(v_new)
         for key, val in (("k", kq), ("v", vq), ("k_scale", ks_new),
                          ("v_scale", vs_new)):
-            cache[key][:, pos] = val[:, 0]
-        k = _dequantize_kv(cache["k"], cache["k_scale"]).to(q.dtype)
-        v = _dequantize_kv(cache["v"], cache["v_scale"]).to(q.dtype)
+            site = ("batch", seq_ax) + (None,) * (val.ndim - 2)
+            cache[key] = _write_seq(constrain(cache[key], *site), val, pos)
+        # dequantized where each rank holds its block of the cache
+        k = constrain(_dequantize_kv(cache["k"], cache["k_scale"]),
+                      "batch", seq_ax, None, None).to(q.dtype)
+        v = constrain(_dequantize_kv(cache["v"], cache["v_scale"]),
+                      "batch", seq_ax, None, None).to(q.dtype)
     else:
-        cache["k"][:, pos] = k_new[:, 0]
-        cache["v"][:, pos] = v_new[:, 0]
+        for key, val in (("k", k_new), ("v", v_new)):
+            cache[key] = _write_seq(constrain(cache[key], "batch", seq_ax,
+                                              None, None), val, pos)
         k, v = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
-    o = flash_attention_op(q, k, v, causal=False, kv_valid_len=pos + 1)
-    return o.reshape(B, 1, -1) @ p["wo"], cache
+    o = _attention(*_step_heads(q, k, v), causal=False,
+                   kv_valid_len=pos + 1)
+    return matmul(o.reshape(B, 1, -1), p["wo"]), cache
 
 
 # ------------------------------------------------------------- MLA mixer ---
@@ -367,9 +441,8 @@ def mla_init(gen, cfg):
 def _mla_q(cfg, p, x, positions):
     """The query's no-position part ``[B, S, H, nope]`` and its rotated
     part ``[B, S, H, rdim]``."""
-    B, S, _ = x.shape
     nope, rdim = cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = (x @ p["w_q"]).reshape(B, S, cfg.n_heads, nope + rdim)
+    q = _heads(matmul(x, p["w_q"]), cfg.n_heads, nope + rdim)
     return (q[..., :nope],
             rope_lib.apply_rope(q[..., nope:], positions, cfg.rope_theta))
 
@@ -383,8 +456,8 @@ def _rms_vec(x, scale, eps=1e-6):
 def _mla_latent(cfg, p, x, positions):
     """The normed latent ``ckv`` ``[B, S, r]`` and the one rotated key
     head ``kr`` ``[B, S, 1, rdim]`` that every head shares."""
-    ckv = _rms_vec(x @ p["w_dkv"], p["ckv_norm"])
-    kr = rope_lib.apply_rope((x @ p["w_kr"])[:, :, None, :], positions,
+    ckv = _rms_vec(matmul(x, p["w_dkv"]), p["ckv_norm"])
+    kr = rope_lib.apply_rope(matmul(x, p["w_kr"])[:, :, None, :], positions,
                              cfg.rope_theta)
     return ckv, kr
 
@@ -392,22 +465,25 @@ def _mla_latent(cfg, p, x, positions):
 def mla_seq(cfg, p, x, *, positions, position_ids=None, causal=True):
     """MLA over a sequence x ``[B, S, d]``: q and k of ``nope + rdim``
     (192) per head, v of ``v_head_dim`` (128), through the kernel, which
-    takes v at its own width.  The reference switches to its chunked
-    attention above 2,048 x 2,048 scores, which rounds p to bf16 before
-    ``p @ v``; the kernel keeps p in f32 at every length.  Returns ``(y,
-    (ckv, kr))``, ``ckv`` ``[B, S, r]`` and ``kr`` ``[B, S, rdim]`` for
-    the cache."""
+    takes v at its own width (:func:`_attention`, on each rank's heads
+    under a mesh: q and k at the reference's heads site, v at the same
+    one).  The reference switches to its chunked attention above 2,048 x
+    2,048 scores, which rounds p to bf16 before ``p @ v``; the kernel
+    keeps p in f32 at every length.  Returns ``(y, (ckv, kr))``, ``ckv``
+    ``[B, S, r]`` and ``kr`` ``[B, S, rdim]`` for the cache."""
     del position_ids
     B, S, _ = x.shape
     H, nope, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
     qn, qr = _mla_q(cfg, p, x, positions)
     ckv, kr = _mla_latent(cfg, p, x, positions)
-    kv = (ckv @ p["w_ukv"]).reshape(B, S, H, nope + vd)
+    kv = _heads(matmul(ckv, p["w_ukv"]), H, nope + vd)
     q = torch.cat([qn, qr], dim=-1)
     k = torch.cat([kv[..., :nope], kr.expand(B, S, H, kr.shape[-1])],
                   dim=-1)
-    o = flash_attention_op(q, k, kv[..., nope:], causal=causal)
-    return o.reshape(B, S, H * vd) @ p["wo"], (ckv, kr[:, :, 0])
+    q, k, v = (constrain(t, "batch", None, "heads", None)
+               for t in (q, k, kv[..., nope:]))
+    o = _attention(q, k, v, causal=causal)
+    return matmul(o.reshape(B, S, H * vd), p["wo"]), (ckv, kr[:, :, 0])
 
 
 def mla_init_cache(cfg, batch, cache_len, dtype, device):
@@ -419,13 +495,17 @@ def mla_init_cache(cfg, batch, cache_len, dtype, device):
                               dtype=dtype, device=device)}
 
 
-def mla_step(cfg, p, x, cache, pos, *, position_ids=None):
+def mla_step(cfg, p, x, cache, pos, *, position_ids=None, long_ctx=False):
     """One token x ``[B, 1, d]`` at position ``pos`` in the absorbed form:
     q's no-position part taken into the latent space through ``w_uk``,
     scores against the cached latent and rotated keys in f32, divided by
     ``sqrt(nope + rdim)``, ``pos + 1`` keys seen, and the context taken
     out through ``w_uv``.  The token's ``ckv``/``kr`` are written into the
-    cache's buffers in place (the reference returns updated copies)."""
+    cache's buffers in place (:func:`_write_seq`; the reference returns
+    updated copies).  Under a mesh the cache stands on ``("batch",
+    "kvseq")`` (``"longseq"`` with ``long_ctx``), the reference's sites,
+    and the step's latent and rotated keys are gathered along the
+    sequence."""
     del position_ids
     B = x.shape[0]
     H, r = cfg.n_heads, cfg.kv_lora_rank
@@ -435,9 +515,12 @@ def mla_step(cfg, p, x, cache, pos, *, position_ids=None):
                            device=x.device)
     qn, qr = _mla_q(cfg, p, x, positions)
     ckv_new, kr_new = _mla_latent(cfg, p, x, positions)
-    cache["ckv"][:, pos] = ckv_new[:, 0]
-    cache["kr"][:, pos] = kr_new[:, 0, 0]
-    ckv, kr = cache["ckv"].to(f32), cache["kr"].to(f32)
+    seq_ax = "longseq" if long_ctx else "kvseq"
+    for key, val in (("ckv", ckv_new), ("kr", kr_new[:, :, 0])):
+        cache[key] = _write_seq(constrain(cache[key], "batch", seq_ax, None),
+                                val, pos)
+    ckv, kr = (constrain(cache[key], "batch", None, None).to(f32)
+               for key in ("ckv", "kr"))
     w_ukv = p["w_ukv"].reshape(r, H, nope + vd).to(f32)
     q_lat = torch.einsum("bqhn,rhn->bqhr", qn.to(f32), w_ukv[..., :nope])
     s = torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
@@ -447,7 +530,7 @@ def mla_step(cfg, p, x, cache, pos, *, position_ids=None):
     s = torch.where(valid[None, None, None, :], s, s.new_tensor(NEG_INF))
     ctx = torch.einsum("bhqs,bsr->bqhr", torch.softmax(s, dim=-1), ckv)
     o = torch.einsum("bqhr,rhv->bqhv", ctx, w_ukv[..., nope:]).to(x.dtype)
-    return o.reshape(B, 1, H * vd) @ p["wo"], cache
+    return matmul(o.reshape(B, 1, H * vd), p["wo"]), cache
 
 
 # ----------------------------------------------------------- RWKV6 mixer ---
@@ -478,29 +561,31 @@ def rwkv6_init(gen, cfg):
 
 
 def _rwkv_mix(cfg, p, x, x_prev):
-    """Data-dependent token-shift (Finch ddlerp). Returns xw,xk,xv,xr,xg."""
+    """Data-dependent token-shift (Finch ddlerp). Returns xw,xk,xv,xr,xg.
+    Under a mesh the mix is split five ways through :func:`_heads`, which
+    gathers it where its shards cut across the split (any model-axis size
+    but 5 does: the reference has no site here)."""
     dx = x_prev - x
     xxx = x + dx * p["mu_base"]
-    mix = torch.tanh(xxx @ p["lora_a_mix"])
-    B, S, _ = x.shape
-    mix = mix.reshape(B, S, 5, cfg.rwkv_lora_dim)
+    mix = _heads(torch.tanh(matmul(xxx, p["lora_a_mix"])), 5,
+                 cfg.rwkv_lora_dim)
     delta = torch.einsum("bsfl,fld->fbsd", mix, p["lora_b_mix"])
     return [x + dx * (p["mu_wkvrg"][i] + delta[i]) for i in range(5)]
 
 
 def _rwkv_wkvrg(cfg, p, x, x_prev):
     xw, xk, xv, xr, xg = _rwkv_mix(cfg, p, x, x_prev)
-    B, S, d = x.shape
     H, hd = cfg.n_rwkv_heads, cfg.rwkv_head_size
-    r = (xr @ p["wr_tm"]).reshape(B, S, H, hd)
-    k = (xk @ p["wk_tm"]).reshape(B, S, H, hd)
-    v = (xv @ p["wv_tm"]).reshape(B, S, H, hd)
-    g = F.silu(xg @ p["wg_tm"])
-    lora = torch.tanh(xw @ p["lora_a_w"][:, :cfg.rwkv_lora_dim * 2]
-                      .to(x.dtype)) @ p["lora_b_w"].to(x.dtype)
+    r = _heads(matmul(xr, p["wr_tm"]), H, hd)
+    k = _heads(matmul(xk, p["wk_tm"]), H, hd)
+    v = _heads(matmul(xv, p["wv_tm"]), H, hd)
+    g = F.silu(matmul(xg, p["wg_tm"]))
+    lora = matmul(torch.tanh(matmul(
+        xw, p["lora_a_w"][:, :cfg.rwkv_lora_dim * 2].to(x.dtype))),
+        p["lora_b_w"].to(x.dtype))
     w_log = -torch.exp(torch.clamp(
         p["w0"].to(torch.float32) + lora.to(torch.float32), -20.0, 1.0))
-    w = torch.exp(w_log).reshape(B, S, H, hd)  # decay in (0,1)
+    w = _heads(torch.exp(w_log), H, hd)  # decay in (0,1)
     return r, k, v, g, w
 
 
@@ -518,12 +603,22 @@ def _rwkv_groupnorm(cfg, p, o):
 def _rwkv_out(cfg, p, x, r, k, v, g, w, S):
     """The WKV recurrence from state S through the op (f32 r, k, v, w, as
     the reference casts them), then group norm, gate and output
-    projection.  Returns (y, final state)."""
+    projection.  Under a mesh the op runs on each rank's rows and heads
+    (:func:`_per_rank`).  Returns (y, final state)."""
     f32 = torch.float32
-    o, S_fin = rwkv6_chunk_op(r.to(f32), k.to(f32), v.to(f32), w,
-                              p["w_u"].to(f32), S)
+    args = (r.to(f32), k.to(f32), v.to(f32), w, p["w_u"].to(f32), S)
+    if is_dtensor(r):
+        mesh, heads = r.device_mesh, ("batch", None, "heads", None)
+        args = tuple(place(t, mesh, *axes) for t, axes in zip(
+            args, (heads,) * 4 + (("heads", None),
+                                  ("batch", "heads", None, None))))
+        o, S_fin = _per_rank(rwkv6_chunk_op, args,
+                             (list(args[0].placements),
+                              list(args[5].placements)), args[0])
+    else:
+        o, S_fin = rwkv6_chunk_op(*args)
     y = _rwkv_groupnorm(cfg, p, o) * g.to(f32)
-    return y.to(x.dtype) @ p["wo"], S_fin
+    return matmul(y.to(x.dtype), p["wo"]), S_fin
 
 
 def rwkv6_seq(cfg, p, x, *, positions=None, position_ids=None, chunk=64,
@@ -557,9 +652,10 @@ def rwkv6_init_cache(cfg, batch, cache_len, dtype, device):
     }
 
 
-def rwkv6_step(cfg, p, x, state, pos, *, position_ids=None):
+def rwkv6_step(cfg, p, x, state, pos, *, position_ids=None,
+               long_ctx=False):
     """One token x ``[B, 1, d]``: the recurrence at T = 1."""
-    del pos, position_ids  # recurrent: the state carries the position
+    del pos, position_ids, long_ctx  # the state carries the position
     r, k, v, g, w = _rwkv_wkvrg(cfg, p, x, state["x_last"][:, None])
     y, S_new = _rwkv_out(cfg, p, x, r, k, v, g, w, state["S"])
     return y, {"S": S_new, "x_last": x[:, 0]}
@@ -595,9 +691,9 @@ def _mamba_ssm_inputs(cfg, p, xc):
     ``jax.nn.softplus`` computes it (``logaddexp(s, 0) = max(s, 0) +
     log1p(exp(-|s|))``), each op in the model dtype as XLA rounds it."""
     ds, dr = cfg.mamba_d_state, cfg.dt_rank
-    proj = xc @ p["w_x"]
+    proj = matmul(xc, p["w_x"])
     dt, Bm, Cm = torch.split(proj, [dr, ds, ds], dim=-1)
-    s = dt @ p["w_dt"] + p["b_dt"]
+    s = matmul(dt, p["w_dt"]) + p["b_dt"]
     dt = torch.clamp(s, min=0) + torch.log1p(torch.exp(-s.abs()))
     return dt, Bm, Cm
 
@@ -628,20 +724,45 @@ def mamba_seq(cfg, p, x, *, positions=None, position_ids=None, conv0=None,
     ``conv0`` ``[B, dc - 1, di]`` and state ``h0`` ``[B, di, ds]`` (zeros
     when None): the causal depthwise conv as the reference's shifted sum
     in the model dtype, silu, the selective scan through the op (its f32
-    D skip included), the silu(z) gate and ``w_out``.  Returns ``(y,
-    {"conv", "h"})``.  A recurrent mixer takes no positions."""
+    D skip included), the silu(z) gate and ``w_out``.  Under a mesh
+    ``xin`` stands on ``("batch", None, "dinner")``, the reference's
+    site, and the scan runs on each rank's rows and channels
+    (:func:`_scan_per_rank`).  Returns ``(y, {"conv", "h"})``.  A
+    recurrent mixer takes no positions."""
     del positions, position_ids
     B = x.shape[0]
     di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
-    xin, z = torch.chunk(x @ p["w_in"], 2, dim=-1)
+    xin, z = torch.chunk(matmul(x, p["w_in"]), 2, dim=-1)
+    xin = constrain(xin, "batch", None, "dinner")
     conv, conv_state = _mamba_conv(cfg, p, xin, conv0)
     xc = F.silu(conv)
     dt, Bm, Cm = _mamba_ssm_inputs(cfg, p, xc)
     if h0 is None:
         h0 = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
-    y, h = mamba_scan_op(dt, xc, Bm, Cm, _mamba_decays(p), p["D_skip"], h0)
-    y = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
+    args = (dt, xc, Bm, Cm, _mamba_decays(p), p["D_skip"], h0)
+    y, h = (_scan_per_rank(*args) if is_dtensor(dt)
+            else mamba_scan_op(*args))
+    y = matmul(y.to(x.dtype) * F.silu(z), p["w_out"])
     return y, {"conv": conv_state, "h": h}
+
+
+def _scan_per_rank(dt, xc, Bm, Cm, A, D, h0):
+    """``mamba_scan_op`` on each rank's batch rows and inner channels
+    (:func:`_per_rank`): the scan is per channel, so dt, xc, A, D and
+    the state are cut by channel, while Bm and Cm, which every channel
+    reads, stand whole on the model axis (their cotangents are partial
+    sums over it).  Under grad the states the forward keeps and the
+    backward stay on each rank."""
+    mesh = dt.device_mesh
+    chans = ("batch", None, "dinner")
+    args = (place(dt, mesh, *chans), place(xc, mesh, *chans),
+            place(Bm, mesh, "batch", None, None),
+            place(Cm, mesh, "batch", None, None),
+            place(A, mesh, "dinner", None), place(D, mesh, "dinner"),
+            place(h0, mesh, "batch", "dinner", None))
+    return _per_rank(mamba_scan_op, args, (list(args[0].placements),
+                                           list(args[6].placements)),
+                     args[0])
 
 
 def mamba_init_cache(cfg, batch, cache_len, dtype, device):
@@ -654,15 +775,16 @@ def mamba_init_cache(cfg, batch, cache_len, dtype, device):
                              device=device)}
 
 
-def mamba_step(cfg, p, x, state, pos, *, position_ids=None):
+def mamba_step(cfg, p, x, state, pos, *, position_ids=None,
+               long_ctx=False):
     """One token x ``[B, 1, d]`` in plain torch, line by line the
     reference's step (blocks.py:599-618): the conv as a sum over the
     window in f32 cast back (``jnp.sum`` upcasts), ``dt * xc`` rounded to
     the model dtype before the f32 update, y in f32 with the D skip.
     Returns new ``{"conv", "h"}``."""
-    del pos, position_ids  # recurrent: the state carries the position
+    del pos, position_ids, long_ctx  # the state carries the position
     f32 = torch.float32
-    xin, z = torch.chunk(x @ p["w_in"], 2, dim=-1)              # [B, 1, di]
+    xin, z = torch.chunk(matmul(x, p["w_in"]), 2, dim=-1)       # [B, 1, di]
     xp = torch.cat([state["conv"], xin], dim=1)                  # [B, dc, di]
     conv = (xp * p["conv_w"]).to(f32).sum(1, keepdim=True).to(x.dtype) \
         + p["conv_b"]
@@ -674,7 +796,7 @@ def mamba_step(cfg, p, x, state, pos, *, position_ids=None):
     h = a * state["h"] + b
     y = torch.einsum("bds,bs->bd", h, Cm[:, 0].to(f32))
     y = y + xc[:, 0].to(f32) * p["D_skip"].to(f32)
-    y = (y[:, None].to(x.dtype) * F.silu(z)) @ p["w_out"]
+    y = matmul(y[:, None].to(x.dtype) * F.silu(z), p["w_out"])
     return y, {"conv": xp[:, 1:], "h": h}
 
 
@@ -752,39 +874,178 @@ def moe_route(cfg, p, x):
     return gates, experts, torch.where(keep, rows, C), keep, C
 
 
+def _scatter_rows(upd, experts, rows, E, C, accumulate=False,
+                  spare=True):
+    """upd ``[G, N, d]`` -> ``[G, E, C + 1, d]``: each route's row to
+    its expert's ``rows`` entry within its group (added with
+    ``accumulate``); without ``spare``, the spare row ``C`` (dropped
+    routes') cut off: ``[G, E, C, d]``."""
+    G, N, d = upd.shape
+    group = torch.arange(G, device=upd.device)[:, None].expand(G, N)
+    buf = upd.new_zeros((G, E, C + 1, d)).index_put_(
+        (group, experts, rows), upd, accumulate=accumulate)
+    return buf if spare else buf[:, :, :C]
+
+
+def _gather_rows(src, experts, rows, spare=False):
+    """src ``[G, E, C + 1, d]`` -> ``[G, N, d]``: each route's row of its
+    expert's ``rows`` entry within its group; with ``spare``, src is
+    ``[G, E, C, d]`` read with a zero row ``C`` (a dropped route's)
+    appended."""
+    G, N = experts.shape
+    group = torch.arange(G, device=src.device)[:, None].expand(G, N)
+    if spare:
+        src = F.pad(src, (0, 0, 0, 1))
+    return src[group, experts, rows]
+
+
+def _by_group(fn, ins, shape, axes):
+    """``fn`` on each rank's routing groups (:func:`_per_rank`): the
+    DTensor inputs ``ins`` (each ``[G, ...]``) laid out with the groups
+    on the data axis and the rest whole, and ``fn``'s result (of global
+    ``shape``) laid out by ``axes``, each rank keeping its block of the
+    groups it computed."""
+    from torch.distributed.tensor import Replicate
+    mesh = ins[0].device_mesh
+    ins = [place(t, mesh, "data", *(None,) * (t.ndim - 1)) for t in ins]
+    out_pl = resolve(mesh, shape, *axes)
+    within = [p if p.is_shard() and p.dim > 0 else Replicate()
+              for p in out_pl]
+    return _per_rank(
+        lambda *a: local_block(fn(*a), mesh, within).contiguous(), ins,
+        out_pl, ins[0])
+
+
+def _raw_scatter(upd, experts, rows, E, C, accumulate=False, spare=True):
+    """The reference's ``_raw_scatter``: :func:`_scatter_rows`, under a
+    mesh on each rank's groups, the buffer on ``("data", "experts",
+    None, "model")``."""
+    if not is_dtensor(upd):
+        return _scatter_rows(upd, experts, rows, E, C, accumulate, spare)
+    G, _, d = upd.shape
+    return _by_group(functools.partial(_scatter_rows, E=E, C=C,
+                                       accumulate=accumulate, spare=spare),
+                     (upd, experts, rows), (G, E, C + spare, d),
+                     ("data", "experts", None, "model"))
+
+
+def _raw_gather(src, experts, rows, spare=False):
+    """The reference's ``_raw_gather``: :func:`_gather_rows`, under a
+    mesh on each rank's groups, the rows on ``("data", None,
+    "model")``."""
+    if not is_dtensor(src):
+        return _gather_rows(src, experts, rows, spare)
+    G, N = experts.shape
+    return _by_group(functools.partial(_gather_rows, spare=spare),
+                     (src, experts, rows), (G, N, src.shape[-1]),
+                     ("data", None, "model"))
+
+
+class _DispatchScatter(torch.autograd.Function):
+    """The reference's ``_dispatch_scatter``: the routes' rows written
+    to their experts' buffers ``[G, E, C, d]`` (the spare row a dropped
+    route writes to cut off, as the reference cuts it after its scatter;
+    under a mesh each rank's block is a tensor of its own, where
+    torch 2.11's DTensor takes a slice's backward as a view it cannot
+    give); the adjoint of the scatter is the gather of the cotangent's
+    rows, group-sharded under a mesh."""
+
+    @staticmethod
+    def forward(ctx, upd, experts, rows, E, C):
+        ctx.save_for_backward(experts, rows)
+        ctx.mesh_ctx = current_ctx()
+        return _raw_scatter(upd, experts, rows, E, C, spare=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        experts, rows = ctx.saved_tensors
+        with reinstall(ctx.mesh_ctx):
+            g = constrain(g, "data", "experts", None, "model")
+            return (_raw_gather(g, experts, rows, spare=True), None, None,
+                    None, None)
+
+
+class _CombineGather(torch.autograd.Function):
+    """The reference's ``_combine_gather``: each route's row of its
+    expert's outputs ``[G, E, C, d]`` (a dropped route's, row ``C``,
+    zeros: the reference appends that row before its gather, which the
+    port does inside, where DTensor's pad fails under torch 2.11); the
+    adjoint of the gather is the scatter-add of the cotangent's rows."""
+
+    @staticmethod
+    def forward(ctx, src, experts, rows):
+        ctx.save_for_backward(experts, rows)
+        ctx.mesh_ctx, ctx.shape = current_ctx(), src.shape
+        return _raw_gather(src, experts, rows, spare=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        experts, rows = ctx.saved_tensors
+        _, E, C, _ = ctx.shape
+        with reinstall(ctx.mesh_ctx):
+            g = constrain(g, "data", None, "model")
+            return (_raw_scatter(g, experts, rows, E, C, accumulate=True,
+                                 spare=False), None, None)
+
+
+def _experts(act, p, xin):
+    """The experts' swiglu over their rows ``xin`` ``[G, E, C, d]`` as
+    the reference's batched products; under a mesh on each rank's groups
+    and experts (:func:`_per_rank`), each of its experts' weights whole on
+    it (the reference's ``h`` site then holds within the rank): torch
+    2.11's DTensor gives the products' cotangents strides its local
+    tensors do not have."""
+    def local(x, w1, w3, w2):
+        h = act(torch.einsum("gecd,edf->gecf", x, w1)) * \
+            torch.einsum("gecd,edf->gecf", x, w3)
+        return torch.einsum("gecf,efd->gecd", h, w2)
+    if not is_dtensor(xin):
+        return local(xin, p["we1"], p["we3"], p["we2"])
+    mesh = xin.device_mesh
+    ws = [place(p[k], mesh, "experts", None, None)
+          for k in ("we1", "we3", "we2")]
+    return _per_rank(local, (xin, *ws), list(xin.placements), xin)
+
+
 def moe_apply(cfg, p, x):
     """Capacity-based top-k MoE over x ``[B, S, d]`` (the reference's
     ``moe_apply``): :func:`moe_route`, each kept route's token written to
     its expert's row (a dropped one to the spare row ``C``, with a zero
     update), the experts' swiglu as batched products ``[G, E, C, d]``,
     each route's output gathered back and summed over its token's slots
-    by gate weight, then the shared experts' swiglu added.  Drops are
-    part of the function: a decode step of few tokens has a small ``C``
-    and drops routes a prefill keeps, as in the reference."""
+    by gate weight, then the shared experts' swiglu added.  The scatter
+    and the gather are the reference's adjoint pair
+    (:class:`_DispatchScatter`, :class:`_CombineGather`), with its sites;
+    under a mesh x's sequence is gathered before it is cut into groups.
+    Drops are part of the function: a decode step of few tokens has a
+    small ``C`` and drops routes a prefill keeps, as in the reference."""
     B, S, d = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.top_k
     G = _moe_groups(T)
     Tg = T // G
-    xg = x.reshape(G, Tg, d)
+    xg = constrain(constrain(x, "batch", None, None).reshape(G, Tg, d),
+                   "data", None, None)
     gates, experts, rows, keep, C = moe_route(cfg, p, xg)
-    group = torch.arange(G, device=x.device)[:, None].expand(G, Tg * k)
-    upd = xg.repeat_interleave(k, dim=1) * keep[..., None].to(x.dtype)
+    experts = constrain(experts, "data", None)
+    rows = constrain(rows, "data", None)
+    upd = constrain(xg.repeat_interleave(k, dim=1)
+                    * keep[..., None].to(x.dtype), "data", None, None)
     # kept routes land on distinct rows; only the spare row takes several
     # (zero) updates, and it is dropped
-    buf = x.new_zeros((G, E, C + 1, d)).index_put_((group, experts, rows),
-                                                   upd)
-    xin = buf[:, :, :C]
+    xin = constrain(_DispatchScatter.apply(upd, experts, rows, E, C),
+                    "data", "experts", None, None)
     act = _act(cfg.act)
-    h = act(torch.einsum("gecd,edf->gecf", xin, p["we1"])) * \
-        torch.einsum("gecd,edf->gecf", xin, p["we3"])
-    out_e = F.pad(torch.einsum("gecf,efd->gecd", h, p["we2"]),
-                  (0, 0, 0, 1))
+    out_e = constrain(_experts(act, p, xin), "data", "experts", None,
+                      "model")
     w = (gates.reshape(G, Tg * k) * keep.to(torch.float32)).to(x.dtype)
-    y = (out_e[group, experts, rows] * w[..., None]).reshape(
+    y = (_CombineGather.apply(out_e, experts, rows) * w[..., None]).reshape(
         G, Tg, k, d).sum(dim=2)
+    y = constrain(y, "data", None, "model")
     if cfg.n_shared_experts:
-        y = y + (act(xg @ p["ws1"]) * (xg @ p["ws3"])) @ p["ws2"]
+        hs = constrain(act(matmul(xg, p["ws1"])) * matmul(xg, p["ws3"]),
+                       "data", None, "ffn")
+        y = y + matmul(hs, p["ws2"])
     return y.reshape(B, S, d), None
 
 

@@ -7,8 +7,10 @@ Public surface, under the reference's names:
   train_loss(cfg, params, batch)         -> scalar loss
   encode(cfg, params, enc_embeds)        -> encoder output
   init_caches(cfg, batch, cache_len)     -> decode caches
+  lay_out_caches(cfg, caches, long_ctx=) -> caches on the mesh
   prefill(cfg, params, tokens)           -> (logits_last, caches)
-  serve_step(cfg, params, caches, tokens, pos) -> (logits, caches)
+  serve_step(cfg, params, caches, tokens, pos, long_ctx=) -> (logits,
+                                                              caches)
 
 Parameters are dicts of tensors with the reference's keys.  The
 reference stacks each pattern slot's ``R`` repeats on a leading axis
@@ -39,7 +41,12 @@ Under a mesh (:func:`~repro_torch.dist.sharding.use_mesh`) parameters
 and batches are DTensors, and ``constrain`` at the reference's sites
 lays out the residual stream (batch on ``data``, the sequence on
 ``model`` for attention models, Megatron-SP style) and the logits
-(vocabulary on ``model``).
+(vocabulary on ``model``; a decode step's ``[B, Vp]`` on ``("batch",
+"vocab")``, where the reference places nothing).  A prefill under a
+mesh makes its caches in the layout of ``cache_spec_tree``
+(:func:`lay_out_caches`) and fills them through the mixers' cache
+sites; ``serve_step``'s ``long_ctx`` lays a decode cache's sequence on
+``"longseq"`` (data and model) where it is ``"kvseq"`` (model) without.
 """
 from __future__ import annotations
 
@@ -49,17 +56,19 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import (constrain, current_ctx, matmul,
-                                       reinstall)
+from repro_torch.dist.sharding import (cache_spec_tree, constrain,
+                                       current_ctx, is_dtensor, lay_out,
+                                       matmul, placements_for, reinstall)
 from repro_torch.models.blocks import (MIXER_CACHE, MIXER_INIT, MIXER_SEQ,
                                        MIXER_STEP, _dense_init,
-                                       _quantize_kv,
+                                       _quantize_kv, _write_seq,
                                        apply_norm, gqa_init, gqa_seq,
                                        gqa_step, mixer, mlp_apply,
                                        mlp_init, norm_init)
 from repro_torch.models import loss as loss_lib
 from repro_torch.models.loss import embed_lookup
 from repro_torch.models.rope import sinusoidal
+from repro_torch.optim.adamw import tree_map
 
 
 def _layers(cfg):
@@ -336,8 +345,10 @@ def _head_matrix(cfg, params, dtype):
 
 
 def _logits_from_hidden(cfg, params, x):
+    """The logits of hidden states ``[B, S, d]`` or ``[B, d]`` (a decode
+    step's), the vocabulary on ``"vocab"``, the pad masked."""
     logits = constrain(matmul(x, _head_matrix(cfg, params, x.dtype)),
-                       "batch", None, "vocab")
+                       "batch", *(None,) * (x.ndim - 2), "vocab")
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= \
             cfg.vocab_size
@@ -412,16 +423,25 @@ def init_caches(cfg, batch, cache_len, dtype=None, *, enc_out=None,
     return caches
 
 
-def _apply_layer_step(cfg, p, spec, x, cache, pos, *, position_ids):
+def _step_residual(x, h):
+    """``x + h``, a block's output ``h`` laid out first as a decode step's
+    residual stream (``serve_step``'s site: the batch on data, whole
+    elsewhere): torch 2.11's DTensor cannot add a partial sum to a
+    tensor sharded otherwise."""
+    return x + constrain(h, "batch", None, None)
+
+
+def _apply_layer_step(cfg, p, spec, x, cache, pos, *, position_ids,
+                      long_ctx=False):
     h, mc = mixer(MIXER_STEP, spec.mixer)(
         cfg, p["mixer"], apply_norm(cfg, p["ln1"], x), cache["mixer"], pos,
-        position_ids=position_ids)
-    x = x + h
+        position_ids=position_ids, long_ctx=long_ctx)
+    x = _step_residual(x, h)
     if spec.cross_attn and "cross_k" in cache:
         h, _ = gqa_step(cfg, p["cross"], apply_norm(cfg, p["ln_cross"], x),
                         None, pos,
                         cross_kv=(cache["cross_k"], cache["cross_v"]))
-        x = x + h
+        x = _step_residual(x, h)
     cm_prev = cache.get("cm_x_last")
     cm_new = cm_prev
     if cfg.ffn_surrogate_dim and "surr" in p:
@@ -432,7 +452,7 @@ def _apply_layer_step(cfg, p, spec, x, cache, pos, *, position_ids):
     else:
         h, cm_new = mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x),
                               spec.mlp, cm_prev=cm_prev)
-    x = x + h
+    x = _step_residual(x, h)
     new_cache = dict(cache)
     new_cache["mixer"] = mc
     if cm_prev is not None:
@@ -440,9 +460,12 @@ def _apply_layer_step(cfg, p, spec, x, cache, pos, *, position_ids):
     return x, new_cache
 
 
-def serve_step(cfg, params, caches, tokens, pos, *, position_ids=None):
+def serve_step(cfg, params, caches, tokens, pos, *, position_ids=None,
+               long_ctx=False):
     """One decode step at position ``pos``. tokens [B,1] (and, for mrope,
-    position_ids [3,B,1]) -> (logits [B,Vp], new caches)."""
+    position_ids [3,B,1]) -> (logits [B,Vp], new caches).  ``long_ctx``
+    puts the KV caches' sequence on ``"longseq"`` at the mixers' sites
+    (the reference's keyword; a no-op without a mesh)."""
     x = embed_lookup(params["tok_embed"], tokens)
     if "pos_embed" in params:  # clamped, as lax.dynamic_slice_in_dim
         table = params["pos_embed"]
@@ -452,7 +475,8 @@ def serve_step(cfg, params, caches, tokens, pos, *, position_ids=None):
     for slot, r, spec in _layers(cfg):
         x, c = _apply_layer_step(cfg, _get(params, slot, r), spec, x,
                                  _get(caches, slot, r), pos,
-                                 position_ids=position_ids)
+                                 position_ids=position_ids,
+                                 long_ctx=long_ctx)
         (new["prefix"] if slot is None else new["stack"][slot]).append(c)
     x = apply_norm(cfg, params["final_norm"], x)
     return _logits_from_hidden(cfg, params, x[:, 0]), new
@@ -468,34 +492,61 @@ def prefill(cfg, params, tokens, *, position_ids=None, enc_embeds=None,
                              enc_embeds=enc_embeds, collect_caches=True,
                              last_only=True)
     B, S = tokens.shape
-    out = init_caches(cfg, B, cache_len or S, cfg.torch_dtype,
-                      enc_out=caches.get("enc_out"), params=params,
-                      device=params["tok_embed"].device)
+    out = lay_out_caches(cfg, init_caches(
+        cfg, B, cache_len or S, cfg.torch_dtype,
+        enc_out=caches.get("enc_out"), params=params,
+        device=params["tok_embed"].device))
     for slot, r, spec in _layers(cfg):
         src, dst = _get(caches, slot, r), _get(out, slot, r)
         dst["mixer"] = _fill_mixer(cfg, spec, dst["mixer"], src["mixer"])
         if "cm_x_last" in src:
-            dst["cm_x_last"] = src["cm_x_last"]
+            dst["cm_x_last"] = _like(src["cm_x_last"], dst["cm_x_last"])
     return logits[:, -1], out
+
+
+def lay_out_caches(cfg, caches, *, long_ctx=False, mesh=None,
+                   multi_pod=None):
+    """``caches`` laid out on ``mesh`` (the active context's by default)
+    by ``cache_spec_tree`` (the KV sequence on ``"longseq"`` with
+    ``long_ctx``, on ``"kvseq"`` without): a plain leaf distributed, a
+    DTensor one (an encoder-decoder model's cross cache) redistributed.
+    Without a mesh, ``caches`` as they are."""
+    ctx = current_ctx()
+    if mesh is None and ctx is not None:
+        mesh, multi_pod = ctx.mesh, ctx.multi_pod
+    if mesh is None:
+        return caches
+    specs = cache_spec_tree(caches, cfg, mesh, bool(multi_pod),
+                            long_ctx=long_ctx)
+    return tree_map(lambda t, sp: lay_out(t, mesh, placements_for(sp, mesh)),
+                    caches, specs)
 
 
 def _fill_mixer(cfg, spec, dst, src):
     """The prefill's K/V (MLA: its latent ``ckv`` and rotated key ``kr``)
     written into the first positions of the cache (K/V quantized per
-    token and head for an int8 cache), or a recurrent mixer's state
-    (RWKV6's ``S`` and ``x_last``, Mamba's ``conv`` and ``h``) in its
-    cache's dtypes."""
+    token and head for an int8 cache; each rank into its block of a
+    sharded one, :func:`~repro_torch.models.blocks._write_seq`), or a
+    recurrent mixer's state (RWKV6's ``S`` and ``x_last``, Mamba's
+    ``conv`` and ``h``) in its cache's dtypes and layout."""
     if spec.mixer == "mla":
         for name, t in zip(("ckv", "kr"), src):
-            dst[name][:, :t.shape[1]] = t
+            dst[name] = _write_seq(dst[name], t, 0)
         return dst
     if spec.mixer != "gqa":
-        return {k: src[k].to(dst[k].dtype) for k in dst}
+        return {k: _like(src[k].to(dst[k].dtype), dst[k]) for k in dst}
     k, v = src
-    S = k.shape[1]
     for name, t in (("k", k), ("v", v)):
         if name + "_scale" in dst:
             t, scale = _quantize_kv(t)
-            dst[name + "_scale"][:, :S] = scale
-        dst[name][:, :S] = t
+            dst[name + "_scale"] = _write_seq(dst[name + "_scale"], scale, 0)
+        dst[name] = _write_seq(dst[name], t, 0)
     return dst
+
+
+def _like(t, like):
+    """``t`` in the layout of the cache leaf ``like`` (as it is when
+    ``like`` is a plain tensor)."""
+    if not is_dtensor(like):
+        return t
+    return lay_out(t, like.device_mesh, like.placements)

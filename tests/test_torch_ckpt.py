@@ -43,6 +43,27 @@ def test_batches_equal_the_references(vocab, seq, batch, rank, size):
         TokenPipeline(vocab, seq, batch + 1, dp_size=2 * batch)
 
 
+@pytest.mark.parametrize("step", [0, 5, 1000])
+def test_two_host_reshard_glues_back_the_whole_batch(step):
+    """The split ``tests/test_substrate.py`` checks: ``reshard(0, 2)`` and
+    ``reshard(1, 2)`` glued back equal the whole batch, which equals the
+    reference's, and each half equals the reference's half."""
+    mine = TokenPipeline(1000, 32, 8, seed=1)
+    ref = jpipe.TokenPipeline(1000, 32, 8, seed=1)
+    whole = mine.batch_at(step)
+    np.testing.assert_array_equal(whole["tokens"],
+                                  ref.batch_at(step)["tokens"])
+    halves = [mine.reshard(h, 2).batch_at(step) for h in (0, 1)]
+    for key in whole:
+        np.testing.assert_array_equal(
+            np.concatenate([h[key] for h in halves]), whole[key])
+    for h, half in enumerate(halves):
+        want = ref.reshard(h, 2).batch_at(step)
+        assert half.keys() == want.keys()
+        for key in half:
+            np.testing.assert_array_equal(half[key], want[key])
+
+
 def _state(seed):
     g = torch.Generator().manual_seed(seed)
     return {"params": {"w": torch.randn(5, 3, generator=g).to(torch.bfloat16)

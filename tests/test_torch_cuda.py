@@ -2029,3 +2029,77 @@ def test_restore_onto_shardings_on_the_card(sharded_run):
         rr = r["restore"]
         assert rr["step"] == 3 and rr["bits_equal"] and rr["on_card"]
         assert rr["relaid"]
+
+
+# --------------------------------------- mixers on DTensors on the card ----
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mixer", ["mla", "mamba"])
+def test_mixers_on_dtensors_launch_their_kernels_per_rank(dev, monkeypatch,
+                                                          mixer, dtype):
+    """``mla_seq`` and ``mamba_seq`` on DTensors (a one-rank gloo group's
+    mesh on the card): the kernel runs through ``local_map`` on the
+    rank's local tensors (the registry never receives a DTensor), once a
+    call, and its result is bit for bit the same call without a mesh;
+    Mamba's under grad too (the backward kernel once, every gradient bit
+    for bit).  Both are held to the op's plain version, at the model
+    tolerance chip_smoke.py uses (LM_TOL_F32 1e-3, LM_TOL_BF16 0.1 of the
+    largest magnitude)."""
+    from repro_torch.configs import archs, base
+    from repro_torch.dist import use_mesh
+    from repro_torch.dist.sharding import full_tensor, is_dtensor
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_bwd
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import blocks
+    from test_torch_dist import one_rank_group
+    arch = {"mla": "deepseek-v2-lite-16b", "mamba": "jamba-v0.1-52b"}[mixer]
+    op, plain, kernel = {
+        "mla": ("flash_attention_op", flash_attention_ref, "flash_attention"),
+        "mamba": ("mamba_scan_op", mamba_scan_ref, "mamba_scan")}[mixer]
+    cfg = archs.reduced(base.get_config(arch)).replace(dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = blocks.MIXER_INIT[mixer](gen, cfg)
+    x = torch.randn((2, 40, cfg.d_model), generator=gen, device=dev).to(
+        cfg.torch_dtype)
+    seq, pos = blocks.MIXER_SEQ[mixer], torch.arange(40, device=dev)
+    grad = mixer == "mamba"
+    seen, dispatch = [], registry.dispatch
+
+    def checked(spec, problem, arrays, device, **kw):
+        seen.append(any(is_dtensor(a) for a in arrays))
+        return dispatch(spec, problem, arrays, device, **kw)
+    monkeypatch.setattr(registry, "dispatch", checked)
+
+    def run(p, t):
+        p = {k: v.detach().requires_grad_(grad) for k, v in p.items()}
+        t = t.detach().requires_grad_(grad)
+        y = seq(cfg, p, t, positions=pos)[0]
+        if not grad:
+            return full_tensor(y), []
+        g = torch.autograd.grad(y.float().square().sum(), [t, p["w_in"]])
+        return full_tensor(y.detach()), [full_tensor(a) for a in g]
+
+    spec = registry.get_spec(kernel)
+    want, want_g = run(params, x)
+    with one_rank_group():
+        mesh = make_local_mesh(device="cuda")
+        with use_mesh(mesh) as ctx:
+            before = (spec.launches, mamba_scan_bwd.launches)
+            pd = {k: ctx.make_global(v, (None,) * v.ndim)
+                  for k, v in params.items()}
+            got, got_g = run(pd, ctx.make_global(x, ("batch", None, None)))
+            torch.cuda.synchronize()
+            launched = (spec.launches - before[0],
+                        mamba_scan_bwd.launches - before[1])
+    assert seen and not any(seen)
+    assert launched == (1, 1 if grad else 0)
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got_g, want_g))
+    monkeypatch.setattr(blocks, op, plain)
+    with torch.no_grad():
+        ref = seq(cfg, params, x, positions=pos)[0].float()
+    tol = 1e-3 if dtype == "float32" else 0.1
+    err = (got.float() - ref).abs().max() / (1 + ref.abs().max())
+    assert err.item() <= tol

@@ -17,10 +17,14 @@ only Adam's moments, which carry each gradient's summation-order error
 (the largest 1.2e-6 of a leaf's magnitude, measured on the CPU).  A
 state saved from the 2 x 2 mesh and restored onto data 4 x model 1
 equals what was saved bit for bit.  ``run_smoke`` on torch's
-fake group of 256 ranks reports non-zero collective bytes.
+fake group of 256 ranks reports non-zero collective bytes, by kind as
+pinned, and the reference's dry run moves other kinds as pinned
+(``SMOKE_BYTES``).
 """
 import json
 import pickle
+import subprocess
+import sys
 
 import pytest
 
@@ -34,7 +38,7 @@ from repro.models import lm as jlm  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves, tree_map  # noqa: E402
-from test_torch_dist import spawn_group  # noqa: E402
+from test_torch_dist import ROOT, _env, spawn_group  # noqa: E402
 from test_torch_train import assert_trees_close  # noqa: E402
 
 # the reference's TINY (tests/test_dist.py), in f32
@@ -181,6 +185,26 @@ def test_save_then_restore_onto_other_shardings_is_exact(run):
         assert r["restore_exact"] and r["restore_mesh"] and r["restore_grad"]
 
 
+# the smoke cell's collective bytes a rank, by kind, in each package
+# (ROADMAP queue 3, fault 5: pinned as a divergence).  The reference's
+# compiled program (its dry run's ``coll_bytes_per_kind_per_dev``) moves
+# its layouts with all-to-alls and all-reduces; the port's DTensor
+# program with all-gathers (``sharding.matmul`` gathers the sequence of
+# the sequence-parallel residual stream, and its cotangent, around every
+# product: torch 2.11's DTensor cannot flatten across that shard) and
+# reduce-scatters (each gradient laid out as its parameter), 1.32x the
+# reference's bytes in all.  The port's bytes are its own contract; the
+# reference's are XLA's partitioner's, measured under jax
+# ``SMOKE_REFERENCE_JAX``
+SMOKE_BYTES = {
+    "reference": {"all-gather": 78054144, "all-to-all": 76677120,
+                  "all-reduce": 132862104, "collective-permute": 4096},
+    "port": {"all-gather": 294076416, "reduce-scatter": 84590592,
+             "all-reduce": 10272},
+}
+SMOKE_REFERENCE_JAX = "0.9.0"
+
+
 def test_run_smoke_reports_collective_bytes(tmp_path, capsys):
     rec = dryrun.run_smoke(tmp_path, force=True, device="cpu")
     assert rec["status"] == "ok" and rec["coll_bytes"] > 0
@@ -190,9 +214,33 @@ def test_run_smoke_reports_collective_bytes(tmp_path, capsys):
         assert rec["coll_counts"].get(kind, 0) > 0
         assert rec["coll_bytes_per_kind"][kind] > 0
     assert rec["coll_bytes_corrected"] <= rec["coll_bytes"]
+    assert rec["coll_bytes_per_kind"] == SMOKE_BYTES["port"]
     assert "[smoke] status=ok" in capsys.readouterr().out
     # cached unless forced
     assert dryrun.run_smoke(tmp_path)["run_s"] == rec["run_s"]
+
+
+def test_reference_smoke_cell_moves_other_kinds_as_pinned(tmp_path):
+    """The reference's dry-run smoke (in a process of its own, forcing its
+    256 host devices) moves its layouts with all-to-alls and all-reduces
+    and none of the port's reduce-scatters (whose bytes
+    ``test_run_smoke_reports_collective_bytes`` pins), the port moving
+    1.3-1.35x its bytes in all; under the jax they were measured with,
+    its bytes by kind exactly as pinned (another XLA may partition
+    otherwise)."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro.launch.dryrun", "--smoke", "--force",
+         "--out", str(tmp_path)], env=_env(), cwd=str(ROOT),
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    (path,) = tmp_path.glob("*.json")
+    got = json.loads(path.read_text())["coll_bytes_per_kind_per_dev"]
+    assert "reduce-scatter" not in got
+    assert got.get("all-to-all", 0) > 0 and got.get("all-reduce", 0) > 0
+    ratio = sum(SMOKE_BYTES["port"].values()) / sum(got.values())
+    assert 1.3 < ratio < 1.35
+    if jax.__version__ == SMOKE_REFERENCE_JAX:
+        assert got == SMOKE_BYTES["reference"]
 
 
 def test_dryrun_cli_smoke_and_refusals(tmp_path):
